@@ -1,0 +1,38 @@
+"""Device resolution and the float32 precision settings of the port.
+
+"float32" in this package means full float32 on the card: the exact,
+FAISS-parity scoring mode. PyTorch would let a float32 matmul or convolution
+run in TF32 (about three decimal digits) when these flags are on, so this
+module — the one place that owns them — turns both off when it is imported,
+and every entry point of the package imports it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """Return the ``torch.device`` to run on.
+
+    ``None`` picks ``cuda`` when a card is visible and ``cpu`` otherwise. An
+    explicit CUDA device is required to exist: asking for ``cuda`` on a
+    machine without one raises instead of running on the CPU.
+    """
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"device {dev} requested but only {torch.cuda.device_count()} "
+                "CUDA device(s) are visible"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device type: {dev.type}")
+    return dev

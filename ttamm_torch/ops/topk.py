@@ -1,0 +1,208 @@
+"""Exact brute-force MIPS top-k over the item corpus (FAISS ``IndexFlatIP``
+replacement), the port of ``ttamm_tpu/ops/topk.py``.
+
+Two algorithms, both exact with respect to the scores they compute:
+
+- ``group_exact``: one ``[qb, D] x [D, N]`` score slab per query block
+  (``torch.matmul``), per-128-item group maxima, the top-k groups by maximum
+  (which provably hold the top-k items), then the final top-k over those
+  groups' scores. Float32 scoring is full float32 (TF32 is off, see
+  ``ttamm_torch.device``); bfloat16 scoring keeps the slab in bf16.
+- ``fused``: no slab. ``groupmax_matmul`` writes only the group maxima,
+  ``rescore_groups`` re-scores the selected groups, and the final top-k
+  runs over those candidates. Both kernels round their operands to bf16
+  and sum in f32, in either score mode (the TPU kernels' semantics).
+
+Every per-row top-k goes through the ``small_k_topk`` kernel.
+
+Routing (``algorithm="auto"``): float32 searches take ``group_exact`` at
+every size up to the slab ceiling, because on the card it is full float32
+while the fused kernels round to bf16. bfloat16 searches take ``fused``
+from ``BF16_FUSED_MIN_ITEMS`` items, and ``group_exact`` below.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+
+NEG_INF = torch.finfo(torch.float32).min
+GROUP = kernels.GROUP
+
+# Query blocks of group_exact are sized so one score slab stays within this.
+SCORES_BYTES_BUDGET = 1 << 30
+# Slab ceiling of the auto chooser: group_exact stays eligible until even a
+# 64-query float32 slab would exceed it (~8M items). Beyond it the JAX
+# package scans the corpus in chunks ('chunked'), which is not ported.
+SCORES_BYTES_CEILING = 2 << 30
+# bfloat16 searches of at least this many items route to 'fused'. Measured
+# on an H100 (B=1024, k=20, D=128; PERF.md): the two tie at 100k and 500k,
+# group_exact leads at 200k-300k, fused leads from 1M (3.7 vs 4.3 ms) to
+# 2M (6.5 vs 8.5 ms).
+BF16_FUSED_MIN_ITEMS = 500_000
+SAFETY_GROUPS = 4  # extra groups selected by the fused path
+
+
+def _row_topk(
+    x: torch.Tensor, k: int, *, plain: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row top-k of f32 rows (values, int64 positions)."""
+    x = x.contiguous()
+    fn = kernels.small_k_topk_plain if plain else kernels.small_k_topk
+    vals, idx = fn(x, k)
+    return vals, idx.long()
+
+
+def _fit_rows(items: torch.Tensor, rows: int) -> torch.Tensor:
+    """Slice or zero-pad ``items`` to exactly ``rows`` leading rows (a slice
+    of a pre-padded corpus is a view; padding copies)."""
+    if items.shape[0] == rows:
+        return items
+    if items.shape[0] > rows:
+        return items[:rows]
+    pad = items.new_zeros(rows - items.shape[0], items.shape[1])
+    return torch.cat([items, pad])
+
+
+def mips_topk(
+    queries: torch.Tensor,
+    item_embeddings: torch.Tensor,
+    *,
+    k: int,
+    num_valid_rows: int | None = None,
+    algorithm: str = "auto",
+    score_dtype: str = "float32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k inner-product search.
+
+    queries: float [B, D]; item_embeddings: [N, D] on the same device
+    (pre-normalised for cosine). ``num_valid_rows`` treats only the first
+    rows as items (the rest is padding, never returned), so a corpus padded
+    once to a multiple of 128 is searched without a per-call copy.
+    ``algorithm``: 'auto' | 'group_exact' | 'fused' (see the module
+    docstring). ``score_dtype``: 'float32' (exact, FAISS parity) or
+    'bfloat16' (queries and items cast to bf16; normalise cosine queries
+    before, as ``FlatIndex.search`` does, so the norms stay f32-accurate).
+
+    Returns (scores f32 [B, k], indices int64 [B, k]), descending per row,
+    ties to the lower item id within a group and to the higher-ranked group
+    across groups, as in the JAX package.
+    """
+    num_items = item_embeddings.shape[0] if num_valid_rows is None else num_valid_rows
+    if not 0 < num_items <= item_embeddings.shape[0]:
+        raise ValueError(
+            f"num_valid_rows={num_items} for {item_embeddings.shape[0]} rows"
+        )
+    if score_dtype not in {"float32", "bfloat16"}:
+        raise ValueError(f"Unknown mips_topk score_dtype: {score_dtype}")
+    if algorithm not in {"auto", "group_exact", "fused"}:
+        raise ValueError(f"Unknown mips_topk algorithm: {algorithm}")
+    queries = queries.float()
+    if score_dtype == "bfloat16":
+        queries = queries.to(torch.bfloat16)
+        item_embeddings = item_embeddings.to(torch.bfloat16)
+    else:
+        item_embeddings = item_embeddings.float()
+    k_eff = min(k, num_items)
+
+    fits = 64 * num_items * 4 <= SCORES_BYTES_CEILING
+    if algorithm == "auto":
+        if score_dtype == "bfloat16":
+            big = num_items >= BF16_FUSED_MIN_ITEMS or not fits
+            algorithm = "fused" if big else "group_exact"
+        elif fits:
+            algorithm = "group_exact"
+        else:
+            raise NotImplementedError(
+                f"float32 search over {num_items} items exceeds the slab "
+                "ceiling; the chunked algorithm is not ported"
+            )
+    if algorithm == "fused":
+        return _fused_groupmax_topk(queries, item_embeddings, k_eff, num_items)
+    return _group_exact_topk(queries, item_embeddings, k_eff, num_items)
+
+
+def _fused_groupmax_topk(
+    queries: torch.Tensor,
+    item_embeddings: torch.Tensor,
+    k_eff: int,
+    num_items: int,
+    *,
+    safety_groups: int = SAFETY_GROUPS,
+    plain: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """No-slab exact top-k (``ttamm_tpu/ops/topk.py _fused_groupmax_topk``).
+
+    Phase 1 writes per-group maxima only; phase 2 takes the top ``k_eff +
+    safety_groups`` groups (maxima and re-scores come from differently
+    ordered f32 sums and can disagree by ULPs — the safety groups keep the
+    pruning bound robust; the bound itself needs only ``k_eff``); phase 3
+    re-scores exactly those groups; phase 4 is the final top-k, with the
+    tail group's pad rows masked to ``NEG_INF``. ``plain`` runs the kernels'
+    plain versions (to check the kernels on the card).
+    """
+    batch, dim = queries.shape
+    ng = -(-num_items // GROUP)
+    items = _fit_rows(item_embeddings, ng * GROUP).contiguous()
+    queries = queries.contiguous()
+    groupmax = kernels.groupmax_matmul_plain if plain else kernels.groupmax_matmul
+    rescore = kernels.rescore_groups_plain if plain else kernels.rescore_groups
+
+    gmax = groupmax(queries, items, num_items)  # [B, ng] f32
+    kg = min(k_eff + safety_groups, ng)
+    _, gi = _row_topk(gmax, kg, plain=plain)
+    cand = rescore(queries, items.view(ng, GROUP, dim), gi.to(torch.int32))
+    lane = torch.arange(GROUP, device=gi.device)
+    cand_ids = (gi[:, :, None] * GROUP + lane).reshape(batch, kg * GROUP)
+    cand = cand.masked_fill_(cand_ids >= num_items, NEG_INF)
+    cv, ci = _row_topk(cand, k_eff, plain=plain)
+    return cv, torch.gather(cand_ids, 1, ci)
+
+
+def _group_exact_topk(
+    queries: torch.Tensor,
+    item_embeddings: torch.Tensor,
+    k_eff: int,
+    num_items: int,
+    *,
+    scores_bytes_budget: int = SCORES_BYTES_BUDGET,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Group-max-pruned exact top-k, blocked over queries
+    (``ttamm_tpu/ops/topk.py _group_exact_topk``).
+
+    Per query block: the [qb, NG*128] slab against the zero-padded corpus;
+    per-group maxima (the tail group's recomputed over its real columns, so
+    zero pad scores cannot inflate an all-negative tail); the top-k groups
+    by maximum — every top-k item's group has max >= s_k and at most k
+    groups do; their score rows by direct gather; pad candidates masked to
+    ``NEG_INF``; the final top-k. Exact with respect to the computed scores,
+    ties included.
+    """
+    batch = queries.shape[0]
+    ng = -(-num_items // GROUP)
+    padded_n = ng * GROUP
+    items_t = _fit_rows(item_embeddings, padded_n).T
+    k_groups = min(k_eff, ng)
+    tail = padded_n != num_items
+    lane = torch.arange(GROUP, device=queries.device)
+
+    slab_bytes = padded_n * queries.element_size()
+    qb = max(1, min(batch, scores_bytes_budget // slab_bytes))
+    out_scores, out_idx = [], []
+    for start in range(0, batch, qb):
+        s = queries[start : start + qb] @ items_t  # [qb, padded_n], slab dtype
+        sg = s.view(s.shape[0], ng, GROUP)
+        gmax = sg.amax(dim=-1)
+        if tail:
+            gmax[:, -1] = s[:, (ng - 1) * GROUP : num_items].amax(dim=-1)
+        _, gi = _row_topk(gmax.float(), k_groups)
+        cand = torch.gather(sg, 1, gi[:, :, None].expand(-1, -1, GROUP)).float()
+        if tail:
+            ids = gi[:, :, None] * GROUP + lane
+            cand = cand.masked_fill_(ids >= num_items, NEG_INF)
+        cv, ci = _row_topk(cand.view(cand.shape[0], k_groups * GROUP), k_eff)
+        group_of = torch.gather(gi, 1, ci // GROUP)
+        out_scores.append(cv)
+        out_idx.append(group_of * GROUP + ci % GROUP)
+    return torch.cat(out_scores), torch.cat(out_idx)
