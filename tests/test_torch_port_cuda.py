@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: each test skips (inside the fixture) where there is no
-Hopper card. Run on a machine with one:
+Hopper card. Run on a machine with one (``--noconftest``: tests/conftest.py
+imports jax, which the port does not need):
 
-    python -m pytest tests/test_torch_port_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
 Tolerances: small_k_topk is bit-identical; groupmax_matmul and
 rescore_groups multiply bf16-rounded operands exactly and differ from the

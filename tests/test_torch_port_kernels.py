@@ -151,7 +151,6 @@ def test_argument_checks():
         )
 
 
-
 def test_resolving_cuda_without_a_card_raises(monkeypatch):
     from ttamm_torch.device import resolve_device
 

@@ -173,3 +173,19 @@ def test_bfloat16_precision_not_ported():
     pcfg = port_parse(yaml, user_feature_dim=FU, item_feature_dim=FI)
     with pytest.raises(NotImplementedError, match="precision"):
         TwoTower(pcfg, num_users=5, num_items=5, seed=0)
+
+
+@pytest.mark.parametrize("fn", ["gate_values", "apply_gate"])
+def test_gate_matches_jax(fn):
+    from ttamm_tpu.models import encoders as jax_encoders
+
+    jcfg, state, model, _ = _setup("gated", None)
+    rng = np.random.default_rng(3)
+    id_repr = rng.normal(0, 0.1, (13, DIM)).astype(np.float32)
+    feat_repr = rng.normal(0, 1, (13, DIM)).astype(np.float32)
+    for side in ("user", "item"):
+        want = getattr(jax_encoders, fn)(
+            state.dense[f"{side}_tower"], jnp.asarray(id_repr), jnp.asarray(feat_repr)
+        )
+        got = getattr(model.tower(side), fn)(torch.from_numpy(id_repr), torch.from_numpy(feat_repr))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)

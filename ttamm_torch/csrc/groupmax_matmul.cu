@@ -183,7 +183,8 @@ int launch(const void* q, const void* items, float* out, int batch,
 
 // q: [batch, dim], items: [n_rows, dim], both float32 (is_bf16 = 0) or both
 // bfloat16 (is_bf16 = 1), contiguous. out: f32 [batch, ceil(n_rows / 128)].
-// Shape limits (dim <= 512, grid size) are checked by the Python wrapper.
+// Shape limits (dim <= 496, the shared-memory bound; grid size) are checked
+// by the Python wrapper.
 extern "C" int ttamm_groupmax_matmul(const void* q, const void* items,
                                      float* out, int batch, int64_t n_rows,
                                      int64_t num_items, int dim, int is_bf16,

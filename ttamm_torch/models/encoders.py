@@ -285,6 +285,11 @@ class Tower(nn.Module):
         h = F.relu(self.gate_fc1(torch.cat([id_repr, feat_repr], dim=-1)))
         return torch.sigmoid(self.gate_fc2(h))
 
+    def apply_gate(self, id_repr: torch.Tensor, feat_repr: torch.Tensor) -> torch.Tensor:
+        """σ-gate blend ``g * id + (1 - g) * feat``."""
+        gate = self.gate_values(id_repr, feat_repr)
+        return gate * id_repr + (1.0 - gate) * feat_repr
+
     def forward_rows(
         self, id_rows: torch.Tensor, features: torch.Tensor | None = None
     ) -> torch.Tensor:
@@ -297,8 +302,7 @@ class Tower(nn.Module):
             return id_rows + feat
         if cfg.fusion == "concat":
             return self.projection(torch.cat([id_rows, feat], dim=-1))
-        gate = self.gate_values(id_rows, feat)
-        return gate * id_rows + (1.0 - gate) * feat
+        return self.apply_gate(id_rows, feat)
 
     def forward(
         self, indices: torch.Tensor, features: torch.Tensor | None = None

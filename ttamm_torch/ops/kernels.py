@@ -41,7 +41,10 @@ from .. import device as _device  # noqa: F401  (owns the TF32 settings)
 
 GROUP = 128  # items per pruning group
 PAD_SCORE = -3.0e38  # score of rows at or beyond num_items in groupmax_matmul
-MAX_DIM = 512  # widest embedding groupmax_matmul's shared-memory tiles take
+# Widest embedding groupmax_matmul takes: its query, item and score tiles
+# ((64 + 128) * (D + 8) * 2 + 64 * 132 * 4 bytes) fit the 227 KB of shared
+# memory a Hopper block may use up to D = 496.
+MAX_DIM = 496
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ttamm_torch"
@@ -167,11 +170,13 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def _launch(name: str, dev: torch.device, fn, *args) -> None:
+def _launch(name: str, dev: torch.device, *args) -> None:
+    """Call the C entry point ``ttamm_<name>`` on the current stream of
+    ``dev``; raise if the launch was refused, else count it."""
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(lib)(*args, stream)
+        rc = getattr(lib, f"ttamm_{name}")(*args, stream)
     if rc != 0:
         msg = lib.ttamm_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
@@ -226,7 +231,7 @@ def small_k_topk_cuda(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
     idx = torch.empty((batch, k), dtype=torch.int32, device=dev)
     if batch:
         _launch(
-            "small_k_topk", dev, lambda lib: lib.ttamm_small_k_topk,
+            "small_k_topk", dev,
             x.data_ptr(), vals.data_ptr(), idx.data_ptr(), batch, width, k,
         )
     return vals, idx
@@ -300,7 +305,7 @@ def groupmax_matmul_cuda(
     out = torch.empty((batch, ng), dtype=torch.float32, device=dev)
     if batch and ng:
         _launch(
-            "groupmax_matmul", dev, lambda lib: lib.ttamm_groupmax_matmul,
+            "groupmax_matmul", dev,
             queries.data_ptr(), items.data_ptr(), out.data_ptr(), batch,
             n_rows, num_items, dim, int(queries.dtype == torch.bfloat16),
         )
@@ -375,7 +380,7 @@ def rescore_groups_cuda(
     out = torch.empty((batch, kg * GROUP), dtype=torch.float32, device=dev)
     if batch and kg:
         _launch(
-            "rescore_groups", dev, lambda lib: lib.ttamm_rescore_groups,
+            "rescore_groups", dev,
             queries.data_ptr(), items_grouped.data_ptr(), gids.data_ptr(),
             out.data_ptr(), batch, items_grouped.shape[0], dim, kg,
             int(queries.dtype == torch.bfloat16),

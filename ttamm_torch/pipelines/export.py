@@ -79,16 +79,15 @@ def export_bundle(
     *,
     device: torch.device | str | None = None,
     checkpoint: Path | str | None = None,
-    seed: int | None = None,
-    score_dtype: str | None = None,
     dataset: TrainingDataset | None = None,
 ) -> ExportResult:
     """Encode both sides and write the serving bundle to ``out_dir``.
 
     The model is the JAX checkpoint at ``checkpoint`` when given, otherwise
-    a seeded init (``seed``, default ``experiment.seed``). ``score_dtype``
-    overrides ``serving.score_dtype``; 'auto' exports float32 (the JAX
-    pipeline's bf16 recall gate needs an eval, which is not ported).
+    a seeded init from ``experiment.seed``. The index scores in
+    ``serving.score_dtype``; 'auto' exports float32 (the JAX pipeline's bf16
+    recall gate needs an eval, which is not ported). ``dataset`` skips the
+    data prep when the caller already holds it.
     """
     dev = resolve_device(device)
     out_dir = Path(out_dir)
@@ -108,8 +107,7 @@ def export_bundle(
                 f"the data {num_users} x {num_items}"
             )
     else:
-        if seed is None:
-            seed = int((config.get("experiment") or {}).get("seed", 0))
+        seed = int((config.get("experiment") or {}).get("seed", 0))
         model = TwoTower(
             model_cfg, num_users=num_users, num_items=num_items, seed=seed, device=dev
         )
@@ -127,8 +125,7 @@ def export_bundle(
         encode_seconds[side] = time.perf_counter() - start
         embeddings[side] = emb.cpu().numpy()
 
-    if score_dtype is None:
-        score_dtype = str((config.get("serving") or {}).get("score_dtype", "auto"))
+    score_dtype = str((config.get("serving") or {}).get("score_dtype", "auto"))
     if score_dtype == "auto":
         score_dtype = "float32"
     index = build_flat_index(
@@ -167,17 +164,12 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--data-root", type=Path, default=None, help="override data.root")
     parser.add_argument("--device", default=None, help="cuda or cpu (default: cuda when available)")
     parser.add_argument("--checkpoint", type=Path, default=None, help="JAX checkpoint .npz")
-    parser.add_argument("--seed", type=int, default=None)
-    parser.add_argument("--score-dtype", choices=["float32", "bfloat16"], default=None)
     args = parser.parse_args(argv)
 
     config = load_config(args.config)
     if args.data_root is not None:
         config.setdefault("data", {})["root"] = str(args.data_root)
-    result = export_bundle(
-        config, args.out, device=args.device, checkpoint=args.checkpoint,
-        seed=args.seed, score_dtype=args.score_dtype,
-    )
+    result = export_bundle(config, args.out, device=args.device, checkpoint=args.checkpoint)
     print(json.dumps({
         "out_dir": str(result.out_dir),
         "users": result.num_users,

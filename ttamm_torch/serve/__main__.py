@@ -24,9 +24,6 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--artifacts", type=Path, default=Path("artifacts/faiss"))
     parser.add_argument("--user-id", action="append", default=None)
     parser.add_argument("--k", type=int, default=10)
-    parser.add_argument(
-        "--backend", choices=["device", "native", "numpy"], default="device"
-    )
     parser.add_argument("--device", default=None, help="cuda or cpu (default: cuda when available)")
     parser.add_argument(
         "--score-dtype", choices=["float32", "bfloat16"], default=None,
@@ -43,16 +40,13 @@ def main(argv: list[str] | None = None) -> None:
         args.artifacts, device=args.device, score_dtype=args.score_dtype
     )
     if args.http is not None:
-        print(
-            f"serving on http://{args.host}:{args.http} "
-            f"(backend={args.backend}, device={service.index.device})"
-        )
-        serve_forever(service, args.host, args.http, backend=args.backend)
+        print(f"serving on http://{args.host}:{args.http} (device={service.index.device})")
+        serve_forever(service, args.host, args.http)
         return
     user_ids = args.user_id or [line.strip() for line in sys.stdin if line.strip()]
     for uid in user_ids:
         try:
-            recs = service.recommend_for_user(uid, k=args.k, backend=args.backend)
+            recs = service.recommend_for_user(uid, k=args.k)
         except KeyError as exc:
             print(f"{uid}\tERROR\t{exc}")
             continue

@@ -17,9 +17,7 @@ def encode_corpus(
     side: str,
     features: torch.Tensor | None = None,
     *,
-    num_rows: int | None = None,
     chunk_size: int = 65536,
-    augment: bool = True,
 ) -> torch.Tensor:
     """Encode every user or item through its tower (+ mimic augmentation).
 
@@ -31,10 +29,10 @@ def encode_corpus(
     tower = model.tower(side)
     table = tower.id_embedding.weight
     dev = table.device
-    n = table.shape[0] if num_rows is None else int(num_rows)
+    n = table.shape[0]
     if features is not None and features.numel() == 0:
         features = None
-    aug = model.mimic.table(side).weight if augment and model.mimic is not None else None
+    aug = model.mimic.table(side).weight if model.mimic is not None else None
     out = torch.empty((n, tower.cfg.output_dim), dtype=torch.float32, device=dev)
     for start in range(0, n, chunk_size):
         end = min(start + chunk_size, n)
