@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port's serving path on one NVIDIA Hopper card.
+"""Smoke test of the PyTorch port on one NVIDIA Hopper card: training and
+serving at the canonical scale.
 
 Run from the root of a checkout, with one card visible:
 
@@ -9,20 +10,44 @@ Phases (each prints its seconds; any failure exits non-zero and prints no
 result line):
 
 1. build the CUDA kernels from ``ttamm_torch/csrc/`` and report the card;
-2. hold each kernel against its plain PyTorch version at the serving path's
-   shapes (small_k_topk bit-identical; groupmax_matmul and rescore_groups
-   within rtol 1e-6 + atol 1e-5 — exact bf16 products, f32 sums in another
-   order) and time both;
-3. serve at the canonical scale: the ``scripts/make_corpus.py`` corpus
-   (200k users x 100k items x 2M interactions), the bundle exported with
-   ``configs/default.yaml`` widths on the card from a seeded init, the
-   retrieval service behind the HTTP front end answering ``/healthz`` and
-   ``/v1/recommend`` (GET user, POST user, POST embedding); ids must equal
-   the host numpy search except where scores tie within 1e-5;
-4. corpus scale: a 2M x 128 index of seeded random rows searched through
+2. hold each kernel against its plain PyTorch version at the main path's
+   shapes and time kernel, plain version and the nearest library call
+   (device time from ``torch.profiler``; the row kernels are timed in
+   phase 4):
+   small_k_topk, gather_rows and scatter_set_rows bit-identical (the
+   scatter away from its scratch row, with duplicate-heavy indices and the
+   scratch row); groupmax_matmul and rescore_groups
+   within rtol 1e-6 + atol 1e-5 (exact bf16 products, f32 sums in another
+   order); segment_second_moments forward within 2e-5 x the largest |M2|
+   entry of each category and backward within 2e-5 x the largest |dx| (f32
+   sums of up to N products in another order), with empty and one-member
+   categories and ids >= C;
+3. the canonical corpus (200k users x 100k items x 2M interactions) from
+   the port's generator, and its data prep;
+4. one training step of ``configs/default.yaml`` from a seeded state with
+   injected negatives and no dropout, with the kernels and with their plain
+   versions on the card: losses within rtol 1e-5, Adam moments of the
+   touched rows within rtol 1e-4 + atol 1e-9, touched table rows and dense
+   parameters within atol 1e-5 (lr / 100: Adam's first step is
+   lr * g / (|g| + eps), which multiplies gradient differences by up to
+   lr / eps = 1e5 where |g| is near eps, and the kernels sum in another
+   order than the plain versions); then gather_rows and scatter_set_rows
+   on the item table at that step's coalesced targets (its 12,288 item
+   lanes, every duplicate on the scratch row), bit-identical to their plain
+   versions and timed with a cold L2 (a 256 MB fill before each call, its
+   kernels left out), their bound counting each distinct row once;
+5. train one full epoch of ``configs/default.yaml`` on the card (the main
+   path's launches are counted from here): finite losses, the epoch's mean
+   train loss below the first step's, the checkpoint written; then steps,
+   ms/step, examples/s, launches per step and a ``torch.profiler`` table of
+   the top device ops with the device's idle share over 20 more steps;
+6. export the serving bundle from that checkpoint and serve it behind the
+   HTTP front end (``/healthz``, GET user, POST user, POST embedding); ids
+   must equal the host numpy search except where scores tie within 1e-5;
+7. corpus scale: a 2M x 128 index of seeded random rows searched through
    ``auto``, ``group_exact`` and ``fused`` at B=1024, k=20; fused ids must
    equal the plain-version fused ids (ties within 1e-5 aside);
-5. the launch counts of phases 3-4 (every kernel must have run).
+8. the launch counts of phases 5-7 (every kernel must have run).
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -30,7 +55,9 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -43,12 +70,25 @@ REPO = Path(__file__).resolve().parent
 BATCH, K = 1024, 20
 TIE_TOL = 1e-5
 KERNEL_RTOL, KERNEL_ATOL = 1e-6, 1e-5
+M2_TOL = 2e-5  # relative to the largest entry of each category (fwd) / of dx (bwd)
+STEP_ATOL = 1e-5  # parameters after one step, kernels vs plain (lr / 100)
 CORPUS_ROWS, CORPUS_DIM = 2_000_000, 128
+PROFILE_STEPS = 20
+L2_FLUSH_BYTES = 256 << 20  # five times the 50 MB L2 of an H100
+
+# Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet, dense).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 
 KERNEL_INFO = {
     "small_k_topk": ("ttamm_torch/csrc/small_k_topk.cu", "ttamm_tpu/ops/pallas/topk.py:239"),
     "groupmax_matmul": ("ttamm_torch/csrc/groupmax_matmul.cu", "ttamm_tpu/ops/pallas/fused_mips.py:91"),
     "rescore_groups": ("ttamm_torch/csrc/rescore_groups.cu", "ttamm_tpu/ops/pallas/fused_mips.py:176"),
+    "gather_rows": ("ttamm_torch/csrc/rows.cu", "ttamm_tpu/ops/pallas/rows.py:109"),
+    "scatter_set_rows": ("ttamm_torch/csrc/rows.cu", "ttamm_tpu/ops/pallas/rows.py:220"),
+    "segment_second_moments": (
+        "ttamm_torch/csrc/category_stats.cu", "ttamm_tpu/ops/pallas/category_stats.py:83",
+    ),
 }
 
 
@@ -75,13 +115,70 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` launches (CUDA events)."""
+def _device_us(events) -> float:
+    """Total device time (µs) of the kernels, copies and fills among a
+    profile's ``key_averages()``: the events that ran on the card. Where CPU
+    ops are profiled too, an op's own device time repeats its kernels', and
+    the ``ProfilerStep*`` annotation on the card spans the whole step."""
+    from torch.autograd import DeviceType
+
+    total = 0.0
+    for evt in events:
+        if evt.device_type == DeviceType.CPU or evt.key.startswith("ProfilerStep"):
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        total += evt.self_cuda_time_total if t is None else t
+    return total
+
+
+def _profiled(warm, body, cpu: bool = False):
+    """``key_averages()`` of ``body()`` under ``torch.profiler``, after
+    ``warm()`` has run in a traced step that is thrown away (the first
+    records of a session are the likeliest to be dropped)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    traces = []
+    with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda prof: traces.append(prof.key_averages())) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        body()
+        torch.cuda.synchronize()
+        prof.step()
+    check(len(traces) == 1, f"profiler: {len(traces)} traces")
+    return traces[0]
+
+
+def _per_call_us(events, calls: int) -> float:
+    """Device time (µs) of one of ``calls`` equal calls: each kernel's mean
+    duration times its launches per call, rounded to whole launches (the
+    profiler drops a kernel's record now and then)."""
+    total = 0.0
+    for evt in events:
+        if evt.count:
+            per_call = round(evt.count / calls) or evt.count / calls
+            total += _device_us([evt]) / evt.count * per_call
+    return total
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` in ms: the summed durations of the work it
+    puts on the card (``torch.profiler``), over ``iters`` calls. Host gaps
+    between launches are not counted; where the profiler sees no device
+    work, CUDA events around the calls are used instead."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+    def calls(n):
+        for _ in range(n):
+            fn()
+
+    events = _profiled(lambda: calls(warmup), lambda: calls(iters))
+    if _device_us(events) > 0:
+        return _per_call_us(events, iters) / 1e3
+    log("  (the profiler saw no device time: timing with CUDA events)")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -90,6 +187,50 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms_cold(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` in ms with a cold L2: a 256 MB fill before
+    each call evicts what the earlier calls left in the L2, and the fill's
+    kernels (``FillFunctor``, which ``fn`` must not launch) are left out of
+    the sum (``torch.profiler``; CUDA events around each call where the
+    profiler sees no device work)."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def calls(n):
+        for i in range(n):
+            flush.fill_(float(i + 1))
+            fn()
+
+    events = _profiled(lambda: calls(2), lambda: calls(iters))
+    if _device_us(events) > 0:
+        fills = sum(e.count for e in events if "FillFunctor" in e.key)
+        # the profiler drops a record now and then; most fills must show,
+        # or the flush's kernel is not the one left out by name
+        check(fills >= iters // 2, f"L2 flush: {fills} of {iters} fill kernels seen")
+        return _per_call_us([e for e in events if "FillFunctor" not in e.key], iters) / 1e3
+    log("  (the profiler saw no device time: timing with CUDA events)")
+    total = 0.0
+    for i in range(iters):
+        flush.fill_(float(i + 1))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def bound_ms(nbytes: float, bf16_flops: float = 0.0) -> tuple[float, str]:
+    """Least time on the card: bytes over HBM bandwidth or bf16 operations
+    over the bf16 peak, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = bf16_flops / BF16_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def host_qps(fn, batch: int, iters: int = 15) -> float:
@@ -121,6 +262,18 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True,
     )
     return proc.stdout.strip().splitlines()[0]
+
+
+def _row(**kw) -> dict:
+    b, by = bound_ms(kw.pop("nbytes"), kw.pop("flops", 0.0))
+    return dict(kw, bound_ms=b, bound_by=by)
+
+
+def _log_row(name: str, row: dict) -> None:
+    lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    log(f"{name} {row['shape']}: max abs err {row['max_abs_err']:.3e} | kernel {row['ms']:.4f} ms "
+        f"| plain {row['plain_ms']:.4f} ms | library {lib} ms | bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
 
 
 # ---------------------------------------------------------------------------
@@ -162,17 +315,16 @@ def _topk_rows(width: int, seed: int, dev):
     return x.to(dev)
 
 
-def phase_kernels(dev) -> dict[str, dict]:
+def _search_kernels(dev) -> dict[str, dict]:
     import torch
 
     from ttamm_torch.ops import kernels
     from ttamm_torch.ops.topk import SAFETY_GROUPS
 
-    results: dict[str, dict] = {}
-
-    # small_k_topk at the path's widths: 100k-item group pick (782) and
-    # final top-k (20 groups x 128), the fused candidates ((20+4) x 128),
-    # and the 2M-item group pick (15,625). Bit-identical values and ids.
+    rows: dict[str, dict] = {}
+    # small_k_topk at the path's widths: 100k-item group pick (782) and final
+    # top-k (20 groups x 128), the fused candidates ((20+4) x 128), and the
+    # 2M-item group pick (15,625), the row kept. Bit-identical values and ids.
     topk_err = 0.0
     for width, k in ((782, 20), (2560, 20), (3072, 20), (15625, 24)):
         x = _topk_rows(width, width, dev)
@@ -182,15 +334,16 @@ def phase_kernels(dev) -> dict[str, dict]:
         same = torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ki, pi)
         check(same, f"small_k_topk [{BATCH}, {width}] k={k}: kernel != plain")
         # equal values (-inf included) differ by 0, not by inf - inf = nan
-        err = float(torch.where(kv == pv, 0.0, (kv - pv).abs()).max())
-        topk_err = max(topk_err, err)
-        ms = cuda_ms(lambda: kernels.small_k_topk_cuda(x, k))
-        plain_ms = cuda_ms(lambda: kernels.small_k_topk_plain(x, k))
-        log(f"small_k_topk [{BATCH}, {width}] k={k}: bit-identical, max abs err {err:.3e} "
-            f"| kernel {ms:.4f} ms | plain {plain_ms:.4f} ms")
-        if width == 782:
-            results["small_k_topk"] = dict(shape=f"[{BATCH}, {width}] k={k}", ms=ms, plain_ms=plain_ms)
-    results["small_k_topk"]["max_abs_err"] = topk_err
+        topk_err = max(topk_err, float(torch.where(kv == pv, 0.0, (kv - pv).abs()).max()))
+        ms = device_ms(lambda: kernels.small_k_topk_cuda(x, k))
+        plain_ms = device_ms(lambda: kernels.small_k_topk_plain(x, k))
+        log(f"small_k_topk [{BATCH}, {width}] k={k}: bit-identical | kernel {ms:.4f} ms "
+            f"| plain {plain_ms:.4f} ms")
+    rows["small_k_topk"] = _row(
+        shape=f"[{BATCH}, {width}] k={k}", max_abs_err=topk_err, ms=ms, plain_ms=plain_ms,
+        library_ms=device_ms(lambda: torch.topk(x, k, dim=1)),  # time only: ties differ
+        nbytes=x.numel() * 4 + BATCH * k * 8,
+    )
 
     # groupmax_matmul at B=1024, N=2M, D=128 in bf16, unit rows (cosine).
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -201,20 +354,27 @@ def phase_kernels(dev) -> dict[str, dict]:
     got = kernels.groupmax_matmul_cuda(q, items, CORPUS_ROWS)
     want = kernels.groupmax_matmul_plain(q, items, CORPUS_ROWS)
     err = (got - want).abs()
-    bound = KERNEL_ATOL + KERNEL_RTOL * want.abs()
-    check(bool((err <= bound).all()), f"groupmax_matmul: max abs err {float(err.max()):.3e}")
+    check(bool((err <= KERNEL_ATOL + KERNEL_RTOL * want.abs()).all()),
+          f"groupmax_matmul: max abs err {float(err.max()):.3e}")
     # ragged shapes: B and N not tile multiples, D padded, masked tail rows
     small_q, small_i = q[:200, :40].float().contiguous(), items[:3000, :40].float().contiguous()
     e2 = (kernels.groupmax_matmul_cuda(small_q, small_i, 2900)
           - kernels.groupmax_matmul_plain(small_q, small_i, 2900)).abs().max()
     check(float(e2) <= KERNEL_ATOL, f"groupmax_matmul ragged f32: max abs err {float(e2):.3e}")
-    ms = cuda_ms(lambda: kernels.groupmax_matmul_cuda(q, items, CORPUS_ROWS), iters=5)
-    plain_ms = cuda_ms(lambda: kernels.groupmax_matmul_plain(q, items, CORPUS_ROWS), iters=3, warmup=1)
-    log(f"groupmax_matmul [{BATCH}, {CORPUS_DIM}] x [{CORPUS_ROWS}, {CORPUS_DIM}] bf16: "
-        f"max abs err {float(err.max()):.3e} (ragged f32 {float(e2):.3e}) | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms")
-    results["groupmax_matmul"] = dict(
+    ng = CORPUS_ROWS // kernels.GROUP
+
+    def library_groupmax():  # cuBLAS slab + group max, in 4 query blocks
+        for s in range(0, BATCH, 256):
+            (q[s : s + 256] @ items.T).view(-1, ng, kernels.GROUP).amax(-1)
+
+    rows["groupmax_matmul"] = _row(
         shape=f"[{BATCH}, {CORPUS_DIM}] x [{CORPUS_ROWS}, {CORPUS_DIM}] bf16",
-        max_abs_err=float(max(err.max(), e2)), ms=ms, plain_ms=plain_ms,
+        max_abs_err=float(max(err.max(), e2)),
+        ms=device_ms(lambda: kernels.groupmax_matmul_cuda(q, items, CORPUS_ROWS), iters=5),
+        plain_ms=device_ms(lambda: kernels.groupmax_matmul_plain(q, items, CORPUS_ROWS), iters=3, warmup=1),
+        library_ms=device_ms(library_groupmax, iters=3, warmup=1),
+        nbytes=(items.numel() + q.numel()) * 2 + got.numel() * 4,
+        flops=2.0 * BATCH * CORPUS_ROWS * CORPUS_DIM,
     )
 
     # rescore_groups at the fused path's shapes: the top (k + 4) groups of
@@ -225,19 +385,345 @@ def phase_kernels(dev) -> dict[str, dict]:
     got_r = kernels.rescore_groups_cuda(q, grouped, gi)
     want_r = kernels.rescore_groups_plain(q, grouped, gi)
     err_r = (got_r - want_r).abs()
-    bound = KERNEL_ATOL + KERNEL_RTOL * want_r.abs()
-    check(bool((err_r <= bound).all()), f"rescore_groups: max abs err {float(err_r.max()):.3e}")
-    ms = cuda_ms(lambda: kernels.rescore_groups_cuda(q, grouped, gi))
-    plain_ms = cuda_ms(lambda: kernels.rescore_groups_plain(q, grouped, gi), iters=3, warmup=1)
-    log(f"rescore_groups [{BATCH}, {kg} groups] bf16: max abs err {float(err_r.max()):.3e} "
-        f"| kernel {ms:.4f} ms | plain {plain_ms:.4f} ms")
-    results["rescore_groups"] = dict(
+    check(bool((err_r <= KERNEL_ATOL + KERNEL_RTOL * want_r.abs()).all()),
+          f"rescore_groups: max abs err {float(err_r.max()):.3e}")
+    gl = gi.long()
+    rows["rescore_groups"] = _row(
         shape=f"[{BATCH}, {CORPUS_DIM}], {kg} groups of {kernels.GROUP} bf16",
-        max_abs_err=float(err_r.max()), ms=ms, plain_ms=plain_ms,
+        max_abs_err=float(err_r.max()),
+        ms=device_ms(lambda: kernels.rescore_groups_cuda(q, grouped, gi)),
+        plain_ms=device_ms(lambda: kernels.rescore_groups_plain(q, grouped, gi), iters=3, warmup=1),
+        library_ms=device_ms(lambda: torch.bmm(
+            grouped[gl].view(BATCH, kg * kernels.GROUP, CORPUS_DIM), q.unsqueeze(-1)
+        ), iters=3, warmup=1),
+        nbytes=BATCH * kg * kernels.GROUP * CORPUS_DIM * 2 + q.numel() * 2 + gi.numel() * 4
+        + got_r.numel() * 4,
+        flops=2.0 * BATCH * kg * kernels.GROUP * CORPUS_DIM,
     )
-    del items, q, got, want, got_r, want_r
-    torch.cuda.empty_cache()
-    return results
+    return rows
+
+
+def _training_kernels(dev, num_users: int, num_items: int, batch: int, negatives: int,
+                      num_categories: int) -> dict[str, dict]:
+    """The training step's kernels at its shapes: the row kernels of
+    sparse-row Adam on the item table (B * (1 + NEG) lanes; checked here,
+    timed in phase 4 on a real step's targets) and the category moments of
+    those lanes' embeddings."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+
+    rows: dict[str, dict] = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, dim = batch * (1 + negatives), 128
+    table = torch.randn((num_items + 1, dim), generator=gen, device=dev)  # + scratch row
+    scratch = num_items
+    # duplicate-heavy indices: a quarter of the lanes on 8 hot rows, and
+    # the scratch row
+    idx = torch.randint(0, num_items, (n,), generator=gen, device=dev, dtype=torch.int32)
+    idx[: n // 4] = idx[: n // 4] % 8
+    idx[-64:] = scratch
+    got, want = kernels.gather_rows_cuda(table, idx), kernels.gather_rows_plain(table, idx)
+    check(torch.equal(got, want), "gather_rows: kernel != plain")
+
+    # the coalesced targets: unique rows, every duplicate lane on the scratch row
+    uniq = torch.randperm(num_items, generator=gen, device=dev)[:n].to(torch.int32)
+    uniq[: n // 4] = scratch
+    src = torch.randn((n, dim), generator=gen, device=dev)
+    t_kernel, t_plain = table.clone(), table.clone()
+    kernels.scatter_set_rows_cuda(t_kernel, uniq, src)
+    kernels.scatter_set_rows_plain(t_plain, uniq, src)
+    check(torch.equal(t_kernel[:scratch], t_plain[:scratch]), "scatter_set_rows: kernel != plain")
+    log(f"gather_rows / scatter_set_rows [{num_items + 1}, {dim}] at {n} duplicate-heavy "
+        "indices: bit-identical")
+    del table, t_kernel, t_plain
+
+    # category moments: skewed ids (the largest category holds ~30% of the
+    # rows), empty categories, a one-member category and ids >= C
+    c = num_categories
+    ids = torch.clamp(torch.empty(n, device=dev).exponential_(generator=gen) * 6, max=c - 3)
+    ids = ids.to(torch.int32)
+    ids[ids == 7] = 8  # category 7 empty (and C-1, above the clamp)
+    ids[0] = c - 2  # the one member of category C-2
+    ids[1:3] = c + 5  # ids >= C add nothing
+    x = torch.randn((n, dim), generator=gen, device=dev) * 0.3
+    got, want = kernels.segment_second_moments_cuda(ids, x, c), kernels.segment_second_moments_plain(ids, x, c)
+    scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    err = (got - want).abs()
+    check(bool((err <= M2_TOL * scale).all()), f"segment_second_moments: max abs err {float(err.max()):.3e}")
+    check(bool((got[7] == 0).all()) and bool((got[c - 1] == 0).all()), "empty categories not zero")
+    h = torch.randn((c, dim, dim), generator=gen, device=dev)
+    h = (h + h.transpose(1, 2)).contiguous()
+    got_b = kernels.segment_second_moments_bwd_cuda(ids, x, h)
+    want_b = kernels.segment_second_moments_bwd_plain(ids, x, h)
+    err_b = (got_b - want_b).abs()
+    check(bool((err_b <= M2_TOL * want_b.abs().max()).all()),
+          f"segment_second_moments bwd: max abs err {float(err_b.max()):.3e}")
+    check(bool((got_b[1:3] == 0).all()), "rows with ids >= C got a gradient")
+    sel = kernels._selector(ids, c)
+    xb, hb = kernels._bf16(x), kernels._bf16(h)
+    fwd = dict(
+        ms=device_ms(lambda: kernels.segment_second_moments_cuda(ids, x, c)),
+        plain_ms=device_ms(lambda: kernels.segment_second_moments_plain(ids, x, c), iters=5),
+        library_ms=device_ms(lambda: torch.einsum("cn,nd,ne->cde", sel, xb, xb), iters=5),
+        bound=bound_ms(n * dim * 4 + n * 4 + c * dim * dim * 4, 2.0 * n * dim * dim)[0],
+    )
+    bwd = dict(
+        ms=device_ms(lambda: kernels.segment_second_moments_bwd_cuda(ids, x, h)),
+        plain_ms=device_ms(lambda: kernels.segment_second_moments_bwd_plain(ids, x, h), iters=5),
+        library_ms=device_ms(lambda: torch.einsum("cn,ced,nd->ne", sel, hb, xb), iters=5),
+        bound=bound_ms(2 * n * dim * 4 + n * 4 + c * dim * dim * 4, 2.0 * n * dim * dim)[0],
+    )
+    for part, r in (("fwd", fwd), ("bwd", bwd)):
+        log(f"segment_second_moments {part} [{n}, {dim}] C={c}: kernel {r['ms']:.4f} ms | plain "
+            f"{r['plain_ms']:.4f} ms | library {r['library_ms']:.4f} ms | bound {r['bound']:.4f} ms")
+    rows["segment_second_moments"] = dict(
+        shape=f"fwd+bwd [{n}, {dim}] f32, C={c}",
+        max_abs_err=float(max(err.max(), err_b.max())),
+        ms=fwd["ms"] + bwd["ms"], plain_ms=fwd["plain_ms"] + bwd["plain_ms"],
+        library_ms=fwd["library_ms"] + bwd["library_ms"],
+        bound_ms=fwd["bound"] + bwd["bound"], bound_by="bytes",
+        parts={"fwd": fwd, "bwd": bwd},
+    )
+    return rows
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the kernel wrappers to their plain versions (on the card too)."""
+    from ttamm_torch.ops import kernels
+
+    names = ("gather_rows", "scatter_set_rows", "segment_second_moments",
+             "segment_second_moments_bwd")
+    saved = {n: getattr(kernels, n) for n in names}
+    for n in names:
+        setattr(kernels, n, getattr(kernels, f"{n}_plain"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+
+
+def _config(data_dir: Path, work: Path) -> dict:
+    import yaml
+
+    config = yaml.safe_load((REPO / "configs" / "default.yaml").read_text())
+    config["data"]["root"] = str(data_dir)
+    config["training"]["num_epochs"] = 1
+    config["training"]["checkpointing"]["dir"] = str(work / "checkpoints")
+    return config
+
+
+def phase_corpus(work: Path):
+    from ttamm_torch.data import CANONICAL_CORPUS, write_synthetic_csvs
+    from ttamm_torch.pipelines.export import prepare_data
+
+    data_dir = work / "data"
+    start = time.perf_counter()
+    write_synthetic_csvs(data_dir, **CANONICAL_CORPUS)
+    log(f"corpus ({CANONICAL_CORPUS}): {time.perf_counter() - start:.2f} s")
+    config = _config(data_dir, work)
+    start = time.perf_counter()
+    dataset = prepare_data(config)
+    log(f"data prep: {time.perf_counter() - start:.2f} s | users {len(dataset.user_mapping)} "
+        f"items {len(dataset.item_mapping)} F {dataset.item_feature_matrix.shape[1]}")
+    return config, dataset
+
+
+def phase_step_vs_plain(dev, config: dict, dataset) -> dict[str, dict]:
+    import numpy as np
+    import torch
+
+    from ttamm_torch.data import (
+        build_item_categories, interaction_arrays, pack_positives, split_train_validation_test,
+    )
+    from ttamm_torch.models.two_tower import parse_model_config
+    from ttamm_torch.ops.sampling import sample_negative_items
+    from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state, make_train_step
+    from ttamm_torch.train.optim import parse_dense_opt_config
+
+    nu, ni = len(dataset.user_mapping), len(dataset.item_mapping)
+    cfg = parse_model_config(
+        config["model"], user_feature_dim=dataset.user_feature_matrix.shape[1],
+        item_feature_dim=dataset.item_feature_matrix.shape[1],
+    )
+    cats = build_item_categories(dataset.items, num_items=ni)
+    pos = pack_positives(dataset.user_positive_items, num_users=nu, num_items=ni)
+    data = BatchData(
+        user_features=torch.from_numpy(dataset.user_feature_matrix.astype(np.float32)).to(dev),
+        item_features=torch.from_numpy(dataset.item_feature_matrix.astype(np.float32)).to(dev),
+        positive_rows=torch.from_numpy(pos.rows).to(dev),
+        category_ids=torch.from_numpy(cats.category_ids).to(dev),
+    )
+    tr = config["training"]
+    tscfg = TrainStepConfig(
+        num_items=ni, negatives_per_positive=tr["negatives_per_positive"],
+        lambda_mimic_user=tr["loss_weights"]["mimic_user"],
+        lambda_mimic_item=tr["loss_weights"]["mimic_item"],
+        lambda_category_alignment=tr["loss_weights"]["category_alignment"],
+        cal_max_categories=tr["category_alignment_max_categories"],
+        opt=parse_dense_opt_config(tr),
+    )
+    train_df, _, _ = split_train_validation_test(
+        dataset.interactions, train_fraction=config["data"]["train_fraction"],
+        test_fraction=config["data"]["test_fraction"], seed=config["experiment"]["seed"],
+    )
+    users, items = interaction_arrays(train_df)
+    b = tr["batch_size"]
+    u = torch.from_numpy(users[:b]).to(dev)
+    p = torch.from_numpy(items[:b]).to(dev)
+    neg = sample_negative_items(
+        data.positive_rows[u.long()], num_items=ni, num_negatives=tscfg.negatives_per_positive,
+        generator=torch.Generator(device=dev).manual_seed(3),
+    )
+    step = make_train_step(cfg, tscfg)
+    results = []
+    for plain in (False, True):
+        state = create_train_state(cfg, num_users=nu, num_items=ni, seed=7, device=dev)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            state, metrics = step(state, data, u, p, generator=None, negatives=neg)
+        torch.cuda.synchronize()
+        results.append((state, {k: float(v) for k, v in metrics.items()}))
+    (sk, mk), (sp, mp) = results
+    for name in mk:
+        check(math.isfinite(mk[name]) and abs(mk[name] - mp[name]) <= 1e-5 * max(abs(mp[name]), 1e-3),
+              f"{name}: kernels {mk[name]!r} vs plain {mp[name]!r}")
+    item_idx = torch.cat([p, neg.reshape(-1)]).long()
+    worst = {}
+    for name, idx in (("user_id", u.long()), ("item_id", item_idx)):
+        w_err = float((sk.tables[name][idx] - sp.tables[name][idx]).abs().max())
+        check(w_err <= STEP_ATOL, f"{name} rows: max abs err {w_err:.3e}")
+        for mom in ("m", "v"):
+            a = getattr(sk.opt_sparse[name], mom)[idx]
+            bb = getattr(sp.opt_sparse[name], mom)[idx]
+            check(bool(((a - bb).abs() <= 1e-9 + 1e-4 * bb.abs()).all()), f"{name} {mom}: differ")
+        worst[name] = w_err
+    for (key, a), (_, bb) in zip(sk.dense_targets(), sp.dense_targets()):
+        d_err = float((a.detach() - bb.detach()).abs().max())
+        check(d_err <= STEP_ATOL, f"{key}: max abs err {d_err:.3e}")
+    log(f"one step, kernels vs plain on the card: losses {mk} | table rows max abs err {worst}")
+    return _row_kernels(sk.tables["item_id"], item_idx, ni)
+
+
+def _row_kernels(table, lanes, scratch: int) -> dict[str, dict]:
+    """gather_rows and scatter_set_rows at the targets sparse-row Adam gives
+    them in one step: the step's item lanes coalesced, each row once and
+    every duplicate lane on the scratch row. Timed with a cold L2; the bound
+    reads (gather) or writes (scatter) each distinct row once, and moves
+    every lane's index and payload row."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.ops.sparse_adam import coalesce_row_grads
+
+    n, dim = lanes.numel(), table.shape[1]
+    target, _ = coalesce_row_grads(lanes, torch.zeros((n, 1), device=table.device), scratch_row=scratch)
+    distinct = int(torch.unique(target).numel())
+    nbytes = n * 4 + (n + distinct) * dim * 4
+    shape = f"[{table.shape[0]}, {dim}] f32 at {n} step targets ({distinct} distinct rows)"
+    log(f"row kernels on one step's item targets: {n} lanes, {distinct} distinct rows "
+        f"(scratch included), {nbytes / 1e6:.3f} MB to move")
+    rows: dict[str, dict] = {}
+    got, want = kernels.gather_rows_cuda(table, target), kernels.gather_rows_plain(table, target)
+    check(torch.equal(got, want), "gather_rows at the step's targets: kernel != plain")
+    rows["gather_rows"] = _row(
+        shape=shape, max_abs_err=0.0,
+        ms=device_ms_cold(lambda: kernels.gather_rows_cuda(table, target)),
+        plain_ms=device_ms_cold(lambda: kernels.gather_rows_plain(table, target)),
+        library_ms=device_ms_cold(lambda: torch.index_select(table, 0, target)),
+        nbytes=nbytes,
+    )
+    src = got * 0.5
+    t_kernel, t_plain = table.clone(), table.clone()
+    kernels.scatter_set_rows_cuda(t_kernel, target, src)
+    kernels.scatter_set_rows_plain(t_plain, target, src)
+    check(torch.equal(t_kernel[:scratch], t_plain[:scratch]),
+          "scatter_set_rows at the step's targets: kernel != plain")
+    tl = target.long()
+    rows["scatter_set_rows"] = _row(
+        shape=shape, max_abs_err=0.0,
+        ms=device_ms_cold(lambda: kernels.scatter_set_rows_cuda(t_kernel, target, src)),
+        plain_ms=device_ms_cold(lambda: kernels.scatter_set_rows_plain(t_plain, target, src)),
+        library_ms=device_ms_cold(lambda: t_plain.index_copy_(0, tl, src)),
+        nbytes=nbytes,
+    )
+    for name, row in rows.items():
+        _log_row(name, row)
+    return rows
+
+
+def _profile_steps(dev, config: dict, dataset, result) -> dict:
+    """Profile PROFILE_STEPS more steps of the trained state: top device
+    ops, device idle share and launches per step."""
+    import numpy as np
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.train import make_train_step
+
+    state, data = result.state, result.data
+    step = make_train_step(state.model.cfg, result.step_config)
+    b = config["training"]["batch_size"]
+    frame = dataset.interactions
+    pick = np.random.default_rng(11).permutation(len(frame))[: (PROFILE_STEPS + 2) * b]
+    users = torch.from_numpy(frame["user_idx"].to_numpy(np.int32)[pick]).to(dev)
+    items = torch.from_numpy(frame["item_idx"].to_numpy(np.int32)[pick]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def run(first, n):
+        for i in range(first, first + n):
+            step(state, data, users[i * b : (i + 1) * b], items[i * b : (i + 1) * b], generator=gen)
+
+    timed = {}
+
+    def body():
+        timed["before"] = kernels.launch_counts()
+        start = time.perf_counter()
+        run(2, PROFILE_STEPS)
+        torch.cuda.synchronize()
+        timed["wall"] = time.perf_counter() - start
+        timed["after"] = kernels.launch_counts()
+
+    averages = _profiled(lambda: run(0, 2), body, cpu=True)
+    wall, before, after = timed["wall"], timed["before"], timed["after"]
+    per_step = {k: (after[k] - before[k]) / PROFILE_STEPS for k in after if after[k] != before[k]}
+    device_ms_total = _per_call_us(averages, PROFILE_STEPS) * PROFILE_STEPS / 1e3
+    check(device_ms_total > 0, "the profiler saw no device work in the training steps")
+    idle = 1.0 - device_ms_total / (wall * 1e3)
+    device_work = sum(
+        e.count for e in averages
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("ProfilerStep")
+    )
+    log(f"profiled {PROFILE_STEPS} steps: wall {wall * 1e3 / PROFILE_STEPS:.3f} ms/step, device "
+        f"{device_ms_total / PROFILE_STEPS:.3f} ms/step, idle share {idle:.3f}, "
+        f"{device_work / PROFILE_STEPS:.1f} kernels/copies/fills per step")
+    log(f"launches per step: {per_step}")
+    try:
+        table = averages.table(sort_by="self_device_time_total", row_limit=15)
+    except (AttributeError, KeyError, ValueError):
+        table = averages.table(sort_by="self_cuda_time_total", row_limit=15)
+    log(table)
+    return per_step
+
+
+def phase_train(dev, config: dict, dataset) -> dict:
+    import math as _math
+
+    from ttamm_torch.pipelines.training import run_single_experiment
+
+    start = time.perf_counter()
+    result = run_single_experiment(config, device=dev, dataset=dataset)
+    log(f"train: {time.perf_counter() - start:.2f} s for {result.steps} steps of "
+        f"{config['training']['batch_size']} | {result.train_seconds / result.steps * 1e3:.3f} ms/step "
+        f"| {result.examples_per_second:.1f} examples/s | first step loss {result.first_step_loss:.5f} "
+        f"| epoch train loss {result.train_loss} | val loss {result.val_loss}")
+    check(all(_math.isfinite(v) for v in [result.first_step_loss, *result.train_loss, *result.val_loss]),
+          "non-finite loss")
+    check(result.train_loss[-1] < result.first_step_loss, "the epoch's mean loss is not below the first step's")
+    check(result.checkpoint_path is not None and result.checkpoint_path.is_file(), "no checkpoint written")
+    log(f"checkpoint: {result.checkpoint_path.name} ({result.checkpoint_path.stat().st_size / 1e6:.1f} MB)")
+    return result
 
 
 def _http(port: int, path: str, payload=None):
@@ -253,7 +739,7 @@ def _http(port: int, path: str, payload=None):
 def _search_table(index, queries) -> None:
     """Search speed by score dtype and algorithm: batched FlatIndex.search
     queries/s on the host clock (host normalisation and copies included),
-    and the device time of mips_topk alone (CUDA events)."""
+    and the device time of mips_topk alone."""
     import torch
 
     from ttamm_torch.ops.topk import mips_topk
@@ -262,10 +748,10 @@ def _search_table(index, queries) -> None:
     label = f"{len(index)} items"
     unit = torch.nn.functional.normalize(torch.from_numpy(queries).to(index.device), dim=1)
     for score_dtype in ("float32", "bfloat16"):
-        idx = FlatIndex.from_host(index, device=index.device, score_dtype=score_dtype)
+        idx = FlatIndex(index.embeddings, index.normalized, score_dtype, device=index.device)
         for algorithm in ("auto", "group_exact", "fused"):
             qps = host_qps(lambda: idx.search(queries, K, algorithm=algorithm), len(queries))
-            ms = cuda_ms(lambda: mips_topk(
+            ms = device_ms(lambda: mips_topk(
                 unit, idx.corpus, k=K, num_valid_rows=len(idx), algorithm=algorithm,
                 score_dtype=score_dtype,
             ))
@@ -274,26 +760,17 @@ def _search_table(index, queries) -> None:
         del idx
 
 
-def phase_serve(dev, work: Path) -> None:
+def phase_serve(dev, work: Path, config: dict, dataset, checkpoint: Path) -> None:
     import torch
-    import yaml
 
     from ttamm_torch.pipelines.export import export_bundle
     from ttamm_torch.serve import RetrievalService, start_in_thread
 
-    data_dir = work / "data"
     start = time.perf_counter()
-    subprocess.run(
-        [sys.executable, str(REPO / "scripts" / "make_corpus.py"), "--out", str(data_dir)],
-        check=True, cwd=REPO,
-    )
-    log(f"corpus: {time.perf_counter() - start:.2f} s")
-    config = yaml.safe_load((REPO / "configs" / "default.yaml").read_text())
-    config["data"]["root"] = str(data_dir)
-    start = time.perf_counter()
-    result = export_bundle(config, work / "bundle", device=dev)
-    log(f"export: {time.perf_counter() - start:.2f} s | users {result.num_users} items "
-        f"{result.num_items} dim {result.embedding_dim} score_dtype {result.score_dtype}")
+    result = export_bundle(config, work / "bundle", device=dev, checkpoint=checkpoint, dataset=dataset)
+    log(f"export from {checkpoint.name}: {time.perf_counter() - start:.2f} s | users "
+        f"{result.num_users} items {result.num_items} dim {result.embedding_dim} "
+        f"score_dtype {result.score_dtype}")
     for side, rows in (("item", result.num_items), ("user", result.num_users)):
         secs = result.encode_seconds[side]
         log(f"encode {side}s: {rows} rows in {secs * 1e3:.3f} ms = {rows / secs:.1f} rows/s")
@@ -382,27 +859,44 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     try:
-        with Phase("1 build and device"):
-            smi = phase_build(dev)
-        with Phase("2 kernels vs plain versions"):
-            kernel_rows = phase_kernels(dev)
-        kernels.reset_launch_counts()  # the main path's launches start here
         (REPO / "build").mkdir(exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_") as work:
-            with Phase("3 serve at the canonical scale"):
-                phase_serve(dev, Path(work))
-        with Phase("4 corpus scale"):
-            phase_corpus_scale(dev)
-        with Phase("5 launch counts"):
-            counts = kernels.launch_counts()
-            log(f"launch counts (phases 3-4): {counts}")
-            for name, n in counts.items():
-                check(n > 0, f"{name} never launched on the main path")
-        check("jax" not in sys.modules, "JAX was imported")
+        with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke_") as tmp:
+            work = Path(tmp)
+            with Phase("1 build and device"):
+                smi = phase_build(dev)
+            with Phase("2 kernels vs plain versions"):
+                kernel_rows = _search_kernels(dev)
+                kernel_rows.update(_training_kernels(dev, 199_449, 99_880, 2048, 5, 64))
+                for name, row in kernel_rows.items():
+                    _log_row(name, row)
+                torch.cuda.empty_cache()
+            with Phase("3 canonical corpus and data prep"):
+                config, dataset = phase_corpus(work)
+            with Phase("4 one train step, kernels vs plain versions"):
+                kernel_rows.update(phase_step_vs_plain(dev, config, dataset))
+                torch.cuda.empty_cache()
+            kernels.reset_launch_counts()  # the main path's launches start here
+            with Phase("5 train one epoch at the canonical scale"):
+                result = phase_train(dev, config, dataset)
+                per_step = _profile_steps(dev, config, dataset, result)
+                torch.cuda.empty_cache()
+            with Phase("6 export from the checkpoint and serve"):
+                phase_serve(dev, work, config, dataset, result.checkpoint_path)
+            with Phase("7 corpus scale"):
+                phase_corpus_scale(dev)
+            with Phase("8 launch counts"):
+                counts = kernels.launch_counts()
+                log(f"launch counts (phases 5-7): {counts}")
+                for name, n in counts.items():
+                    check(n > 0, f"{name} never launched on the main path")
+                leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "ttamm_tpu")))
+                check(not leaked, f"imported {leaked[:5]}")
     except Exception:
         traceback.print_exc()
         return 1
 
+    launches = dict(counts)
+    launches["segment_second_moments"] += launches.pop("segment_second_moments_bwd")
     summary = {
         "kernels": [
             {
@@ -410,14 +904,19 @@ def main() -> int:
                 "route": "cuda",
                 "source": KERNEL_INFO[name][0],
                 "replaces": KERNEL_INFO[name][1],
-                "launches": counts[name],
+                "launches": launches[name],
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
                 "shape": row["shape"],
+                **({"parts": row["parts"]} if "parts" in row else {}),
             }
-            for name, row in kernel_rows.items()
-        ]
+            for name, row in ((n, kernel_rows[n]) for n in KERNEL_INFO)
+        ],
+        "launches_per_train_step": per_step,
     }
     log(json.dumps(summary))
     log(smi)

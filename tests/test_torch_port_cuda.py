@@ -6,16 +6,20 @@ imports jax, which the port does not need):
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
-Tolerances: small_k_topk is bit-identical; groupmax_matmul and
-rescore_groups multiply bf16-rounded operands exactly and differ from the
-plain f32 matmul only in the order of the f32 sums (rtol 1e-6, atol 1e-5
-at O(1) scores).
+Tolerances: small_k_topk, gather_rows and scatter_set_rows are
+bit-identical; groupmax_matmul and rescore_groups multiply bf16-rounded
+operands exactly and differ from the plain f32 matmul only in the order of
+the f32 sums (rtol 1e-6, atol 1e-5 at O(1) scores); segment_second_moments
+forward and backward likewise, summing up to N products: 2e-5 of the
+largest entry of each category (forward) or of dx (backward).
 """
 
 import pytest
 import torch
 
 from ttamm_torch.ops import kernels
+from ttamm_torch.ops.losses import SegmentSecondMoments
+from ttamm_torch.ops.sparse_adam import init_sparse_adam, sparse_adam_update
 from ttamm_torch.ops.topk import mips_topk
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +100,176 @@ def test_mips_topk_on_the_card_counts_launches(cuda, algorithm, score_dtype):
     # ids may differ only where the scores tie within the tolerance
     differ = gi.cpu() != wi
     assert torch.all((gs.cpu() - ws).abs()[differ] <= tol)
+
+
+@pytest.mark.parametrize("n", [1, 33, 12288])
+def test_row_kernels_bit_identical(cuda, n):
+    gen = torch.Generator().manual_seed(n)
+    table = torch.randn((5001, 128), generator=gen).to(cuda)  # last row: scratch
+    idx = torch.randint(0, 5000, (n,), generator=gen, dtype=torch.int32).to(cuda)
+    idx[: n // 3] = 17  # duplicates
+    assert torch.equal(kernels.gather_rows_cuda(table, idx), kernels.gather_rows_plain(table, idx))
+    if n <= 5000:
+        uniq = torch.randperm(5000, generator=gen)[:n].to(cuda, torch.int32)
+    else:  # unique rows, and every repeat on the scratch row
+        uniq = torch.arange(n, dtype=torch.int32, device=cuda) % 4000
+        uniq[4000:] = 5000
+    rows = torch.randn((n, 128), generator=gen).to(cuda)
+    a, b = table.clone(), table.clone()
+    kernels.scatter_set_rows_cuda(a, uniq, rows)
+    kernels.scatter_set_rows_plain(b, uniq, rows)
+    assert torch.equal(a[:5000], b[:5000])
+
+
+def _m2_case(cuda, n, c, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.clamp((torch.empty(n).exponential_(generator=gen) * 4).int(), max=c + 2)
+    ids[ids == 3] = 4  # an empty category
+    x = torch.randn((n, d), generator=gen)
+    return ids.to(cuda), x.to(cuda)
+
+
+@pytest.mark.parametrize("n,c,d", [(12288, 64, 128), (70, 16, 40), (0, 8, 128)])
+def test_segment_second_moments_kernels_match_plain(cuda, n, c, d):
+    ids, x = _m2_case(cuda, n, c, d, n + d)
+    got = kernels.segment_second_moments_cuda(ids, x, c)
+    want = kernels.segment_second_moments_plain(ids, x, c)
+    scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    assert bool(((got - want).abs() <= 2e-5 * scale).all())
+    h = torch.randn((c, d, d), device=cuda)
+    h = (h + h.transpose(1, 2)).contiguous()
+    got_b = kernels.segment_second_moments_bwd_cuda(ids, x, h)
+    want_b = kernels.segment_second_moments_bwd_plain(ids, x, h)
+    if n:
+        assert bool(((got_b - want_b).abs() <= 2e-5 * want_b.abs().max()).all())
+        assert bool((got_b[ids >= c] == 0).all())
+
+
+def test_segment_second_moments_autograd_matches_plain_backward(cuda):
+    """The autograd function on the card (both kernels) against the plain
+    versions' autograd (the einsums), for the same cotangent."""
+    ids, x = _m2_case(cuda, 3000, 16, 128, 5)
+    g = torch.randn((16, 128, 128), device=cuda)
+    xk = x.clone().requires_grad_()
+    (gk,) = torch.autograd.grad(SegmentSecondMoments.apply(ids, xk, 16), xk, g)
+    xp = x.clone().requires_grad_()
+    m2 = kernels.segment_second_moments_plain(ids, xp, 16)
+    (gp,) = torch.autograd.grad(m2, xp, g)  # autograd through the f32 einsum
+    # the einsum's own gradient keeps x unrounded in dx; the kernels round
+    # H and x to bf16 as the TPU kernel does: agreement to bf16 precision
+    torch.testing.assert_close(gk, gp, rtol=2e-2, atol=2e-2 * float(gp.abs().max()))
+    want = kernels.segment_second_moments_bwd_plain(ids, x, (g + g.transpose(1, 2)).contiguous())
+    assert bool(((gk - want).abs() <= 2e-5 * want.abs().max()).all())
+
+
+def test_sparse_adam_on_the_card_counts_launches(cuda):
+    gen = torch.Generator().manual_seed(6)
+    table = torch.randn((1001, 128), generator=gen).to(cuda)
+    ref = table.clone()
+    state, ref_state = init_sparse_adam(table), init_sparse_adam(ref)
+    idx = torch.randint(0, 1000, (777,), generator=gen, dtype=torch.int32).to(cuda)
+    grads = torch.randn((777, 128), generator=gen).to(cuda)
+    kernels.reset_launch_counts()
+    sparse_adam_update(table, state, idx, grads, lr=0.01)
+    counts = kernels.launch_counts()
+    assert counts["gather_rows"] == 3 and counts["scatter_set_rows"] == 3
+    names = ("gather_rows", "scatter_set_rows")
+    saved = {n: getattr(kernels, n) for n in names}
+    try:
+        for n in names:
+            setattr(kernels, n, getattr(kernels, f"{n}_plain"))
+        sparse_adam_update(ref, ref_state, idx, grads, lr=0.01)
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+    # the duplicate rows are summed in a fixed order (no atomics) and the
+    # row kernels move bits: kernel and plain runs agree bit for bit
+    for a, b in ((table, ref), (state.m, ref_state.m), (state.v, ref_state.v)):
+        assert torch.equal(a[:1000], b[:1000])
+
+
+STEP_KERNELS = ("gather_rows", "scatter_set_rows", "segment_second_moments", "segment_second_moments_bwd")
+
+
+def _one_step(cuda, plain):
+    """One step of a gated-tower model (D = 128, C = 16) from a seeded state
+    with injected negatives and no dropout, with the kernels or with their
+    plain versions on the card: (state, metrics, launch counts)."""
+    from ttamm_torch.models import parse_model_config
+    from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state, make_train_step
+    from ttamm_torch.train.optim import DenseOptConfig
+
+    tower = {
+        "type": "tower",
+        "id_embedding": {"params": {"embedding_dim": 128, "sparse": True}},
+        "feature_encoder": {"type": "mlp", "hidden_dims": [64], "output_dim": 128},
+        "fusion": "gated",
+    }
+    cfg = parse_model_config(
+        {"user_encoder": tower, "item_encoder": tower}, user_feature_dim=12, item_feature_dim=9
+    )
+    gen = torch.Generator().manual_seed(8)
+    nu, ni, b, neg = 500, 400, 64, 5
+    data = BatchData(
+        user_features=torch.randn((nu, 12), generator=gen).to(cuda),
+        item_features=torch.randn((ni, 9), generator=gen).to(cuda),
+        positive_rows=torch.randint(0, ni, (nu, 4), generator=gen, dtype=torch.int32).to(cuda),
+        category_ids=torch.clamp(torch.randint(0, 40, (ni,), generator=gen) // 3, max=20)
+        .to(cuda, torch.int32),
+    )
+    tscfg = TrainStepConfig(
+        num_items=ni, lambda_mimic_user=0.15, lambda_mimic_item=0.15,
+        lambda_category_alignment=0.01, cal_max_categories=16,
+        opt=DenseOptConfig(name="adamw", lr=1e-3, weight_decay=0.01),
+    )
+    u = torch.randint(0, nu, (b,), generator=gen, dtype=torch.int32).to(cuda)
+    p = torch.randint(0, ni, (b,), generator=gen, dtype=torch.int32).to(cuda)
+    negs = torch.randint(0, ni, (b, neg), generator=gen, dtype=torch.int32).to(cuda)
+    step = make_train_step(cfg, tscfg)
+    state = create_train_state(cfg, num_users=nu, num_items=ni, seed=4, device=cuda)
+    saved = {n: getattr(kernels, n) for n in STEP_KERNELS}
+    kernels.reset_launch_counts()
+    try:
+        if plain:
+            for n in STEP_KERNELS:
+                setattr(kernels, n, getattr(kernels, f"{n}_plain"))
+        state, metrics = step(state, data, u, p, generator=None, negatives=negs)
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+    return state, metrics, kernels.launch_counts()
+
+
+def test_train_step_on_the_card_matches_plain(cuda):
+    """The step with the kernels and with their plain versions: the same
+    losses and, within lr / 100, the same parameters (Adam's first step
+    amplifies summation-order differences where |g| is near eps). Every
+    kernel of the step launches: 6 + 6 row ops and one moments pass each
+    way."""
+    (sk, mk, ck), (sp, mp, cp) = _one_step(cuda, False), _one_step(cuda, True)
+    assert [ck[n] for n in STEP_KERNELS] == [6, 6, 1, 1]
+    assert all(cp[n] == 0 for n in STEP_KERNELS)
+    for name in mk:
+        torch.testing.assert_close(mk[name], mp[name], rtol=1e-5, atol=1e-7)
+    for name in ("user_id", "item_id", "user_aug", "item_aug"):
+        torch.testing.assert_close(sk.tables[name], sp.tables[name], rtol=0, atol=1e-5)
+    for (_, a), (_, bb) in zip(sk.dense_targets(), sp.dense_targets()):
+        torch.testing.assert_close(a.detach(), bb.detach(), rtol=0, atol=1e-5)
+
+
+def test_train_step_on_the_card_is_deterministic(cuda):
+    """Two runs of the step with the kernels give the same bits: every sum
+    over duplicate rows (sparse Adam, the dense-table gradients, the
+    category sums) runs in a fixed order, and the kernels use no atomics."""
+    (s1, m1, _), (s2, m2, _) = _one_step(cuda, False), _one_step(cuda, False)
+    for name in m1:
+        assert torch.equal(m1[name], m2[name]), name
+    for name in ("user_id", "item_id", "user_aug", "item_aug"):
+        assert torch.equal(s1.tables[name], s2.tables[name]), name
+        if name in s1.opt_sparse:
+            assert torch.equal(s1.opt_sparse[name].m, s2.opt_sparse[name].m), name
+            assert torch.equal(s1.opt_sparse[name].v, s2.opt_sparse[name].v), name
+    for (key, a), (_, bb) in zip(s1.dense_targets(), s2.dense_targets()):
+        assert torch.equal(a.detach(), bb.detach()), key
+    for a, bb in zip(s1.opt_dense.m + s1.opt_dense.v, s2.opt_dense.m + s2.opt_dense.v):
+        assert torch.equal(a, bb)

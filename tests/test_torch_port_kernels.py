@@ -109,9 +109,18 @@ def test_plain_versions_do_not_count_launches():
     kernels.rescore_groups(
         torch.randn(4, 16), torch.randn(3, 128, 16), torch.zeros(4, 2, dtype=torch.int32)
     )
-    assert kernels.launch_counts() == {
-        "small_k_topk": 0, "groupmax_matmul": 0, "rescore_groups": 0,
+    x = torch.randn(40, 8)
+    ids = torch.randint(0, 3, (40,), dtype=torch.int32)
+    kernels.gather_rows(x, ids)
+    kernels.scatter_set_rows(x, ids[:4], torch.randn(4, 8))
+    kernels.segment_second_moments(ids, x, 3)
+    kernels.segment_second_moments_bwd(ids, x, torch.randn(3, 8, 8))
+    counts = kernels.launch_counts()
+    assert set(counts) == {
+        "small_k_topk", "groupmax_matmul", "rescore_groups", "gather_rows",
+        "scatter_set_rows", "segment_second_moments", "segment_second_moments_bwd",
     }
+    assert all(n == 0 for n in counts.values())
 
 
 @pytest.mark.parametrize(
@@ -123,8 +132,21 @@ def test_plain_versions_do_not_count_launches():
             torch.randn(4, 16), torch.randn(3, 128, 16),
             torch.zeros(4, 2, dtype=torch.int32),
         ),
+        lambda: kernels.gather_rows_cuda(torch.randn(5, 8), torch.zeros(2, dtype=torch.int32)),
+        lambda: kernels.scatter_set_rows_cuda(
+            torch.randn(5, 8), torch.zeros(2, dtype=torch.int32), torch.randn(2, 8)
+        ),
+        lambda: kernels.segment_second_moments_cuda(
+            torch.zeros(4, dtype=torch.int32), torch.randn(4, 8), 2
+        ),
+        lambda: kernels.segment_second_moments_bwd_cuda(
+            torch.zeros(4, dtype=torch.int32), torch.randn(4, 8), torch.randn(2, 8, 8)
+        ),
     ],
-    ids=["small_k_topk", "groupmax_matmul", "rescore_groups"],
+    ids=[
+        "small_k_topk", "groupmax_matmul", "rescore_groups", "gather_rows",
+        "scatter_set_rows", "segment_second_moments", "segment_second_moments_bwd",
+    ],
 )
 def test_cuda_entry_points_refuse_cpu_tensors(call):
     """No hidden fallback: the CUDA path never runs the plain version."""
@@ -152,9 +174,13 @@ def test_argument_checks():
 
 
 def test_resolving_cuda_without_a_card_raises(monkeypatch):
+    """The card is the default: without one, ``None`` raises as ``cuda``
+    does, and only an explicit ``cpu`` runs on the CPU."""
     from ttamm_torch.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
-    assert resolve_device(None).type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"

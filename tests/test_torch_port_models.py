@@ -58,7 +58,7 @@ def _setup(fusion, max_norm, similarity="cosine"):
     pcfg = port_parse(yaml, user_feature_dim=feat_dims[0], item_feature_dim=feat_dims[1])
     state = create_train_state(jax.random.key(7), jcfg, num_users=NUM_USERS, num_items=NUM_ITEMS)
     tables, dense = jax.device_get((state.tables, state.dense))
-    model = from_jax_params(pcfg, tables, dense)
+    model = from_jax_params(pcfg, tables, dense, device="cpu")
     rng = np.random.default_rng(0)
     feats = {
         "user": rng.normal(0, 1, (NUM_USERS, feat_dims[0])).astype(np.float32),
@@ -147,21 +147,26 @@ def test_checkpoint_conversion_matches_params(tmp_path):
         tmp_path, state, experiment_name="port", epoch=1, metric_name=None,
         metric_value=None,
     )
-    from_ckpt = from_jax_checkpoint(path, model.cfg)
-    # sparse tables' scratch row is sliced off
-    assert from_ckpt.user_tower.id_embedding.weight.shape == (NUM_USERS, DIM)
+    from_ckpt = from_jax_checkpoint(path, model.cfg, device="cpu")
+    # one table layout on both sides: sparse tables keep their scratch row
+    assert (from_ckpt.num_users, from_ckpt.num_items) == (NUM_USERS, NUM_ITEMS)
+    assert from_ckpt.user_tower.id_embedding.weight.shape == (NUM_USERS + 1, DIM)
+    np.testing.assert_array_equal(
+        from_ckpt.user_tower.id_embedding.weight.numpy(), np.asarray(state.tables["user_id"])
+    )
     for a, b in zip(model.state_dict().values(), from_ckpt.state_dict().values()):
         assert torch.equal(a, b)
 
 
 def test_seeded_init_follows_jax_distributions():
     pcfg = port_parse(_model_yaml("gated", None), user_feature_dim=FU, item_feature_dim=FI)
-    a = TwoTower(pcfg, num_users=4000, num_items=3000, seed=5)
-    b = TwoTower(pcfg, num_users=4000, num_items=3000, seed=5)
+    a = TwoTower(pcfg, num_users=4000, num_items=3000, seed=5, device="cpu")
+    b = TwoTower(pcfg, num_users=4000, num_items=3000, seed=5, device="cpu")
     for x, y in zip(a.state_dict().values(), b.state_dict().values()):
         assert torch.equal(x, y)
     table = a.user_tower.id_embedding.weight
-    assert abs(float(table.std()) - 0.02) < 1e-3  # normal(0, init std 0.02)
+    assert table.shape == (4001, DIM) and not table[4000].any()  # zero scratch row
+    assert abs(float(table[:4000].std()) - 0.02) < 1e-3  # normal(0, init std 0.02)
     assert abs(float(a.mimic.item_aug.weight.std()) - 0.05) < 2e-3
     fc1 = a.user_tower.gate_fc1  # xavier-uniform weight, ±1/sqrt(fan_in) bias
     assert float(fc1.weight.abs().max()) <= (6.0 / (2 * DIM + 24)) ** 0.5
@@ -172,7 +177,7 @@ def test_bfloat16_precision_not_ported():
     yaml = dict(_model_yaml("gated", None), precision="bfloat16")
     pcfg = port_parse(yaml, user_feature_dim=FU, item_feature_dim=FI)
     with pytest.raises(NotImplementedError, match="precision"):
-        TwoTower(pcfg, num_users=5, num_items=5, seed=0)
+        TwoTower(pcfg, num_users=5, num_items=5, seed=0, device="cpu")
 
 
 @pytest.mark.parametrize("fn", ["gate_values", "apply_gate"])
@@ -189,3 +194,23 @@ def test_gate_matches_jax(fn):
         )
         got = getattr(model.tower(side), fn)(torch.from_numpy(id_repr), torch.from_numpy(feat_repr))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("loader", ["model", "params", "checkpoint"])
+def test_models_default_to_the_card(loader, tmp_path, monkeypatch):
+    """``device=None`` means the CUDA card: without one, building or loading
+    a model raises instead of landing on the CPU."""
+    jcfg, state, model, _ = _setup("gated", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tables, dense = jax.device_get((state.tables, state.dense))
+    build = {
+        "model": lambda: TwoTower(model.cfg, num_users=NUM_USERS, num_items=NUM_ITEMS, seed=1),
+        "params": lambda: from_jax_params(model.cfg, tables, dense),
+        "checkpoint": lambda: from_jax_checkpoint(
+            save_checkpoint(tmp_path, state, experiment_name="port", epoch=1,
+                            metric_name=None, metric_value=None),
+            model.cfg,
+        ),
+    }[loader]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()

@@ -5,7 +5,7 @@ checkpoint and ttamm_torch.models.convert) -> port export -> port
 RetrievalService -> the HTTP front end. The answers must equal the JAX
 package's RetrievalService (numpy backend) over a bundle built from the JAX
 ``encode_corpus``; the port must also serve that JAX-written bundle; and the
-port must run the whole slice without importing JAX.
+port must run the whole slice without importing JAX or the JAX package.
 """
 
 import json
@@ -189,8 +189,7 @@ _NO_JAX_SCRIPT = textwrap.dedent(
     import json, sys, urllib.request
     from ttamm_torch.pipelines.export import main as export_main
     from ttamm_torch.serve.__main__ import main as serve_main
-    from ttamm_torch.serve import RetrievalService
-    from ttamm_tpu.serve.http_server import start_in_thread
+    from ttamm_torch.serve import RetrievalService, start_in_thread
 
     config, out = sys.argv[1], sys.argv[2]
     export_main(["--config", config, "--out", out, "--device", "cpu"])
@@ -204,7 +203,8 @@ _NO_JAX_SCRIPT = textwrap.dedent(
         assert len(json.loads(resp.read())["items"]) == 4
     srv.shutdown()
     srv.server_close()
-    assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "ttamm_tpu")))
+    assert not leaked, leaked
     print("NO_JAX_OK")
     """
 )

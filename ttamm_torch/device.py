@@ -18,13 +18,11 @@ torch.backends.cudnn.allow_tf32 = False
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """Return the ``torch.device`` to run on.
 
-    ``None`` picks ``cuda`` when a card is visible and ``cpu`` otherwise. An
-    explicit CUDA device is required to exist: asking for ``cuda`` on a
-    machine without one raises instead of running on the CPU.
+    ``None`` means ``cuda``: the port runs on the card unless the caller asks
+    for the CPU by name. A CUDA device is required to exist: asking for it
+    on a machine without one raises instead of running on the CPU.
     """
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but CUDA is not available")

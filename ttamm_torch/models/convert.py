@@ -1,31 +1,40 @@
-"""JAX parameters into the port: the one way weights cross over.
+"""JAX parameters and training states into the port, and back: the one way
+weights cross over.
 
-Two inputs are accepted:
+Inputs accepted:
 
 - ``(tables, dense)`` as numpy pytrees, the JAX ``init_model`` output (or a
   ``TrainState``'s ``tables``/``dense``) after ``jax.device_get``;
-- a JAX checkpoint ``.npz`` (``ttamm_tpu/train/checkpoint.py``), whose
-  leaves are stored under flat ``/``-joined keys (``tables/user_id``,
-  ``dense/user_tower/feature_encoder/layers/0/w``, ...).
+- a checkpoint ``.npz`` (``ttamm_tpu/train/checkpoint.py`` format, which the
+  port's ``ttamm_torch/train/checkpoint.py`` writes too), whose leaves are
+  stored under flat ``/``-joined keys (``tables/user_id``,
+  ``dense/user_tower/feature_encoder/layers/0/w``, ...);
+- a whole training state as those flat keys (``train_state_from_flat`` /
+  ``train_state_to_flat``): tables, dense parameters, the dense optimizer's
+  moments and step, the sparse tables' moments and steps, and the step.
 
 Layout differences handled here: a JAX dense weight ``w`` is ``[in, out]``
-and ``nn.Linear.weight`` is ``[out, in]``, so weights are transposed. Tables
-on the sparse-row optimizer carry one zero scratch row at the end (a
-scatter-padding target that is never read); it is sliced off, so every
-port table has exactly one row per user or item.
+and ``nn.Linear.weight`` is ``[out, in]``, so weights, and the dense
+optimizer's moments of weights, are transposed. Tables on the sparse-row
+optimizer carry one zero scratch row at the end (a scatter-padding target
+that is never read) on both sides, so every table is copied whole.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Mapping
+from typing import TYPE_CHECKING, Any, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from .encoders import Tower
 from .two_tower import ModelConfig, TwoTower
+
+if TYPE_CHECKING:
+    from ..train.state import TrainState
 
 
 def _unflatten(flat: Mapping[str, np.ndarray], prefix: str) -> dict[str, Any]:
@@ -65,10 +74,9 @@ def _copy_linear(layer: nn.Linear, params: Mapping[str, np.ndarray]) -> None:
 
 @torch.no_grad()
 def _copy_table(table: nn.Embedding, rows: np.ndarray) -> None:
-    n = table.weight.shape[0]
-    if rows.shape[0] < n or rows.shape[1] != table.weight.shape[1]:
+    if tuple(rows.shape) != tuple(table.weight.shape):
         raise ValueError(f"table {tuple(table.weight.shape)} vs JAX {rows.shape}")
-    table.weight.copy_(torch.from_numpy(np.array(rows[:n], np.float32)))
+    table.weight.copy_(torch.from_numpy(np.array(rows, np.float32)))
 
 
 def _load_tower(tower: Tower, table: np.ndarray, dense: Mapping[str, Any]) -> None:
@@ -87,10 +95,6 @@ def _load_tower(tower: Tower, table: np.ndarray, dense: Mapping[str, Any]) -> No
         _copy_linear(tower.projection, dense["projection"])
 
 
-def _num_rows(rows: np.ndarray, scratch: bool) -> int:
-    return int(rows.shape[0]) - (1 if scratch else 0)
-
-
 def from_jax_params(
     cfg: ModelConfig,
     tables: Mapping[str, np.ndarray],
@@ -98,9 +102,12 @@ def from_jax_params(
     *,
     device: torch.device | str | None = None,
 ) -> TwoTower:
-    """A ``TwoTower`` holding the JAX ``(tables, dense)`` parameters."""
-    num_users = _num_rows(tables["user_id"], cfg.user_tower.embedding.sparse)
-    num_items = _num_rows(tables["item_id"], cfg.item_tower.embedding.sparse)
+    """A ``TwoTower`` holding the JAX ``(tables, dense)`` parameters, on
+    ``device`` (``None``: the CUDA card)."""
+    device = resolve_device(device)
+    # a sparse ID table ends in its scratch row
+    num_users = tables["user_id"].shape[0] - int(cfg.user_tower.embedding.sparse)
+    num_items = tables["item_id"].shape[0] - int(cfg.item_tower.embedding.sparse)
     model = TwoTower(cfg, num_users=num_users, num_items=num_items, device="cpu")
     # A tower with no dense parameters leaves no keys in a checkpoint.
     _load_tower(model.user_tower, tables["user_id"], dense.get("user_tower", {}))
@@ -117,10 +124,71 @@ def from_jax_checkpoint(
     *,
     device: torch.device | str | None = None,
 ) -> TwoTower:
-    """A ``TwoTower`` from a JAX checkpoint ``.npz`` (optimizer state and
-    metadata are ignored)."""
+    """A ``TwoTower`` from a JAX checkpoint ``.npz`` on ``device`` (``None``:
+    the CUDA card); optimizer state and metadata are ignored."""
     with np.load(Path(path)) as archive:
         flat = {k: archive[k] for k in archive.files if k.startswith(("tables/", "dense/"))}
     return from_jax_params(
         cfg, _unflatten(flat, "tables"), _unflatten(flat, "dense"), device=device
     )
+
+
+# ---------------------------------------------------------------------------
+# Whole training states
+# ---------------------------------------------------------------------------
+
+
+def _to_host(key: str, tensor: torch.Tensor) -> np.ndarray:
+    arr = tensor.detach().cpu().numpy()
+    return np.ascontiguousarray(arr.T) if key.endswith("/w") else arr
+
+
+def train_state_to_flat(state: "TrainState") -> dict[str, np.ndarray]:
+    """A port ``TrainState`` as the flat ``/``-keyed numpy leaves of the
+    JAX ``TrainState`` (``ttamm_tpu.train.checkpoint.state_to_host``)."""
+    flat = {f"tables/{n}": _to_host(n, t) for n, t in state.tables.items()}
+    for key, param in state.model.dense_parameters():
+        flat[f"dense/{key}"] = _to_host(key, param)
+    keys = [k for k, _ in state.dense_targets()]
+    for key, m, v in zip(keys, state.opt_dense.m, state.opt_dense.v):
+        flat[f"opt_dense/m/{key}"] = _to_host(key, m)
+        flat[f"opt_dense/v/{key}"] = _to_host(key, v)
+    flat["opt_dense/step"] = np.asarray(state.opt_dense.step, np.int32)
+    for name, sparse in state.opt_sparse.items():
+        flat[f"opt_sparse/{name}/m"] = _to_host(name, sparse.m)
+        flat[f"opt_sparse/{name}/v"] = _to_host(name, sparse.v)
+        flat[f"opt_sparse/{name}/step"] = np.asarray(sparse.step, np.int32)
+    flat["step"] = np.asarray(state.step, np.int32)
+    return flat
+
+
+@torch.no_grad()
+def train_state_from_flat(state: "TrainState", flat: Mapping[str, np.ndarray]) -> "TrainState":
+    """Fill the port ``TrainState`` ``state`` (built for the same config and
+    sizes, e.g. by ``create_train_state``) in place from flat JAX keys; a
+    missing key or a shape mismatch raises. Returns ``state``."""
+    def put(key: str, tensor: torch.Tensor) -> None:
+        if key not in flat:
+            raise ValueError(f"training state is missing '{key}'")
+        arr = np.array(flat[key], np.float32)  # a writable copy
+        if key.endswith("/w"):
+            arr = arr.T
+        if arr.shape != tuple(tensor.shape):
+            raise ValueError(f"'{key}': {arr.shape} vs the port's {tuple(tensor.shape)}")
+        tensor.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+
+    for name, table in state.tables.items():
+        put(f"tables/{name}", table)
+    for key, param in state.model.dense_parameters():
+        put(f"dense/{key}", param)
+    keys = [k for k, _ in state.dense_targets()]
+    for key, m, v in zip(keys, state.opt_dense.m, state.opt_dense.v):
+        put(f"opt_dense/m/{key}", m)
+        put(f"opt_dense/v/{key}", v)
+    state.opt_dense.step = int(flat["opt_dense/step"])
+    for name, sparse in state.opt_sparse.items():
+        put(f"opt_sparse/{name}/m", sparse.m)
+        put(f"opt_sparse/{name}/v", sparse.v)
+        sparse.step = int(flat[f"opt_sparse/{name}/step"])
+    state.step = int(flat["step"])
+    return state

@@ -1,13 +1,14 @@
-"""Tower encoders: ID embedding + feature MLP + fusion, as an eval-mode
-``nn.Module`` (port of ``ttamm_tpu/models/encoders.py``).
+"""Tower encoders: ID embedding + feature MLP + fusion, as an ``nn.Module``
+(port of ``ttamm_tpu/models/encoders.py``).
 
 The config dataclasses and ``parse_tower_config`` follow the JAX package
 rule for rule, so one YAML resolves to the same towers on both sides.
 Supported fusions: identity / sum / concat(+projection) / gated (σ-gate
 blend; ``adaptive_mimic`` is the deprecated alias for gated). Feature
-encoders: identity / linear / MLP. The tower is inference-only, so
-``feature_encoder.dropout`` is not read. ``model.precision: bfloat16`` is
-not ported yet.
+encoders: identity / linear / MLP, with ``feature_encoder.dropout`` after
+each hidden activation in training mode, drawn from an explicit
+``torch.Generator`` (the JAX masks cannot be reproduced; tests run with
+dropout off). ``model.precision: bfloat16`` is not ported yet.
 
 Initialisation follows the JAX distributions (normal / uniform / xavier
 tables, xavier-uniform weights with ±1/sqrt(fan_in) uniform biases), drawn
@@ -56,6 +57,7 @@ class FeatureEncoderConfig:
     output_dim: int | None = None
     hidden_dims: tuple[int, ...] = ()
     activation: str = "relu"
+    dropout: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -128,6 +130,7 @@ def parse_tower_config(
             output_dim=int(fe["output_dim"]) if fe.get("output_dim") is not None else None,
             hidden_dims=tuple(int(h) for h in (fe.get("hidden_dims") or ())),
             activation=str(fe.get("activation", "relu")).lower(),
+            dropout=float(fe.get("dropout", 0.0)),
         )
         fe_out = feature_encoder.output_dim or emb.dim
         if feature_encoder.type == "identity" and feature_dim != fe_out:
@@ -212,11 +215,13 @@ def clamp_max_norm(rows: torch.Tensor, max_norm: float | None) -> torch.Tensor:
 
 
 class Tower(nn.Module):
-    """One tower: ID table, optional feature encoder and fusion (eval only).
+    """One tower: ID table, optional feature encoder and fusion.
 
     ``forward`` takes row indices (and the matching feature rows);
     ``forward_rows`` takes already-gathered ID rows, like the JAX
-    ``tower_forward``.
+    ``tower_forward``. ``extra_rows`` appends zero scratch rows to the ID
+    table after its ``num_embeddings`` rows (the sparse-row optimizer's
+    layout); they are never read.
     """
 
     def __init__(
@@ -226,6 +231,7 @@ class Tower(nn.Module):
         *,
         generator: torch.Generator | None = None,
         device: torch.device | str | None = None,
+        extra_rows: int = 0,
     ) -> None:
         super().__init__()
         if cfg.compute_dtype != "float32":
@@ -233,8 +239,9 @@ class Tower(nn.Module):
                 f"model.precision={cfg.compute_dtype} is not ported yet (float32 only)"
             )
         self.cfg = cfg
+        self.num_embeddings = int(num_embeddings)
         dim = cfg.embedding.dim
-        self.id_embedding = nn.Embedding(num_embeddings, dim, device=device)
+        self.id_embedding = nn.Embedding(num_embeddings + extra_rows, dim, device=device)
         fe = cfg.feature_encoder
         self.feature_layers = nn.ModuleList()
         if fe is not None and cfg.feature_dim > 0:
@@ -262,7 +269,10 @@ class Tower(nn.Module):
         self.eval()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        init_embedding_(self.id_embedding.weight, self.cfg.embedding, generator)
+        table = self.id_embedding.weight
+        init_embedding_(table[: self.num_embeddings], self.cfg.embedding, generator)
+        with torch.no_grad():
+            table[self.num_embeddings :] = 0.0
         for layer in self._linears():
             init_linear_(layer, generator)
 
@@ -270,14 +280,25 @@ class Tower(nn.Module):
         extra = [self.gate_fc1, self.gate_fc2, self.projection]
         return [*self.feature_layers, *(m for m in extra if m is not None)]
 
-    def feature_repr(self, features: torch.Tensor) -> torch.Tensor:
-        act = _ACTIVATIONS[self.cfg.feature_encoder.activation]
+    def feature_repr(
+        self, features: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """The feature MLP; in training mode, with a ``generator``, inverted
+        dropout after each hidden activation (the JAX ``_apply_mlp``)."""
+        fe = self.cfg.feature_encoder
+        act = _ACTIVATIONS[fe.activation]
+        drop = self.training and fe.dropout > 0.0 and generator is not None
         x = features
         last = len(self.feature_layers) - 1
         for i, layer in enumerate(self.feature_layers):
             x = layer(x)
             if i < last:
                 x = act(x)
+                if drop:
+                    keep = torch.rand(
+                        x.shape, generator=generator, device=x.device
+                    ) < (1.0 - fe.dropout)
+                    x = torch.where(keep, x / (1.0 - fe.dropout), 0.0)
         return x
 
     def gate_values(self, id_repr: torch.Tensor, feat_repr: torch.Tensor) -> torch.Tensor:
@@ -291,13 +312,19 @@ class Tower(nn.Module):
         return gate * id_repr + (1.0 - gate) * feat_repr
 
     def forward_rows(
-        self, id_rows: torch.Tensor, features: torch.Tensor | None = None
+        self,
+        id_rows: torch.Tensor,
+        features: torch.Tensor | None = None,
+        *,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
+        """Tower output from gathered ID rows; ``generator`` draws the
+        dropout masks in training mode."""
         cfg = self.cfg
         id_rows = clamp_max_norm(id_rows, cfg.embedding.max_norm)
         if cfg.fusion == "identity" or cfg.feature_encoder is None or features is None:
             return id_rows
-        feat = self.feature_repr(features.to(id_rows.dtype))
+        feat = self.feature_repr(features.to(id_rows.dtype), generator)
         if cfg.fusion == "sum":
             return id_rows + feat
         if cfg.fusion == "concat":

@@ -1,5 +1,9 @@
-"""Two-tower model: towers, similarity and adaptive mimic as one eval-mode
-``nn.Module`` (port of ``ttamm_tpu/models/two_tower.py``)."""
+"""Two-tower model: towers, similarity and adaptive mimic as one
+``nn.Module`` (port of ``ttamm_tpu/models/two_tower.py``).
+
+The model is built in eval mode with gradients off (serving, export);
+``ttamm_torch.train.state.create_train_state`` switches a model to training
+(dropout on, gradients on its dense layers)."""
 
 from __future__ import annotations
 
@@ -9,6 +13,7 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from .adaptive_mimic import MimicTables, augment, mimic_forward
 from .encoders import Tower, TowerConfig, parse_tower_config
 
@@ -20,6 +25,9 @@ class ModelConfig:
     similarity: str = "cosine"  # 'cosine' | 'dot'
     mimic_enabled: bool = True
     mimic_init_std: float = 0.02
+    # Mimic tables on sparse-row Adam instead of dense AdamW (the JAX
+    # ``adaptive_mimic.sparse``); parsed here, not trained yet by the port.
+    mimic_sparse: bool = False
 
     @property
     def embedding_dim(self) -> int:
@@ -64,6 +72,7 @@ def parse_model_config(
         similarity=similarity,
         mimic_enabled=mimic_enabled,
         mimic_init_std=float(mimic_cfg.get("init_std", 0.02)),
+        mimic_sparse=bool(mimic_cfg.get("sparse", False)),
     )
 
 
@@ -83,8 +92,12 @@ class TwoTower(nn.Module):
 
     With ``seed`` the parameters are initialised on the CPU from
     ``torch.Generator().manual_seed(seed)`` (so one seed gives the same
-    weights on every device) and then moved to ``device``; without it they
-    are left for a loader (``ttamm_torch.models.convert``) to fill.
+    weights on every device) and then moved to ``device`` (``None``: the
+    CUDA card); without it they are left for a loader
+    (``ttamm_torch.models.convert``) to fill. An ID table on the sparse-row
+    optimizer (``sparse: true``) carries one zero scratch row after its
+    ``num_users`` / ``num_items`` rows, as in the JAX ``init_model``; only
+    that optimizer writes it and nothing reads it.
     """
 
     def __init__(
@@ -97,12 +110,19 @@ class TwoTower(nn.Module):
         device: torch.device | str | None = None,
     ) -> None:
         super().__init__()
+        device = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed)) if seed is not None else None
         self.cfg = cfg
         self.num_users = int(num_users)
         self.num_items = int(num_items)
-        self.user_tower = Tower(cfg.user_tower, num_users, generator=gen)
-        self.item_tower = Tower(cfg.item_tower, num_items, generator=gen)
+        self.user_tower = Tower(
+            cfg.user_tower, num_users, generator=gen,
+            extra_rows=int(cfg.user_tower.embedding.sparse),
+        )
+        self.item_tower = Tower(
+            cfg.item_tower, num_items, generator=gen,
+            extra_rows=int(cfg.item_tower.embedding.sparse),
+        )
         self.mimic = (
             MimicTables(
                 num_users=num_users, num_items=num_items,
@@ -115,6 +135,42 @@ class TwoTower(nn.Module):
         self.requires_grad_(False)  # inference only
         self.to(device)
         self.eval()
+
+    def tables(self) -> dict[str, torch.Tensor]:
+        """The row tables by their JAX names (the live weights)."""
+        tables = {
+            "user_id": self.user_tower.id_embedding.weight,
+            "item_id": self.item_tower.id_embedding.weight,
+        }
+        if self.mimic is not None:
+            tables["user_aug"] = self.mimic.user_aug.weight
+            tables["item_aug"] = self.mimic.item_aug.weight
+        return tables
+
+    def dense_parameters(self) -> list[tuple[str, nn.Parameter]]:
+        """The dense parameters, each with its JAX pytree path under
+        ``dense/`` (a ``.../w`` is the transpose of the ``nn.Linear``
+        weight)."""
+        out: list[tuple[str, nn.Parameter]] = []
+        for side in ("user", "item"):
+            tower = self.tower(side)
+            layers = [
+                (f"feature_encoder/layers/{i}", layer)
+                for i, layer in enumerate(tower.feature_layers)
+            ]
+            layers += [
+                (name, layer)
+                for name, layer in (
+                    ("gate/fc1", tower.gate_fc1),
+                    ("gate/fc2", tower.gate_fc2),
+                    ("projection", tower.projection),
+                )
+                if layer is not None
+            ]
+            for name, layer in layers:
+                out.append((f"{side}_tower/{name}/w", layer.weight))
+                out.append((f"{side}_tower/{name}/b", layer.bias))
+        return out
 
     def tower(self, side: str) -> Tower:
         if side not in {"user", "item"}:

@@ -1,16 +1,20 @@
-"""The serving path's hand-written CUDA kernels, their plain PyTorch versions
-and their launch counts.
+"""The port's hand-written CUDA kernels, their plain PyTorch versions and
+their launch counts.
 
-Three kernels, one per TPU kernel on the search path (sources and design
-notes in ``ttamm_torch/csrc/``):
+One kernel per TPU kernel on the serving and training paths (sources and
+design notes in ``ttamm_torch/csrc/``):
 
-============================  ==============================================
-port (CUDA, ``sm_90a``)       TPU kernel it replaces
-============================  ==============================================
-``small_k_topk``              ``ttamm_tpu/ops/pallas/topk.py`` small_k_topk
-``groupmax_matmul``           ``ttamm_tpu/ops/pallas/fused_mips.py`` groupmax_matmul
-``rescore_groups``            ``ttamm_tpu/ops/pallas/fused_mips.py`` rescore_groups
-============================  ==============================================
+==================================  ==========================================
+port (CUDA, ``sm_90a``)             TPU kernel it replaces
+==================================  ==========================================
+``small_k_topk``                    ``ttamm_tpu/ops/pallas/topk.py`` small_k_topk
+``groupmax_matmul``                 ``ttamm_tpu/ops/pallas/fused_mips.py`` groupmax_matmul
+``rescore_groups``                  ``ttamm_tpu/ops/pallas/fused_mips.py`` rescore_groups
+``gather_rows``                     ``ttamm_tpu/ops/pallas/rows.py`` gather_rows
+``scatter_set_rows``                ``ttamm_tpu/ops/pallas/rows.py`` scatter_set_rows
+``segment_second_moments`` (+bwd)   ``ttamm_tpu/ops/pallas/category_stats.py``
+                                    segment_second_moments and its VJP
+==================================  ==========================================
 
 Each public function dispatches on where its input lies: a CPU tensor takes
 the plain version (``*_plain``), a CUDA tensor launches the kernel through
@@ -45,6 +49,10 @@ PAD_SCORE = -3.0e38  # score of rows at or beyond num_items in groupmax_matmul
 # ((64 + 128) * (D + 8) * 2 + 64 * 132 * 4 bytes) fit the 227 KB of shared
 # memory a Hopper block may use up to D = 496.
 MAX_DIM = 496
+# Widest rows the second-moment backward takes: its H tile and row chunk
+# ((64 * (D + 1) + 32 * D) * 4 bytes) fit 227 KB up to D = 604.
+MAX_M2_DIM = 512
+_M2_BWD_ROWS = 32  # rows per backward block (kBwdRows in category_stats.cu)
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ttamm_torch"
@@ -61,7 +69,15 @@ _GRID_Y_MAX = 65535
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-_launches = {"small_k_topk": 0, "groupmax_matmul": 0, "rescore_groups": 0}
+_launches = {
+    "small_k_topk": 0,
+    "groupmax_matmul": 0,
+    "rescore_groups": 0,
+    "gather_rows": 0,
+    "scatter_set_rows": 0,
+    "segment_second_moments": 0,
+    "segment_second_moments_bwd": 0,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +164,14 @@ def load_library() -> ctypes.CDLL:
             lib.ttamm_groupmax_matmul.restype = i32
             lib.ttamm_rescore_groups.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, p]
             lib.ttamm_rescore_groups.restype = i32
+            lib.ttamm_gather_rows.argtypes = [p, p, p, i64, i64, i32, p]
+            lib.ttamm_gather_rows.restype = i32
+            lib.ttamm_scatter_set_rows.argtypes = [p, p, p, i64, i64, i32, p]
+            lib.ttamm_scatter_set_rows.restype = i32
+            lib.ttamm_segment_second_moments.argtypes = [p, p, p, p, i32, i32, p]
+            lib.ttamm_segment_second_moments.restype = i32
+            lib.ttamm_segment_second_moments_bwd.argtypes = [p, p, p, p, p, p, i32, i32, i32, p]
+            lib.ttamm_segment_second_moments_bwd.restype = i32
             _lib = lib
         return _lib
 
@@ -386,3 +410,205 @@ def rescore_groups_cuda(
             int(queries.dtype == torch.bfloat16),
         )
     return out
+
+
+# ---------------------------------------------------------------------------
+# gather_rows / scatter_set_rows
+# ---------------------------------------------------------------------------
+
+
+def _check_rows(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
+    if table.dim() != 2 or table.dtype != torch.float32:
+        raise ValueError(f"{name}: table must be 2-D float32, got {table.dtype} {tuple(table.shape)}")
+    if idx.dim() != 1 or idx.dtype != torch.int32:
+        raise ValueError(f"{name}: idx must be 1-D int32, got {idx.dtype} {tuple(idx.shape)}")
+
+
+def _check_vec4(name: str, *tensors: torch.Tensor) -> None:
+    """The row kernels move 16-byte vectors: D % 4 == 0, 16-byte aligned."""
+    for t in tensors:
+        if t.shape[-1] % 4 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: rows must have D % 4 == 0 and be 16-byte aligned")
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``: f32 ``[N, D]`` rows of a f32 ``[rows, D]`` table at
+    int32 indices in ``[0, rows)``; any N."""
+    if table.device.type == "cpu":
+        return gather_rows_plain(table, idx)
+    return gather_rows_cuda(table, idx)
+
+
+def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    _check_rows("gather_rows", table, idx)
+    return table[idx]
+
+
+def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    dev = _check_cuda("gather_rows", table, idx)
+    _check_rows("gather_rows", table, idx)
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=torch.float32, device=dev)
+    _check_vec4("gather_rows", table, out)
+    if idx.shape[0]:
+        _launch(
+            "gather_rows", dev, table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            idx.shape[0], table.shape[0], table.shape[1],
+        )
+    return out
+
+
+def scatter_set_rows(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table[idx] = rows`` in place; returns ``table``. Duplicate indices
+    race (one row wins), so callers route duplicate lanes to a scratch row
+    whose value is never read."""
+    if table.device.type == "cpu":
+        return scatter_set_rows_plain(table, idx, rows)
+    return scatter_set_rows_cuda(table, idx, rows)
+
+
+def _check_scatter(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
+    _check_rows("scatter_set_rows", table, idx)
+    if rows.dtype != torch.float32 or rows.shape != (idx.shape[0], table.shape[1]):
+        raise ValueError(
+            f"scatter_set_rows: rows {rows.dtype} {tuple(rows.shape)} for "
+            f"{idx.shape[0]} indices into {tuple(table.shape)}"
+        )
+
+
+def scatter_set_rows_plain(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    _check_scatter(table, idx, rows)
+    return table.index_copy_(0, idx.long(), rows)
+
+
+def scatter_set_rows_cuda(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    dev = _check_cuda("scatter_set_rows", table, idx, rows)
+    _check_scatter(table, idx, rows)
+    _check_vec4("scatter_set_rows", table, rows)
+    if idx.shape[0]:
+        _launch(
+            "scatter_set_rows", dev, table.data_ptr(), idx.data_ptr(), rows.data_ptr(),
+            idx.shape[0], table.shape[0], table.shape[1],
+        )
+    return table
+
+
+# ---------------------------------------------------------------------------
+# segment_second_moments (forward and backward)
+# ---------------------------------------------------------------------------
+
+
+def segment_second_moments(
+    cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int
+) -> torch.Tensor:
+    """``M2[c] = sum_{n: cat_ids[n] = c} bf16(x_n) bf16(x_n)^T`` summed in
+    f32: ``[C, D, D]`` for int ``cat_ids [N]`` and f32 ``x [N, D]``; rows
+    with ids outside ``[0, C)`` add nothing."""
+    if x.device.type == "cpu":
+        return segment_second_moments_plain(cat_ids, x, num_categories)
+    return segment_second_moments_cuda(cat_ids, x, num_categories)
+
+
+def segment_second_moments_bwd(
+    cat_ids: torch.Tensor, x: torch.Tensor, h: torch.Tensor
+) -> torch.Tensor:
+    """The gradient of :func:`segment_second_moments` for the symmetrised
+    cotangent ``h = G + G^T`` ``[C, D, D]``: ``dx_n = bf16(h_c) bf16(x_n)``
+    (f32 sums), zero for ids outside ``[0, C)``."""
+    if x.device.type == "cpu":
+        return segment_second_moments_bwd_plain(cat_ids, x, h)
+    return segment_second_moments_bwd_cuda(cat_ids, x, h)
+
+
+def _check_m2(cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int) -> None:
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"segment_second_moments: x must be 2-D float32, got {x.dtype} {tuple(x.shape)}")
+    if cat_ids.shape != (x.shape[0],) or cat_ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(
+            f"segment_second_moments: cat_ids {cat_ids.dtype} {tuple(cat_ids.shape)} "
+            f"for {x.shape[0]} rows"
+        )
+    if num_categories <= 0:
+        raise ValueError(f"segment_second_moments: num_categories={num_categories}")
+
+
+def _selector(cat_ids: torch.Tensor, num_categories: int) -> torch.Tensor:
+    """The TPU kernel's 0/1 ``[C, N]`` selector."""
+    cats = torch.arange(num_categories, device=cat_ids.device, dtype=cat_ids.dtype)
+    return (cat_ids[None, :] == cats[:, None]).float()
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def segment_second_moments_plain(
+    cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int
+) -> torch.Tensor:
+    _check_m2(cat_ids, x, num_categories)
+    xb = _bf16(x)
+    return torch.einsum("cn,nd,ne->cde", _selector(cat_ids, num_categories), xb, xb)
+
+
+def segment_second_moments_bwd_plain(
+    cat_ids: torch.Tensor, x: torch.Tensor, h: torch.Tensor
+) -> torch.Tensor:
+    _check_m2(cat_ids, x, h.shape[0])
+    sel = _selector(cat_ids, h.shape[0])
+    return torch.einsum("cn,ced,nd->ne", sel, _bf16(h), _bf16(x))
+
+
+def _group_by_category(
+    cat_ids: torch.Tensor, num_categories: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Glue for the kernels, on the device and without a host sync: the row
+    ids ordered by category (stable; ids outside ``[0, C)`` form a last run
+    C), the runs' offsets ``[C + 2]`` and the offsets of their 32-row
+    backward chunks ``[C + 2]``."""
+    ids = cat_ids.to(torch.int64)
+    key = torch.where((ids >= 0) & (ids < num_categories), ids, num_categories)
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    counts = torch.zeros(num_categories + 1, dtype=torch.int64, device=ids.device)
+    counts.index_add_(0, key, torch.ones_like(key))
+    offsets = torch.zeros(num_categories + 2, dtype=torch.int64, device=ids.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    chunk_offsets = torch.zeros_like(offsets)
+    chunk_offsets[1:] = torch.cumsum((counts + _M2_BWD_ROWS - 1) // _M2_BWD_ROWS, 0)
+    return order, offsets.to(torch.int32), chunk_offsets.to(torch.int32)
+
+
+def segment_second_moments_cuda(
+    cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int
+) -> torch.Tensor:
+    dev = _check_cuda("segment_second_moments", cat_ids, x)
+    _check_m2(cat_ids, x, num_categories)
+    dim = x.shape[1]
+    m2 = torch.empty((num_categories, dim, dim), dtype=torch.float32, device=dev)
+    order, offsets, _ = _group_by_category(cat_ids, num_categories)
+    _launch(
+        "segment_second_moments", dev, x.data_ptr(), order.data_ptr(),
+        offsets.data_ptr(), m2.data_ptr(), num_categories, dim,
+    )
+    return m2
+
+
+def segment_second_moments_bwd_cuda(
+    cat_ids: torch.Tensor, x: torch.Tensor, h: torch.Tensor
+) -> torch.Tensor:
+    dev = _check_cuda("segment_second_moments_bwd", cat_ids, x, h)
+    num_categories = h.shape[0]
+    _check_m2(cat_ids, x, num_categories)
+    n, dim = x.shape
+    if h.shape != (num_categories, dim, dim) or h.dtype != torch.float32:
+        raise ValueError(f"segment_second_moments_bwd: h {h.dtype} {tuple(h.shape)}")
+    if dim > MAX_M2_DIM:
+        raise ValueError(f"segment_second_moments_bwd: dim {dim} > {MAX_M2_DIM}")
+    dx = torch.empty((n, dim), dtype=torch.float32, device=dev)
+    if n:
+        order, offsets, chunk_offsets = _group_by_category(cat_ids, num_categories)
+        max_chunks = -(-n // _M2_BWD_ROWS) + num_categories + 1
+        _launch(
+            "segment_second_moments_bwd", dev, x.data_ptr(), h.data_ptr(),
+            order.data_ptr(), offsets.data_ptr(), chunk_offsets.data_ptr(),
+            dx.data_ptr(), num_categories, dim, max_chunks,
+        )
+    return dx

@@ -1,0 +1,125 @@
+"""Sparse-row Adam: ``torch.optim.SparseAdam`` semantics for embedding tables
+(port of ``ttamm_tpu/ops/sparse_adam.py``, its row-kernel path).
+
+- only rows that received gradients this step are updated;
+- duplicate indices are coalesced (gradients summed) before the update;
+- first and second moments are per row, in table-shaped tensors;
+- bias correction uses one step count per table;
+- optional decoupled weight decay on the touched rows only (0 = SparseAdam).
+
+The training step gathers rows outside the differentiated function, so
+gradients arrive as ``(indices [N], row_grads [N, D])``, never as a
+table-shaped zero tensor. The update is the JAX kernel path: coalesce (a
+stable sort, a segment sum, and every lane that is not the head of its
+segment sent to the table's scratch row, its last row), then
+``gather_rows`` of m, v and the weights, the Adam arithmetic on ``[N, D]``,
+and ``scatter_set_rows`` of the three back in place. Table and moments are
+updated in place; the scratch row absorbs the duplicate lanes' writes and
+is never read. Any N (the TPU kernels needed N to divide a DMA block).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import kernels
+
+
+@dataclass
+class SparseAdamState:
+    m: torch.Tensor  # [rows, D] first moments (rows include the scratch row)
+    v: torch.Tensor  # [rows, D] second moments
+    step: int = 0
+
+
+def init_sparse_adam(table: torch.Tensor) -> SparseAdamState:
+    return SparseAdamState(m=torch.zeros_like(table), v=torch.zeros_like(table))
+
+
+def coalesce_row_grads(
+    indices: torch.Tensor, row_grads: torch.Tensor, *, scratch_row: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sum duplicate-index row gradients.
+
+    Returns ``(target_rows int32 [N], summed_grads [N, D])``: the head lane
+    of each run of equal (sorted) indices carries its row and the run's
+    summed gradient; every other lane targets ``scratch_row`` with a zero
+    payload. Each run is summed in lane order by one thread per column
+    (``segment_reduce``; no atomics), so the card gives the same bits on
+    every run, and the CPU the same bits as a sequential sum.
+    """
+    n = indices.shape[0]
+    order = torch.argsort(indices, stable=True)
+    sorted_idx = indices[order].to(torch.int32)
+    is_head = torch.ones(n, dtype=torch.bool, device=indices.device)
+    is_head[1:] = sorted_idx[1:] != sorted_idx[:-1]
+    segment_ids = torch.cumsum(is_head, 0) - 1
+    # run lengths, padded to N with empty runs (no host sync for the count)
+    lengths = torch.zeros(n, dtype=torch.int64, device=indices.device).scatter_add_(
+        0, segment_ids, torch.ones_like(segment_ids)
+    )
+    summed = torch.segment_reduce(row_grads[order], "sum", lengths=lengths, unsafe=True)
+    target_rows = torch.where(is_head, sorted_idx, scratch_row).to(torch.int32)
+    return target_rows, torch.where(is_head[:, None], summed[segment_ids], 0.0)
+
+
+class _SumRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, indices, rows, num_rows):
+        ctx.save_for_backward(indices)
+        # Each row gets its run's sum once and zeros from the other lanes
+        # (sent to row 0): adding zeros is exact in any order.
+        target_rows, summed = coalesce_row_grads(indices, rows, scratch_row=0)
+        return rows.new_zeros((num_rows, rows.shape[1])).index_add_(0, target_rows, summed)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (indices,) = ctx.saved_tensors
+        return None, grad.index_select(0, indices), None
+
+
+def sum_rows(indices: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """``zeros([num_rows, D]).index_add_(0, indices, rows)`` with each row's
+    sum in the fixed order of :func:`coalesce_row_grads`, where the card's
+    ``index_add_`` adds with atomics in no fixed order. Differentiable in
+    ``rows`` (the gradient is a gather). Indices lie in ``[0, num_rows)``."""
+    return _SumRows.apply(indices, rows, num_rows)
+
+
+@torch.no_grad()
+def sparse_adam_update(
+    table: torch.Tensor,
+    state: SparseAdamState,
+    indices: torch.Tensor,
+    row_grads: torch.Tensor,
+    *,
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+) -> None:
+    """One SparseAdam step for the rows at ``indices``, in place on
+    ``table``, ``state.m`` and ``state.v`` (all with the scratch row as
+    their last row)."""
+    state.step += 1
+    target_rows, grads = coalesce_row_grads(
+        indices, row_grads.to(table.dtype), scratch_row=table.shape[0] - 1
+    )
+    m_rows = kernels.gather_rows(state.m, target_rows)
+    v_rows = kernels.gather_rows(state.v, target_rows)
+    w_rows = kernels.gather_rows(table, target_rows)
+
+    m_new = b1 * m_rows + (1.0 - b1) * grads
+    v_new = b2 * v_rows + (1.0 - b2) * torch.square(grads)
+    m_hat = m_new / (1.0 - b1**state.step)
+    v_hat = v_new / (1.0 - b2**state.step)
+    delta = lr * m_hat / (torch.sqrt(v_hat) + eps)
+    if weight_decay:
+        delta = delta + (lr * weight_decay) * w_rows
+
+    kernels.scatter_set_rows(table, target_rows, w_rows - delta)
+    kernels.scatter_set_rows(state.m, target_rows, m_new)
+    kernels.scatter_set_rows(state.v, target_rows, v_new)

@@ -37,7 +37,8 @@ SCORES_BYTES_BUDGET = 1 << 30
 # package scans the corpus in chunks ('chunked'), which is not ported.
 SCORES_BYTES_CEILING = 2 << 30
 # bfloat16 searches of at least this many items route to 'fused'. Measured
-# on an H100 (B=1024, k=20, D=128; PERF.md): the two tie at 100k and 500k,
+# on an NVIDIA H100 80GB HBM3 at a 700 W power limit (B=1024, k=20, D=128;
+# PERF.md): the two tie at 100k and 500k,
 # group_exact leads at 200k-300k, fused leads from 1M (3.7 vs 4.3 ms) to
 # 2M (6.5 vs 8.5 ms).
 BF16_FUSED_MIN_ITEMS = 500_000

@@ -1,13 +1,17 @@
 """Build the serving bundle with the port.
 
-config -> data (``ttamm_tpu.data``, host-side, free of JAX) -> model (seeded
-init, or a JAX checkpoint through ``ttamm_torch.models.convert``) ->
+config -> data (``ttamm_torch.data``, host-side) -> model (seeded init, or a
+checkpoint of the port's trainer or of the JAX package, through
+``ttamm_torch.models.convert``) ->
 ``encode_corpus`` for items and users on the device -> ``items.index`` +
 ``item_embeddings.npy`` + ``user_embeddings.npy`` + ``vocab.json``: the
 layout the JAX training pipeline writes (``ttamm_tpu/pipelines/training.py``,
 serving-bundle export), read by either package's ``RetrievalService``.
 
-    python -m ttamm_torch.pipelines.export --config configs/default.yaml --out DIR
+    python -m ttamm_torch.pipelines.export --config configs/default.yaml --out DIR \
+        [--checkpoint artifacts/checkpoints/baseline_two_tower_last.pt]
+
+It runs on the CUDA card unless ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -22,15 +26,13 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from ttamm_tpu.data import build_training_dataset, load_dataset
-from ttamm_tpu.data.preprocessing import TrainingDataset
-from ttamm_tpu.serve.flat_index import build_flat_index
-from ttamm_tpu.utils import load_config
-
+from ..data import TrainingDataset, build_training_dataset, load_dataset
 from ..device import resolve_device
 from ..models.convert import from_jax_checkpoint
 from ..models.two_tower import TwoTower, parse_model_config
+from ..serve.flat_index import build_flat_index
 from ..train.step import encode_corpus
+from ..utils import load_config
 
 
 @dataclass
@@ -83,8 +85,10 @@ def export_bundle(
 ) -> ExportResult:
     """Encode both sides and write the serving bundle to ``out_dir``.
 
-    The model is the JAX checkpoint at ``checkpoint`` when given, otherwise
-    a seeded init from ``experiment.seed``. The index scores in
+    Runs on ``device`` (``None``: the CUDA card). The model is the
+    checkpoint at ``checkpoint`` (the port's trainer and the JAX package
+    write the same format) when given, otherwise a seeded init from
+    ``experiment.seed``. The index scores in
     ``serving.score_dtype``; 'auto' exports float32 (the JAX pipeline's bf16
     recall gate needs an eval, which is not ported). ``dataset`` skips the
     data prep when the caller already holds it.
@@ -132,6 +136,7 @@ def export_bundle(
         embeddings["item"],
         normalize=model_cfg.similarity == "cosine",
         score_dtype=score_dtype,
+        device="cpu",  # only written out here
     )
     out_dir.mkdir(parents=True, exist_ok=True)
     index.save(out_dir / "items.index")
@@ -162,8 +167,11 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--config", type=Path, default=Path("configs/default.yaml"))
     parser.add_argument("--out", type=Path, required=True)
     parser.add_argument("--data-root", type=Path, default=None, help="override data.root")
-    parser.add_argument("--device", default=None, help="cuda or cpu (default: cuda when available)")
-    parser.add_argument("--checkpoint", type=Path, default=None, help="JAX checkpoint .npz")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument(
+        "--checkpoint", type=Path, default=None,
+        help="training checkpoint .npz (the port's or the JAX package's)",
+    )
     args = parser.parse_args(argv)
 
     config = load_config(args.config)

@@ -4,8 +4,9 @@
     python -m ttamm_torch.serve --artifacts DIR --http 8080
 
 Batch mode reads userIds from ``--user-id`` or stdin (one per line); with
-``--http PORT`` it runs the JAX package's HTTP front end (GET /healthz,
-GET/POST /v1/recommend) over the port's ``RetrievalService``.
+``--http PORT`` it runs the HTTP front end (GET /healthz, GET/POST
+/v1/recommend). The index is searched on the CUDA card unless
+``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -14,8 +15,7 @@ import argparse
 import sys
 from pathlib import Path
 
-from ttamm_tpu.serve.http_server import serve_forever
-
+from .http_server import serve_forever
 from .service import RetrievalService
 
 
@@ -24,7 +24,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--artifacts", type=Path, default=Path("artifacts/faiss"))
     parser.add_argument("--user-id", action="append", default=None)
     parser.add_argument("--k", type=int, default=10)
-    parser.add_argument("--device", default=None, help="cuda or cpu (default: cuda when available)")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument(
         "--score-dtype", choices=["float32", "bfloat16"], default=None,
         help="override the scoring precision stored in the index header",

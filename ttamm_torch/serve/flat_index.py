@@ -1,68 +1,77 @@
-"""Flat MIPS index whose device backend is the port's ``mips_topk``.
+"""Flat MIPS index: the TTFLAT1 artifact searched by the port's ``mips_topk``.
 
-The artifact format is the JAX package's TTFLAT1 file, byte for byte: this
-class subclasses ``ttamm_tpu.serve.flat_index.FlatIndex`` and keeps its
-``save``, its header and its host backends ('native', 'numpy').
+The artifact is the JAX package's TTFLAT1 file, byte for byte (the FAISS
+``IndexFlatIP`` replacement): a 24-byte little-endian header
+
+    [8s magic][u32 version][u32 dim][u64 count][u8 normalized]
+    [u8 score_dtype: 0=float32 1=bfloat16][pad 2]
+
+followed by the float32 ``[count, dim]`` rows. Either package reads the
+other's files.
 
 The corpus is uploaded once, when the index is built or loaded, padded with
 zero rows to a multiple of 128 (searches pass ``num_valid_rows``, so no
 per-call copy) and stored in the index's scoring dtype. Nothing is cached
 lazily afterwards, so concurrent searches from the threaded HTTP server
 only read shared state.
+
+Backends: 'device' (and 'auto', its alias) runs ``mips_topk`` on the index's
+device; 'numpy' is the blocked host search, the exact reference.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import struct
+from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from ttamm_tpu.serve import flat_index as _host
-
 from ..device import resolve_device
 from ..ops.topk import GROUP, mips_topk
 
+MAGIC = b"TTFLAT1\x00"
+VERSION = 1
+_HEADER = struct.Struct("<8sII Q BB2x")
+_SCORE_FLAGS = {"float32": 0, "bfloat16": 1}
+_FLAG_SCORES = {v: k for k, v in _SCORE_FLAGS.items()}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(eq=False)
-class FlatIndex(_host.FlatIndex):
-    """An exact inner-product index over a row matrix, searched on
-    ``device`` (``None``: CUDA when available, else the CPU, where the
-    kernels' plain versions run)."""
+class FlatIndex:
+    """An exact inner-product index over a float32 row matrix, searched on
+    ``device`` (``None``: the CUDA card; pass ``"cpu"`` for the CPU, where
+    the kernels' plain versions run)."""
 
+    embeddings: np.ndarray  # float32 [count, dim], host copy
+    normalized: bool = False
+    # 'float32' (exact, FAISS-parity) or 'bfloat16' (bf16 corpus and
+    # scores, the fast serving mode); stored in the artifact header.
+    score_dtype: str = "float32"
     device: torch.device | str | None = None
+    corpus: torch.Tensor = field(init=False, repr=False)
 
     def __post_init__(self) -> None:
         if self.score_dtype not in _DTYPES:
             raise ValueError(f"Unknown score_dtype: {self.score_dtype}")
+        self.embeddings = np.ascontiguousarray(self.embeddings, np.float32)
         self.device = resolve_device(self.device)
         n, dim = self.embeddings.shape
         corpus = torch.zeros(
             (-(-n // GROUP) * GROUP, dim), dtype=_DTYPES[self.score_dtype],
             device=self.device,
         )
-        host = torch.from_numpy(np.ascontiguousarray(self.embeddings, np.float32))
-        corpus[:n] = host.to(self.device)
+        corpus[:n] = torch.from_numpy(self.embeddings).to(self.device)
         self.corpus = corpus  # the padded device copy every search reads
 
-    @classmethod
-    def from_host(
-        cls,
-        index: _host.FlatIndex,
-        *,
-        device: torch.device | str | None = None,
-        score_dtype: str | None = None,
-    ) -> "FlatIndex":
-        """Upload a host index (``ttamm_tpu.serve.flat_index.FlatIndex``, as
-        its ``load`` returns it); ``score_dtype`` overrides its own."""
-        return cls(
-            embeddings=index.embeddings,
-            normalized=index.normalized,
-            score_dtype=score_dtype or index.score_dtype,
-            device=device,
-        )
+    @property
+    def dim(self) -> int:
+        return int(self.embeddings.shape[1])
+
+    def __len__(self) -> int:
+        return int(self.embeddings.shape[0])
 
     def search(
         self,
@@ -74,34 +83,100 @@ class FlatIndex(_host.FlatIndex):
     ) -> tuple[np.ndarray, np.ndarray]:
         """Top-k by inner product: (scores f32 [B, k], indices int64 [B, k]).
 
-        backend: 'device' (and 'auto', its alias here) runs the port's
-        ``mips_topk`` with ``algorithm`` on the index's device; 'native' and
-        'numpy' are the JAX package's host searchers.
+        backend: 'device' (and 'auto', its alias) runs ``mips_topk`` with
+        ``algorithm`` on the index's device; 'numpy' is the blocked host
+        search in float32.
         """
-        if backend in ("native", "numpy"):
-            return super().search(queries, k, backend=backend)
-        if backend not in ("auto", "device"):
-            raise ValueError(f"Unknown backend: {backend}")
-        if self.corpus.dtype != _DTYPES[self.score_dtype]:
-            raise ValueError(
-                f"index uploaded for {self.corpus.dtype} scoring, asked for "
-                f"{self.score_dtype}; load it again with score_dtype="
-            )
         queries = np.ascontiguousarray(queries, dtype=np.float32)
         if queries.ndim == 1:
             queries = queries[None, :]
         if self.normalized:
             norms = np.linalg.norm(queries, axis=1, keepdims=True)
             queries = queries / np.maximum(norms, 1e-12)
+        k = min(k, len(self))
+        if backend == "numpy":
+            return _numpy_search(self.embeddings, queries, k)
+        if backend not in ("auto", "device"):
+            raise ValueError(f"Unknown backend: {backend}")
         scores, idx = mips_topk(
             torch.from_numpy(queries).to(self.device),
             self.corpus,
-            k=min(k, len(self)),
+            k=k,
             num_valid_rows=len(self),
             algorithm=algorithm,
             score_dtype=self.score_dtype,
         )
         return scores.cpu().numpy(), idx.cpu().numpy()
+
+    def save(self, path: Path | str) -> None:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "wb") as handle:
+            handle.write(
+                _HEADER.pack(
+                    MAGIC, VERSION, self.dim, len(self),
+                    int(self.normalized), _SCORE_FLAGS[self.score_dtype],
+                )
+            )
+            handle.write(self.embeddings.tobytes())
+
+    @classmethod
+    def load(
+        cls,
+        path: Path | str,
+        *,
+        device: torch.device | str | None = None,
+        score_dtype: str | None = None,
+    ) -> "FlatIndex":
+        """Read a TTFLAT1 file and upload it to ``device``; ``score_dtype``
+        overrides the one in its header."""
+        path = Path(path)
+        with open(path, "rb") as handle:
+            magic, version, dim, count, normalized, score_flag = _HEADER.unpack(
+                handle.read(_HEADER.size)
+            )
+            if magic != MAGIC:
+                raise ValueError(f"{path} is not a TTFLAT index (bad magic).")
+            if version != VERSION:
+                raise ValueError(f"Unsupported TTFLAT version {version}.")
+            data = np.frombuffer(handle.read(count * dim * 4), dtype=np.float32)
+        if score_flag not in _FLAG_SCORES:
+            raise ValueError(
+                f"{path}: unknown score_dtype flag {score_flag} "
+                "(index written by a newer version?)"
+            )
+        return cls(
+            embeddings=data.reshape(count, dim).copy(),
+            normalized=bool(normalized),
+            score_dtype=score_dtype or _FLAG_SCORES[score_flag],
+            device=device,
+        )
+
+
+def _numpy_search(
+    embeddings: np.ndarray, queries: np.ndarray, k: int, block: int = 65536
+) -> tuple[np.ndarray, np.ndarray]:
+    """Exact blocked top-k on the host (the JAX package's numpy backend)."""
+    n = embeddings.shape[0]
+    b = queries.shape[0]
+    best_scores = np.full((b, k), -np.inf, dtype=np.float32)
+    best_idx = np.zeros((b, k), dtype=np.int64)
+    for start in range(0, n, block):
+        chunk = embeddings[start : start + block]
+        scores = queries @ chunk.T  # [b, block]
+        local_k = min(k, scores.shape[1])
+        part = np.argpartition(-scores, local_k - 1, axis=1)[:, :local_k]
+        part_scores = np.take_along_axis(scores, part, axis=1)
+        merged_scores = np.concatenate([best_scores, part_scores], axis=1)
+        merged_idx = np.concatenate([best_idx, part + start], axis=1)
+        sel = np.argpartition(-merged_scores, k - 1, axis=1)[:, :k]
+        best_scores = np.take_along_axis(merged_scores, sel, axis=1)
+        best_idx = np.take_along_axis(merged_idx, sel, axis=1)
+    order = np.argsort(-best_scores, axis=1)
+    return (
+        np.take_along_axis(best_scores, order, axis=1),
+        np.take_along_axis(best_idx, order, axis=1),
+    )
 
 
 def build_flat_index(
@@ -112,6 +187,12 @@ def build_flat_index(
     device: torch.device | str | None = None,
 ) -> FlatIndex:
     """Build an index (rows L2-normalised when ``normalize``, the cosine
-    mode) and upload it to ``device``."""
-    host = _host.build_flat_index(embeddings, normalize=normalize, score_dtype=score_dtype)
-    return FlatIndex.from_host(host, device=device)
+    mode, as FAISS ``normalize_L2`` + ``IndexFlatIP``) and upload it to
+    ``device``."""
+    emb = np.ascontiguousarray(embeddings, dtype=np.float32)
+    if normalize:
+        norms = np.linalg.norm(emb, axis=1, keepdims=True)
+        emb = emb / np.maximum(norms, 1e-12)
+    return FlatIndex(
+        embeddings=emb, normalized=normalize, score_dtype=score_dtype, device=device
+    )

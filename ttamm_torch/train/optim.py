@@ -1,0 +1,124 @@
+"""Dense optimizers with torch-parity semantics: Adam / AdamW / SGD (port of
+``ttamm_tpu/train/optim.py``).
+
+A functional update over a list of tensors, in place:
+
+- Adam: L2 weight decay folded into the gradient (torch ``Adam``);
+- AdamW: decoupled decay ``w -= lr*wd*w`` before the Adam step (torch
+  ``AdamW``);
+- SGD: optional momentum buffer, L2 decay folded into the gradient.
+
+Bias correction as torch: ``lr * sqrt(1-b2^t) / (1-b1^t)``. The step count
+and the learning-rate schedule live on the host (Python numbers), so an
+update issues no host sync.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+
+class DenseOptConfig(NamedTuple):
+    name: str = "adam"  # 'adam' | 'adamw' | 'sgd'
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    momentum: float = 0.0
+    lr_schedule: str = "constant"  # 'constant' | 'cosine' | 'linear'
+    lr_total_steps: int = 0  # schedule horizon (optimizer steps)
+    lr_final_factor: float = 0.0  # lr multiplier reached at the horizon
+
+
+@dataclass
+class DenseOptState:
+    m: list[torch.Tensor]  # first moments (or SGD momentum buffers)
+    v: list[torch.Tensor]  # second moments (zeros for SGD)
+    step: int = 0
+
+
+def init_dense_opt(params: list[torch.Tensor]) -> DenseOptState:
+    return DenseOptState(
+        m=[torch.zeros_like(p) for p in params], v=[torch.zeros_like(p) for p in params]
+    )
+
+
+def lr_scale(cfg: DenseOptConfig, step: int) -> float:
+    """Schedule multiplier for the (1-indexed) optimizer step ``step``:
+    1.0 for the constant schedule, else cosine or linear decay to
+    ``lr_final_factor`` over ``lr_total_steps``, clamped at the horizon."""
+    if cfg.lr_schedule == "constant" or cfg.lr_total_steps <= 0:
+        return 1.0
+    t = min(max((step - 1.0) / max(cfg.lr_total_steps - 1, 1), 0.0), 1.0)
+    f = cfg.lr_final_factor
+    if cfg.lr_schedule == "linear":
+        return 1.0 + (f - 1.0) * t
+    if cfg.lr_schedule == "cosine":
+        return f + (1.0 - f) * 0.5 * (1.0 + math.cos(math.pi * t))
+    raise ValueError(f"Unknown lr_schedule: {cfg.lr_schedule}")
+
+
+@torch.no_grad()
+def dense_opt_update(
+    params: list[torch.Tensor],
+    grads: list[torch.Tensor],
+    state: DenseOptState,
+    cfg: DenseOptConfig,
+) -> None:
+    """One optimizer step on ``params`` in place (and on ``state``)."""
+    state.step += 1
+    lr = cfg.lr * lr_scale(cfg, state.step)
+    if cfg.name == "sgd":
+        if cfg.weight_decay:
+            grads = torch._foreach_add(grads, params, alpha=cfg.weight_decay)
+        if cfg.momentum:
+            torch._foreach_mul_(state.m, cfg.momentum)
+            torch._foreach_add_(state.m, grads)
+            grads = state.m
+        torch._foreach_add_(params, grads, alpha=-lr)
+        return
+    if cfg.name == "adam" and cfg.weight_decay:
+        grads = torch._foreach_add(grads, params, alpha=cfg.weight_decay)
+    if cfg.name == "adamw" and cfg.weight_decay:
+        torch._foreach_mul_(params, 1.0 - lr * cfg.weight_decay)
+    torch._foreach_mul_(state.m, cfg.b1)
+    torch._foreach_add_(state.m, grads, alpha=1.0 - cfg.b1)
+    torch._foreach_mul_(state.v, cfg.b2)
+    torch._foreach_addcmul_(state.v, grads, grads, value=1.0 - cfg.b2)
+    bc1 = 1.0 - cfg.b1**state.step
+    bc2 = 1.0 - cfg.b2**state.step
+    denom = torch._foreach_sqrt(torch._foreach_div(state.v, bc2))
+    torch._foreach_add_(denom, cfg.eps)
+    torch._foreach_addcdiv_(params, state.m, denom, value=-lr / bc1)
+
+
+def parse_dense_opt_config(training_cfg: dict, *, total_steps: int = 0) -> DenseOptConfig:
+    """Resolve the YAML ``training:`` section into a DenseOptConfig;
+    ``lr_schedule`` may be a string or ``{type, final_factor,
+    total_steps}`` (``total_steps`` defaults to the caller's horizon)."""
+    name = str(training_cfg.get("optimizer", "adam")).lower()
+    if name not in {"adam", "adamw", "sgd"}:
+        raise ValueError(f"Unsupported optimizer: {name}")
+    betas = training_cfg.get("betas", (0.9, 0.999))
+    sched = training_cfg.get("lr_schedule", "constant") or "constant"
+    if isinstance(sched, str):
+        sched = {"type": sched}
+    sched_type = str(sched.get("type", "constant")).lower()
+    if sched_type not in {"constant", "cosine", "linear"}:
+        raise ValueError(f"Unsupported lr_schedule: {sched_type}")
+    return DenseOptConfig(
+        name=name,
+        lr=float(training_cfg.get("learning_rate", 1e-3)),
+        weight_decay=float(training_cfg.get("weight_decay", 0.0)),
+        b1=float(betas[0]),
+        b2=float(betas[1]),
+        momentum=float(training_cfg.get("momentum", 0.0)),
+        lr_schedule=sched_type,
+        lr_total_steps=int(sched.get("total_steps", total_steps)),
+        lr_final_factor=float(sched.get("final_factor", 0.0)),
+    )
