@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one NVIDIA Hopper card: training and
-serving at the canonical scale.
+"""Smoke test of the PyTorch port on one NVIDIA Hopper card: training with
+the per-epoch retrieval eval, and serving, at the canonical scale.
 
 Run from the root of a checkout, with one card visible:
 
@@ -16,7 +16,10 @@ result line):
    phase 4):
    small_k_topk, gather_rows and scatter_set_rows bit-identical (the
    scatter away from its scratch row, with duplicate-heavy indices and the
-   scratch row); groupmax_matmul and rescore_groups
+   scratch row); select_topk_from_groups bit-identical at the val eval's
+   shape (one query block of a 4096-user batch over 99,880 items, KG = k =
+   21) with a ragged tail, finfo.min blocked columns and tied rows;
+   groupmax_matmul and rescore_groups
    within rtol 1e-6 + atol 1e-5 (exact bf16 products, f32 sums in another
    order); segment_second_moments forward within 2e-5 x the largest |M2|
    entry of each category and backward within 2e-5 x the largest |dx| (f32
@@ -36,18 +39,34 @@ result line):
    lanes, every duplicate on the scratch row), bit-identical to their plain
    versions and timed with a cold L2 (a 256 MB fill before each call, its
    kernels left out), their bound counting each distinct row once;
-5. train one full epoch of ``configs/default.yaml`` on the card (the main
-   path's launches are counted from here): finite losses, the epoch's mean
-   train loss below the first step's, the checkpoint written; then steps,
-   ms/step, examples/s, launches per step and a ``torch.profiler`` table of
-   the top device ops with the device's idle share over 20 more steps;
-6. export the serving bundle from that checkpoint and serve it behind the
-   HTTP front end (``/healthz``, GET user, POST user, POST embedding); ids
-   must equal the host numpy search except where scores tie within 1e-5;
+5. train two epochs of ``configs/default.yaml`` on the card with the
+   retrieval eval after each (the main path's launches are counted from
+   here): finite losses, the last epoch's mean train loss below the first
+   step's; each epoch's val and test recall/ndcg@{5,10,20}, with recall@5 <=
+   recall@10 <= recall@20, and the eval's seconds (host clock); the best
+   val recall@10 above 20x chance (10 / items); the best checkpoint under
+   the template's name; then, outside the counts, the device ms of one val
+   user batch, the hit matrices of the first two val batches with the
+   kernels and with their plain versions (equal bit for bit), and 256 users'
+   masked ids against a host numpy masked search (equal but where scores tie
+   within 1e-5); then steps, ms/step, examples/s, launches per step and a
+   ``torch.profiler`` table of the top device ops with the device's idle
+   share over 20 more steps;
+6. export the serving bundle from the best checkpoint at the score dtype
+   the trainer's precision gate chose, and serve it behind the HTTP front
+   end (``/healthz``, GET user, POST user, POST embedding); ids must equal
+   the host numpy search except where scores tie within 1e-5 (within 2^-6
+   for a bf16 index: bf16 operands and slab move each score by up to ~2^-8,
+   so near items may swap);
 7. corpus scale: a 2M x 128 index of seeded random rows searched through
    ``auto``, ``group_exact`` and ``fused`` at B=1024, k=20; fused ids must
-   equal the plain-version fused ids (ties within 1e-5 aside);
-8. the launch counts of phases 5-7 (every kernel must have run).
+   equal the plain-version fused ids (ties within 1e-5 aside); then one
+   masked bf16 search (M = 32 blocked ids per query, half of them each
+   query's own top ids), which ``auto`` must route to ``fused`` and whose
+   ids must equal the plain-version masked fused ids and hold no blocked id;
+8. the launch counts of phases 5-7 (every kernel must have run), leaving
+   out the launches made to compare or time a kernel against its plain
+   version there.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -55,6 +74,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -69,6 +89,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 BATCH, K = 1024, 20
 TIE_TOL = 1e-5
+BF16_TIE_TOL = 2.0 ** -6  # a bf16-scored index against the float32 numpy search
+EVAL_USERS = 4096  # evaluation.user_batch_size of configs/default.yaml
 KERNEL_RTOL, KERNEL_ATOL = 1e-6, 1e-5
 M2_TOL = 2e-5  # relative to the largest entry of each category (fwd) / of dx (bwd)
 STEP_ATOL = 1e-5  # parameters after one step, kernels vs plain (lr / 100)
@@ -82,6 +104,9 @@ BF16_FLOPS = 989e12
 
 KERNEL_INFO = {
     "small_k_topk": ("ttamm_torch/csrc/small_k_topk.cu", "ttamm_tpu/ops/pallas/topk.py:239"),
+    "select_topk_from_groups": (
+        "ttamm_torch/csrc/select_topk.cu", "ttamm_tpu/ops/pallas/topk.py:140",
+    ),
     "groupmax_matmul": ("ttamm_torch/csrc/groupmax_matmul.cu", "ttamm_tpu/ops/pallas/fused_mips.py:91"),
     "rescore_groups": ("ttamm_torch/csrc/rescore_groups.cu", "ttamm_tpu/ops/pallas/fused_mips.py:176"),
     "gather_rows": ("ttamm_torch/csrc/rows.cu", "ttamm_tpu/ops/pallas/rows.py:109"),
@@ -113,6 +138,20 @@ class Phase:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+@contextlib.contextmanager
+def uncounted(excluded: collections.Counter):
+    """Add the launches made inside (a kernel compared or timed against its
+    plain version) to ``excluded``, which phase 8 takes off the counts."""
+    from ttamm_torch.ops import kernels
+
+    before = kernels.launch_counts()
+    try:
+        yield
+    finally:
+        after = kernels.launch_counts()
+        excluded.update({k: after[k] - before[k] for k in after})
 
 
 def _device_us(events) -> float:
@@ -315,6 +354,50 @@ def _topk_rows(width: int, seed: int, dev):
     return x.to(dev)
 
 
+def _select_kernel(dev) -> dict[str, dict]:
+    """select_topk_from_groups at the val eval's shape: the slab of one
+    group_exact query block of a 4096-user batch over the canonical
+    corpus's 99,880 items, KG = k = 21 (metrics up to k = 20, plus the one
+    held-out item per user). Rows rounded to quarters (ties), 32 finfo.min
+    blocked columns per row, the ragged tail group selected in every other
+    row; the group ids are each row's top 21 groups by maximum."""
+    import torch
+
+    from ttamm_torch.ops import kernels, topk
+
+    n, k, g = 99_880, 21, kernels.GROUP
+    ng = -(-n // g)
+    qb = min(EVAL_USERS, topk.SCORES_BYTES_BUDGET // (ng * g * 4))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    s = torch.randn((qb, ng * g), generator=gen, device=dev)
+    s[::3] = torch.round(s[::3] * 4) / 4
+    blocked = torch.randint(0, n, (qb, 32), generator=gen, device=dev)
+    s.scatter_(1, blocked, torch.finfo(torch.float32).min)
+    s[:, n:] = 0.0  # pad columns, as the score matmul writes them
+    gmax = s.view(qb, ng, g).amax(dim=-1)
+    gmax[:, -1] = s[:, (ng - 1) * g : n].amax(dim=-1)
+    _, gi = kernels.small_k_topk_cuda(gmax, k)
+    even = gi[::2]
+    even[:, -1] = torch.where((even == ng - 1).any(dim=1), even[:, -1], ng - 1)
+    kv, ki = kernels.select_topk_from_groups_cuda(s, gi, k=k, num_items=n)
+    pv, pi = kernels.select_topk_from_groups_plain(s, gi, k=k, num_items=n)
+    torch.cuda.synchronize()
+    same = torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ki, pi)
+    check(same, f"select_topk_from_groups [{qb}, {ng * g}] k={k}: kernel != plain")
+    sg, gl = s.view(qb, ng, g), gi.long()[:, :, None].expand(-1, -1, g)
+    return {"select_topk_from_groups": _row(
+        shape=f"[{qb}, {ng * g}] f32 slab, KG = k = {k}",
+        max_abs_err=float(torch.where(kv == pv, 0.0, (kv - pv).abs()).max()),
+        ms=device_ms(lambda: kernels.select_topk_from_groups_cuda(s, gi, k=k, num_items=n)),
+        plain_ms=device_ms(
+            lambda: kernels.select_topk_from_groups_plain(s, gi, k=k, num_items=n), iters=5
+        ),
+        # time only: torch.topk's tie order differs
+        library_ms=device_ms(lambda: torch.topk(torch.gather(sg, 1, gl).view(qb, -1), k)),
+        nbytes=qb * k * g * 4 + gi.numel() * 4 + qb * k * 8,
+    )}
+
+
 def _search_kernels(dev) -> dict[str, dict]:
     import torch
 
@@ -493,7 +576,8 @@ def plain_kernels():
     """Route the kernel wrappers to their plain versions (on the card too)."""
     from ttamm_torch.ops import kernels
 
-    names = ("gather_rows", "scatter_set_rows", "segment_second_moments",
+    names = ("small_k_topk", "select_topk_from_groups", "groupmax_matmul", "rescore_groups",
+             "gather_rows", "scatter_set_rows", "segment_second_moments",
              "segment_second_moments_bwd")
     saved = {n: getattr(kernels, n) for n in names}
     for n in names:
@@ -510,8 +594,10 @@ def _config(data_dir: Path, work: Path) -> dict:
 
     config = yaml.safe_load((REPO / "configs" / "default.yaml").read_text())
     config["data"]["root"] = str(data_dir)
-    config["training"]["num_epochs"] = 1
+    config["training"]["num_epochs"] = 2
     config["training"]["checkpointing"]["dir"] = str(work / "checkpoints")
+    config["evaluation"]["faiss"]["index_path"] = str(work / "faiss" / "items.index")
+    config["evaluation"]["faiss"]["embedding_path"] = str(work / "faiss" / "item_embeddings.npy")
     return config
 
 
@@ -707,23 +793,88 @@ def _profile_steps(dev, config: dict, dataset, result) -> dict:
     return per_step
 
 
-def phase_train(dev, config: dict, dataset) -> dict:
+def phase_train(dev, config: dict, dataset, excluded: collections.Counter):
     import math as _math
 
     from ttamm_torch.pipelines.training import run_single_experiment
+    from ttamm_torch.train.checkpoint import checkpoint_filename
 
     start = time.perf_counter()
     result = run_single_experiment(config, device=dev, dataset=dataset)
     log(f"train: {time.perf_counter() - start:.2f} s for {result.steps} steps of "
         f"{config['training']['batch_size']} | {result.train_seconds / result.steps * 1e3:.3f} ms/step "
         f"| {result.examples_per_second:.1f} examples/s | first step loss {result.first_step_loss:.5f} "
-        f"| epoch train loss {result.train_loss} | val loss {result.val_loss}")
-    check(all(_math.isfinite(v) for v in [result.first_step_loss, *result.train_loss, *result.val_loss]),
-          "non-finite loss")
+        f"| epoch train loss {result.train_loss} | val loss {result.val_loss} "
+        f"| test loss {result.test_loss}")
+    losses = [result.first_step_loss, *result.train_loss, *result.val_loss, *result.test_loss]
+    check(all(_math.isfinite(v) for v in losses), "non-finite loss")
+    check(len(result.train_loss) == 2, f"{len(result.train_loss)} epochs trained, not 2")
     check(result.train_loss[-1] < result.first_step_loss, "the epoch's mean loss is not below the first step's")
-    check(result.checkpoint_path is not None and result.checkpoint_path.is_file(), "no checkpoint written")
-    log(f"checkpoint: {result.checkpoint_path.name} ({result.checkpoint_path.stat().st_size / 1e6:.1f} MB)")
+    for epoch, (val, test, secs) in enumerate(
+        zip(result.val_metrics, result.test_metrics, result.phase_seconds), start=1
+    ):
+        for split, m in (("val", val), ("test", test)):
+            log(f"epoch {epoch} {split}: " + " | ".join(
+                f"recall@{k} {m.recall[k]:.5f} ndcg@{k} {m.ndcg[k]:.5f}" for k in (5, 10, 20)
+            ))
+            check(m.recall[5] <= m.recall[10] <= m.recall[20], f"epoch {epoch} {split}: recall not monotone in k")
+        log(f"epoch {epoch} seconds (host clock): " + " ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    best = result.best_val_metrics
+    chance = 10 / result.num_items
+    log(f"best epoch {result.best_epoch}: val recall@10 {best.recall[10]:.5f} = "
+        f"{best.recall[10] / chance:.1f}x chance ({chance:.3e}) | serving score dtype "
+        f"{result.serving_score_dtype}")
+    check(best.recall[10] > 20 * chance, "val recall@10 not above 20x chance")
+    ckpt = config["training"]["checkpointing"]
+    want = checkpoint_filename(
+        ckpt["filename_template"], experiment_name=config["experiment"]["name"],
+        metric_name=config["training"]["early_stopping"]["metric"],
+        metric_value=best.recall[10], epoch=result.best_epoch,
+    )
+    check(result.best_checkpoint_path is not None and result.best_checkpoint_path.name == want
+          and result.best_checkpoint_path.is_file(), f"best checkpoint {result.best_checkpoint_path} != {want}")
+    check(result.checkpoint_path is not None and result.checkpoint_path.is_file(), "no last checkpoint written")
+    log(f"checkpoints: best {result.best_checkpoint_path.name}, last {result.checkpoint_path.name} "
+        f"({result.checkpoint_path.stat().st_size / 1e6:.1f} MB)")
+    with uncounted(excluded):
+        _eval_checks(result)
     return result
+
+
+def _eval_checks(result) -> None:
+    """On the trained (best) state: one val user batch's device time, the
+    first two val batches' hit matrices with the kernels and with their
+    plain versions, and 256 users' masked ids against a host numpy search."""
+    import numpy as np
+    import torch
+
+    from ttamm_torch.evaluation import retrieval
+
+    model, data, plan = result.state.model, result.data, result.val_plan
+    items = retrieval._corpus(model, data, None)
+    wide = 0 if plan.wide is None else len(plan.wide.batches)
+    ms = device_ms(lambda: retrieval.batch_hits(model, data, items, plan, 0, max_k=20), iters=5, warmup=1)
+    log(f"val eval: {len(plan.batches)} batches of {plan.user_mat.shape[1]} users (+ {wide} wide-mask "
+        f"batches), deep_k {plan.deep_k}: {ms:.3f} ms of device work per user batch")
+    for b in range(min(2, len(plan.batches))):
+        got = retrieval.batch_hits(model, data, items, plan, b, max_k=20)
+        with plain_kernels():
+            want = retrieval.batch_hits(model, data, items, plan, b, max_k=20)
+        check(torch.equal(got, want), f"val batch {b}: kernel and plain-version hit matrices differ")
+    log(f"val batches 0-{min(2, len(plan.batches)) - 1}: kernel and plain-version hit matrices equal")
+
+    scores, idx = retrieval._search_plan_batch(model, data, items, plan, 0)
+    users = plan.user_mat[0, :256]
+    q = retrieval.encode_user_batch(model, data, users)
+    if model.cfg.similarity == "cosine":
+        q = torch.nn.functional.normalize(q, dim=-1)
+    host = q.cpu().numpy() @ items.cpu().numpy().T
+    for row, blocked in enumerate(plan.blocked_rows[users.long()].cpu().numpy()):
+        host[row, blocked[blocked < host.shape[1]]] = -np.inf
+    order = np.argsort(-host, axis=1, kind="stable")[:, : plan.deep_k]
+    check(ids_agree(idx[:256].cpu(), scores[:256].cpu(), order, np.take_along_axis(host, order, 1)),
+          "masked val search: ids differ from the host numpy search")
+    log(f"256 users' masked top-{plan.deep_k} ids agree with the host numpy search")
 
 
 def _http(port: int, path: str, payload=None):
@@ -760,12 +911,14 @@ def _search_table(index, queries) -> None:
         del idx
 
 
-def phase_serve(dev, work: Path, config: dict, dataset, checkpoint: Path) -> None:
+def phase_serve(dev, work: Path, config: dict, dataset, checkpoint: Path, score_dtype: str) -> None:
     import torch
 
     from ttamm_torch.pipelines.export import export_bundle
     from ttamm_torch.serve import RetrievalService, start_in_thread
 
+    config = dict(config, serving=dict(config["serving"], score_dtype=score_dtype))
+    tol = TIE_TOL if score_dtype == "float32" else BF16_TIE_TOL
     start = time.perf_counter()
     result = export_bundle(config, work / "bundle", device=dev, checkpoint=checkpoint, dataset=dataset)
     log(f"export from {checkpoint.name}: {time.perf_counter() - start:.2f} s | users "
@@ -798,7 +951,7 @@ def phase_serve(dev, work: Path, config: dict, dataset, checkpoint: Path) -> Non
             ref_s, ref_i = service.index.search(query, K, backend="numpy")
             ids = [item_pos[it["asin"]] for it in body["items"]]
             scores = [it["score"] for it in body["items"]]
-            check(ids_agree(ids, scores, ref_i[0], ref_s[0]), f"{label}: ids differ from the numpy search")
+            check(ids_agree(ids, scores, ref_i[0], ref_s[0], tol), f"{label}: ids differ from the numpy search")
             log(f"{label} {uid}: 200, {K} items, ids agree with the numpy search")
     finally:
         srv.shutdown()
@@ -809,7 +962,7 @@ def phase_serve(dev, work: Path, config: dict, dataset, checkpoint: Path) -> Non
     queries = service.user_embeddings[:BATCH]
     got_s, got_i = service.index.search(queries, K)
     ref_s, ref_i = service.index.search(queries, K, backend="numpy")
-    check(ids_agree(got_i, got_s, ref_i, ref_s), "batched search: ids differ from the numpy search")
+    check(ids_agree(got_i, got_s, ref_i, ref_s, tol), "batched search: ids differ from the numpy search")
     log("batched FlatIndex.search: ids agree with the numpy search")
     _search_table(service.index, queries)
     del service
@@ -838,8 +991,31 @@ def phase_corpus_scale(dev) -> None:
     check(ids_agree(fused_i, fused_s, plain_i.cpu().numpy(), plain_s.cpu().numpy()),
           "fused kernels' ids differ from the plain-version fused ids")
     log("fused ids agree with the plain-version fused ids")
+
+    # A masked bf16 search: 32 blocked ids per query, half of them the
+    # query's own top ids. auto must take fused (M <= 32, >= 500k items).
+    from ttamm_torch.ops import kernels
+
+    mask = np.random.default_rng(32).integers(0, CORPUS_ROWS, (BATCH, 32)).astype(np.int32)
+    mask[:, :16] = fused_i[:, :16]
+    mask_t = torch.from_numpy(mask).to(dev)
+    before = kernels.launch_counts()["groupmax_matmul"]
+    got_s, got_i = topk.mips_topk(
+        torch.from_numpy(unit).to(dev), index.corpus, k=K, num_valid_rows=len(index),
+        mask_rows=mask_t, score_dtype="bfloat16",
+    )
+    check(kernels.launch_counts()["groupmax_matmul"] == before + 1,
+          "auto did not route the masked bf16 search to fused")
+    plain_s, plain_i = topk._fused_groupmax_topk(
+        q, index.corpus, K, len(index), mask_rows=mask_t, plain=True
+    )
+    got_i, got_s = got_i.cpu().numpy(), got_s.cpu().numpy()
+    check(ids_agree(got_i, got_s, plain_i.cpu().numpy(), plain_s.cpu().numpy()),
+          "masked fused ids differ from the plain-version masked fused ids")
+    check(not (got_i[:, :, None] == mask[:, None, :]).any(), "a blocked id came back")
+    log("masked bf16 fused (auto, M = 32): ids agree with the plain version, no blocked id returned")
     _search_table(index, queries)
-    del index, q
+    del index, q, mask_t
     torch.cuda.empty_cache()
 
 
@@ -866,6 +1042,7 @@ def main() -> int:
                 smi = phase_build(dev)
             with Phase("2 kernels vs plain versions"):
                 kernel_rows = _search_kernels(dev)
+                kernel_rows.update(_select_kernel(dev))
                 kernel_rows.update(_training_kernels(dev, 199_449, 99_880, 2048, 5, 64))
                 for name, row in kernel_rows.items():
                     _log_row(name, row)
@@ -876,17 +1053,19 @@ def main() -> int:
                 kernel_rows.update(phase_step_vs_plain(dev, config, dataset))
                 torch.cuda.empty_cache()
             kernels.reset_launch_counts()  # the main path's launches start here
-            with Phase("5 train one epoch at the canonical scale"):
-                result = phase_train(dev, config, dataset)
+            excluded = collections.Counter()
+            with Phase("5 train two epochs with the eval at the canonical scale"):
+                result = phase_train(dev, config, dataset, excluded)
                 per_step = _profile_steps(dev, config, dataset, result)
                 torch.cuda.empty_cache()
-            with Phase("6 export from the checkpoint and serve"):
-                phase_serve(dev, work, config, dataset, result.checkpoint_path)
+            with Phase("6 export from the best checkpoint and serve"):
+                phase_serve(dev, work, config, dataset, result.best_checkpoint_path,
+                            result.serving_score_dtype)
             with Phase("7 corpus scale"):
                 phase_corpus_scale(dev)
             with Phase("8 launch counts"):
-                counts = kernels.launch_counts()
-                log(f"launch counts (phases 5-7): {counts}")
+                counts = {k: v - excluded[k] for k, v in kernels.launch_counts().items()}
+                log(f"launch counts (phases 5-7): {counts} | left out (comparisons): {dict(excluded)}")
                 for name, n in counts.items():
                     check(n > 0, f"{name} never launched on the main path")
                 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "ttamm_tpu")))

@@ -6,8 +6,8 @@ imports jax, which the port does not need):
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
-Tolerances: small_k_topk, gather_rows and scatter_set_rows are
-bit-identical; groupmax_matmul and rescore_groups multiply bf16-rounded
+Tolerances: small_k_topk, select_topk_from_groups, gather_rows and
+scatter_set_rows are bit-identical; groupmax_matmul and rescore_groups multiply bf16-rounded
 operands exactly and differ from the plain f32 matmul only in the order of
 the f32 sums (rtol 1e-6, atol 1e-5 at O(1) scores); segment_second_moments
 forward and backward likewise, summing up to N products: 2e-5 of the
@@ -55,6 +55,49 @@ def test_small_k_topk_kernel_bit_identical(cuda, width, k):
     assert torch.equal(ki, pi)
 
 
+def _select_case(b, num_items, kg, seed, device):
+    """A slab with a ragged tail, finfo.min blocked columns and rows rounded
+    to quarters (ties); each row's group ids distinct, the tail group among
+    them in every other row."""
+    gen = torch.Generator().manual_seed(seed)
+    ng = -(-num_items // 128)
+    s = torch.randn((b, ng * 128), generator=gen)
+    s[::3] = torch.round(s[::3] * 4) / 4
+    blocked = torch.randint(0, num_items, (b, 32), generator=gen)
+    s.scatter_(1, blocked, torch.finfo(torch.float32).min)
+    s[:, num_items:] = 0.0
+    gi = torch.stack([torch.randperm(ng, generator=gen)[:kg] for _ in range(b)])
+    force = (torch.arange(b) % 2 == 0) & ~(gi == ng - 1).any(dim=1)
+    gi[force, -1] = ng - 1
+    return s.to(device), gi.to(device, torch.int32)
+
+
+@pytest.mark.parametrize(
+    "b,num_items,k,kg",
+    [(2685, 99880, 21, 21), (64, 1000, 20, 20), (5, 129, 5, 2), (33, 4096, 32, 32), (17, 777, 1, 7)],
+)
+def test_select_topk_kernel_bit_identical(cuda, b, num_items, k, kg):
+    s, gi = _select_case(b, num_items, kg, b + kg, cuda)
+    kv, ki = kernels.select_topk_from_groups_cuda(s, gi, k=k, num_items=num_items)
+    pv, pi = kernels.select_topk_from_groups_plain(s, gi, k=k, num_items=num_items)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+    assert torch.equal(ki, pi)
+
+
+def test_select_topk_kernel_domain(cuda):
+    s = torch.zeros((4, 40 * 128), device=cuda)
+    gi = torch.arange(33, dtype=torch.int32, device=cuda).repeat(4, 1)
+    two = gi[:, :2].contiguous()
+    with pytest.raises(ValueError, match="33 groups"):
+        kernels.select_topk_from_groups_cuda(s, gi, k=3, num_items=5000)
+    with pytest.raises(ValueError, match="groups of 128"):
+        kernels.select_topk_from_groups_cuda(s, two, k=3, num_items=5000, group=64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.select_topk_from_groups_cuda(
+            s.view(-1)[1 : 1 + 4 * 39 * 128].view(4, 39 * 128), two, k=3, num_items=4000
+        )
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_groupmax_kernel_matches_plain(cuda, dtype):
     gen = torch.Generator().manual_seed(1)
@@ -90,7 +133,10 @@ def test_mips_topk_on_the_card_counts_launches(cuda, algorithm, score_dtype):
     kernels.reset_launch_counts()
     gs, gi = mips_topk(q.to(cuda), items.to(cuda), k=20, algorithm=algorithm, score_dtype=score_dtype)
     counts = kernels.launch_counts()
-    assert counts["small_k_topk"] == 2
+    # float32 group_exact at k <= 32: the group top-k, then the select kernel
+    select = (algorithm, score_dtype) == ("group_exact", "float32")
+    assert counts["small_k_topk"] == 2 - select
+    assert counts["select_topk_from_groups"] == select
     assert counts["groupmax_matmul"] == counts["rescore_groups"] == int(algorithm == "fused")
     ws, wi = mips_topk(q, items, k=20, algorithm=algorithm, score_dtype=score_dtype)
     # A bf16 slab rounds each f32 sum to bf16: another summation order on
@@ -100,6 +146,23 @@ def test_mips_topk_on_the_card_counts_launches(cuda, algorithm, score_dtype):
     # ids may differ only where the scores tie within the tolerance
     differ = gi.cpu() != wi
     assert torch.all((gs.cpu() - ws).abs()[differ] <= tol)
+
+
+@pytest.mark.parametrize("k", [21, 40])
+def test_masked_float32_search_on_the_card_matches_the_cpu(cuda, k):
+    """The eval's search: float32 group_exact with each query's blocked ids
+    (the select kernel at k <= 32, the gather route beyond)."""
+    gen = torch.Generator().manual_seed(k)
+    q = torch.nn.functional.normalize(torch.randn((300, 64), generator=gen), dim=1)
+    items = torch.nn.functional.normalize(torch.randn((5000, 64), generator=gen), dim=1)
+    mask = torch.randint(0, 5100, (300, 40), generator=gen, dtype=torch.int32)
+    mask[:, :8] = torch.topk(q @ items.T, 8).indices  # blocked ids that bite
+    gs, gi = mips_topk(q.to(cuda), items.to(cuda), k=k, mask_rows=mask.to(cuda))
+    ws, wi = mips_topk(q, items, k=k, mask_rows=mask)
+    torch.testing.assert_close(gs.cpu(), ws, rtol=0, atol=1e-5)
+    differ = gi.cpu() != wi
+    assert torch.all((gs.cpu() - ws).abs()[differ] <= 1e-5)
+    assert not (gi.cpu()[:, :, None] == mask[:, None, :].long()).any()
 
 
 @pytest.mark.parametrize("n", [1, 33, 12288])

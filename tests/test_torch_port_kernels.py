@@ -105,6 +105,9 @@ def test_plain_versions_do_not_count_launches():
     kernels.reset_launch_counts()
     x = torch.randn(4, 300)
     kernels.small_k_topk(x, 3)
+    kernels.select_topk_from_groups(
+        torch.randn(4, 384), torch.zeros(4, 2, dtype=torch.int32), k=3, num_items=300
+    )
     kernels.groupmax_matmul(torch.randn(4, 16), torch.randn(300, 16), 300)
     kernels.rescore_groups(
         torch.randn(4, 16), torch.randn(3, 128, 16), torch.zeros(4, 2, dtype=torch.int32)
@@ -117,8 +120,9 @@ def test_plain_versions_do_not_count_launches():
     kernels.segment_second_moments_bwd(ids, x, torch.randn(3, 8, 8))
     counts = kernels.launch_counts()
     assert set(counts) == {
-        "small_k_topk", "groupmax_matmul", "rescore_groups", "gather_rows",
-        "scatter_set_rows", "segment_second_moments", "segment_second_moments_bwd",
+        "small_k_topk", "select_topk_from_groups", "groupmax_matmul", "rescore_groups",
+        "gather_rows", "scatter_set_rows", "segment_second_moments",
+        "segment_second_moments_bwd",
     }
     assert all(n == 0 for n in counts.values())
 
@@ -127,6 +131,9 @@ def test_plain_versions_do_not_count_launches():
     "call",
     [
         lambda: kernels.small_k_topk_cuda(torch.randn(4, 300), 3),
+        lambda: kernels.select_topk_from_groups_cuda(
+            torch.randn(4, 384), torch.zeros(4, 2, dtype=torch.int32), k=3, num_items=300
+        ),
         lambda: kernels.groupmax_matmul_cuda(torch.randn(4, 16), torch.randn(300, 16), 300),
         lambda: kernels.rescore_groups_cuda(
             torch.randn(4, 16), torch.randn(3, 128, 16),
@@ -144,7 +151,7 @@ def test_plain_versions_do_not_count_launches():
         ),
     ],
     ids=[
-        "small_k_topk", "groupmax_matmul", "rescore_groups", "gather_rows",
+        "small_k_topk", "select_topk_from_groups", "groupmax_matmul", "rescore_groups", "gather_rows",
         "scatter_set_rows", "segment_second_moments", "segment_second_moments_bwd",
     ],
 )

@@ -62,6 +62,13 @@ def _config(root: Path) -> dict:
             "early_stopping": {"enabled": True},
             "checkpointing": {"enabled": True, "dir": str(root / "ckpt")},
         },
+        "evaluation": {
+            "metrics_k": [5, 10],
+            "faiss": {
+                "index_path": str(root / "faiss" / "items.index"),
+                "embedding_path": str(root / "faiss" / "item_embeddings.npy"),
+            },
+        },
         "logging": {"level": "WARNING"},
     }
 
@@ -88,6 +95,11 @@ def test_trainer_cli_trains_and_checkpoints(trained):
     assert all(np.isfinite(values))
     assert summary["train_loss"][-1] < summary["first_step_loss"]
     assert Path(summary["checkpoint"]) == root / "ckpt" / "tiny_last.pt"
+    # no monitored metric: the val loss picks the best epoch
+    assert summary["best_epoch"] == 1 + int(np.argmin(summary["val_loss"]))
+    assert Path(summary["best_checkpoint"]).is_file()
+    assert set(summary["best_val_recall"]) == {"5", "10"}
+    assert (root / "faiss" / "items.index").is_file() and summary["serving_score_dtype"]
     with np.load(summary["checkpoint"]) as blob:
         assert int(blob["step"]) == summary["steps"]
         assert blob["tables/user_id"].shape[0] == summary["users"] + 1  # + scratch row
@@ -125,7 +137,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     modules = [
         m.name for m in pkgutil.walk_packages(ttamm_torch.__path__, "ttamm_torch.")
     ]
-    assert "ttamm_torch.train.__main__" in modules and "ttamm_torch.ops.kernels" in modules
+    assert {
+        "ttamm_torch.train.__main__", "ttamm_torch.ops.kernels",
+        "ttamm_torch.evaluation.metrics", "ttamm_torch.evaluation.retrieval",
+    } <= set(modules)
     script = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

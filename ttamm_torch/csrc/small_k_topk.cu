@@ -17,46 +17,20 @@
 // in (key descending, index ascending) order. That is the same sequence the
 // TPU's mask-and-repeat produces, so ties go to the lowest index.
 //
-// Keys are the monotone int32 image of the f32 bits (u < 0 ? u ^ 0x7FFFFFFF
-// : u), the TPU kernel's `_f32_keys`: the values returned are the input bits,
-// so -inf, finfo(f32).min and -3e38 come back bit for bit. NaN is not a
-// supported input (its keys interleave with the reals), as on the TPU.
+// Keys are the monotone int32 image of the f32 bits (topk_keys.cuh): the
+// values returned are the input bits, so -inf, finfo(f32).min and -3e38 come
+// back bit for bit. NaN is not a supported input, as on the TPU.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "topk_keys.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSmemMaxWidth = 48 * 1024;  // 192 KiB of int32 keys
-
-__device__ __forceinline__ int32_t f32_key(float x) {
-  const int32_t u = __float_as_int(x);
-  return u < 0 ? (u ^ 0x7FFFFFFF) : u;
-}
-
-__device__ __forceinline__ float key_f32(int32_t k) {
-  return __int_as_float(k < 0 ? (k ^ 0x7FFFFFFF) : k);
-}
-
-// True when (ka, ia) ranks before (kb, ib): larger key first, then lower index.
-__device__ __forceinline__ bool ranks_before(int32_t ka, int32_t ia,
-                                             int32_t kb, int32_t ib) {
-  return ka > kb || (ka == kb && ia < ib);
-}
-
-__device__ __forceinline__ void warp_best(int32_t& key, int32_t& idx) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int32_t ok = __shfl_xor_sync(0xffffffffu, key, off);
-    const int32_t oi = __shfl_xor_sync(0xffffffffu, idx, off);
-    if (ranks_before(ok, oi, key, idx)) {
-      key = ok;
-      idx = oi;
-    }
-  }
-}
 
 template <bool kSmem>
 __global__ void __launch_bounds__(kThreads)

@@ -1,13 +1,15 @@
 """The port's hand-written CUDA kernels, their plain PyTorch versions and
 their launch counts.
 
-One kernel per TPU kernel on the serving and training paths (sources and
+One kernel per TPU kernel on the serving, training and eval paths (sources and
 design notes in ``ttamm_torch/csrc/``):
 
 ==================================  ==========================================
 port (CUDA, ``sm_90a``)             TPU kernel it replaces
 ==================================  ==========================================
 ``small_k_topk``                    ``ttamm_tpu/ops/pallas/topk.py`` small_k_topk
+``select_topk_from_groups``         ``ttamm_tpu/ops/pallas/topk.py``
+                                    select_topk_from_groups
 ``groupmax_matmul``                 ``ttamm_tpu/ops/pallas/fused_mips.py`` groupmax_matmul
 ``rescore_groups``                  ``ttamm_tpu/ops/pallas/fused_mips.py`` rescore_groups
 ``gather_rows``                     ``ttamm_tpu/ops/pallas/rows.py`` gather_rows
@@ -71,6 +73,7 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _launches = {
     "small_k_topk": 0,
+    "select_topk_from_groups": 0,
     "groupmax_matmul": 0,
     "rescore_groups": 0,
     "gather_rows": 0,
@@ -120,11 +123,12 @@ def find_nvcc() -> str | None:
 
 
 def build_library(build_dir: Path | None = None) -> Path:
-    """Compile ``csrc/*.cu`` into one shared library (cached by content)."""
+    """Compile ``csrc/*.cu`` into one shared library (cached by content,
+    headers included)."""
     build_dir = build_dir or _BUILD_DIR
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(_CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib_path = build_dir / f"libttamm_kernels_{digest.hexdigest()[:16]}.so"
@@ -160,6 +164,8 @@ def load_library() -> ctypes.CDLL:
             lib.ttamm_error_string.restype = ctypes.c_char_p
             lib.ttamm_small_k_topk.argtypes = [p, p, p, i32, i32, i32, p]
             lib.ttamm_small_k_topk.restype = i32
+            lib.ttamm_select_topk_from_groups.argtypes = [p, p, p, p, i32, i64, i32, i32, i64, p]
+            lib.ttamm_select_topk_from_groups.restype = i32
             lib.ttamm_groupmax_matmul.argtypes = [p, p, p, i32, i64, i64, i32, i32, p]
             lib.ttamm_groupmax_matmul.restype = i32
             lib.ttamm_rescore_groups.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, p]
@@ -259,6 +265,97 @@ def small_k_topk_cuda(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
             x.data_ptr(), vals.data_ptr(), idx.data_ptr(), batch, width, k,
         )
     return vals, idx
+
+
+# ---------------------------------------------------------------------------
+# select_topk_from_groups
+# ---------------------------------------------------------------------------
+
+MAX_SELECT_GROUPS = 32  # the widest group selection the kernel takes
+
+
+def select_topk_from_groups(
+    scores: torch.Tensor, group_ids: torch.Tensor, *, k: int, num_items: int,
+    group: int = GROUP,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k among each row's selected groups of a float32 score slab.
+
+    ``scores`` f32 ``[B, NG * group]`` holds item ``n`` at column ``n``;
+    ``group_ids`` int32 ``[B, KG]`` names each row's selected groups
+    (distinct within a row). Returns ``(values f32 [B, k], item ids int32
+    [B, k])``: bit-identical to gathering the KG group rows and taking a
+    stable descending top-k, so ties go to the lower candidate position
+    (group rank, then lane). Pad lanes (``id >= num_items``), and every lane
+    of a group id outside ``[0, NG)``, score ``finfo(f32).min``; other
+    columns are taken as they stand (blocked columns already hold
+    ``finfo(f32).min``). Domain: ``0 < KG <= 32``, ``0 < k <= KG * group``.
+    """
+    if scores.device.type == "cpu":
+        return select_topk_from_groups_plain(
+            scores, group_ids, k=k, num_items=num_items, group=group
+        )
+    return select_topk_from_groups_cuda(
+        scores, group_ids, k=k, num_items=num_items, group=group
+    )
+
+
+def _check_select(scores: torch.Tensor, group_ids: torch.Tensor, k: int, group: int) -> None:
+    if scores.dtype != torch.float32 or scores.dim() != 2 or scores.shape[1] % group:
+        raise ValueError(
+            f"select_topk_from_groups expects a 2-D float32 slab of whole {group}-item "
+            f"groups, got {scores.dtype} {tuple(scores.shape)}"
+        )
+    if group_ids.dtype != torch.int32 or group_ids.dim() != 2 or group_ids.shape[0] != scores.shape[0]:
+        raise ValueError(
+            f"select_topk_from_groups: group_ids must be int32 [{scores.shape[0]}, KG], "
+            f"got {group_ids.dtype} {tuple(group_ids.shape)}"
+        )
+    kg = group_ids.shape[1]
+    if not 0 < kg <= MAX_SELECT_GROUPS:
+        raise ValueError(f"select_topk_from_groups: {kg} groups (1..{MAX_SELECT_GROUPS})")
+    if not 0 < k <= kg * group:
+        raise ValueError(f"select_topk_from_groups: k={k} unsupported for {kg} groups of {group}")
+
+
+def select_topk_from_groups_plain(
+    scores: torch.Tensor, group_ids: torch.Tensor, *, k: int, num_items: int,
+    group: int = GROUP,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.gather`` of the groups' rows, then ``small_k_topk_plain``."""
+    _check_select(scores, group_ids, k, group)
+    batch, ng = scores.shape[0], scores.shape[1] // group
+    gi = group_ids.long()
+    in_range = (gi >= 0) & (gi < ng)
+    cand = torch.gather(
+        scores.view(batch, ng, group), 1,
+        torch.where(in_range, gi, 0)[:, :, None].expand(-1, -1, group),
+    )
+    ids = gi[:, :, None] * group + torch.arange(group, device=gi.device)
+    cand = cand.masked_fill((ids >= num_items) | ~in_range[:, :, None], torch.finfo(torch.float32).min)
+    vals, pos = small_k_topk_plain(cand.reshape(batch, -1), k)
+    return vals, torch.gather(ids.reshape(batch, -1), 1, pos.long()).to(torch.int32)
+
+
+def select_topk_from_groups_cuda(
+    scores: torch.Tensor, group_ids: torch.Tensor, *, k: int, num_items: int,
+    group: int = GROUP,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    dev = _check_cuda("select_topk_from_groups", scores, group_ids)
+    _check_select(scores, group_ids, k, group)
+    if group != GROUP:
+        raise ValueError(f"select_topk_from_groups: the kernel takes groups of {GROUP}, not {group}")
+    if scores.data_ptr() % 16:
+        raise ValueError("select_topk_from_groups: the slab must be 16-byte aligned")
+    batch, width = scores.shape
+    vals = torch.empty((batch, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((batch, k), dtype=torch.int32, device=dev)
+    if batch:
+        _launch(
+            "select_topk_from_groups", dev,
+            scores.data_ptr(), group_ids.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+            batch, width, group_ids.shape[1], k, num_items,
+        )
+    return vals, ids
 
 
 # ---------------------------------------------------------------------------

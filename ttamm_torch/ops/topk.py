@@ -7,18 +7,30 @@ Two algorithms, both exact with respect to the scores they compute:
   (``torch.matmul``), per-128-item group maxima, the top-k groups by maximum
   (which provably hold the top-k items), then the final top-k over those
   groups' scores. Float32 scoring is full float32 (TF32 is off, see
-  ``ttamm_torch.device``); bfloat16 scoring keeps the slab in bf16.
+  ``ttamm_torch.device``); bfloat16 scoring keeps the slab in bf16. For a
+  float32 slab with ``k <= 32`` the selection and the final top-k are one
+  kernel, ``select_topk_from_groups``; otherwise the groups' rows are
+  gathered and go through ``small_k_topk``.
 - ``fused``: no slab. ``groupmax_matmul`` writes only the group maxima,
   ``rescore_groups`` re-scores the selected groups, and the final top-k
   runs over those candidates. Both kernels round their operands to bf16
   and sum in f32, in either score mode (the TPU kernels' semantics).
 
-Every per-row top-k goes through the ``small_k_topk`` kernel.
+The group top-k goes through the ``small_k_topk`` kernel.
+
+``mask_rows`` (int32 ``[B, M]``, padded with ids >= N) excludes items per
+query, as the retrieval eval excludes each user's train positives:
+``group_exact`` writes ``finfo(slab dtype).min`` at the blocked columns of
+the slab before the group maxima; ``fused`` selects ``M`` more groups and
+masks blocked candidates after the rescore.
 
 Routing (``algorithm="auto"``): float32 searches take ``group_exact`` at
 every size up to the slab ceiling, because on the card it is full float32
 while the fused kernels round to bf16. bfloat16 searches take ``fused``
-from ``BF16_FUSED_MIN_ITEMS`` items, and ``group_exact`` below.
+from ``BF16_FUSED_MIN_ITEMS`` items and masks at most
+``FUSED_MASK_WIDTH_MAX`` wide, and ``group_exact`` otherwise. (So the JAX
+eval's switch of a float32 fused search to a bf16-stored corpus, a TPU
+bandwidth trick, has no counterpart: float32 never routes to ``fused``.)
 """
 
 from __future__ import annotations
@@ -43,6 +55,10 @@ SCORES_BYTES_CEILING = 2 << 30
 # 2M (6.5 vs 8.5 ms).
 BF16_FUSED_MIN_ITEMS = 500_000
 SAFETY_GROUPS = 4  # extra groups selected by the fused path
+# Widest per-query mask that auto routes to 'fused': each blocked id costs
+# one more rescored group per query there. Also the eval plan's bucket width
+# (ttamm_torch/evaluation/retrieval.py).
+FUSED_MASK_WIDTH_MAX = 32
 
 
 def _row_topk(
@@ -72,6 +88,7 @@ def mips_topk(
     *,
     k: int,
     num_valid_rows: int | None = None,
+    mask_rows: torch.Tensor | None = None,
     algorithm: str = "auto",
     score_dtype: str = "float32",
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -81,6 +98,10 @@ def mips_topk(
     (pre-normalised for cosine). ``num_valid_rows`` treats only the first
     rows as items (the rest is padding, never returned), so a corpus padded
     once to a multiple of 128 is searched without a per-call copy.
+    ``mask_rows``: optional int [B, M] item ids each query must not return
+    (padded with ids >= N; ids outside the corpus are ignored). A blocked
+    item scores the finite minimum of the slab dtype, so it comes back only
+    when fewer than k items are left; the eval drops such entries by score.
     ``algorithm``: 'auto' | 'group_exact' | 'fused' (see the module
     docstring). ``score_dtype``: 'float32' (exact, FAISS parity) or
     'bfloat16' (queries and items cast to bf16; normalise cosine queries
@@ -99,6 +120,14 @@ def mips_topk(
         raise ValueError(f"Unknown mips_topk score_dtype: {score_dtype}")
     if algorithm not in {"auto", "group_exact", "fused"}:
         raise ValueError(f"Unknown mips_topk algorithm: {algorithm}")
+    if mask_rows is not None and (
+        mask_rows.dim() != 2 or mask_rows.shape[0] != queries.shape[0]
+        or mask_rows.dtype not in (torch.int32, torch.int64)
+    ):
+        raise ValueError(
+            f"mask_rows must be int [{queries.shape[0]}, M], got "
+            f"{mask_rows.dtype} {tuple(mask_rows.shape)}"
+        )
     queries = queries.float()
     if score_dtype == "bfloat16":
         queries = queries.to(torch.bfloat16)
@@ -110,7 +139,8 @@ def mips_topk(
     fits = 64 * num_items * 4 <= SCORES_BYTES_CEILING
     if algorithm == "auto":
         if score_dtype == "bfloat16":
-            big = num_items >= BF16_FUSED_MIN_ITEMS or not fits
+            narrow = mask_rows is None or mask_rows.shape[1] <= FUSED_MASK_WIDTH_MAX
+            big = (num_items >= BF16_FUSED_MIN_ITEMS and narrow) or not fits
             algorithm = "fused" if big else "group_exact"
         elif fits:
             algorithm = "group_exact"
@@ -120,8 +150,25 @@ def mips_topk(
                 "ceiling; the chunked algorithm is not ported"
             )
     if algorithm == "fused":
-        return _fused_groupmax_topk(queries, item_embeddings, k_eff, num_items)
-    return _group_exact_topk(queries, item_embeddings, k_eff, num_items)
+        return _fused_groupmax_topk(
+            queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows
+        )
+    return _group_exact_topk(queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows)
+
+
+def topk_with_mask(
+    queries: torch.Tensor,
+    item_embeddings: torch.Tensor,
+    *,
+    k: int,
+    mask_rows: torch.Tensor,
+    normalize_queries: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked float32 search, queries L2-normalised first when asked (the
+    cosine mode; ``ttamm_tpu/ops/topk.py topk_with_mask``)."""
+    if normalize_queries:  # x / max(||x||, 1e-12), as the JAX package
+        queries = torch.nn.functional.normalize(queries.float(), dim=-1)
+    return mips_topk(queries, item_embeddings, k=k, mask_rows=mask_rows)
 
 
 def _fused_groupmax_topk(
@@ -130,17 +177,20 @@ def _fused_groupmax_topk(
     k_eff: int,
     num_items: int,
     *,
+    mask_rows: torch.Tensor | None = None,
     safety_groups: int = SAFETY_GROUPS,
     plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """No-slab exact top-k (``ttamm_tpu/ops/topk.py _fused_groupmax_topk``).
 
     Phase 1 writes per-group maxima only; phase 2 takes the top ``k_eff +
-    safety_groups`` groups (maxima and re-scores come from differently
+    M + safety_groups`` groups (maxima and re-scores come from differently
     ordered f32 sums and can disagree by ULPs — the safety groups keep the
-    pruning bound robust; the bound itself needs only ``k_eff``); phase 3
-    re-scores exactly those groups; phase 4 is the final top-k, with the
-    tail group's pad rows masked to ``NEG_INF``. ``plain`` runs the kernels'
+    pruning bound robust; the bound itself needs only ``k_eff + M``: at most
+    ``k_eff`` unblocked and ``M`` blocked items score at least the
+    ``k_eff``-th best unblocked one); phase 3 re-scores exactly those
+    groups; phase 4 is the final top-k, with the tail group's pad rows and
+    the blocked items masked to ``NEG_INF``. ``plain`` runs the kernels'
     plain versions (to check the kernels on the card).
     """
     batch, dim = queries.shape
@@ -151,14 +201,29 @@ def _fused_groupmax_topk(
     rescore = kernels.rescore_groups_plain if plain else kernels.rescore_groups
 
     gmax = groupmax(queries, items, num_items)  # [B, ng] f32
-    kg = min(k_eff + safety_groups, ng)
+    mask_extra = 0 if mask_rows is None else mask_rows.shape[1]
+    kg = min(k_eff + mask_extra + safety_groups, ng)
     _, gi = _row_topk(gmax, kg, plain=plain)
     cand = rescore(queries, items.view(ng, GROUP, dim), gi.to(torch.int32))
     lane = torch.arange(GROUP, device=gi.device)
     cand_ids = (gi[:, :, None] * GROUP + lane).reshape(batch, kg * GROUP)
-    cand = cand.masked_fill_(cand_ids >= num_items, NEG_INF)
+    invalid = cand_ids >= num_items
+    if mask_rows is not None:
+        invalid |= (cand_ids[:, :, None] == mask_rows[:, None, :]).any(dim=-1)
+    cand = cand.masked_fill_(invalid, NEG_INF)
     cv, ci = _row_topk(cand, k_eff, plain=plain)
     return cv, torch.gather(cand_ids, 1, ci)
+
+
+def _mask_scatter(scores: torch.Tensor, mask_rows: torch.Tensor) -> torch.Tensor:
+    """Write the finite minimum of the slab dtype at each row's blocked
+    columns, in place (``ttamm_tpu/ops/topk.py _mask_scatter``; ids outside
+    the slab are dropped). A min-scatter, so a dropped id can aim at column
+    0 with +inf and change nothing, with no host sync and no race."""
+    cols = mask_rows.long()
+    inside = (cols >= 0) & (cols < scores.shape[1])
+    src = torch.where(inside, torch.finfo(scores.dtype).min, torch.inf).to(scores.dtype)
+    return scores.scatter_reduce_(1, torch.where(inside, cols, 0), src, reduce="amin")
 
 
 def _group_exact_topk(
@@ -167,18 +232,22 @@ def _group_exact_topk(
     k_eff: int,
     num_items: int,
     *,
+    mask_rows: torch.Tensor | None = None,
     scores_bytes_budget: int = SCORES_BYTES_BUDGET,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Group-max-pruned exact top-k, blocked over queries
     (``ttamm_tpu/ops/topk.py _group_exact_topk``).
 
     Per query block: the [qb, NG*128] slab against the zero-padded corpus;
-    per-group maxima (the tail group's recomputed over its real columns, so
-    zero pad scores cannot inflate an all-negative tail); the top-k groups
-    by maximum — every top-k item's group has max >= s_k and at most k
-    groups do; their score rows by direct gather; pad candidates masked to
-    ``NEG_INF``; the final top-k. Exact with respect to the computed scores,
-    ties included.
+    the block's blocked columns set to ``finfo(slab dtype).min``; per-group
+    maxima (the tail group's recomputed over its real columns, so zero pad
+    scores cannot inflate an all-negative tail); the top-k groups by maximum
+    — every top-k item's group has max >= s_k and at most k groups do; then
+    the final top-k over those groups. A float32 slab with ``k_eff <= 32``
+    does both in ``select_topk_from_groups`` (the JAX gate); otherwise the
+    groups' rows are gathered, pad candidates masked to ``NEG_INF`` and
+    ``small_k_topk`` takes the top k. Exact with respect to the computed
+    scores, ties included.
     """
     batch = queries.shape[0]
     ng = -(-num_items // GROUP)
@@ -187,17 +256,27 @@ def _group_exact_topk(
     k_groups = min(k_eff, ng)
     tail = padded_n != num_items
     lane = torch.arange(GROUP, device=queries.device)
+    select = queries.dtype == torch.float32 and k_eff <= kernels.MAX_SELECT_GROUPS
 
     slab_bytes = padded_n * queries.element_size()
     qb = max(1, min(batch, scores_bytes_budget // slab_bytes))
     out_scores, out_idx = [], []
     for start in range(0, batch, qb):
         s = queries[start : start + qb] @ items_t  # [qb, padded_n], slab dtype
+        if mask_rows is not None:
+            _mask_scatter(s, mask_rows[start : start + qb])
         sg = s.view(s.shape[0], ng, GROUP)
         gmax = sg.amax(dim=-1)
         if tail:
             gmax[:, -1] = s[:, (ng - 1) * GROUP : num_items].amax(dim=-1)
         _, gi = _row_topk(gmax.float(), k_groups)
+        if select:
+            cv, ids = kernels.select_topk_from_groups(
+                s, gi.to(torch.int32), k=k_eff, num_items=num_items
+            )
+            out_scores.append(cv)
+            out_idx.append(ids.long())
+            continue
         cand = torch.gather(sg, 1, gi[:, :, None].expand(-1, -1, GROUP)).float()
         if tail:
             ids = gi[:, :, None] * GROUP + lane

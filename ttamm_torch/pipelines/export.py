@@ -32,7 +32,9 @@ from ..models.convert import from_jax_checkpoint
 from ..models.two_tower import TwoTower, parse_model_config
 from ..serve.flat_index import build_flat_index
 from ..train.step import encode_corpus
-from ..utils import load_config
+from ..utils import get_logger, load_config
+
+logger = get_logger("export")
 
 
 @dataclass
@@ -89,9 +91,12 @@ def export_bundle(
     checkpoint at ``checkpoint`` (the port's trainer and the JAX package
     write the same format) when given, otherwise a seeded init from
     ``experiment.seed``. The index scores in
-    ``serving.score_dtype``; 'auto' exports float32 (the JAX pipeline's bf16
-    recall gate needs an eval, which is not ported). ``dataset`` skips the
-    data prep when the caller already holds it.
+    ``serving.score_dtype``. 'auto' exports float32 and says so: the bf16
+    recall gate runs in the trainer, on its final val eval
+    (``TrainingResult.serving_score_dtype``, and the dtype in the header of
+    the index it writes), so a caller that wants the gate's choice passes
+    it here. ``dataset`` skips the data prep when the caller already holds
+    it.
     """
     dev = resolve_device(device)
     out_dir = Path(out_dir)
@@ -131,6 +136,10 @@ def export_bundle(
 
     score_dtype = str((config.get("serving") or {}).get("score_dtype", "auto"))
     if score_dtype == "auto":
+        logger.info(
+            "serving.score_dtype auto: the bf16 recall gate runs in the trainer; "
+            "exporting float32"
+        )
         score_dtype = "float32"
     index = build_flat_index(
         embeddings["item"],

@@ -1,26 +1,43 @@
-"""Training on the card: config -> data -> train loop -> checkpoints (port of
-``run_single_experiment`` in ``ttamm_tpu/pipelines/training.py``).
+"""Training on the card: config -> data -> train loop -> per-epoch eval ->
+checkpoints -> retrieval artifacts (port of ``run_single_experiment`` in
+``ttamm_tpu/pipelines/training.py``).
 
 The steps follow the JAX pipeline: data prep (the port's own copy) -> the
 train/validation/test split -> the padded per-user positives and the
-frequency-ordered item categories -> a seeded training state on the device.
-Then, each epoch: a permutation of the training interactions from
+frequency-ordered item categories -> a seeded training state on the device
+-> the val and test eval plans, built once from one packed train-positives
+matrix. Then, each epoch: a permutation of the training interactions from
 ``np.random.default_rng(seed * 1000003 + epoch)``, the full batches, then the
-remainder batch (drop_last=False). Step losses stay on the device until the
-epoch ends (no per-step host sync). Each epoch logs its train loss, its
-validation loss (the eval-loss step over the validation split) and its
-examples/s, then writes ``{experiment}_last.pt``.
+remainder batch (drop_last=False); step losses stay on the device until the
+epoch ends (no per-step host sync). After the steps: one encode of the item
+corpus, the val loss and the val retrieval eval (recall, precision, ndcg,
+hit rate and map at each ``evaluation.metrics_k``), the test loss and the
+test eval, the improvement bookkeeping of ``training.early_stopping`` (or
+of the val loss when no metric is monitored), a copy of the best state, and
+the checkpoints by ``training.checkpointing``: the best one under
+``filename_template``, one per epoch unless ``save_best_only``, and
+``{experiment}_last.pt``. Early stopping ends the loop; the best state is
+restored at the end. Last, ``serving.score_dtype: auto`` re-runs the final
+val eval in bf16 and takes bf16 only if no recall@k drops by more than
+``bf16_recall_gate``, and the item index (TTFLAT1) and embeddings are
+written to ``evaluation.faiss.index_path`` / ``embedding_path``.
 
-Not ported yet (ROADMAP Queue 1): the retrieval eval and its metrics, early
-stopping and best-only checkpoints (the run logs this once and trains for
-``num_epochs``), reports, the in-batch softmax and its options, sparse mimic
-tables, ``comm_dtype``, ``packed_moments``, bf16 feature storage and the
-mesh; each raises when a config asks for it. The TPU knobs
-``steps_per_call`` and ``use_pallas`` are not read.
+With ``evaluation.faiss.enabled: false`` the eval takes the sampled path
+(``candidate_samples`` random candidates per user). Checkpoints are written
+synchronously, so ``checkpointing.async_save`` and ``sharded`` are not read;
+``evaluation.faiss.batch_size`` (the chunk of the JAX package's ``chunked``
+search, which is not ported) has no effect.
+
+Not ported yet (ROADMAP Queue 1): reports, recommendation samples and the
+diagnostics, the in-batch softmax and its options, sparse mimic tables,
+``comm_dtype``, ``packed_moments``, bf16 feature storage and the mesh; each
+option raises when a config asks for it. The TPU knobs ``steps_per_call``
+and ``use_pallas`` are not read.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -34,18 +51,81 @@ from ..data import (
     build_item_categories,
     interaction_arrays,
     pack_positives,
+    positives_from_frame,
     split_train_validation_test,
 )
 from ..device import resolve_device
+from ..evaluation import (
+    EvalPlan,
+    RankingMetrics,
+    build_eval_plan,
+    compute_ranking_metrics,
+    evaluate_retrieval,
+    evaluate_retrieval_metrics,
+)
+from ..models.convert import train_state_to_flat
 from ..models.two_tower import parse_model_config
+from ..serve.flat_index import build_flat_index
 from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.optim import parse_dense_opt_config
 from ..train.state import BatchData, TrainState, create_train_state
-from ..train.step import TrainStepConfig, make_eval_loss_step, make_train_step
+from ..train.step import TrainStepConfig, encode_corpus, make_eval_loss_step, make_train_step
 from ..utils import configure_logging, get_logger
 from .export import prepare_data
 
 logger = get_logger("pipeline")
+
+
+@dataclass
+class EarlyStoppingController:
+    """max/min monitored-metric controller (ref ``training.py:85-116``)."""
+
+    metric: str
+    mode: str = "max"
+    patience: int = 3
+    min_delta: float = 0.0
+    best_value: float | None = None
+    best_epoch: int | None = None
+    epochs_without_improvement: int = 0
+
+    def update(self, value: float | None, epoch: int) -> bool:
+        """Record ``value`` for ``epoch``; True when training should stop."""
+        if value is None:
+            return False
+        if self.best_value is None:
+            improved = True
+        elif self.mode == "max":
+            improved = value > (self.best_value + self.min_delta)
+        else:
+            improved = value < (self.best_value - self.min_delta)
+        if improved:
+            self.best_value = value
+            self.best_epoch = epoch
+            self.epochs_without_improvement = 0
+            return False
+        self.epochs_without_improvement += 1
+        return self.epochs_without_improvement >= max(self.patience, 1)
+
+
+def extract_metric_value(metrics_summary: Any, metric: str) -> float | None:
+    """Parse ``recall@10``-style monitor names (ref ``training.py:119-138``)."""
+    if metrics_summary is None:
+        return None
+    metric = metric.lower()
+    if "@" in metric:
+        prefix, k_str = metric.split("@", 1)
+        try:
+            k = int(k_str)
+        except ValueError:
+            return None
+        table = getattr(metrics_summary, prefix, None)
+        if table is None:
+            return None
+        return table.get(k)
+    value = getattr(metrics_summary, metric, None)
+    if isinstance(value, (int, float)):
+        return float(value)
+    return None
 
 
 @dataclass
@@ -55,14 +135,26 @@ class TrainingResult:
     steps: int
     train_loss: list[float] = field(default_factory=list)  # per epoch
     val_loss: list[float] = field(default_factory=list)  # per epoch
+    test_loss: list[float] = field(default_factory=list)  # per epoch
+    # per epoch; None where the split is empty
+    val_metrics: list[RankingMetrics | None] = field(default_factory=list)
+    test_metrics: list[RankingMetrics | None] = field(default_factory=list)
+    # per epoch, host-clock seconds by phase: train, val_loss (the corpus
+    # encode included), val_eval, test_loss, test_eval, ckpt
+    phase_seconds: list[dict[str, float]] = field(default_factory=list)
     first_step_loss: float | None = None
     examples_per_second: float | None = None  # over every epoch's train loop
     train_seconds: float = 0.0
-    checkpoint_path: Path | None = None
-    # what the run trained with, for callers that go on using it
+    checkpoint_path: Path | None = None  # the last one ({experiment}_last.pt)
+    best_epoch: int | None = None
+    best_checkpoint_path: Path | None = None
+    best_val_metrics: RankingMetrics | None = None
+    serving_score_dtype: str | None = None  # of the written index; None: not written
+    # what the run trained with (the best state), for callers that go on using it
     state: TrainState | None = None
     data: BatchData | None = None
     step_config: TrainStepConfig | None = None
+    val_plan: EvalPlan | None = None
 
 
 def _sync(device: torch.device) -> None:
@@ -107,6 +199,19 @@ def _dataset_loss(
     return float(np.dot(values, sizes) / sum(sizes))
 
 
+def _serving_dtype_request(config: Mapping[str, Any]) -> tuple[str, float]:
+    """``serving.score_dtype`` (auto | float32 | bfloat16, with the fp32 /
+    bf16 aliases) and ``serving.bf16_recall_gate``."""
+    serving = dict(config.get("serving", {}) or {})
+    requested = str(serving.get("score_dtype", "auto")).lower()
+    requested = {"fp32": "float32", "bf16": "bfloat16"}.get(requested, requested)
+    if requested not in {"auto", "float32", "bfloat16"}:
+        raise ValueError(
+            f"Unsupported serving.score_dtype: {requested!r} (expected auto, float32, or bfloat16)"
+        )
+    return requested, float(serving.get("bf16_recall_gate", 0.002))
+
+
 def run_single_experiment(
     config: Mapping[str, Any],
     *,
@@ -115,8 +220,9 @@ def run_single_experiment(
     dataset: TrainingDataset | None = None,
 ) -> TrainingResult:
     """Train ``config`` on ``device`` (``None``: the CUDA card) for
-    ``training.num_epochs`` epochs, or until ``max_steps`` steps in all.
-    ``dataset`` skips the data prep when the caller already holds it."""
+    ``training.num_epochs`` epochs, or until early stopping or ``max_steps``
+    steps in all, evaluating after every epoch. ``dataset`` skips the data
+    prep when the caller already holds it."""
     config = dict(config)
     configure_logging(str((config.get("logging") or {}).get("level", "INFO")))
     _refuse_unported(config)
@@ -127,23 +233,52 @@ def run_single_experiment(
     training_cfg = dict(config.get("training", {}))
     if data_cfg.get("use_cache"):
         logger.warning("data.use_cache: the port has no dataset cache; preparing the data")
-    logger.info(
-        "The retrieval eval, early stopping and best-only checkpoints are not "
-        "ported yet: training runs every epoch and keeps the last checkpoint."
-    )
+
+    eval_cfg = dict(config.get("evaluation", {}))
+    metrics_k = eval_cfg.get("metrics_k", [10])
+    metrics_k = [int(metrics_k)] if isinstance(metrics_k, int) else [int(k) for k in metrics_k]
+    candidate_samples = int(eval_cfg.get("candidate_samples", 500))
+    mips_cfg = dict(eval_cfg.get("mips", eval_cfg.get("faiss", {})) or {})
+    mips_enabled = bool(mips_cfg.get("enabled", True))
+    index_path = Path(mips_cfg.get("index_path", "artifacts/faiss/items.index"))
+    embedding_path = Path(mips_cfg.get("embedding_path", "artifacts/faiss/item_embeddings.npy"))
+    eval_user_batch = int(eval_cfg.get("user_batch_size", 1024))
+    requested_dtype, gate_eps = _serving_dtype_request(config)
+
+    monitor_cfg = dict(training_cfg.get("early_stopping", {}))
+    monitor_metric = monitor_cfg.get("metric") if monitor_cfg.get("enabled", False) else None
+    min_delta = float(monitor_cfg.get("min_delta", 0.0))
+    early = None
+    if monitor_metric:
+        mode = str(monitor_cfg.get("mode", "max")).lower()
+        if mode not in {"max", "min"}:
+            raise ValueError("early_stopping.mode must be either 'max' or 'min'")
+        early = EarlyStoppingController(
+            metric=str(monitor_metric), mode=mode,
+            patience=int(monitor_cfg.get("patience", 3)), min_delta=min_delta,
+        )
+
+    checkpoint_cfg = dict(training_cfg.get("checkpointing", {}))
+    checkpoint_enabled = bool(checkpoint_cfg.get("enabled", False))
+    checkpoint_dir = Path(checkpoint_cfg.get("dir", "artifacts/checkpoints"))
+    checkpoint_template = str(checkpoint_cfg.get(
+        "filename_template", "{experiment}_{metric}_{value:.4f}_epoch{epoch}.pt"
+    ))
+    save_best_only = bool(checkpoint_cfg.get("save_best_only", True))
+    keep_last = bool(checkpoint_cfg.get("keep_last", True))
 
     dataset = dataset if dataset is not None else prepare_data(config)
     num_users = len(dataset.user_mapping)
     num_items = len(dataset.item_mapping)
-    train_df, val_df, _ = split_train_validation_test(
+    train_df, val_df, test_df = split_train_validation_test(
         dataset.interactions,
         train_fraction=data_cfg.get("train_fraction"),
         test_fraction=data_cfg.get("test_fraction"),
         seed=seed,
     )
     logger.info(
-        "Dataset | users=%d items=%d train=%d validation=%d",
-        num_users, num_items, len(train_df), len(val_df),
+        "Dataset | users=%d items=%d train=%d validation=%d test=%d",
+        num_users, num_items, len(train_df), len(val_df), len(test_df),
     )
     result = TrainingResult(num_users=num_users, num_items=num_items, steps=0)
     if train_df.empty:
@@ -203,21 +338,54 @@ def run_single_experiment(
     train_step = make_train_step(model_cfg, tscfg)
     eval_step = make_eval_loss_step(model_cfg, tscfg)
 
-    checkpoint_cfg = dict(training_cfg.get("checkpointing", {}))
-    checkpoint_dir = Path(checkpoint_cfg.get("dir", "artifacts/checkpoints"))
     start_epoch = 1
     if training_cfg.get("resume_from"):
         state, meta = load_checkpoint(Path(training_cfg["resume_from"]), state)
         start_epoch = int(meta.get("epoch", 0)) + 1
         logger.info("Resumed from %s at epoch %d", training_cfg["resume_from"], start_epoch)
 
+    # The eval plans, built once from one packed train-positives matrix.
+    train_positive_map = positives_from_frame(train_df)
+    val_plan = test_plan = None
+    if mips_enabled and (not val_df.empty or not test_df.empty):
+        blocked = torch.from_numpy(
+            pack_positives(train_positive_map, num_users=num_users, num_items=num_items).rows
+        ).to(dev)
+        val_plan, test_plan = (
+            build_eval_plan(
+                frame, train_positive_map, num_users=num_users, num_items=num_items,
+                k_values=metrics_k, user_batch_size=eval_user_batch, blocked_rows=blocked,
+            )
+            for frame in (val_df, test_df)
+        )
+
+    def split_arrays(frame):
+        if frame.empty:
+            return np.empty(0, np.int32), np.empty(0, np.int32)
+        return interaction_arrays(frame)
+
     train_users, train_items = interaction_arrays(train_df)
-    val_users, val_items = (
-        interaction_arrays(val_df) if not val_df.empty
-        else (np.empty(0, np.int32), np.empty(0, np.int32))
-    )
+    val_users, val_items = split_arrays(val_df)
+    test_users, test_items = split_arrays(test_df)
+
+    def retrieval_metrics(plan, frame, item_embeddings, rng_seed: int) -> RankingMetrics:
+        if plan is not None:
+            return evaluate_retrieval_metrics(
+                state.model, data, plan=plan, k_values=metrics_k, item_embeddings=item_embeddings,
+            )
+        predictions, ground_truth = evaluate_retrieval(
+            state.model, data, val_interactions=frame, train_positive_map=train_positive_map,
+            num_items=num_items, k_values=metrics_k, use_mips=mips_enabled,
+            candidate_samples=candidate_samples, rng=np.random.default_rng(rng_seed),
+            user_batch_size=eval_user_batch, item_embeddings=item_embeddings,
+        )
+        return compute_ranking_metrics(predictions, ground_truth, metrics_k, include_per_user=False)
+
     generator = torch.Generator(device=dev).manual_seed(seed)
     examples = 0
+    best_metric_value: float | None = None
+    best_state: TrainState | None = None
+    last_val_metrics = None
     for epoch in range(start_epoch, num_epochs + 1):
         if max_steps is not None and result.steps >= max_steps:
             break
@@ -244,21 +412,166 @@ def run_single_experiment(
         seen = int(sum(sizes))
         examples += seen
         result.train_seconds += epoch_seconds
-        result.train_loss.append(float(np.dot(values, sizes) / seen))
-        val_gen = torch.Generator(device=dev).manual_seed(seed * 1000003 + 7_000_003 + epoch)
-        result.val_loss.append(_dataset_loss(
-            eval_step, state, data, val_users, val_items, batch_size, val_gen, dev
-        ))
+        avg_loss = float(np.dot(values, sizes) / seen)
+        result.train_loss.append(avg_loss)
         logger.info(
-            "Epoch %03d/%03d | train_loss=%.4f | val_loss=%.4f | %d steps | %.1f examples/s",
-            epoch, num_epochs, result.train_loss[-1], result.val_loss[-1], len(sizes),
-            seen / max(epoch_seconds, 1e-9),
+            "Epoch %03d/%03d | train_loss=%.4f | %d steps | %.1f examples/s",
+            epoch, num_epochs, avg_loss, len(sizes), seen / max(epoch_seconds, 1e-9),
         )
-        if bool(checkpoint_cfg.get("enabled", False)) and bool(checkpoint_cfg.get("keep_last", True)):
-            result.checkpoint_path = save_checkpoint(
-                checkpoint_dir, state, experiment_name=experiment_name, epoch=epoch,
-                metric_name=None, metric_value=None, template="{experiment}_last.pt",
+
+        phase = {"train": epoch_seconds}
+        tick = time.perf_counter()
+
+        def lap(name: str) -> None:
+            nonlocal tick
+            _sync(dev)
+            now = time.perf_counter()
+            phase[name] = now - tick
+            tick = now
+
+        # One encode of the item corpus serves both evals.
+        item_embeddings = None
+        if len(val_users) or len(test_users):
+            item_embeddings = encode_corpus(state.model, "item", data.item_features)
+        val_loss_value = float("nan")
+        val_metrics = test_metrics = None
+        monitor_value: float | None = None
+        if len(val_users):
+            val_gen = torch.Generator(device=dev).manual_seed(seed * 1000003 + 7_000_003 + epoch)
+            val_loss_value = _dataset_loss(
+                eval_step, state, data, val_users, val_items, batch_size, val_gen, dev
             )
+            lap("val_loss")
+            val_metrics = retrieval_metrics(val_plan, val_df, item_embeddings, seed * 997 + epoch)
+            lap("val_eval")
+            last_val_metrics = val_metrics
+            for k in metrics_k:
+                logger.info(
+                    "Validation @%d | recall=%.4f precision=%.4f ndcg=%.4f hit_rate=%.4f map=%.4f",
+                    k, val_metrics.recall[k], val_metrics.precision[k], val_metrics.ndcg[k],
+                    val_metrics.hit_rate[k], val_metrics.map[k],
+                )
+            if monitor_metric:
+                monitor_value = extract_metric_value(val_metrics, str(monitor_metric))
+        result.val_loss.append(val_loss_value)
+        result.val_metrics.append(val_metrics)
+        test_loss_value = float("nan")
+        if len(test_users):
+            test_gen = torch.Generator(device=dev).manual_seed(seed * 1000003 + 9_000_001 + epoch)
+            test_loss_value = _dataset_loss(
+                eval_step, state, data, test_users, test_items, batch_size, test_gen, dev
+            )
+            lap("test_loss")
+            test_metrics = retrieval_metrics(test_plan, test_df, item_embeddings, seed * 199 + epoch)
+            lap("test_eval")
+        result.test_loss.append(test_loss_value)
+        result.test_metrics.append(test_metrics)
+        logger.info("Epoch %03d | val_loss=%.4f | test_loss=%.4f", epoch, val_loss_value, test_loss_value)
+
+        # Improvement bookkeeping (ref ``training.py:1589-1620``): the
+        # monitored metric, else the val loss (the train loss without one).
+        if early is not None and monitor_value is not None:
+            should_stop = early.update(monitor_value, epoch)
+            improved = early.best_epoch == epoch
+            if improved:
+                best_metric_value = early.best_value
+        else:
+            candidate = val_loss_value if not np.isnan(val_loss_value) else avg_loss
+            should_stop = False
+            improved = best_metric_value is None or candidate < best_metric_value - min_delta
+            if improved:
+                best_metric_value = float(candidate)
+        if improved:
+            result.best_epoch = epoch
+            best_state = copy.deepcopy(state)  # on the device
+            result.best_val_metrics = val_metrics or last_val_metrics
+
+        if checkpoint_enabled:
+            jobs: list[tuple[str, str, float, str]] = []  # role, metric, value, template
+            if improved:
+                value = monitor_value if monitor_value is not None else best_metric_value
+                jobs.append(("best", str(monitor_metric or "loss"), value, checkpoint_template))
+            if not save_best_only:
+                jobs.append(("epoch", "epoch", float(epoch), checkpoint_template))
+            if keep_last:
+                jobs.append(("last", "last", float(epoch), "{experiment}_last.pt"))
+            host = train_state_to_flat(state) if jobs else None  # one pull for every file
+            for role, metric_name, value, template in jobs:
+                path = save_checkpoint(
+                    checkpoint_dir, host, experiment_name=experiment_name, epoch=epoch,
+                    metric_name=metric_name, metric_value=value, template=template,
+                )
+                if role == "best":
+                    result.best_checkpoint_path = path
+                elif role == "last":
+                    result.checkpoint_path = path
+        lap("ckpt")
+        result.phase_seconds.append(phase)
+        logger.info("Epoch timing | %s", " ".join(f"{k}={v:.2f}s" for k, v in phase.items()))
+        if should_stop:
+            logger.info(
+                "Early stopping triggered after %d epochs without improvement.",
+                early.epochs_without_improvement,
+            )
+            break
+
+    if best_state is not None:
+        state = best_state
+    elif result.checkpoint_path is not None and result.best_checkpoint_path is None:
+        result.best_checkpoint_path = result.checkpoint_path
+    if result.best_val_metrics is None:
+        result.best_val_metrics = last_val_metrics
     result.examples_per_second = examples / max(result.train_seconds, 1e-9)
     result.state, result.data, result.step_config = state, data, tscfg
+    result.val_plan = val_plan
+
+    if mips_enabled:
+        _write_retrieval_artifacts(
+            result, metrics_k, requested_dtype, gate_eps, index_path, embedding_path,
+        )
     return result
+
+
+def _write_retrieval_artifacts(
+    result: TrainingResult,
+    metrics_k: list[int],
+    requested_dtype: str,
+    gate_eps: float,
+    index_path: Path,
+    embedding_path: Path,
+) -> None:
+    """The serving-precision gate, then the item index and embeddings of the
+    (best) state. bf16 serving ships under ``auto`` only when the final val
+    eval re-scored in bf16 loses at most ``gate_eps`` of any recall@k."""
+    model, data, val_plan = result.state.model, result.data, result.val_plan
+    item_embeddings = encode_corpus(model, "item", data.item_features)
+    dtype = "float32"
+    if requested_dtype != "auto":
+        dtype = requested_dtype
+    elif val_plan is None or result.best_val_metrics is None:
+        logger.info("Serving precision gate skipped (no validation eval plan); exporting float32.")
+    else:
+        bf16 = evaluate_retrieval_metrics(
+            model, data, plan=val_plan, k_values=metrics_k, item_embeddings=item_embeddings,
+            score_dtype="bfloat16",
+        )
+        deltas = {
+            k: result.best_val_metrics.recall.get(k, 0.0) - bf16.recall.get(k, 0.0)
+            for k in metrics_k
+        }
+        worst = max(deltas.values()) if deltas else 0.0
+        if worst <= gate_eps:
+            dtype = "bfloat16"
+        logger.info(
+            "Serving precision gate | bf16 recall deltas %s | worst %.5f vs gate %.5f -> %s",
+            {k: round(v, 5) for k, v in deltas.items()}, worst, gate_eps, dtype,
+        )
+    index = build_flat_index(
+        item_embeddings.cpu().numpy(), normalize=model.cfg.similarity == "cosine",
+        score_dtype=dtype, device="cpu",  # only written out here
+    )
+    index.save(index_path)
+    embedding_path.parent.mkdir(parents=True, exist_ok=True)
+    np.save(embedding_path, index.embeddings)
+    result.serving_score_dtype = dtype
+    logger.info("Saved retrieval artifacts to %s / %s", index_path, embedding_path)

@@ -4,8 +4,11 @@
         [--data-root DIR] [--max-steps N] [--device cuda|cpu]
 
 Runs on the CUDA card unless ``--device cpu`` asks for the CPU. Logs each
-epoch, writes ``{experiment}_last.pt`` under
-``training.checkpointing.dir`` and prints one JSON line of the results.
+epoch's losses and val metrics, writes the checkpoints under
+``training.checkpointing.dir`` and the item index and embeddings under
+``evaluation.faiss``, and prints one JSON line of the results: losses, the
+best epoch with its val recall and ndcg at each k, the best and the last
+checkpoint, and the serving score dtype.
 """
 
 from __future__ import annotations
@@ -30,16 +33,27 @@ def main(argv: list[str] | None = None) -> None:
     if args.data_root is not None:
         config.setdefault("data", {})["root"] = str(args.data_root)
     result = run_single_experiment(config, device=args.device, max_steps=args.max_steps)
+    best = result.best_val_metrics
     print(json.dumps({
         "users": result.num_users,
         "items": result.num_items,
         "steps": result.steps,
         "train_loss": result.train_loss,
         "val_loss": result.val_loss,
+        "test_loss": result.test_loss,
         "first_step_loss": result.first_step_loss,
         "examples_per_second": result.examples_per_second,
-        "checkpoint": None if result.checkpoint_path is None else str(result.checkpoint_path),
+        "best_epoch": result.best_epoch,
+        "best_val_recall": None if best is None else best.recall,
+        "best_val_ndcg": None if best is None else best.ndcg,
+        "best_checkpoint": _path(result.best_checkpoint_path),
+        "checkpoint": _path(result.checkpoint_path),
+        "serving_score_dtype": result.serving_score_dtype,
     }))
+
+
+def _path(path: Path | None) -> str | None:
+    return None if path is None else str(path)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
-from typing import Any
+from typing import Any, Mapping
 
 import numpy as np
 
@@ -42,7 +42,7 @@ def checkpoint_filename(
 
 def save_checkpoint(
     directory: Path | str,
-    state: TrainState,
+    state: TrainState | Mapping[str, np.ndarray],
     *,
     experiment_name: str,
     epoch: int,
@@ -50,15 +50,16 @@ def save_checkpoint(
     metric_value: float | None,
     template: str | None = None,
 ) -> Path:
-    """Write ``state`` (pulled to the host) to ``directory``; returns the
-    file's path."""
+    """Write ``state`` (pulled to the host), or its flat host arrays from
+    ``train_state_to_flat`` (so several files share one pull), to
+    ``directory``; returns the file's path."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     path = directory / checkpoint_filename(
         template, experiment_name=experiment_name, metric_name=metric_name,
         metric_value=metric_value, epoch=epoch,
     )
-    arrays = train_state_to_flat(state)
+    arrays = dict(state) if isinstance(state, Mapping) else train_state_to_flat(state)
     meta = {
         "epoch": epoch,
         "metric_name": metric_name,
