@@ -39,6 +39,21 @@ result line):
    lanes, every duplicate on the scratch row), bit-identical to their plain
    versions and timed with a cold L2 (a 256 MB fill before each call, its
    kernels left out), their bound counting each distinct row once;
+4b. the multi-device layer on one card: gather_rows_masked and
+   scatter_set_rows_masked at that step's item lanes, coalesced and
+   localized for each of 4 virtual model shards of the padded item table
+   (foreign lanes at the head and the tail) and for the owner routing's
+   buffer at 1x1 (a sentinel tail), bit-identical to their plain versions
+   (owned lanes of the gather, every row of the scatter) and timed with a
+   cold L2, the bound counting owned distinct rows; the shard loop (the
+   allgather routing's update applied to each shard's row slice) against
+   the single-device sparse_adam_update, bit-identical; then the sharded
+   training step on a 1x1 DeviceMesh over a one-rank NCCL group at
+   ``configs/default.yaml`` width, 3 steps under the allgather and 3 under
+   the owner routing (their launches are the masked kernels' path counts,
+   counted from zero just before them), each against the single-device
+   step with the same negatives and no dropout, within phase 4's
+   tolerances, and their device and host ms per step;
 5. train two epochs of ``configs/default.yaml`` on the card with the
    retrieval eval after each (the main path's launches are counted from
    here): finite losses, the last epoch's mean train loss below the first
@@ -64,9 +79,9 @@ result line):
    masked bf16 search (M = 32 blocked ids per query, half of them each
    query's own top ids), which ``auto`` must route to ``fused`` and whose
    ids must equal the plain-version masked fused ids and hold no blocked id;
-8. the launch counts of phases 5-7 (every kernel must have run), leaving
-   out the launches made to compare or time a kernel against its plain
-   version there.
+8. the launch counts of phases 5-7 and, for the masked row kernels, of
+   phase 4b's sharded steps (every kernel must have run), leaving out the
+   launches made to compare or time a kernel against its plain version.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -94,6 +109,9 @@ EVAL_USERS = 4096  # evaluation.user_batch_size of configs/default.yaml
 KERNEL_RTOL, KERNEL_ATOL = 1e-6, 1e-5
 M2_TOL = 2e-5  # relative to the largest entry of each category (fwd) / of dx (bwd)
 STEP_ATOL = 1e-5  # parameters after one step, kernels vs plain (lr / 100)
+STEP_SEED = 7  # the seeded state of the single steps (phases 4 and 4b)
+VIRTUAL_SHARDS = 4  # model shards of the masked kernels' layouts (phase 4b)
+MESH_STEPS = 3  # sharded steps per routing (phase 4b)
 CORPUS_ROWS, CORPUS_DIM = 2_000_000, 128
 PROFILE_STEPS = 20
 L2_FLUSH_BYTES = 256 << 20  # five times the 50 MB L2 of an H100
@@ -114,7 +132,10 @@ KERNEL_INFO = {
     "segment_second_moments": (
         "ttamm_torch/csrc/category_stats.cu", "ttamm_tpu/ops/pallas/category_stats.py:83",
     ),
+    "gather_rows_masked": ("ttamm_torch/csrc/rows.cu", "ttamm_tpu/ops/pallas/rows.py:133"),
+    "scatter_set_rows_masked": ("ttamm_torch/csrc/rows.cu", "ttamm_tpu/ops/pallas/rows.py:248"),
 }
+MESH_KERNELS = ("gather_rows_masked", "scatter_set_rows_masked")  # counted in phase 4b
 
 
 def log(msg: str) -> None:
@@ -617,7 +638,7 @@ def phase_corpus(work: Path):
     return config, dataset
 
 
-def phase_step_vs_plain(dev, config: dict, dataset) -> dict[str, dict]:
+def phase_step_vs_plain(dev, config: dict, dataset) -> tuple[dict[str, dict], dict]:
     import numpy as np
     import torch
 
@@ -666,7 +687,7 @@ def phase_step_vs_plain(dev, config: dict, dataset) -> dict[str, dict]:
     step = make_train_step(cfg, tscfg)
     results = []
     for plain in (False, True):
-        state = create_train_state(cfg, num_users=nu, num_items=ni, seed=7, device=dev)
+        state = create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED, device=dev)
         with plain_kernels() if plain else contextlib.nullcontext():
             state, metrics = step(state, data, u, p, generator=None, negatives=neg)
         torch.cuda.synchronize()
@@ -689,7 +710,9 @@ def phase_step_vs_plain(dev, config: dict, dataset) -> dict[str, dict]:
         d_err = float((a.detach() - bb.detach()).abs().max())
         check(d_err <= STEP_ATOL, f"{key}: max abs err {d_err:.3e}")
     log(f"one step, kernels vs plain on the card: losses {mk} | table rows max abs err {worst}")
-    return _row_kernels(sk.tables["item_id"], item_idx, ni)
+    context = dict(cfg=cfg, tscfg=tscfg, data=data, users=users, items=items, nu=nu, ni=ni, batch=b,
+                   item_idx=item_idx, state=sk)
+    return _row_kernels(sk.tables["item_id"], item_idx, ni), context
 
 
 def _row_kernels(table, lanes, scratch: int) -> dict[str, dict]:
@@ -737,6 +760,274 @@ def _row_kernels(table, lanes, scratch: int) -> dict[str, dict]:
     for name, row in rows.items():
         _log_row(name, row)
     return rows
+
+
+def _masked_row_kernels(table, lanes) -> dict[str, dict]:
+    """gather_rows_masked and scatter_set_rows_masked at one step's item
+    lanes, coalesced and localized as the sharded update gives them: for each
+    of VIRTUAL_SHARDS model shards of the padded item table (the allgather
+    routing: foreign lanes at the head and the tail), and the owner routing's
+    buffer at one data shard (capacity n, the distinct lanes then a sentinel
+    tail). Each bit-identical to its plain version (the owned lanes of the
+    gather, every row of the scatter). Timed with a cold L2: the four shards
+    in one call (their mean is the row), the owner layout on its own; the
+    bound moves every lane's index and each owned lane's row and owned
+    distinct row once. The library calls (index_select / index_copy_ over
+    the lanes clamped to 0) compute another function: time only."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.parallel.sharding import padded_rows
+    from ttamm_torch.parallel.sparse_update import _coalesce_sorted, _localize, owner_capacity
+
+    n, dim = lanes.numel(), table.shape[1]
+    rows_total = padded_rows(table.shape[0] - 1, VIRTUAL_SHARDS)
+    padded = torch.cat([table, table.new_zeros((rows_total - table.shape[0], dim))])
+    rps = rows_total // VIRTUAL_SHARDS
+    sorted_idx, _, is_head, _ = _coalesce_sorted(
+        lanes.long(), table.new_zeros((n, 1)), head_init=-2
+    )
+    shards = [
+        (padded[s * rps : (s + 1) * rps], _localize(sorted_idx, s * rps, rps))
+        for s in range(VIRTUAL_SHARDS)
+    ]
+    heads = sorted_idx[is_head].to(torch.int32)
+    owner = torch.full((owner_capacity(n, 1, 1, 2.0),), -1, dtype=torch.int32, device=table.device)
+    owner[: heads.numel()] = heads
+    layouts = {"shards": shards, "owner": [(table, owner)]}
+    cases = {}
+    for label, group in layouts.items():
+        nbytes = 0
+        for local, lane in group:
+            live = lane >= 0
+            owned, distinct = int(live.sum()), int(torch.unique(lane[live]).numel())
+            nbytes += lane.numel() * 4 + (owned + distinct) * dim * 4
+            got = kernels.gather_rows_cuda(local, lane, masked=True)
+            want = kernels.gather_rows_plain(local, lane, masked=True)
+            check(torch.equal(got[live], want[live]), f"gather_rows_masked ({label}): kernel != plain")
+            t_kernel, t_plain = local.clone(), local.clone()
+            src = got * 0.5  # lanes of one row carry identical bytes
+            kernels.scatter_set_rows_cuda(t_kernel, lane, src, masked=True)
+            kernels.scatter_set_rows_plain(t_plain, lane, src, masked=True)
+            check(torch.equal(t_kernel, t_plain), f"scatter_set_rows_masked ({label}): kernel != plain")
+            log(f"masked row kernels ({label}): {lane.numel()} lanes, {owned} owned, {distinct} "
+                "distinct rows: bit-identical")
+        cases[label] = (group, nbytes)
+
+    srcs = {id(lane): torch.zeros((lane.numel(), dim), device=table.device) for _, lane in shards + [(table, owner)]}
+    copies = {id(lane): local.clone() for local, lane in shards + [(table, owner)]}
+    rows: dict[str, dict] = {}
+    for name in ("gather_rows_masked", "scatter_set_rows_masked"):
+        if name == "gather_rows_masked":
+            kernel = lambda local, lane: kernels.gather_rows_cuda(local, lane, masked=True)  # noqa: E731
+            plain = lambda local, lane: kernels.gather_rows_plain(local, lane, masked=True)  # noqa: E731
+            library = lambda local, lane: torch.index_select(local, 0, lane.clamp_min(0))  # noqa: E731
+        else:
+            kernel = lambda local, lane: kernels.scatter_set_rows_cuda(  # noqa: E731
+                copies[id(lane)], lane, srcs[id(lane)], masked=True)
+            plain = lambda local, lane: kernels.scatter_set_rows_plain(  # noqa: E731
+                copies[id(lane)], lane, srcs[id(lane)], masked=True)
+            library = lambda local, lane: copies[id(lane)].index_copy_(  # noqa: E731
+                0, lane.clamp_min(0).long(), srcs[id(lane)])
+        group, nbytes = cases["shards"]
+        k = VIRTUAL_SHARDS
+        row = _row(
+            shape=f"[{rps}, {dim}] f32 shard of {VIRTUAL_SHARDS} at {n} step lanes (mean per shard)",
+            max_abs_err=0.0,
+            ms=device_ms_cold(lambda: [kernel(*c) for c in group]) / k,
+            plain_ms=device_ms_cold(lambda: [plain(*c) for c in group]) / k,
+            library_ms=device_ms_cold(lambda: [library(*c) for c in group]) / k,
+            nbytes=nbytes / k,
+        )
+        (o_group, o_bytes) = cases["owner"]
+        row["parts"] = {"owner_1x1": dict(
+            ms=device_ms_cold(lambda: [kernel(*c) for c in o_group]),
+            bound_ms=bound_ms(o_bytes)[0], lanes=int(owner.numel()), live=int(heads.numel()),
+        )}
+        _log_row(name, row)
+        log(f"  {name} owner layout at 1x1 ({heads.numel()} of {owner.numel()} lanes live): "
+            f"kernel {row['parts']['owner_1x1']['ms']:.4f} ms | bound "
+            f"{row['parts']['owner_1x1']['bound_ms']:.4f} ms")
+        rows[name] = row
+    return rows
+
+
+def _shard_loop(ctx, lanes) -> None:
+    """One sparse-Adam update of the item table applied shard by shard (the
+    allgather routing's body on each of VIRTUAL_SHARDS row slices of the
+    padded table) against the single-device ``sparse_adam_update``:
+    bit-identical table, m and v (the same coalesce order and per-row
+    arithmetic), the scratch row aside (the single-device update parks its
+    duplicate lanes there)."""
+    import torch
+
+    from ttamm_torch.ops.sparse_adam import SparseAdamState, sparse_adam_update
+    from ttamm_torch.parallel.sharding import padded_rows
+    from ttamm_torch.parallel.sparse_update import _apply, _coalesce_sorted, _localize
+
+    state, ni, opt = ctx["state"], ctx["ni"], ctx["tscfg"].opt
+    table, sparse = state.tables["item_id"], state.opt_sparse["item_id"]
+    n, dim = lanes.numel(), table.shape[1]
+    grads = torch.randn((n, dim), generator=torch.Generator(device=table.device).manual_seed(13),
+                        device=table.device) * 1e-2
+    hyper = dict(lr=opt.lr, b1=opt.b1, b2=opt.b2, eps=1e-8, weight_decay=0.0)
+    ref = SparseAdamState(m=sparse.m.clone(), v=sparse.v.clone(), step=sparse.step)
+    ref_table = table.clone()
+    sparse_adam_update(ref_table, ref, lanes, grads, **{k: hyper[k] for k in ("lr", "b1", "b2")})
+    rows_total = padded_rows(ni, VIRTUAL_SHARDS)
+    rps = rows_total // VIRTUAL_SHARDS
+
+    def pad(t):
+        return torch.cat([t, t.new_zeros((rows_total - t.shape[0], dim))])
+
+    tab, m, v = pad(table), pad(sparse.m), pad(sparse.v)
+    sorted_idx, g_coal, _, _ = _coalesce_sorted(lanes.long(), grads, head_init=-2)
+    for s in range(VIRTUAL_SHARDS):
+        rows = slice(s * rps, (s + 1) * rps)
+        local = SparseAdamState(m=m[rows], v=v[rows], step=sparse.step)
+        _apply(tab[rows], local, _localize(sorted_idx, s * rps, rps), g_coal, **hyper)
+    torch.cuda.synchronize()
+    for name, got, want in (("table", tab, ref_table), ("m", m, ref.m), ("v", v, ref.v)):
+        err = float((got[:ni] - want[:ni]).abs().max())
+        check(torch.equal(got[:ni], want[:ni]), f"shard loop {name}: max abs err {err:.3e}")
+        check(not bool(got[ni + 1 :].any()), f"shard loop {name}: a pad row was written")
+    log(f"shard loop: {VIRTUAL_SHARDS} shards of {rps} rows, {n} lanes: table, m and v "
+        "bit-identical to the single-device sparse_adam_update")
+
+
+def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
+    """The sharded step on a 1x1 DeviceMesh over a one-rank NCCL group at
+    ``configs/default.yaml`` width: MESH_STEPS steps from the seeded state
+    under the allgather and the owner routing (the launches of these six
+    steps are the path's counts), each against the single-device step on the
+    same batches and negatives, no dropout, within phase 4's tolerances;
+    then each step's device ms (profiler) and host ms (clock) beside the
+    single-device step's."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.ops.sampling import sample_negative_items
+    from ttamm_torch.parallel import MeshConfig, build_mesh, place_data, place_state
+    from ttamm_torch.parallel.sparse_update import OWNER_STATS
+    from ttamm_torch.parallel.step import make_sharded_train_step
+    from ttamm_torch.train import create_train_state, make_train_step
+
+    cfg, tscfg, data = ctx["cfg"], ctx["tscfg"], ctx["data"]
+    nu, ni, b = ctx["nu"], ctx["ni"], ctx["batch"]
+    users, items = ctx["users"], ctx["items"]
+    batches = []
+    for s in range(MESH_STEPS + 8):  # the compared steps, then the timed ones
+        u = torch.from_numpy(users[s * b : (s + 1) * b]).to(dev)
+        p = torch.from_numpy(items[s * b : (s + 1) * b]).to(dev)
+        neg = sample_negative_items(
+            data.positive_rows[u.long()], num_items=ni, num_negatives=tscfg.negatives_per_positive,
+            generator=torch.Generator(device=dev).manual_seed(100 + s),
+        )
+        batches.append((u, p, neg))
+
+    def fresh():
+        return create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED, device=dev)
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=300),
+        device_id=torch.device("cuda", torch.cuda.current_device()),
+    )
+    try:
+        mesh = build_mesh(MeshConfig(1, 1), "cuda")
+        mdata = place_data(mesh, data)
+        runs = {}
+        for routing in ("allgather", "owner"):
+            runs[routing] = (place_state(mesh, fresh()), make_sharded_train_step(
+                cfg, tscfg._replace(update_routing=routing), mesh))
+        kernels.reset_launch_counts()  # the path's launches: the sharded steps
+        losses = {r: [] for r in runs}
+        for routing, (state, step) in runs.items():
+            for u, p, neg in batches[:MESH_STEPS]:
+                _, metrics = step(state, mdata, u, p, generator=None, negatives=neg)
+                losses[routing].append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        ref_state, ref_step = fresh(), make_train_step(cfg, tscfg)
+        ref_losses = []
+        for u, p, neg in batches[:MESH_STEPS]:
+            _, metrics = ref_step(ref_state, data, u, p, generator=None, negatives=neg)
+            ref_losses.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        touched = {
+            "user_id": torch.cat([u for u, _, _ in batches[:MESH_STEPS]]).long(),
+            "item_id": torch.cat([torch.cat([p, neg.reshape(-1)]) for _, p, neg in
+                                  batches[:MESH_STEPS]]).long(),
+        }
+        for routing, (state, _) in runs.items():
+            worst = 0.0
+            for got, want in zip(losses[routing], ref_losses):
+                for name in want:
+                    check(abs(got[name] - want[name]) <= 1e-5 * max(abs(want[name]), 1e-3),
+                          f"1x1 {routing} {name}: {got[name]!r} vs one device {want[name]!r}")
+                    worst = max(worst, abs(got[name] - want[name]))
+            errs = {}
+            for name, idx in touched.items():
+                errs[name] = float((state.tables[name][idx] - ref_state.tables[name][idx]).abs().max())
+                check(errs[name] <= STEP_ATOL, f"1x1 {routing} {name} rows: max abs err {errs[name]:.3e}")
+                for mom in ("m", "v"):
+                    a = getattr(state.opt_sparse[name], mom)[idx]
+                    bb = getattr(ref_state.opt_sparse[name], mom)[idx]
+                    check(bool(((a - bb).abs() <= 1e-9 + 1e-4 * bb.abs()).all()),
+                          f"1x1 {routing} {name} {mom}: differ")
+            for (key, a), (_, bb) in zip(state.dense_targets(), ref_state.dense_targets()):
+                err = float((a.detach() - bb.detach()).abs().max())
+                check(err <= STEP_ATOL, f"1x1 {routing} {key}: max abs err {err:.3e}")
+                errs["dense"] = max(errs.get("dense", 0.0), err)
+            log(f"1x1 sharded step ({routing}) vs one device, {MESH_STEPS} steps: losses max abs "
+                f"diff {worst:.3e} | max abs err {errs}")
+
+        timing = {}
+        timed = {"one device": (ref_state, ref_step, data), **{
+            f"1x1 {r}": (st, stp, mdata) for r, (st, stp) in runs.items()}}
+        for label, (state, step, d) in timed.items():
+            it = iter(batches[MESH_STEPS:])
+
+            def one(state=state, step=step, d=d, it=it):
+                u, p, neg = next(it)
+                step(state, d, u, p, generator=None, negatives=neg)
+
+            dev_ms = device_ms(one, iters=4, warmup=1)
+            u, p, neg = batches[-1]
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(3):
+                step(state, d, u, p, generator=None, negatives=neg)
+            torch.cuda.synchronize()
+            timing[label] = {"device_ms": dev_ms, "host_ms": (time.perf_counter() - start) / 3 * 1e3}
+            log(f"step {label}: device {dev_ms:.3f} ms | host clock {timing[label]['host_ms']:.3f} ms")
+        log(f"owner routing: {OWNER_STATS['checks']} overflow checks (one host sync each), "
+            f"{OWNER_STATS['overflows']} overflows")
+        timing["owner_stats"] = dict(OWNER_STATS)
+    finally:
+        dist.destroy_process_group()
+    return counts, timing
+
+
+def phase_mesh(dev, ctx) -> tuple[dict[str, dict], dict[str, int], dict]:
+    """Phase 4b: the multi-device layer on one card."""
+    import torch
+
+    lanes = ctx["item_idx"].to(torch.int32)
+    rows = _masked_row_kernels(ctx["state"].tables["item_id"], lanes)
+    _shard_loop(ctx, lanes)
+    counts, timing = _mesh_step(dev, ctx)
+    for name in ("gather_rows_masked", "scatter_set_rows_masked", "segment_second_moments"):
+        check(counts[name] > 0, f"{name} never launched in the 1x1 sharded steps")
+    log(f"launch counts of the 1x1 sharded steps: {counts}")
+    return rows, counts, timing
 
 
 def _profile_steps(dev, config: dict, dataset, result) -> dict:
@@ -1050,7 +1341,12 @@ def main() -> int:
             with Phase("3 canonical corpus and data prep"):
                 config, dataset = phase_corpus(work)
             with Phase("4 one train step, kernels vs plain versions"):
-                kernel_rows.update(phase_step_vs_plain(dev, config, dataset))
+                rows, step_ctx = phase_step_vs_plain(dev, config, dataset)
+                kernel_rows.update(rows)
+            with Phase("4b the multi-device layer on one card"):
+                rows, mesh_counts, mesh_timing = phase_mesh(dev, step_ctx)
+                kernel_rows.update(rows)
+                del step_ctx
                 torch.cuda.empty_cache()
             kernels.reset_launch_counts()  # the main path's launches start here
             excluded = collections.Counter()
@@ -1066,8 +1362,9 @@ def main() -> int:
             with Phase("8 launch counts"):
                 counts = {k: v - excluded[k] for k, v in kernels.launch_counts().items()}
                 log(f"launch counts (phases 5-7): {counts} | left out (comparisons): {dict(excluded)}")
+                counts.update({k: mesh_counts[k] for k in MESH_KERNELS})
                 for name, n in counts.items():
-                    check(n > 0, f"{name} never launched on the main path")
+                    check(n > 0, f"{name} never launched on its path")
                 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "ttamm_tpu")))
                 check(not leaked, f"imported {leaked[:5]}")
     except Exception:
@@ -1096,6 +1393,7 @@ def main() -> int:
             for name, row in ((n, kernel_rows[n]) for n in KERNEL_INFO)
         ],
         "launches_per_train_step": per_step,
+        "mesh_1x1": {"launches": mesh_counts, "steps": 2 * MESH_STEPS, **mesh_timing},
     }
     log(json.dumps(summary))
     log(smi)

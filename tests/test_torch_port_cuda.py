@@ -336,3 +336,62 @@ def test_train_step_on_the_card_is_deterministic(cuda):
         assert torch.equal(a.detach(), bb.detach()), key
     for a, bb in zip(s1.opt_dense.m + s1.opt_dense.v, s2.opt_dense.m + s2.opt_dense.v):
         assert torch.equal(a, bb)
+
+
+@pytest.mark.parametrize("layout", ["head_and_tail", "tail", "all_masked", "duplicates"])
+def test_masked_row_kernels_bit_identical(cuda, layout):
+    """gather_rows_masked on the owned lanes and scatter_set_rows_masked on
+    every row equal their plain versions; masked lanes write nothing."""
+    gen = torch.Generator().manual_seed(11)
+    table = torch.randn((5000, 128), generator=gen).to(cuda)
+    idx = torch.sort(torch.randint(0, 5000, (4096,), generator=gen)).values.to(torch.int32)
+    if layout == "head_and_tail":
+        idx[:1000], idx[3000:] = -1, -1
+    elif layout == "tail":
+        idx[2500:] = -1
+    elif layout == "all_masked":
+        idx[:] = -1
+    else:
+        idx = (torch.arange(4096) // 4).to(torch.int32)
+    idx = idx.to(cuda)
+    live = idx >= 0
+    kernels.reset_launch_counts()
+    got = kernels.gather_rows_cuda(table, idx, masked=True)
+    want = kernels.gather_rows_plain(table, idx, masked=True)
+    assert torch.equal(got[live], want[live])
+    src = got * 0.5  # lanes of one row carry identical bytes
+    t_kernel, t_plain = table.clone(), table.clone()
+    kernels.scatter_set_rows_cuda(t_kernel, idx, src, masked=True)
+    kernels.scatter_set_rows_plain(t_plain, idx, src, masked=True)
+    torch.cuda.synchronize()
+    assert torch.equal(t_kernel, t_plain)
+    counts = kernels.launch_counts()
+    assert counts["gather_rows_masked"] == counts["scatter_set_rows_masked"] == 1
+
+
+def test_shard_local_update_on_the_card_matches_one_device(cuda):
+    """The allgather routing's update applied to 4 row slices equals the
+    single-device sparse_adam_update bit for bit (the scratch row aside)."""
+    from ttamm_torch.ops.sparse_adam import SparseAdamState
+    from ttamm_torch.parallel.sparse_update import _apply, _coalesce_sorted, _localize
+
+    gen = torch.Generator().manual_seed(5)
+    rows, shards = 4001, 4  # 4000 rows + the scratch row
+    table = torch.randn((rows, 128), generator=gen).to(cuda)
+    idx = torch.randint(0, rows - 1, (3072,), generator=gen).to(cuda)
+    grads = torch.randn((3072, 128), generator=gen).to(cuda)
+    ref = init_sparse_adam(table)
+    ref_table = table.clone()
+    sparse_adam_update(ref_table, ref, idx, grads, lr=1e-3)
+    rps = -(-(rows) // shards)
+    pad = lambda t: torch.cat([t, t.new_zeros((rps * shards - rows, 128))])  # noqa: E731
+    tab, m, v = pad(table), pad(torch.zeros_like(table)), pad(torch.zeros_like(table))
+    sorted_idx, g, _, _ = _coalesce_sorted(idx, grads, head_init=-2)
+    for s in range(shards):
+        sl = slice(s * rps, (s + 1) * rps)
+        _apply(tab[sl], SparseAdamState(m=m[sl], v=v[sl]), _localize(sorted_idx, s * rps, rps), g,
+               lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
+    torch.cuda.synchronize()
+    n = rows - 1
+    assert torch.equal(tab[:n], ref_table[:n])
+    assert torch.equal(m[:n], ref.m[:n]) and torch.equal(v[:n], ref.v[:n])

@@ -116,13 +116,15 @@ def test_plain_versions_do_not_count_launches():
     ids = torch.randint(0, 3, (40,), dtype=torch.int32)
     kernels.gather_rows(x, ids)
     kernels.scatter_set_rows(x, ids[:4], torch.randn(4, 8))
+    kernels.gather_rows(x, ids - 1, masked=True)
+    kernels.scatter_set_rows(x, ids[:4] - 1, torch.randn(4, 8), masked=True)
     kernels.segment_second_moments(ids, x, 3)
     kernels.segment_second_moments_bwd(ids, x, torch.randn(3, 8, 8))
     counts = kernels.launch_counts()
     assert set(counts) == {
         "small_k_topk", "select_topk_from_groups", "groupmax_matmul", "rescore_groups",
-        "gather_rows", "scatter_set_rows", "segment_second_moments",
-        "segment_second_moments_bwd",
+        "gather_rows", "gather_rows_masked", "scatter_set_rows", "scatter_set_rows_masked",
+        "segment_second_moments", "segment_second_moments_bwd",
     }
     assert all(n == 0 for n in counts.values())
 

@@ -214,7 +214,11 @@ def test_unported_options_raise():
         ("training", "comm_dtype", "bfloat16"),
         ("training", "packed_moments", True),
         ("data", "features_dtype", "bfloat16"),
-        ("mesh", "data_parallel", 2),
+        ("mesh", "tensor_parallel", True),
+        ("mesh", "embedding_exchange", "alltoall"),
     ):
         with pytest.raises(NotImplementedError, match="not ported"):
             run_single_experiment({section: {key: value}}, device="cpu")
+    # the mesh itself is ported: it needs its processes (torchrun)
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
+        run_single_experiment({"mesh": {"data_parallel": 2}}, device="cpu")

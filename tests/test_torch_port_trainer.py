@@ -140,6 +140,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {
         "ttamm_torch.train.__main__", "ttamm_torch.ops.kernels",
         "ttamm_torch.evaluation.metrics", "ttamm_torch.evaluation.retrieval",
+        "ttamm_torch.parallel.launch", "ttamm_torch.parallel.mesh",
+        "ttamm_torch.parallel.sharding", "ttamm_torch.parallel.embedding_lookup",
+        "ttamm_torch.parallel.sparse_update", "ttamm_torch.parallel.step",
+        "ttamm_torch.train.sharded_checkpoint",
     } <= set(modules)
     script = (
         "import importlib, sys\n"

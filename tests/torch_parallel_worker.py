@@ -1,0 +1,175 @@
+"""One rank of the port's CPU mesh (gloo) for the parallel parity tests.
+
+    python tests/torch_parallel_worker.py SPEC
+
+with torchrun's variables set (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``; tests/torch_ranks.py sets them).
+
+``SPEC`` is a JSON file: ``{"inputs": <npz>, "out": <dir>, "tasks": [...]}``.
+Each task runs collectively on every rank and rank 0 writes its arrays to
+``<out>/<task name>.npz``. The worker imports torch and the port only: no
+JAX, nothing of the test modules.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from ttamm_torch.models import parse_model_config  # noqa: E402
+from ttamm_torch.models.convert import train_state_from_flat  # noqa: E402
+from ttamm_torch.ops.sparse_adam import SparseAdamState  # noqa: E402
+from ttamm_torch.parallel import (  # noqa: E402
+    DATA_AXIS,
+    MODEL_AXIS,
+    MeshConfig,
+    build_mesh,
+    gather_state_flat,
+    pad_batch_data,
+    pad_state_rows,
+    padded_rows,
+    place_data,
+    place_state,
+)
+from ttamm_torch.parallel.mesh import all_gather_rows, axis_index  # noqa: E402
+from ttamm_torch.parallel.sparse_update import sharded_sparse_adam_update  # noqa: E402
+from ttamm_torch.parallel.step import make_sharded_topk, make_sharded_train_step  # noqa: E402
+from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state  # noqa: E402
+from ttamm_torch.train.optim import DenseOptConfig  # noqa: E402
+from ttamm_torch.train.sharded_checkpoint import (  # noqa: E402
+    load_sharded_checkpoint,
+    save_sharded_checkpoint,
+)
+
+TIMEOUT_SECONDS = 120
+
+
+def _mesh(task):
+    return build_mesh(MeshConfig(*task["mesh"]), "cpu")
+
+
+def _t(inputs, key):
+    return torch.from_numpy(np.array(inputs[key]))
+
+
+def _slice(mesh, t):
+    rows = t.shape[0] // mesh[MODEL_AXIS].size()
+    start = axis_index(mesh, MODEL_AXIS) * rows
+    return t[start : start + rows].clone()
+
+
+def sparse_update(task, inputs):
+    mesh = _mesh(task)
+    name = task["name"]
+    table, m, v = (_slice(mesh, _t(inputs, f"{name}/{k}")) for k in ("table", "m", "v"))
+    state = SparseAdamState(m=m, v=v, step=task["step"])
+    idx, grads = _t(inputs, f"{name}/idx"), _t(inputs, f"{name}/grads")
+    dp = mesh[DATA_AXIS].size()
+    chunk = idx.shape[0] // dp
+    lo = axis_index(mesh, DATA_AXIS) * chunk
+    overflow = sharded_sparse_adam_update(
+        mesh, table, state, idx[lo : lo + chunk], grads[lo : lo + chunk], lr=task["lr"],
+        routing=task["routing"], capacity_factor=task["capacity_factor"],
+    )
+    out = {k: all_gather_rows(t, mesh, MODEL_AXIS).numpy() for k, t in
+           (("table", table), ("m", state.m), ("v", state.v))}
+    return dict(out, overflow=np.asarray(overflow), step=np.asarray(state.step))
+
+
+def _model(task, inputs):
+    cfg = parse_model_config(
+        task["model"], user_feature_dim=task["feature_dims"][0],
+        item_feature_dim=task["feature_dims"][1],
+    )
+    state = create_train_state(
+        cfg, num_users=task["num_users"], num_items=task["num_items"], seed=0, device="cpu"
+    )
+    prefix = task["state"] + "/"
+    flat = {k[len(prefix):]: inputs[k] for k in inputs.files if k.startswith(prefix)}
+    return cfg, train_state_from_flat(state, flat)
+
+
+def train_step(task, inputs):
+    mesh = _mesh(task)
+    mp = mesh[MODEL_AXIS].size()
+    cfg, state = _model(task, inputs)
+    data = BatchData(*(_t(inputs, f"data/{k}") for k in (
+        "user_features", "item_features", "positive_rows", "category_ids")))
+    state = place_state(mesh, pad_state_rows(state, mp))
+    data = place_data(mesh, pad_batch_data(data, mp))
+    tscfg = TrainStepConfig(**dict(task["tscfg"], opt=DenseOptConfig(**task["opt"])))
+    step = make_sharded_train_step(cfg, tscfg, mesh)
+    name, losses = task["name"], []
+    for s in range(task["steps"]):
+        state, metrics = step(
+            state, data, _t(inputs, f"{name}/u{s}"), _t(inputs, f"{name}/p{s}"),
+            generator=None, negatives=_t(inputs, f"{name}/neg{s}"),
+        )
+        losses.append([float(metrics[k]) for k in sorted(metrics)])
+    return dict(gather_state_flat(state, mesh), losses=np.asarray(losses))
+
+
+def search(task, inputs):
+    mesh = _mesh(task)
+    mp = mesh[MODEL_AXIS].size()
+    items = _t(inputs, "search/items")
+    n = items.shape[0]
+    padded = torch.cat([items, items.new_zeros(padded_rows(n, mp) - n, items.shape[1])])
+    search = make_sharded_topk(mesh, k=task["k"], num_valid_rows=n, score_dtype=task["score_dtype"])
+    scores, ids = search(
+        _t(inputs, "search/queries"), _slice(mesh, padded),
+        mask_rows=_t(inputs, "search/mask") if task["masked"] else None,
+    )
+    return {"scores": scores.numpy(), "ids": ids.numpy()}
+
+
+def checkpoint(task, inputs):
+    mesh = _mesh(task)
+    mp = mesh[MODEL_AXIS].size()
+    _, state = _model(task, inputs)
+    fresh = place_state(mesh, pad_state_rows(create_train_state(
+        state.model.cfg, num_users=state.model.num_users, num_items=state.model.num_items,
+        seed=5, device="cpu",
+    ), mp))
+    placed = place_state(mesh, pad_state_rows(state, mp))
+    save_sharded_checkpoint(
+        task["save_dir"], placed, experiment_name="port", epoch=3, metric_name="recall@10",
+        metric_value=0.25, template="{experiment}_epoch{epoch}", mesh=mesh,
+    )
+    loaded, meta = load_sharded_checkpoint(task["jax_dir"], fresh, mesh)
+    return dict(gather_state_flat(loaded, mesh), epoch=np.asarray(meta["epoch"]))
+
+
+TASKS = {"sparse_update": sparse_update, "train_step": train_step, "search": search,
+         "checkpoint": checkpoint}
+
+
+def main() -> int:
+    spec_path = sys.argv[1]
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", timeout=timedelta(seconds=TIMEOUT_SECONDS))
+    rank = dist.get_rank()
+    spec = json.loads(Path(spec_path).read_text())
+    out = Path(spec["out"])
+    with np.load(spec["inputs"]) as inputs:
+        for task in spec["tasks"]:
+            result = TASKS[task["kind"]](task, inputs)
+            if rank == 0:
+                np.savez(out / f"{task['name']}.npz", **result)
+    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "ttamm_tpu")))
+    assert not leaked, leaked
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,6 +23,26 @@
 // writes nothing. Duplicate scatter indices race (one lane's row wins); the
 // caller sends every duplicate lane to the table's scratch row, which is never
 // read (coalesce_row_grads), exactly as on the TPU.
+//
+// The masked forms replace `gather_rows(masked=True)` and
+// `scatter_set_rows(masked=True)` (rows.py, bodies `_gather_kernel_masked` and
+// `_scatter_set_kernel_masked`): the shard-local row update of a row-sharded
+// table (ttamm_torch/parallel/sparse_update.py), where idx < 0 marks a lane
+// whose row another shard owns, or a capacity-padding lane. Such a lane issues
+// no read and no write: the masked gather leaves its output row as it was
+// (uninitialised; callers never read it), and the masked scatter writes
+// nothing for it. Lanes of the masked scatter that target one row carry
+// identical bytes (every lane of a duplicate run holds the run's coalesced
+// update), so their race is benign and no scratch row is needed. The scatter
+// kernel already writes nothing for idx < 0, so the masked scatter launches
+// it through the same entry point (the Python wrapper counts it apart).
+//
+// The TPU kernels sort their blocks into skip / full / mixed classes
+// (`_block_classes`), because predicating every lane costs its scalar unit
+// ~35% per update there. Not carried: one warp moves one row, so `i < 0` is a
+// branch taken by the whole warp together, and a masked lane costs one index
+// load and no row traffic. The masked lanes come contiguous (sorted lanes),
+// so whole blocks of masked warps exit at once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,6 +52,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const float* __restrict__ table, const int32_t* __restrict__ idx,
                    float* __restrict__ out, int64_t n, int64_t rows, int dim) {
@@ -42,6 +63,7 @@ gather_rows_kernel(const float* __restrict__ table, const int32_t* __restrict__ 
   const int32_t i = idx[r];
   float4* dst = reinterpret_cast<float4*>(out + r * dim);
   if (i < 0 || i >= rows) {
+    if (kMasked) return;  // a masked lane: no read, no write
     const float nan = __int_as_float(0x7fc00000);
     for (int v = lane; v < vecs; v += 32) dst[v] = make_float4(nan, nan, nan, nan);
     return;
@@ -75,7 +97,18 @@ unsigned int blocks_for(int64_t n) {
 // 16-byte aligned, dim % 4 == 0, n > 0.
 extern "C" int ttamm_gather_rows(const float* table, const int32_t* idx, float* out,
                                  int64_t n, int64_t rows, int dim, cudaStream_t stream) {
-  gather_rows_kernel<<<blocks_for(n), kThreads, 0, stream>>>(table, idx, out, n, rows, dim);
+  gather_rows_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(table, idx, out, n, rows,
+                                                                     dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As ttamm_gather_rows; a lane with idx < 0 (or >= rows) leaves its out row
+// unwritten.
+extern "C" int ttamm_gather_rows_masked(const float* table, const int32_t* idx, float* out,
+                                        int64_t n, int64_t rows, int dim,
+                                        cudaStream_t stream) {
+  gather_rows_kernel<true><<<blocks_for(n), kThreads, 0, stream>>>(table, idx, out, n, rows,
+                                                                    dim);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,9 +22,14 @@ finite minimum here, which gives the same candidate sequence at a search
 depth of ``max_k + gt_cap``. Under cosine both sides are normalised as
 ``x / max(||x||, 1e-12)``.
 
-The JAX package's sharded eval (``mesh``) is not ported, and neither is its
-switch of a float32 ``fused`` search to a bf16-stored corpus: the port never
-routes float32 to ``fused`` (``ttamm_torch/ops/topk.py``).
+Under a mesh whose model axis is > 1 (``mesh``), the state holds this
+rank's row shard of every table: the corpus is encoded shard by shard, the
+users through the sharded row lookups, and each batch is searched by the
+sharded top-k (``ttamm_torch/parallel/step.py``); every rank computes the
+same metrics. A data-only mesh holds whole tables and takes the plain local
+search. The JAX eval's switch of a float32 ``fused`` search to a
+bf16-stored corpus is not carried: the port never routes float32 to
+``fused`` (``ttamm_torch/ops/topk.py``).
 """
 
 from __future__ import annotations
@@ -63,24 +68,60 @@ def _model_device(model: TwoTower) -> torch.device:
     return model.user_tower.id_embedding.weight.device
 
 
+def model_mesh(mesh):
+    """``mesh`` when its model axis shards the tables, else None."""
+    if mesh is None:
+        return None
+    from ..parallel.mesh import MODEL_AXIS, axis_size
+
+    return mesh if axis_size(mesh, MODEL_AXIS) > 1 else None
+
+
 @torch.no_grad()
-def encode_user_batch(model: TwoTower, data: BatchData, user_idx: torch.Tensor) -> torch.Tensor:
-    """Tower + mimic augmentation of a batch of users, without dropout."""
-    feats = (
-        None if data.user_features is None
-        else torch.index_select(data.user_features, 0, user_idx)
+def encode_user_batch(
+    model: TwoTower, data: BatchData, user_idx: torch.Tensor, mesh=None
+) -> torch.Tensor:
+    """Tower + mimic augmentation of a batch of users, without dropout
+    (``mesh``: from row-sharded tables, see the module docstring)."""
+    if mesh is None:
+        feats = (
+            None if data.user_features is None
+            else torch.index_select(data.user_features, 0, user_idx)
+        )
+        return model.encode_tower("user", user_idx, feats, augment_with_mimic=True)
+    from ..parallel.embedding_lookup import sharded_rows
+
+    tower = model.user_tower
+    emb = tower.forward_rows(
+        sharded_rows(tower.id_embedding.weight, user_idx, mesh),
+        sharded_rows(data.user_features, user_idx, mesh),
     )
-    return model.encode_tower("user", user_idx, feats, augment_with_mimic=True)
+    if model.mimic is not None:
+        emb = emb + sharded_rows(model.mimic.user_aug.weight, user_idx, mesh)
+    return emb
 
 
-def _corpus(model: TwoTower, data: BatchData, item_embeddings: torch.Tensor | None) -> torch.Tensor:
-    """The item corpus to search: encoded when not given, unit rows under
-    cosine."""
+def _corpus(
+    model: TwoTower, data: BatchData, item_embeddings: torch.Tensor | None, mesh=None
+) -> torch.Tensor:
+    """The item corpus to search (under ``mesh``, this shard's rows):
+    encoded when not given, unit rows under cosine."""
     if item_embeddings is None:
-        item_embeddings = encode_corpus(model, "item", data.item_features)
+        rows = None if mesh is None else model.item_tower.id_embedding.weight.shape[0]
+        item_embeddings = encode_corpus(model, "item", data.item_features, num_rows=rows)
     if model.cfg.similarity == "cosine":
         item_embeddings = F.normalize(item_embeddings, dim=-1)
     return item_embeddings
+
+
+def full_corpus(model: TwoTower, items: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The whole ``[num_items, D]`` corpus from this shard's rows (gathered
+    over ``model``), or ``items`` itself without a mesh."""
+    if mesh is None:
+        return items
+    from ..parallel.mesh import MODEL_AXIS, all_gather_rows
+
+    return all_gather_rows(items, mesh, MODEL_AXIS)[: model.num_items]
 
 
 def _search(
@@ -92,23 +133,31 @@ def _search(
     *,
     deep_k: int,
     score_dtype: str = "float32",
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Encode a user batch and search ``items`` with ``mask_rows`` (one row
     of blocked item ids per user) masked."""
-    queries = encode_user_batch(model, data, user_idx)
+    queries = encode_user_batch(model, data, user_idx, mesh)
     if model.cfg.similarity == "cosine":
         queries = F.normalize(queries, dim=-1)
+    if mesh is not None:
+        from ..parallel.step import sharded_mips_topk
+
+        return sharded_mips_topk(
+            queries, items, k=deep_k, mesh=mesh, num_valid_rows=model.num_items,
+            mask_rows=mask_rows, score_dtype=score_dtype,
+        )
     return mips_topk(queries, items, k=deep_k, mask_rows=mask_rows, score_dtype=score_dtype)
 
 
 def _search_plan_batch(
     model: TwoTower, data: BatchData, items: torch.Tensor, plan: EvalPlan, batch: int,
-    score_dtype: str = "float32",
+    score_dtype: str = "float32", mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     u_idx = plan.user_mat[batch]
     return _search(
         model, data, items, u_idx, torch.index_select(plan.blocked_rows, 0, u_idx),
-        deep_k=plan.deep_k, score_dtype=score_dtype,
+        deep_k=plan.deep_k, score_dtype=score_dtype, mesh=mesh,
     )
 
 
@@ -245,6 +294,7 @@ def batch_hits(
     *,
     max_k: int,
     score_dtype: str = "float32",
+    mesh=None,
 ) -> torch.Tensor:
     """The hit matrix bool ``[bs, max_k]`` of user batch ``batch`` of one
     bucket ``plan``, on the device (``items`` as :func:`_corpus` returns
@@ -257,7 +307,7 @@ def batch_hits(
       ``limit .. limit + missing - 1`` whichever item lands where.
     """
     gt_b = plan.gt_mat[batch]
-    scores, idx = _search_plan_batch(model, data, items, plan, batch, score_dtype)
+    scores, idx = _search_plan_batch(model, data, items, plan, batch, score_dtype, model_mesh(mesh))
     deep_k = plan.deep_k
     valid = scores > _VALID_THRESHOLD  # [bs, deep_k]
     nvalid = valid.sum(dim=-1)
@@ -283,6 +333,7 @@ def evaluate_retrieval_metrics(
     k_values: Iterable[int],
     item_embeddings: torch.Tensor | None = None,
     score_dtype: str = "float32",
+    mesh=None,
 ) -> RankingMetrics:
     """The MIPS eval straight to :class:`RankingMetrics`: one hit matrix per
     bucket on the device, one read back per bucket, the pad rows of each
@@ -292,15 +343,20 @@ def evaluate_retrieval_metrics(
     ``score_dtype="bfloat16"`` scores in bf16, the serving mode, for the
     trainer's serving-precision gate; the reported metrics use float32.
     Metric-identical to ``compute_ranking_metrics(*evaluate_retrieval(...))``.
+    ``mesh``: see the module docstring (``item_embeddings`` is then this
+    shard's rows).
     """
+    mesh = model_mesh(mesh)
     k_list = list(k_values)
     max_k = max(k_list)
-    items = _corpus(model, data, item_embeddings)
+    items = _corpus(model, data, item_embeddings, mesh)
     rows: list[np.ndarray] = []
     sizes: list[np.ndarray] = []
     for bucket in _plan_buckets(plan):
         hits = torch.stack([
-            batch_hits(model, data, items, bucket, b, max_k=max_k, score_dtype=score_dtype)
+            batch_hits(
+                model, data, items, bucket, b, max_k=max_k, score_dtype=score_dtype, mesh=mesh
+            )
             for b in range(len(bucket.batches))
         ]).cpu().numpy()  # [nb, bs, max_k]
         for b, chunk_users in enumerate(bucket.batches):
@@ -345,22 +401,26 @@ def evaluate_retrieval(
     user_batch_size: int = 1024,
     item_embeddings: torch.Tensor | None = None,
     plan: EvalPlan | None = None,
+    mesh=None,
 ) -> tuple[dict[int, list[int]], dict[int, set[int]]]:
     """Per-user top-``max_k`` predictions and ground truth, for
     ``compute_ranking_metrics``. With ``plan`` the MIPS path searches the
     plan's buckets; without it, the users of ``val_interactions`` in batches
-    of ``user_batch_size``, each batch's mask as wide as its widest user."""
+    of ``user_batch_size``, each batch's mask as wide as its widest user.
+    ``mesh``: see the module docstring (``item_embeddings`` is then this
+    shard's rows)."""
+    mesh = model_mesh(mesh)
     k_list = list(k_values)
     max_k = max(k_list) if k_list else 0
     dev = _model_device(model)
 
     if plan is not None and use_mips:
-        items = _corpus(model, data, item_embeddings)
+        items = _corpus(model, data, item_embeddings, mesh)
         predictions: dict[int, list[int]] = {}
         plan_users: list[int] = []
         for bucket in _plan_buckets(plan):
             found = [
-                _search_plan_batch(model, data, items, bucket, b)
+                _search_plan_batch(model, data, items, bucket, b, mesh=mesh)
                 for b in range(len(bucket.batches))
             ]
             for (scores, idx), chunk_users in zip(found, bucket.batches):
@@ -380,7 +440,7 @@ def evaluate_retrieval(
     if not users:
         return {}, {}
     gt_cap = max(len(gt_per_user[u]) for u in users)
-    items = _corpus(model, data, item_embeddings)
+    items = _corpus(model, data, item_embeddings, mesh)
     predictions = {}
 
     if use_mips:
@@ -392,7 +452,7 @@ def evaluate_retrieval(
             width = max(1, max(len(b) for b in batch_blocked))
             mask = torch.from_numpy(_pad_rows(batch_blocked, width, num_items)).to(dev)
             u_idx = torch.tensor(users[start : start + user_batch_size], dtype=torch.int32, device=dev)
-            found.append(_search(model, data, items, u_idx, mask, deep_k=deep_k))
+            found.append(_search(model, data, items, u_idx, mask, deep_k=deep_k, mesh=mesh))
         for i, (scores, idx) in enumerate(found):
             _postprocess_mips_rows(
                 predictions, users[i * user_batch_size : (i + 1) * user_batch_size],
@@ -402,6 +462,7 @@ def evaluate_retrieval(
         return predictions, {u: gt_per_user[u] for u in users}
 
     rng = rng or np.random.default_rng(0)
+    items = full_corpus(model, items, mesh)
     cand_rows: list[list[int]] = []
     for user in users:
         gt = gt_per_user[user]
@@ -423,7 +484,7 @@ def evaluate_retrieval(
     for start in range(0, len(users), user_batch_size):
         chunk_users = users[start : start + user_batch_size]
         u_idx = torch.tensor(chunk_users, dtype=torch.int32, device=dev)
-        queries = encode_user_batch(model, data, u_idx)
+        queries = encode_user_batch(model, data, u_idx, mesh)
         if cosine:
             queries = F.normalize(queries, dim=-1)
         cands = torch.from_numpy(cand_mat[start : start + len(chunk_users)]).to(dev)

@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels, their plain PyTorch versions and
 their launch counts.
 
-One kernel per TPU kernel on the serving, training and eval paths (sources and
-design notes in ``ttamm_torch/csrc/``):
+One kernel per TPU kernel on the serving, training, eval and multi-device
+paths (sources and design notes in ``ttamm_torch/csrc/``):
 
 ==================================  ==========================================
 port (CUDA, ``sm_90a``)             TPU kernel it replaces
@@ -12,8 +12,8 @@ port (CUDA, ``sm_90a``)             TPU kernel it replaces
                                     select_topk_from_groups
 ``groupmax_matmul``                 ``ttamm_tpu/ops/pallas/fused_mips.py`` groupmax_matmul
 ``rescore_groups``                  ``ttamm_tpu/ops/pallas/fused_mips.py`` rescore_groups
-``gather_rows``                     ``ttamm_tpu/ops/pallas/rows.py`` gather_rows
-``scatter_set_rows``                ``ttamm_tpu/ops/pallas/rows.py`` scatter_set_rows
+``gather_rows`` (+masked)           ``ttamm_tpu/ops/pallas/rows.py`` gather_rows
+``scatter_set_rows`` (+masked)      ``ttamm_tpu/ops/pallas/rows.py`` scatter_set_rows
 ``segment_second_moments`` (+bwd)   ``ttamm_tpu/ops/pallas/category_stats.py``
                                     segment_second_moments and its VJP
 ==================================  ==========================================
@@ -77,7 +77,9 @@ _launches = {
     "groupmax_matmul": 0,
     "rescore_groups": 0,
     "gather_rows": 0,
+    "gather_rows_masked": 0,
     "scatter_set_rows": 0,
+    "scatter_set_rows_masked": 0,
     "segment_second_moments": 0,
     "segment_second_moments_bwd": 0,
 }
@@ -174,6 +176,8 @@ def load_library() -> ctypes.CDLL:
             lib.ttamm_gather_rows.restype = i32
             lib.ttamm_scatter_set_rows.argtypes = [p, p, p, i64, i64, i32, p]
             lib.ttamm_scatter_set_rows.restype = i32
+            lib.ttamm_gather_rows_masked.argtypes = [p, p, p, i64, i64, i32, p]
+            lib.ttamm_gather_rows_masked.restype = i32
             lib.ttamm_segment_second_moments.argtypes = [p, p, p, p, i32, i32, p]
             lib.ttamm_segment_second_moments.restype = i32
             lib.ttamm_segment_second_moments_bwd.argtypes = [p, p, p, p, p, p, i32, i32, i32, p]
@@ -200,9 +204,10 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
+def _launch(name: str, dev: torch.device, *args, counter: str | None = None) -> None:
     """Call the C entry point ``ttamm_<name>`` on the current stream of
-    ``dev``; raise if the launch was refused, else count it."""
+    ``dev``; raise if the launch was refused, else count it (under
+    ``counter``, default ``name``)."""
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -210,7 +215,7 @@ def _launch(name: str, dev: torch.device, *args) -> None:
     if rc != 0:
         msg = lib.ttamm_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
-    _count(name)
+    _count(counter or name)
 
 
 def _f32_keys(x: torch.Tensor) -> torch.Tensor:
@@ -528,39 +533,56 @@ def _check_vec4(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: rows must have D % 4 == 0 and be 16-byte aligned")
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor, *, masked: bool = False) -> torch.Tensor:
     """``table[idx]``: f32 ``[N, D]`` rows of a f32 ``[rows, D]`` table at
-    int32 indices in ``[0, rows)``; any N."""
+    int32 indices in ``[0, rows)``; any N.
+
+    ``masked=True`` (the shard-local form, kernel ``gather_rows_masked``): a
+    lane with ``idx < 0`` reads nothing and its output row is left
+    unwritten; callers never read it."""
     if table.device.type == "cpu":
-        return gather_rows_plain(table, idx)
-    return gather_rows_cuda(table, idx)
+        return gather_rows_plain(table, idx, masked=masked)
+    return gather_rows_cuda(table, idx, masked=masked)
 
 
-def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor, *, masked: bool = False) -> torch.Tensor:
     _check_rows("gather_rows", table, idx)
-    return table[idx]
+    if not masked:
+        return table[idx]
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
+    live = idx >= 0
+    out[live] = table[idx[live]]
+    return out
 
 
-def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    dev = _check_cuda("gather_rows", table, idx)
-    _check_rows("gather_rows", table, idx)
+def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor, *, masked: bool = False) -> torch.Tensor:
+    name = "gather_rows_masked" if masked else "gather_rows"
+    dev = _check_cuda(name, table, idx)
+    _check_rows(name, table, idx)
     out = torch.empty((idx.shape[0], table.shape[1]), dtype=torch.float32, device=dev)
-    _check_vec4("gather_rows", table, out)
+    _check_vec4(name, table, out)
     if idx.shape[0]:
         _launch(
-            "gather_rows", dev, table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            name, dev, table.data_ptr(), idx.data_ptr(), out.data_ptr(),
             idx.shape[0], table.shape[0], table.shape[1],
         )
     return out
 
 
-def scatter_set_rows(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def scatter_set_rows(
+    table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, *, masked: bool = False
+) -> torch.Tensor:
     """``table[idx] = rows`` in place; returns ``table``. Duplicate indices
     race (one row wins), so callers route duplicate lanes to a scratch row
-    whose value is never read."""
+    whose value is never read.
+
+    ``masked=True`` (the shard-local form, counted as
+    ``scatter_set_rows_masked``): a lane with ``idx < 0`` writes nothing, and
+    lanes that target one row must carry identical bytes (then their race is
+    benign)."""
     if table.device.type == "cpu":
-        return scatter_set_rows_plain(table, idx, rows)
-    return scatter_set_rows_cuda(table, idx, rows)
+        return scatter_set_rows_plain(table, idx, rows, masked=masked)
+    return scatter_set_rows_cuda(table, idx, rows, masked=masked)
 
 
 def _check_scatter(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
@@ -572,19 +594,28 @@ def _check_scatter(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -
         )
 
 
-def scatter_set_rows_plain(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def scatter_set_rows_plain(
+    table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, *, masked: bool = False
+) -> torch.Tensor:
     _check_scatter(table, idx, rows)
+    if masked:
+        live = idx >= 0
+        idx, rows = idx[live], rows[live]
     return table.index_copy_(0, idx.long(), rows)
 
 
-def scatter_set_rows_cuda(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    dev = _check_cuda("scatter_set_rows", table, idx, rows)
+def scatter_set_rows_cuda(
+    table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, *, masked: bool = False
+) -> torch.Tensor:
+    name = "scatter_set_rows_masked" if masked else "scatter_set_rows"
+    dev = _check_cuda(name, table, idx, rows)
     _check_scatter(table, idx, rows)
-    _check_vec4("scatter_set_rows", table, rows)
+    _check_vec4(name, table, rows)
     if idx.shape[0]:
+        # one kernel (it writes nothing for idx < 0), counted per form
         _launch(
             "scatter_set_rows", dev, table.data_ptr(), idx.data_ptr(), rows.data_ptr(),
-            idx.shape[0], table.shape[0], table.shape[1],
+            idx.shape[0], table.shape[0], table.shape[1], counter=name,
         )
     return table
 

@@ -11,6 +11,11 @@ regulariser (port of ``ttamm_tpu/ops/losses.py``).
   ``segment_second_moments`` kernel (operands rounded to bf16, f32 sums, as
   the TPU kernel computes them) through an autograd function whose backward
   is the backward kernel. The port has no f32 second path for them.
+  Under a mesh each rank computes the counts, sums and second moments of its
+  data shard's rows with the same kernels, and the ``[C]``, ``[C, D]`` and
+  ``[C, D, D]`` statistics are summed over ``data`` before the loss, so every
+  rank holds the global loss and its gradient reaches each rank's own rows
+  once (``all_reduce_statistic``).
 """
 
 from __future__ import annotations
@@ -48,10 +53,13 @@ def category_alignment_loss(
     item_embeddings: torch.Tensor,
     *,
     max_categories: int = 64,
+    mesh=None,
 ) -> torch.Tensor:
     """Covariance-alignment regulariser over the batch's item embeddings
     (``[N]`` int category ids, ``[N, D]`` f32 embeddings), from per-category
-    counts, sums and second moments; a 0-d tensor, with no host sync."""
+    counts, sums and second moments; a 0-d tensor, with no host sync.
+    ``mesh``: the rows are this rank's data shard of the batch, and the
+    loss is the global batch's."""
     c = max_categories
     x = item_embeddings.contiguous()
     ids = item_category_ids.to(torch.int64)
@@ -63,6 +71,14 @@ def category_alignment_loss(
     )[:c]
     sums = sum_rows(key, x, c + 1)[:c]  # in a fixed order: no float atomics
     m2 = SegmentSecondMoments.apply(item_category_ids, x, c)
+    if mesh is not None:
+        from ..parallel.mesh import DATA_AXIS, all_reduce_statistic
+
+        d = x.shape[1]
+        flat = all_reduce_statistic(
+            torch.cat([counts, sums.reshape(-1), m2.reshape(-1)]), mesh, DATA_AXIS
+        )
+        counts, sums, m2 = flat[:c], flat[c : c + c * d].view(c, d), flat[c + c * d :].view(c, d, d)
 
     safe_n = counts.clamp_min(1.0)
     means = sums / safe_n[:, None]

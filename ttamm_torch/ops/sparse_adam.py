@@ -111,15 +111,36 @@ def sparse_adam_update(
     m_rows = kernels.gather_rows(state.m, target_rows)
     v_rows = kernels.gather_rows(state.v, target_rows)
     w_rows = kernels.gather_rows(table, target_rows)
+    w_new, m_new, v_new = adam_rows(
+        w_rows, m_rows, v_rows, grads, step=state.step, lr=lr, b1=b1, b2=b2, eps=eps,
+        weight_decay=weight_decay,
+    )
+    kernels.scatter_set_rows(table, target_rows, w_new)
+    kernels.scatter_set_rows(state.m, target_rows, m_new)
+    kernels.scatter_set_rows(state.v, target_rows, v_new)
 
+
+def adam_rows(
+    w_rows: torch.Tensor,
+    m_rows: torch.Tensor,
+    v_rows: torch.Tensor,
+    grads: torch.Tensor,
+    *,
+    step: int,
+    lr: float,
+    b1: float,
+    b2: float,
+    eps: float,
+    weight_decay: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Adam arithmetic of gathered rows at (1-indexed) ``step``:
+    ``(new weights, new m, new v)``. One function for the single-device and
+    the sharded update, so both compute the same bits."""
     m_new = b1 * m_rows + (1.0 - b1) * grads
     v_new = b2 * v_rows + (1.0 - b2) * torch.square(grads)
-    m_hat = m_new / (1.0 - b1**state.step)
-    v_hat = v_new / (1.0 - b2**state.step)
+    m_hat = m_new / (1.0 - b1**step)
+    v_hat = v_new / (1.0 - b2**step)
     delta = lr * m_hat / (torch.sqrt(v_hat) + eps)
     if weight_decay:
         delta = delta + (lr * weight_decay) * w_rows
-
-    kernels.scatter_set_rows(table, target_rows, w_rows - delta)
-    kernels.scatter_set_rows(state.m, target_rows, m_new)
-    kernels.scatter_set_rows(state.v, target_rows, v_new)
+    return w_rows - delta, m_new, v_new

@@ -1,0 +1,36 @@
+"""The multi-device layer on ``torch.distributed`` (port of
+``ttamm_tpu/parallel/``): one process per device, a ``(data, model)``
+``DeviceMesh``, row-sharded tables with shard-local sparse-row Adam, and the
+sharded eval search. Not ported: tensor parallelism, the all-to-all
+embedding exchange (``mesh.embedding_exchange: alltoall``) and the HLO wire
+model (``hlo_inspect.py``)."""
+
+from .launch import is_primary_host, maybe_initialize_distributed
+from .mesh import DATA_AXIS, MODEL_AXIS, MeshConfig, build_mesh, parse_mesh_config, round_up
+from .sharding import (
+    gather_state_flat,
+    logical_rows,
+    pad_batch_data,
+    pad_state_rows,
+    padded_rows,
+    place_data,
+    place_state,
+)
+
+__all__ = [
+    "DATA_AXIS",
+    "MODEL_AXIS",
+    "MeshConfig",
+    "build_mesh",
+    "gather_state_flat",
+    "is_primary_host",
+    "logical_rows",
+    "maybe_initialize_distributed",
+    "pad_batch_data",
+    "pad_state_rows",
+    "padded_rows",
+    "parse_mesh_config",
+    "place_data",
+    "place_state",
+    "round_up",
+]

@@ -1,0 +1,75 @@
+"""Row lookups of row-sharded tables (port of
+``ttamm_tpu/parallel/embedding_lookup.py``).
+
+Each model shard owns a contiguous row range. A lookup at global ids that
+every rank of a model group holds alike: the shard reads the rows it owns,
+leaves zeros for the others, and a sum over ``model`` combines the shards'
+parts. The same lookup serves the ID and mimic tables, the feature matrices,
+the padded positives and the category ids (an integer sum of one owner's
+value and zeros is exact).
+
+:func:`sharded_rows` reads outside autograd: the sparse tables' rows become
+fresh leaves whose gradients go to the sharded sparse-row update.
+:func:`sharded_lookup` is differentiable in the table shard: its backward
+sums the gradients of the lanes this shard owns into its rows, in the fixed
+order of ``sum_rows``, then over ``data`` (the dense optimizer's table
+gradient). With one model shard both are a plain row gather.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..ops.sparse_adam import sum_rows
+from .mesh import DATA_AXIS, MODEL_AXIS, all_reduce, axis_size
+from .sharding import row_offset
+
+
+def _owned(local: torch.Tensor, idx: torch.Tensor, mesh: DeviceMesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(owned [N] bool, shard-local row [N] int64, 0 where not owned)``."""
+    rows = local.shape[0]
+    lane = idx.long() - row_offset(mesh, rows)
+    owned = (lane >= 0) & (lane < rows)
+    return owned, torch.where(owned, lane, 0)
+
+
+@torch.no_grad()
+def sharded_rows(local: torch.Tensor | None, idx: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor | None:
+    """Rows ``[N, ...]`` of the row-sharded array whose local shard is
+    ``local``, at global ids ``idx``; None for an absent (or empty) array."""
+    if local is None or local.numel() == 0:
+        return None
+    if axis_size(mesh, MODEL_AXIS) == 1:
+        return torch.index_select(local, 0, idx)
+    owned, lane = _owned(local, idx, mesh)
+    rows = torch.index_select(local, 0, lane)
+    rows = torch.where(owned.view(-1, *([1] * (rows.dim() - 1))), rows, torch.zeros_like(rows))
+    return all_reduce(rows, mesh, MODEL_AXIS)
+
+
+class _ShardedLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, idx, mesh):
+        owned, lane = _owned(local, idx, mesh)
+        ctx.save_for_backward(owned, lane)
+        ctx.mesh, ctx.rows = mesh, local.shape[0]
+        rows = torch.where(owned[:, None], torch.index_select(local, 0, lane), 0.0)
+        if axis_size(mesh, MODEL_AXIS) > 1:
+            all_reduce(rows, mesh, MODEL_AXIS)
+        return rows
+
+    @staticmethod
+    def backward(ctx, grad):
+        owned, lane = ctx.saved_tensors
+        # lanes another shard owns add their (zeroed) rows to a dropped row
+        target = torch.where(owned, lane, ctx.rows)
+        g = sum_rows(target, torch.where(owned[:, None], grad, 0.0), ctx.rows + 1)[: ctx.rows]
+        return all_reduce(g.contiguous(), ctx.mesh, DATA_AXIS), None, None
+
+
+def sharded_lookup(local: torch.Tensor, idx: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """Differentiable rows ``[N, D]`` of a row-sharded table at global ids
+    ``idx``; the gradient reaching ``local`` is this shard's table gradient,
+    summed over the data shards."""
+    return _ShardedLookup.apply(local, idx, mesh)

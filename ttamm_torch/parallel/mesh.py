@@ -1,0 +1,109 @@
+"""The device mesh and its collectives (port of ``ttamm_tpu/parallel/mesh.py``).
+
+The scale-out model of the JAX package: a 2-D logical mesh
+
+- ``data`` axis: the batch (data parallelism); dense parameters replicated,
+  their gradients summed over ``data``;
+- ``model`` axis: embedding-table rows; the ID tables, the mimic tables, the
+  feature matrices and every optimizer moment of a table are row-sharded.
+
+torch runs one process per device, so the mesh is a ``DeviceMesh`` over the
+default process group with dims ``("data", "model")``: rank = data index x
+model + model index, the JAX ``reshape(dp, mp)`` of the device list. The
+collectives below are the ones the port's sharded code issues; each names
+the mesh axis it runs over.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Mapping
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    data_parallel: int = 1
+    model_parallel: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data_parallel * self.model_parallel
+
+
+def parse_mesh_config(config: Mapping[str, Any] | None) -> MeshConfig:
+    cfg = dict(config or {})
+    return MeshConfig(
+        data_parallel=int(cfg.get("data_parallel", 1)),
+        model_parallel=int(cfg.get("model_parallel", 1)),
+    )
+
+
+def build_mesh(cfg: MeshConfig, device_type: str = "cuda") -> DeviceMesh:
+    """The ``(data, model)`` mesh over the default process group, whose world
+    size must be ``data_parallel * model_parallel``."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != cfg.num_devices:
+        raise RuntimeError(
+            f"Mesh needs {cfg.num_devices} processes (data={cfg.data_parallel} x "
+            f"model={cfg.model_parallel}) but the process group has {world}: start them "
+            f"with torchrun --nproc_per_node {cfg.num_devices}"
+        )
+    return init_device_mesh(
+        device_type, (cfg.data_parallel, cfg.model_parallel),
+        mesh_dim_names=(DATA_AXIS, MODEL_AXIS),
+    )
+
+
+def round_up(value: int, multiple: int) -> int:
+    return ((value + multiple - 1) // multiple) * multiple
+
+
+def axis_size(mesh: DeviceMesh, axis: str) -> int:
+    return mesh[axis].size()
+
+
+def axis_index(mesh: DeviceMesh, axis: str) -> int:
+    return mesh.get_local_rank(axis)
+
+
+def all_reduce(t: torch.Tensor, mesh: DeviceMesh, axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In-place all-reduce of ``t`` over one mesh axis; returns ``t``."""
+    dist.all_reduce(t, op=op, group=mesh.get_group(axis))
+    return t
+
+
+def all_gather_rows(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    """``t`` of every rank of the axis, concatenated along dim 0 in axis
+    order (every rank's ``t`` has the same shape)."""
+    size = axis_size(mesh, axis)
+    t = t.contiguous()
+    out = t.new_empty((size * t.shape[0], *t.shape[1:]))
+    dist.all_gather_into_tensor(out, t, group=mesh.get_group(axis))
+    return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over one mesh axis whose every rank then computes the same value
+    from the sum. The backward passes the cotangent through unchanged: each
+    rank's gradient reaches only its own summand, so summing the ranks'
+    parameter gradients afterwards counts the statistic once."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return all_reduce(t.clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def all_reduce_statistic(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    """Differentiable sum of a statistic over ``axis`` (see ``_AllReduceSum``)."""
+    return _AllReduceSum.apply(t, mesh, axis)

@@ -1,0 +1,217 @@
+"""Sparse-row Adam on a row-sharded table: the masked row kernels run on
+each shard's own rows (port of ``ttamm_tpu/parallel/sparse_update.py``).
+
+Every rank holds the row gradients of its data shard's lanes; each model
+shard applies the update to the rows it owns. Two routings for the exchange
+of row gradients over ``data``:
+
+``allgather``:
+1. all-gather the ``(indices, row_grads)`` lanes over ``data`` (batch-sized
+   traffic, never a table-sized gradient);
+2. coalesce duplicate indices as the single-device update does (stable sort,
+   then each run summed in lane order by ``segment_reduce``), with every lane
+   of a run carrying the run's total, so duplicate lanes write identical
+   bytes and their races are benign: no head masking, no scratch row;
+3. map global row ids to this shard's range and mask (idx = -1) the lanes
+   another shard owns: after the sort they sit at the head and the tail;
+4. the masked ``gather_rows`` / ``scatter_set_rows`` kernels read and write
+   only the owned lanes' rows.
+With the lanes in the single-device order (``gather_order``), this routing
+gives the single-device update's bits.
+
+``owner``: the batch is replicated over ``model``, so each rank already
+holds every lane its shard owns from its own data shard. It coalesces its
+local lanes, compacts the ones its model shard owns into a fixed buffer of
+``owner_capacity`` lanes (sentinel -1 after them), all-gathers only that
+buffer over ``data`` and coalesces again (the same row from two data shards
+arrives twice; skipped at one data shard). The receive per rank drops from
+``n`` lanes to ``dp * capacity``. Duplicates are summed in two phases, so
+the result matches the allgather routing to ``allclose`` (1e-5), not bit
+for bit.
+
+Overflow is never dropped: if any rank owns more coalesced lanes than the
+capacity, a one-integer ``all_reduce(MAX)`` over the whole mesh tells every
+rank, and that step takes the allgather routing. In eager torch the flag is
+read on the host (``.item()``): one host sync per sparse table per step,
+counted in ``OWNER_STATS``. ``owner_unchecked`` skips the check and drops
+overflowing lanes; use it only where the capacity has been audited.
+
+Every data replica of a table shard applies the same update, so replicas
+stay bit-identical without a reduction.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..ops import kernels
+from ..ops.sparse_adam import SparseAdamState, adam_rows
+from .mesh import DATA_AXIS, MODEL_AXIS, all_gather_rows, axis_size
+from .sharding import row_offset
+
+ROUTINGS = ("allgather", "owner", "owner_unchecked")
+# owner routing: steps checked for overflow, steps that overflowed (and took
+# the allgather routing); each check is one host sync
+OWNER_STATS = {"checks": 0, "overflows": 0}
+
+
+def _pick_block(n: int) -> int | None:
+    """The JAX package's DMA block choice (largest of 256..8 dividing n);
+    the port's kernels take any n, so only :func:`owner_capacity` reads it,
+    to size the buffer as the JAX package does."""
+    for block in (256, 128, 64, 32, 16, 8):
+        if n % block == 0:
+            return block
+    return None
+
+
+def owner_capacity(n: int, dp: int, mp: int, capacity_factor: float) -> int:
+    """Lanes per rank of the owner routing's buffer, for ``n`` global lanes:
+    ``capacity_factor`` x the balanced share of this rank's ``n / dp``
+    lanes, rounded up to 256 when that fits, else to the smallest capacity
+    whose ``dp`` copies the JAX package's DMA blocks divide, at most the
+    local lane count (which cannot overflow)."""
+    n_local = n // dp
+    c = max(1, -(-int(capacity_factor * n_local) // mp))
+    c256 = -(-c // 256) * 256
+    if c256 <= n_local:
+        return c256
+    for cand in range(min(c, n_local), n_local + 1):
+        if _pick_block(dp * cand) is not None:
+            return cand
+    return n_local
+
+
+def _coalesce_sorted(idx: torch.Tensor, grads: torch.Tensor, *, head_init: int):
+    """Stable-sort lanes by row id and sum each run of equal ids.
+
+    Returns ``(sorted_idx, grads_coal, is_head, seg)``: every lane of a run
+    carries the run's total (summed in lane order, as
+    ``coalesce_row_grads``). ``head_init`` must sort below every id (-1 for
+    ids >= 0, -2 where sentinel -1 lanes occur); lanes equal to it form no
+    run of their own (seg -1), as in the JAX package.
+    """
+    n = idx.shape[0]
+    order = torch.argsort(idx, stable=True)
+    sorted_idx = idx[order]
+    sorted_grads = grads[order]
+    prev = torch.cat([sorted_idx.new_full((1,), head_init), sorted_idx[:-1]])
+    is_head = sorted_idx != prev
+    seg = torch.cumsum(is_head, 0) - 1
+    # lanes before the first head join run 0 as leading zeros (exact), so
+    # no host sync is needed to drop them
+    first = seg.clamp_min(0)
+    lengths = torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, first, torch.ones_like(first)
+    )
+    data = torch.where((seg >= 0)[:, None], sorted_grads, 0.0)
+    summed = torch.segment_reduce(data, "sum", lengths=lengths, unsafe=True)
+    return sorted_idx, summed[seg], is_head, seg
+
+
+def _apply(table, state, lane_idx, grads, *, lr, b1, b2, eps, weight_decay) -> None:
+    """Gather the live lanes' rows, step them, scatter them back, in place.
+    ``lane_idx`` is shard-local, -1 where the lane is skipped; duplicate
+    lanes carry identical totals."""
+    state.step += 1
+    m_rows = kernels.gather_rows(state.m, lane_idx, masked=True)
+    v_rows = kernels.gather_rows(state.v, lane_idx, masked=True)
+    w_rows = kernels.gather_rows(table, lane_idx, masked=True)
+    w_new, m_new, v_new = adam_rows(
+        w_rows, m_rows, v_rows, grads, step=state.step, lr=lr, b1=b1, b2=b2, eps=eps,
+        weight_decay=weight_decay,
+    )
+    kernels.scatter_set_rows(table, lane_idx, w_new, masked=True)
+    kernels.scatter_set_rows(state.m, lane_idx, m_new, masked=True)
+    kernels.scatter_set_rows(state.v, lane_idx, v_new, masked=True)
+
+
+def _localize(sorted_idx: torch.Tensor, base: int, rows: int) -> torch.Tensor:
+    """Shard-local int32 row ids, -1 for lanes of other shards and for
+    sentinel lanes."""
+    local = sorted_idx - base
+    return torch.where((local >= 0) & (local < rows), local, -1).to(torch.int32)
+
+
+@torch.no_grad()
+def sharded_sparse_adam_update(
+    mesh: DeviceMesh,
+    table: torch.Tensor,
+    state: SparseAdamState,
+    indices: torch.Tensor,
+    row_grads: torch.Tensor,
+    *,
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+    routing: str = "allgather",
+    capacity_factor: float = 2.0,
+    gather_order: torch.Tensor | None = None,
+) -> bool:
+    """One SparseAdam step of a row-sharded table, in place on this rank's
+    ``table`` / ``state.m`` / ``state.v`` shards.
+
+    ``indices`` int ``[n / dp]`` (global row ids; -1 marks a padding lane)
+    and ``row_grads`` ``[n / dp, D]`` are this rank's data shard; every rank
+    passes the same count. ``gather_order``: an optional permutation of the
+    ``n`` lanes gathered over ``data`` (rank-major) into the order the
+    coalesce sums them in. Returns True when the owner routing overflowed
+    and the step took the allgather routing."""
+    if routing not in ROUTINGS:
+        raise ValueError(f"Unknown update routing: {routing}")
+    rows = table.shape[0]
+    base = row_offset(mesh, rows)
+    dp, mp = axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS)
+    idx = indices.to(torch.int64)
+    grads = row_grads.to(table.dtype)
+    hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+
+    def allgather_update() -> None:
+        idx_all = all_gather_rows(idx, mesh, DATA_AXIS)
+        g_all = all_gather_rows(grads, mesh, DATA_AXIS)
+        if gather_order is not None:
+            idx_all, g_all = idx_all[gather_order], g_all[gather_order]
+        sorted_idx, g_coal, _, _ = _coalesce_sorted(idx_all, g_all, head_init=-2)
+        _apply(table, state, _localize(sorted_idx, base, rows), g_coal, **hyper)
+
+    if routing == "allgather":
+        allgather_update()
+        return False
+
+    n = idx.shape[0] * dp
+    cap = owner_capacity(n, dp, mp, capacity_factor)
+    sorted_idx, g_coal, is_head, _ = _coalesce_sorted(idx, grads, head_init=-2)
+    local = sorted_idx - base
+    owned = is_head & (local >= 0) & (local < rows)
+    if routing == "owner":
+        flag = (owned.sum() > cap).to(torch.int32).reshape(1)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)  # the whole mesh
+        OWNER_STATS["checks"] += 1
+        if flag.item():  # one host sync per table per step
+            OWNER_STATS["overflows"] += 1
+            allgather_update()
+            return True
+    # compact the owned head lanes into the [cap] buffer; slot cap takes every
+    # discarded write (lanes not owned, and overflow under owner_unchecked)
+    pos = torch.cumsum(owned, 0) - 1
+    tgt = torch.where(owned & (pos < cap), pos, cap)
+    idx_c = idx.new_full((cap + 1,), -1).index_copy_(
+        0, tgt, torch.where(owned, sorted_idx, -1)
+    )[:cap]
+    g_c = grads.new_zeros((cap + 1, grads.shape[1])).index_copy_(
+        0, tgt, torch.where(owned[:, None], g_coal, 0.0)
+    )[:cap]
+    idx_all = all_gather_rows(idx_c, mesh, DATA_AXIS)
+    g_all = all_gather_rows(g_c, mesh, DATA_AXIS)
+    if dp == 1:
+        # one data shard: the buffer holds sorted distinct totals already,
+        # its sentinel tail last
+        s2, g2 = idx_all, g_all
+    else:
+        s2, g2, _, _ = _coalesce_sorted(idx_all, g_all, head_init=-2)
+    _apply(table, state, _localize(s2, base, rows), g2, **hyper)
+    return False

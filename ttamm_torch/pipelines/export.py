@@ -109,6 +109,11 @@ def export_bundle(
         item_feature_dim=dataset.item_feature_matrix.shape[1],
     )
     if checkpoint is not None:
+        if Path(checkpoint).is_dir():
+            raise NotImplementedError(
+                "export from a sharded checkpoint directory is not ported yet (ROADMAP Queue 1); "
+                "train with checkpointing.sharded: false for a flat .npz"
+            )
         model = from_jax_checkpoint(checkpoint, model_cfg, device=dev)
         if (model.num_users, model.num_items) != (num_users, num_items):
             raise ValueError(

@@ -24,15 +24,31 @@ written to ``evaluation.faiss.index_path`` / ``embedding_path``.
 
 With ``evaluation.faiss.enabled: false`` the eval takes the sampled path
 (``candidate_samples`` random candidates per user). Checkpoints are written
-synchronously, so ``checkpointing.async_save`` and ``sharded`` are not read;
+synchronously, so ``checkpointing.async_save`` is not read;
 ``evaluation.faiss.batch_size`` (the chunk of the JAX package's ``chunked``
 search, which is not ported) has no effect.
 
+The mesh: ``mesh: {data_parallel: dp, model_parallel: mp}`` with dp x mp > 1
+runs under ``torchrun --nproc_per_node dp*mp -m ttamm_torch.train``, one
+process per device (NCCL on cards, gloo with ``--device cpu``). Every rank
+builds the same data and seeded state, keeps its part
+(``parallel.sharding``: row-sharded tables, moments and dataset arrays,
+replicated dense parameters), walks the same global batches through the
+sharded step (negatives from a generator seeded alike on every rank,
+dropout from one seeded per rank) and runs the same eval (the sharded
+search when mp > 1). ``training.update_routing`` / ``update_capacity_factor``
+choose the sparse tables' exchange. ``checkpointing.sharded`` (``auto``: more
+than one process) writes per-rank shard directories in the JAX format;
+otherwise the state is gathered and rank 0 writes the flat ``.npz``.
+``resume_from`` takes either. Only rank 0 logs and writes the item index
+and embeddings.
+
 Not ported yet (ROADMAP Queue 1): reports, recommendation samples and the
 diagnostics, the in-batch softmax and its options, sparse mimic tables,
-``comm_dtype``, ``packed_moments``, bf16 feature storage and the mesh; each
-option raises when a config asks for it. The TPU knobs ``steps_per_call``
-and ``use_pallas`` are not read.
+``comm_dtype``, ``packed_moments``, bf16 feature storage, and of the mesh
+``tensor_parallel`` and ``embedding_exchange: alltoall``; each option
+raises when a config asks for it. The TPU knobs ``steps_per_call``,
+``use_pallas`` and ``mesh.multi_host`` are not read.
 """
 
 from __future__ import annotations
@@ -63,10 +79,28 @@ from ..evaluation import (
     evaluate_retrieval,
     evaluate_retrieval_metrics,
 )
+from ..evaluation.retrieval import full_corpus, model_mesh
 from ..models.convert import train_state_to_flat
 from ..models.two_tower import parse_model_config
+from ..parallel import (
+    build_mesh,
+    gather_state_flat,
+    is_primary_host,
+    maybe_initialize_distributed,
+    pad_batch_data,
+    pad_state_rows,
+    parse_mesh_config,
+    place_data,
+    place_state,
+)
 from ..serve.flat_index import build_flat_index
-from ..train.checkpoint import load_checkpoint, save_checkpoint
+from ..train.checkpoint import checkpoint_filename, load_checkpoint, save_checkpoint
+from ..train.sharded_checkpoint import (
+    MANIFEST,
+    load_sharded_checkpoint,
+    save_sharded_checkpoint,
+    state_to_host_shards,
+)
 from ..train.optim import parse_dense_opt_config
 from ..train.state import BatchData, TrainState, create_train_state
 from ..train.step import TrainStepConfig, encode_corpus, make_eval_loss_step, make_train_step
@@ -172,7 +206,8 @@ def _refuse_unported(config: Mapping[str, Any]) -> None:
         "training.comm_dtype": str(training.get("comm_dtype", "float32")).lower() != "float32",
         "training.packed_moments": bool(training.get("packed_moments", False)),
         "data.features_dtype": str(data.get("features_dtype", "float32")).lower() != "float32",
-        "mesh": int(mesh.get("data_parallel", 1)) * int(mesh.get("model_parallel", 1)) > 1,
+        "mesh.tensor_parallel": bool(mesh.get("tensor_parallel", False)),
+        "mesh.embedding_exchange": str(mesh.get("embedding_exchange", "gspmd")).lower() != "gspmd",
     }
     for name, asked in refused.items():
         if asked:
@@ -227,6 +262,13 @@ def run_single_experiment(
     configure_logging(str((config.get("logging") or {}).get("level", "INFO")))
     _refuse_unported(config)
     dev = resolve_device(device)
+    mesh_cfg = parse_mesh_config(config.get("mesh", {}) or {})
+    mesh = None
+    if mesh_cfg.num_devices > 1:
+        dev = maybe_initialize_distributed(dev)
+        mesh = build_mesh(mesh_cfg, dev.type)
+        if not is_primary_host():
+            configure_logging("WARNING")  # rank 0 logs
     seed = int((config.get("experiment") or {}).get("seed", 0))
     experiment_name = str((config.get("experiment") or {}).get("name", "experiment"))
     data_cfg = dict(config.get("data", {}))
@@ -327,6 +369,8 @@ def run_single_experiment(
             min(64, -(-len(categories.category_names) // 8) * 8) if categories else 0,
         )),
         sparse_weight_decay=float(training_cfg.get("sparse_weight_decay", 0.0)),
+        update_routing=str(training_cfg.get("update_routing", "allgather")).lower(),
+        update_capacity_factor=float(training_cfg.get("update_capacity_factor", 2.0)),
         opt=parse_dense_opt_config(
             training_cfg,
             total_steps=max(1, -(-len(train_df) // batch_size)) * num_epochs,
@@ -335,14 +379,30 @@ def run_single_experiment(
     state = create_train_state(
         model_cfg, num_users=num_users, num_items=num_items, seed=seed, device=dev
     )
-    train_step = make_train_step(model_cfg, tscfg)
-    eval_step = make_eval_loss_step(model_cfg, tscfg)
+    train_step = make_train_step(model_cfg, tscfg, mesh=mesh)
+    eval_step = make_eval_loss_step(model_cfg, tscfg, mesh=mesh)
 
     start_epoch = 1
-    if training_cfg.get("resume_from"):
-        state, meta = load_checkpoint(Path(training_cfg["resume_from"]), state)
+    resume = Path(training_cfg["resume_from"]) if training_cfg.get("resume_from") else None
+    if resume is not None and not (resume / MANIFEST).is_file():
+        state, meta = load_checkpoint(resume, state)
+    if mesh is not None:
+        mp = mesh_cfg.model_parallel
+        state = place_state(mesh, pad_state_rows(state, mp))
+        data = place_data(mesh, pad_batch_data(data, mp))
+        logger.info(
+            "Mesh | data_parallel=%d model_parallel=%d processes=%d routing=%s",
+            mesh_cfg.data_parallel, mp, mesh_cfg.num_devices, tscfg.update_routing,
+        )
+    if resume is not None and (resume / MANIFEST).is_file():
+        state, meta = load_sharded_checkpoint(resume, state, mesh)
+    if resume is not None:
         start_epoch = int(meta.get("epoch", 0)) + 1
-        logger.info("Resumed from %s at epoch %d", training_cfg["resume_from"], start_epoch)
+        logger.info("Resumed from %s at epoch %d", resume, start_epoch)
+    sharded_raw = checkpoint_cfg.get("sharded", "auto")
+    world = mesh_cfg.num_devices if mesh is not None else 1
+    sharded_ckpt = world > 1 if sharded_raw == "auto" else bool(sharded_raw)
+    search_mesh = model_mesh(mesh)
 
     # The eval plans, built once from one packed train-positives matrix.
     train_positive_map = positives_from_frame(train_df)
@@ -372,16 +432,24 @@ def run_single_experiment(
         if plan is not None:
             return evaluate_retrieval_metrics(
                 state.model, data, plan=plan, k_values=metrics_k, item_embeddings=item_embeddings,
+                mesh=search_mesh,
             )
         predictions, ground_truth = evaluate_retrieval(
             state.model, data, val_interactions=frame, train_positive_map=train_positive_map,
             num_items=num_items, k_values=metrics_k, use_mips=mips_enabled,
             candidate_samples=candidate_samples, rng=np.random.default_rng(rng_seed),
-            user_batch_size=eval_user_batch, item_embeddings=item_embeddings,
+            user_batch_size=eval_user_batch, item_embeddings=item_embeddings, mesh=search_mesh,
         )
         return compute_ranking_metrics(predictions, ground_truth, metrics_k, include_per_user=False)
 
+    # negatives: one stream, the same on every rank; dropout: each rank its own
     generator = torch.Generator(device=dev).manual_seed(seed)
+    step_kwargs = {}
+    if mesh is not None:
+        rank = torch.distributed.get_rank()
+        step_kwargs["dropout_generator"] = torch.Generator(device=dev).manual_seed(
+            seed * 1000003 + 5_000_011 + rank
+        )
     examples = 0
     best_metric_value: float | None = None
     best_state: TrainState | None = None
@@ -400,7 +468,7 @@ def run_single_experiment(
                 break
             state, metrics = train_step(
                 state, data, users[start : start + batch_size],
-                items[start : start + batch_size], generator=generator,
+                items[start : start + batch_size], generator=generator, **step_kwargs,
             )
             losses.append(metrics["loss"])
             sizes.append(min(batch_size, len(perm) - start))
@@ -432,7 +500,7 @@ def run_single_experiment(
         # One encode of the item corpus serves both evals.
         item_embeddings = None
         if len(val_users) or len(test_users):
-            item_embeddings = encode_corpus(state.model, "item", data.item_features)
+            item_embeddings = _encode_items(state, data, search_mesh)
         val_loss_value = float("nan")
         val_metrics = test_metrics = None
         monitor_value: float | None = None
@@ -495,12 +563,21 @@ def run_single_experiment(
                 jobs.append(("epoch", "epoch", float(epoch), checkpoint_template))
             if keep_last:
                 jobs.append(("last", "last", float(epoch), "{experiment}_last.pt"))
-            host = train_state_to_flat(state) if jobs else None  # one pull for every file
+            host = _checkpoint_host(state, mesh, sharded_ckpt) if jobs else None  # one pull
             for role, metric_name, value, template in jobs:
-                path = save_checkpoint(
-                    checkpoint_dir, host, experiment_name=experiment_name, epoch=epoch,
-                    metric_name=metric_name, metric_value=value, template=template,
+                names = dict(
+                    experiment_name=experiment_name, epoch=epoch, metric_name=metric_name,
+                    metric_value=value, template=template,
                 )
+                if sharded_ckpt:
+                    path = save_sharded_checkpoint(checkpoint_dir, mesh=mesh, host_pieces=host, **names)
+                elif is_primary_host():
+                    path = save_checkpoint(checkpoint_dir, host, **names)
+                else:
+                    path = checkpoint_dir / checkpoint_filename(
+                        template, experiment_name=experiment_name, metric_name=metric_name,
+                        metric_value=value, epoch=epoch,
+                    )
                 if role == "best":
                     result.best_checkpoint_path = path
                 elif role == "last":
@@ -527,9 +604,24 @@ def run_single_experiment(
 
     if mips_enabled:
         _write_retrieval_artifacts(
-            result, metrics_k, requested_dtype, gate_eps, index_path, embedding_path,
+            result, metrics_k, requested_dtype, gate_eps, index_path, embedding_path, search_mesh,
         )
     return result
+
+
+def _encode_items(state: TrainState, data: BatchData, search_mesh) -> torch.Tensor:
+    """The item corpus, encoded (under a model-sharded mesh: this shard's rows)."""
+    rows = None if search_mesh is None else state.model.item_tower.id_embedding.weight.shape[0]
+    return encode_corpus(state.model, "item", data.item_features, num_rows=rows)
+
+
+def _checkpoint_host(state: TrainState, mesh, sharded: bool):
+    """The host arrays of one epoch's checkpoints, pulled once: this rank's
+    pieces for a sharded checkpoint, else the whole flat state (gathered
+    over the mesh)."""
+    if sharded:
+        return state_to_host_shards(state, mesh)
+    return train_state_to_flat(state) if mesh is None else gather_state_flat(state, mesh)
 
 
 def _write_retrieval_artifacts(
@@ -539,12 +631,14 @@ def _write_retrieval_artifacts(
     gate_eps: float,
     index_path: Path,
     embedding_path: Path,
+    search_mesh=None,
 ) -> None:
     """The serving-precision gate, then the item index and embeddings of the
-    (best) state. bf16 serving ships under ``auto`` only when the final val
-    eval re-scored in bf16 loses at most ``gate_eps`` of any recall@k."""
+    (best) state (written by rank 0). bf16 serving ships under ``auto`` only
+    when the final val eval re-scored in bf16 loses at most ``gate_eps`` of
+    any recall@k."""
     model, data, val_plan = result.state.model, result.data, result.val_plan
-    item_embeddings = encode_corpus(model, "item", data.item_features)
+    item_embeddings = _encode_items(result.state, data, search_mesh)
     dtype = "float32"
     if requested_dtype != "auto":
         dtype = requested_dtype
@@ -553,7 +647,7 @@ def _write_retrieval_artifacts(
     else:
         bf16 = evaluate_retrieval_metrics(
             model, data, plan=val_plan, k_values=metrics_k, item_embeddings=item_embeddings,
-            score_dtype="bfloat16",
+            score_dtype="bfloat16", mesh=search_mesh,
         )
         deltas = {
             k: result.best_val_metrics.recall.get(k, 0.0) - bf16.recall.get(k, 0.0)
@@ -566,6 +660,10 @@ def _write_retrieval_artifacts(
             "Serving precision gate | bf16 recall deltas %s | worst %.5f vs gate %.5f -> %s",
             {k: round(v, 5) for k, v in deltas.items()}, worst, gate_eps, dtype,
         )
+    item_embeddings = full_corpus(model, item_embeddings, search_mesh)
+    result.serving_score_dtype = dtype
+    if not is_primary_host():
+        return
     index = build_flat_index(
         item_embeddings.cpu().numpy(), normalize=model.cfg.similarity == "cosine",
         score_dtype=dtype, device="cpu",  # only written out here
@@ -573,5 +671,4 @@ def _write_retrieval_artifacts(
     index.save(index_path)
     embedding_path.parent.mkdir(parents=True, exist_ok=True)
     np.save(embedding_path, index.embeddings)
-    result.serving_score_dtype = dtype
     logger.info("Saved retrieval artifacts to %s / %s", index_path, embedding_path)

@@ -3,12 +3,20 @@
     python -m ttamm_torch.train --config configs/default.yaml \\
         [--data-root DIR] [--max-steps N] [--device cuda|cpu]
 
-Runs on the CUDA card unless ``--device cpu`` asks for the CPU. Logs each
+and, for a config with ``mesh: {data_parallel: dp, model_parallel: mp}``,
+one process per device:
+
+    torchrun --nproc_per_node dp*mp -m ttamm_torch.train --config <config> \\
+        [--device cpu]
+
+Runs on the CUDA card unless ``--device cpu`` asks for the CPU (a mesh then
+runs over gloo, on cards over NCCL). Logs each
 epoch's losses and val metrics, writes the checkpoints under
 ``training.checkpointing.dir`` and the item index and embeddings under
 ``evaluation.faiss``, and prints one JSON line of the results: losses, the
 best epoch with its val recall and ndcg at each k, the best and the last
-checkpoint, and the serving score dtype.
+checkpoint, and the serving score dtype. Under a mesh only rank 0 logs and
+prints.
 """
 
 from __future__ import annotations
@@ -17,6 +25,9 @@ import argparse
 import json
 from pathlib import Path
 
+import torch.distributed as dist
+
+from ..parallel import is_primary_host
 from ..pipelines.training import run_single_experiment
 from ..utils import load_config
 
@@ -33,6 +44,12 @@ def main(argv: list[str] | None = None) -> None:
     if args.data_root is not None:
         config.setdefault("data", {})["root"] = str(args.data_root)
     result = run_single_experiment(config, device=args.device, max_steps=args.max_steps)
+    primary = is_primary_host()
+    if dist.is_initialized():
+        dist.barrier()  # every rank's files are written
+        dist.destroy_process_group()
+    if not primary:
+        return
     best = result.best_val_metrics
     print(json.dumps({
         "users": result.num_users,

@@ -1,0 +1,205 @@
+"""Per-process sharded checkpoints of a state on a mesh, in the JAX
+package's directory format (port of ``ttamm_tpu/train/sharded_checkpoint.py``).
+
+``<name>/`` (a directory, named by ``checkpoint_filename``)
+    ``manifest.json``      meta (epoch, metric, timestamp, ``num_processes``),
+                           written by rank 0
+    ``shards_p00000.npz``  one file per rank: the pieces it owns
+
+A piece key is ``<leaf key>::<bounds>``, with the flat keys of
+``train_state_to_flat`` and bounds ``"r0:r1;c0:c1"`` in global coordinates
+(empty for scalars). Each piece is written once: a row-sharded tensor by the
+ranks of data shard 0 (its rows of the padded layout), everything else by
+rank 0. So ``ttamm_tpu.train.sharded_checkpoint.load_sharded_checkpoint``
+reads a port directory, and :func:`load_sharded_checkpoint` a JAX one,
+whatever mesh either was saved under: a rank assembles its region from the
+pieces that overlap it, cut to the table's logical rows (pad rows stay
+zero). Every rank must see every shard file (a shared file system), unless
+the mesh is unchanged.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Any, Callable
+
+import numpy as np
+import torch.distributed as dist
+
+from ..models.convert import train_state_from_flat, train_state_to_flat
+from .checkpoint import checkpoint_filename
+from .state import TrainState
+
+Bounds = tuple[tuple[int, int], ...]
+
+MANIFEST = "manifest.json"
+
+
+def _bounds_str(bounds: Bounds) -> str:
+    return ";".join(f"{a}:{b}" for a, b in bounds)
+
+
+def _parse_bounds(text: str) -> Bounds:
+    if not text:
+        return ()
+    return tuple((int(a), int(b)) for a, b in (part.split(":") for part in text.split(";")))
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _regions(state: TrainState, mesh) -> dict[str, tuple[int, int, int] | None]:
+    """``key -> (first global row, local rows, logical rows)`` for each
+    row-sharded tensor, None for the rest."""
+    from ..parallel.sharding import logical_rows, row_offset, row_sharded_tensors
+
+    out: dict[str, tuple[int, int, int] | None] = {}
+    for key, (name, t) in row_sharded_tensors(state).items():
+        rows = t.shape[0]
+        start = 0 if mesh is None else row_offset(mesh, rows)
+        out[key] = (start, rows, logical_rows(state.model, name))
+    return out
+
+
+def state_to_host_shards(state: TrainState, mesh=None) -> dict[str, np.ndarray]:
+    """This rank's pieces, pulled to the host once (pass them to several
+    :func:`save_sharded_checkpoint` calls of one epoch)."""
+    from ..parallel.mesh import DATA_AXIS, axis_index
+
+    data_index = 0 if mesh is None else axis_index(mesh, DATA_AXIS)
+    regions = _regions(state, mesh)
+    pieces: dict[str, np.ndarray] = {}
+    for key, arr in train_state_to_flat(state).items():
+        region = regions.get(key)
+        if region is not None:
+            if data_index:
+                continue  # another data shard holds the same rows
+            start, rows, _ = region
+            bounds = ((start, start + rows),) + tuple((0, d) for d in arr.shape[1:])
+        elif _rank():
+            continue  # replicated: rank 0 writes it
+        else:
+            bounds = tuple((0, d) for d in arr.shape)
+        pieces[f"{key}::{_bounds_str(bounds)}"] = arr
+    return pieces
+
+
+def save_sharded_checkpoint(
+    directory: Path | str,
+    state: TrainState | None = None,
+    *,
+    experiment_name: str,
+    epoch: int,
+    metric_name: str | None,
+    metric_value: float | None,
+    template: str | None = None,
+    mesh=None,
+    host_pieces: dict[str, np.ndarray] | None = None,
+) -> Path:
+    """Each rank writes its shard file; rank 0 adds the manifest (and drops
+    shard files of an earlier save by more processes). Returns the
+    directory. No barrier is taken: a reader in the same run waits for
+    every rank first."""
+    path = Path(directory) / checkpoint_filename(
+        template, experiment_name=experiment_name, metric_name=metric_name,
+        metric_value=metric_value, epoch=epoch,
+    )
+    path.mkdir(parents=True, exist_ok=True)
+    rank, world = _rank(), _world()
+    if rank == 0:
+        for stale in path.glob("shards_p*.npz"):
+            if int(stale.stem.rpartition("p")[2]) >= world:
+                stale.unlink()
+    pieces = host_pieces if host_pieces is not None else state_to_host_shards(state, mesh)
+    with open(path / f"shards_p{rank:05d}.npz", "wb") as handle:
+        np.savez(handle, **pieces)
+    if rank == 0:
+        meta = {
+            "epoch": epoch,
+            "metric_name": metric_name,
+            "metric_value": metric_value,
+            "timestamp": time.time(),
+            "format_version": 2,
+            "num_processes": world,
+        }
+        (path / MANIFEST).write_text(json.dumps(meta))
+    return path
+
+
+def _piece_index(path: Path, num_processes: int | None):
+    """``leaf key -> [(bounds, loader)]`` over the manifest's shard files."""
+    blobs, by_leaf = [], {}
+    for shard in sorted(path.glob("shards_p*.npz")):
+        if num_processes is not None and int(shard.stem.rpartition("p")[2]) >= num_processes:
+            continue
+        blob = np.load(shard, allow_pickle=False)
+        blobs.append(blob)
+        for piece_key in blob.files:
+            leaf, _, text = piece_key.rpartition("::")
+            by_leaf.setdefault(leaf, []).append((_parse_bounds(text), lambda b=blob, k=piece_key: b[k]))
+    if not blobs:
+        raise FileNotFoundError(f"No shard files under {path}")
+    return blobs, by_leaf
+
+
+def _assemble(pieces: list[tuple[Bounds, Callable[[], np.ndarray]]], want: Bounds,
+              out: np.ndarray, key: str) -> None:
+    """Fill ``out`` (the region ``want``, or its leading part) from the
+    overlapping pieces; raise unless they cover ``want``."""
+    covered = 0
+    for bounds, get in pieces:
+        overlap = tuple((max(a, wa), min(b, wb)) for (a, b), (wa, wb) in zip(bounds, want))
+        if any(a >= b for a, b in overlap):
+            continue
+        src = get()[tuple(slice(a - pa, b - pa) for (a, b), (pa, _) in zip(overlap, bounds))]
+        out[tuple(slice(a - wa, b - wa) for (a, b), (wa, _) in zip(overlap, want))] = src
+        covered += int(np.prod([b - a for a, b in overlap]))
+    need = int(np.prod([b - a for a, b in want]))
+    if covered != need:
+        raise ValueError(
+            f"Checkpoint pieces cover {covered}/{need} elements of '{key}' region {want}: "
+            "saved under another config?"
+        )
+
+
+def load_sharded_checkpoint(
+    path: Path | str, template_state: TrainState, mesh=None
+) -> tuple[TrainState, dict[str, Any]]:
+    """Restore a sharded checkpoint (the port's or the JAX package's) into
+    ``template_state`` in place: with ``mesh``, this rank's part of a
+    placed state; without, a one-device state. Returns it and the meta."""
+    path = Path(path)
+    meta = json.loads((path / MANIFEST).read_text())
+    blobs, by_leaf = _piece_index(path, meta.get("num_processes"))
+    regions = _regions(template_state, mesh)
+    flat: dict[str, np.ndarray] = {}
+    try:
+        for key, arr in train_state_to_flat(template_state).items():
+            pieces = by_leaf.get(key)
+            if not pieces:
+                raise ValueError(f"Checkpoint {path} has no pieces for '{key}'")
+            if arr.ndim == 0:
+                flat[key] = np.asarray(pieces[0][1]()).astype(arr.dtype)
+                continue
+            out = np.zeros(arr.shape, arr.dtype)
+            region = regions.get(key)
+            if region is None:
+                _assemble(pieces, tuple((0, d) for d in arr.shape), out, key)
+            else:
+                start, rows, logical = region
+                stop = min(start + rows, logical)
+                if stop > start:
+                    want = ((start, stop),) + tuple((0, d) for d in arr.shape[1:])
+                    _assemble(pieces, want, out[: stop - start], key)
+            flat[key] = out
+    finally:
+        for blob in blobs:
+            blob.close()
+    return train_state_from_flat(template_state, flat), meta

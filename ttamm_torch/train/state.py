@@ -75,6 +75,7 @@ class BatchData:
     item_features: torch.Tensor | None  # [I, Fi] or None
     positive_rows: torch.Tensor  # int32 [U, cap] padded per-user positives
     category_ids: torch.Tensor | None  # int32 [I] frequency-ordered primary categories
+    item_log_q: torch.Tensor | None = None  # f32 [I] log train frequency (in-batch loss)
 
 
 def create_train_state(

@@ -9,10 +9,15 @@ One training step, in the JAX step's order:
 3. run the towers (dropout from the caller's generator) and the mimic;
 4. BCE over [positives; negatives] + the mimic losses + category alignment;
 5. backward;
-6. rebuild each dense table's gradient by an index-add into zeros;
+6. rebuild each dense table's gradient by a fixed-order row sum;
 7. the optional global-norm clip (sparse row gradients coalesced first);
 8. the dense optimizer over the dense parameters and dense tables;
 9. sparse-row Adam on the sparse tables.
+
+With ``mesh`` (a ``DeviceMesh`` with dims ``("data", "model")``, one process
+per device) the step runs on this rank's parts of a state and data placed by
+``ttamm_torch.parallel.sharding``: the same body reads, reduces and
+updates through :class:`_Mesh` instead of :class:`_OneDevice`.
 
 The state is updated in place. Parity notes (as in the JAX package):
 training logits are dot products whatever ``model.similarity`` says; mimic
@@ -26,8 +31,10 @@ Only ``loss: bce`` is ported; the in-batch softmax and its options raise.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ..models.adaptive_mimic import mimic_forward
@@ -51,6 +58,11 @@ class TrainStepConfig(NamedTuple):
     sampling_rounds: int = 8
     # Decoupled weight decay on the sparse tables' touched rows (0 = SparseAdam).
     sparse_weight_decay: float = 0.0
+    # Under a mesh: the row-gradient exchange of the sparse tables
+    # ('allgather' | 'owner' | 'owner_unchecked', parallel/sparse_update.py)
+    # and the owner routing's buffer size relative to a balanced share.
+    update_routing: str = "allgather"
+    update_capacity_factor: float = 2.0
     opt: DenseOptConfig = DenseOptConfig()
 
 
@@ -66,14 +78,16 @@ def _negatives(
     u_idx: torch.Tensor,
     generator: torch.Generator | None,
     negatives: torch.Tensor | None,
+    lookup=_gather_opt,
 ) -> torch.Tensor:
-    """Flat int32 ``[B * NEG]`` negatives: the injected ones, else drawn."""
+    """Flat int32 ``[B * NEG]`` negatives: the injected ones, else drawn
+    (``lookup(positive_rows, u_idx)`` reads the users' positives)."""
     if negatives is not None:
         return negatives.reshape(-1).to(torch.int32)
     if generator is None:
         raise ValueError("a generator is needed to draw the negatives")
     return sample_negative_items(
-        torch.index_select(data.positive_rows, 0, u_idx),
+        lookup(data.positive_rows, u_idx),
         num_items=tscfg.num_items,
         num_negatives=tscfg.negatives_per_positive,
         generator=generator,
@@ -98,16 +112,18 @@ def _forward_embeddings(
     item_idx_all: torch.Tensor,
     rows: dict[str, torch.Tensor],
     generator: torch.Generator | None,
+    lookup=_gather_opt,
 ):
     """``(user_emb, pos_emb, neg_emb [B, NEG, D], mimic_user_loss,
     mimic_item_loss)`` from pre-gathered table rows (items ordered
-    [positives; negatives]); dropout only with a ``generator``."""
+    [positives; negatives]); dropout only with a ``generator``.
+    ``lookup(features, idx)`` reads feature rows."""
     batch = u_idx.shape[0]
     user_base = model.user_tower.forward_rows(
-        rows["user_id"], _gather_opt(data.user_features, u_idx), generator=generator
+        rows["user_id"], lookup(data.user_features, u_idx), generator=generator
     )
     item_base_all = model.item_tower.forward_rows(
-        rows["item_id"], _gather_opt(data.item_features, item_idx_all), generator=generator
+        rows["item_id"], lookup(data.item_features, item_idx_all), generator=generator
     )
     pos_base, neg_base = item_base_all[:batch], item_base_all[batch:]
     zero = user_base.new_zeros(())
@@ -142,120 +158,313 @@ def _check_supported(tscfg: TrainStepConfig) -> None:
 TrainStep = Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]
 
 
-def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig) -> TrainStep:
-    """Build ``train_step(state, data, u_idx, pos_idx, *, generator,
-    negatives=None) -> (state, metrics)``.
+class _Lanes(NamedTuple):
+    """One sparse table's update lanes: global row ids, their gradients and,
+    under a mesh, the permutation of the lanes gathered over ``data`` into
+    the one-device lane order (None where it is the identity)."""
 
-    ``generator`` (on the data's device) draws the negatives and the dropout
-    masks; ``negatives`` ``[B, NEG]`` replaces the draw (tests inject the
-    JAX draws). The state is updated in place and returned; the metrics are
-    0-d device tensors (``loss`` and the four loss terms), read by the
-    caller when it likes, so a step issues no host sync.
+    idx: torch.Tensor
+    grad: torch.Tensor
+    order: torch.Tensor | None = None
+
+
+class _OneDevice:
+    """Where the step reads rows, reduces and updates the sparse tables on
+    one device: plain row reads, no collectives. :class:`_Mesh` swaps in the
+    sharded reads and adds the collectives; the step body is shared."""
+
+    mesh = None
+
+    def shard(self, batch: int) -> tuple[int, int]:
+        """Lanes ``[lo, hi)`` of the batch that this rank trains on."""
+        return 0, batch
+
+    def dropout(self, generator, dropout_generator):
+        return generator if dropout_generator is None else dropout_generator
+
+    def lookup(self, features: torch.Tensor | None, idx: torch.Tensor) -> torch.Tensor | None:
+        """Rows of a table, feature matrix or dataset array, outside autograd."""
+        return _gather_opt(features, idx)
+
+    def dense_table_rows(self, table: torch.Tensor, idx: torch.Tensor):
+        """``(grad_input, rows)``: the tensor whose gradient the step takes
+        and the differentiable rows of a dense (optimizer-updated) table."""
+        rows = torch.index_select(table, 0, idx).requires_grad_()
+        return rows, rows
+
+    def table_grad(self, grad: torch.Tensor, idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        """The table-shaped gradient from ``grad_input``'s (duplicates summed)."""
+        return sum_rows(idx, grad, table.shape[0])
+
+    def weigh(self, batch: int, n_local: int, terms: list[torch.Tensor]) -> list[torch.Tensor]:
+        return terms
+
+    def reduce_losses(self, terms: list[torch.Tensor]) -> list[torch.Tensor]:
+        return [t.detach() for t in terms]
+
+    def reduce_dense(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        return grads
+
+    def reduce_table_sq(self, sq: torch.Tensor) -> torch.Tensor:
+        return sq
+
+    def lanes(self, side: str, idx: torch.Tensor, grad: torch.Tensor, batch: int) -> _Lanes:
+        return _Lanes(idx, grad)
+
+    def sparse_sq(self, table: torch.Tensor, lanes: _Lanes) -> torch.Tensor:
+        """Squared norm of a sparse table's gradient, duplicate rows summed."""
+        _, summed = coalesce_row_grads(lanes.idx, lanes.grad, scratch_row=table.shape[0] - 1)
+        return torch.sum(torch.square(summed))
+
+    def sparse_update(self, table, opt_state, lanes: _Lanes, tscfg: TrainStepConfig, lr) -> None:
+        opt = tscfg.opt
+        sparse_adam_update(
+            table, opt_state, lanes.idx, lanes.grad,
+            lr=lr, b1=opt.b1, b2=opt.b2, weight_decay=tscfg.sparse_weight_decay,
+        )
+
+
+class _Mesh(_OneDevice):
+    """The step on one rank of a ``(data, model)`` mesh.
+
+    ``state`` and ``data`` are this rank's parts (``parallel.sharding``: row
+    slices of every table, moment and dataset array, a whole copy of the
+    dense parameters); ``u_idx`` / ``pos_idx`` are the whole batch, the same
+    on every rank. Against the one-device step:
+
+    1. the negatives of the whole batch come from ``generator``, which every
+       rank seeds alike (or ``negatives``); this rank then trains on its data
+       shard of the batch (:func:`_data_shard`). A mesh run and a one-device
+       run of one seed draw the same negatives only with dropout off, or
+       with the one-device step's masks from a ``dropout_generator`` of its
+       own (else they come from ``generator`` and shift its stream);
+    2. rows come through the sharded lookups: the sparse tables' as fresh
+       leaves, the dense (mimic) tables' through ``sharded_lookup``, whose
+       backward gives this shard's table gradient summed over data;
+    3. dropout comes from ``dropout_generator`` (this rank's own; none
+       without it); each loss term is weighted by the shard's share of the
+       batch, so the sums over data are the global means; the
+       category-alignment statistics are summed over data;
+    4. dense gradients are summed over data (model ranks hold the same batch
+       rows, so never over model);
+    5. the clip norm is global: the dense tables' shards summed over model,
+       each sparse table's duplicate rows summed over the whole batch;
+    6. ``sharded_sparse_adam_update`` (``update_routing``) updates the sparse
+       tables, with the lanes in the one-device order.
+    """
+
+    def __init__(self, mesh, tscfg: TrainStepConfig):
+        from ..parallel import embedding_lookup, sparse_update
+        from ..parallel import mesh as pmesh
+
+        self.mesh, self._lookup, self._update, self._pm = mesh, embedding_lookup, sparse_update, pmesh
+        self.dp = pmesh.axis_size(mesh, pmesh.DATA_AXIS)
+        self.d = pmesh.axis_index(mesh, pmesh.DATA_AXIS)
+        self.num_neg = tscfg.negatives_per_positive
+
+    def shard(self, batch):
+        return _data_shard(batch, self.dp, self.d)
+
+    def dropout(self, generator, dropout_generator):
+        return dropout_generator
+
+    def lookup(self, features, idx):
+        return self._lookup.sharded_rows(features, idx, self.mesh)
+
+    def dense_table_rows(self, table, idx):
+        leaf = table.detach().requires_grad_()
+        return leaf, self._lookup.sharded_lookup(leaf, idx, self.mesh)
+
+    def table_grad(self, grad, idx, table):
+        return grad
+
+    def weigh(self, batch, n_local, terms):
+        return _shard_parts(batch, n_local, terms)
+
+    def reduce_losses(self, terms):
+        summed = self._pm.all_reduce(torch.stack(terms).detach(), self.mesh, self._pm.DATA_AXIS)
+        return list(summed.unbind())
+
+    def reduce_dense(self, grads):
+        if not grads:
+            return grads
+        flat = self._pm.all_reduce(torch.cat([g.reshape(-1) for g in grads]), self.mesh, self._pm.DATA_AXIS)
+        return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+    def reduce_table_sq(self, sq):
+        return self._pm.all_reduce(sq.reshape(1), self.mesh, self._pm.MODEL_AXIS)[0]
+
+    def lanes(self, side, idx, grad, batch):
+        """This rank's lanes padded to one length on every rank, and the
+        permutation of the gathered lanes into the global order."""
+        chunk = -(-batch // self.dp)
+        width = chunk * (1 if side == "user" else 1 + self.num_neg)
+        idx, grad = _pad_lanes(idx, grad, width)
+        order = dict(zip(("user", "item"), _lane_orders(batch, self.dp, self.num_neg)))[side]
+        return _Lanes(idx, grad, None if order is None else torch.from_numpy(order).to(idx.device))
+
+    def sparse_sq(self, table, lanes):
+        data = self._pm.DATA_AXIS
+        idx_all = self._pm.all_gather_rows(lanes.idx, self.mesh, data)
+        g_all = self._pm.all_gather_rows(lanes.grad, self.mesh, data)
+        if lanes.order is not None:
+            idx_all, g_all = idx_all[lanes.order], g_all[lanes.order]
+        _, summed, is_head, _ = self._update._coalesce_sorted(idx_all.long(), g_all, head_init=-2)
+        return torch.sum(torch.square(torch.where(is_head[:, None], summed, 0.0)))
+
+    def sparse_update(self, table, opt_state, lanes, tscfg, lr):
+        opt = tscfg.opt
+        self._update.sharded_sparse_adam_update(
+            self.mesh, table, opt_state, lanes.idx, lanes.grad,
+            lr=lr, b1=opt.b1, b2=opt.b2, weight_decay=tscfg.sparse_weight_decay,
+            routing=tscfg.update_routing, capacity_factor=tscfg.update_capacity_factor,
+            gather_order=lanes.order,
+        )
+
+
+def _layout(tscfg: TrainStepConfig, mesh) -> _OneDevice:
+    return _OneDevice() if mesh is None else _Mesh(mesh, tscfg)
+
+
+def _batch_lanes(layout: _OneDevice, tscfg: TrainStepConfig, data, u_idx, pos_idx, generator, negatives):
+    """``(batch, lo, hi, u_local, items_local)``: this rank's users and its
+    [positives; negatives] item ids."""
+    batch = u_idx.shape[0]
+    u_idx, pos_idx = u_idx.to(torch.int32), pos_idx.to(torch.int32)
+    neg_flat = _negatives(tscfg, data, u_idx, generator, negatives, layout.lookup)
+    lo, hi = layout.shard(batch)
+    num_neg = tscfg.negatives_per_positive
+    item_l = torch.cat([pos_idx[lo:hi], neg_flat[lo * num_neg : hi * num_neg]])
+    return batch, lo, hi, u_idx[lo:hi], item_l
+
+
+def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> TrainStep:
+    """Build ``train_step(state, data, u_idx, pos_idx, *, generator,
+    negatives=None, dropout_generator=None) -> (state, metrics)``.
+
+    ``generator`` (on the data's device) draws the negatives and, on one
+    device, the dropout masks unless ``dropout_generator`` is given;
+    ``negatives`` ``[B, NEG]`` replaces the draw (tests inject the JAX
+    draws). The state is updated in place and
+    returned; the metrics are 0-d device tensors (``loss`` and the four loss
+    terms), read by the caller when it likes, so a step issues no host sync.
+
+    ``mesh``: the step on one rank of a ``(data, model)`` mesh, whose
+    differences :class:`_Mesh` lists (dropout from ``dropout_generator``).
     """
     _check_supported(tscfg)
+    layout = _layout(tscfg, mesh)
     sparse_names = sparse_table_names(cfg)
     dense_tbl_names = dense_table_names(cfg)
     opt = tscfg.opt
+    lam_u = tscfg.lambda_mimic_user if cfg.mimic_enabled else 0.0
+    lam_i = tscfg.lambda_mimic_item if cfg.mimic_enabled else 0.0
+    lam_c = tscfg.lambda_category_alignment
 
-    def train_step(state, data, u_idx, pos_idx, *, generator, negatives=None):
+    def combine(retrieval, mu, mi, cal):
+        total = retrieval
+        if lam_u > 0:
+            total = total + lam_u * mu
+        if lam_i > 0:
+            total = total + lam_i * mi
+        if cal is not None:
+            total = total + lam_c * cal
+        return total
+
+    def train_step(state, data, u_idx, pos_idx, *, generator, negatives=None, dropout_generator=None):
         model = state.model
-        u_idx, pos_idx = u_idx.to(torch.int32), pos_idx.to(torch.int32)
-        neg_flat = _negatives(tscfg, data, u_idx, generator, negatives)
-        item_idx_all = torch.cat([pos_idx, neg_flat])
-        row_idx = _row_indices(u_idx, item_idx_all)
+        batch, lo, hi, u_l, item_l = _batch_lanes(
+            layout, tscfg, data, u_idx, pos_idx, generator, negatives
+        )
+        row_idx = _row_indices(u_l, item_l)
         tables = state.tables
-        rows = {
-            n: torch.index_select(t, 0, row_idx[n]).requires_grad_()
-            for n, t in tables.items()
-        }
+        inputs, rows = {}, {}
+        for n, t in tables.items():
+            if n in dense_tbl_names:
+                inputs[n], rows[n] = layout.dense_table_rows(t, row_idx[n])
+            else:
+                inputs[n] = rows[n] = layout.lookup(t, row_idx[n]).requires_grad_()
 
         user_emb, pos_emb, neg_emb, mu_loss, mi_loss = _forward_embeddings(
-            model, tscfg, data, u_idx, item_idx_all, rows, generator
+            model, tscfg, data, u_l, item_l, rows,
+            layout.dropout(generator, dropout_generator), layout.lookup,
         )
-        retrieval_loss = _bce_stack(user_emb, pos_emb, neg_emb)
-        total = retrieval_loss
-        if cfg.mimic_enabled and tscfg.lambda_mimic_user > 0:
-            total = total + tscfg.lambda_mimic_user * mu_loss
-        if cfg.mimic_enabled and tscfg.lambda_mimic_item > 0:
-            total = total + tscfg.lambda_mimic_item * mi_loss
-        cal_loss = total.new_zeros(())
-        if tscfg.lambda_category_alignment > 0 and data.category_ids is not None:
+        parts = layout.weigh(batch, hi - lo, [_bce_stack(user_emb, pos_emb, neg_emb), mu_loss, mi_loss])
+        cal_loss = None
+        if lam_c > 0 and data.category_ids is not None:
             cal_loss = category_alignment_loss(
-                torch.index_select(data.category_ids, 0, item_idx_all),
+                layout.lookup(data.category_ids, item_l),
                 torch.cat([pos_emb, neg_emb.reshape(-1, pos_emb.shape[-1])]),
-                max_categories=tscfg.cal_max_categories,
+                max_categories=tscfg.cal_max_categories, mesh=layout.mesh,
             )
-            total = total + tscfg.lambda_category_alignment * cal_loss
+        objective = combine(*parts, cal_loss)
 
         dense = [p for _, p in model.dense_parameters()]
-        grads = torch.autograd.grad(
-            total, [*dense, *rows.values()], allow_unused=True
-        )
-        grads = [
-            torch.zeros_like(x) if g is None else g
-            for x, g in zip([*dense, *rows.values()], grads)
-        ]
-        dense_grads = grads[: len(dense)]
-        row_grads = dict(zip(rows, grads[len(dense) :]))
-        # table-shaped gradients of the dense tables (duplicates summed)
-        table_grads = [
-            sum_rows(row_idx[n], row_grads[n], tables[n].shape[0]) for n in dense_tbl_names
-        ]
+        wrt = [*dense, *inputs.values()]
+        grads = torch.autograd.grad(objective, wrt, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, grads)]
+        dense_grads = layout.reduce_dense(grads[: len(dense)])
+        input_grads = dict(zip(inputs, grads[len(dense) :]))
+        table_grads = [layout.table_grad(input_grads[n], row_idx[n], tables[n]) for n in dense_tbl_names]
+        lanes = {n: layout.lanes(n[:4], row_idx[n], input_grads[n], batch) for n in sparse_names}
 
         if tscfg.gradient_clip_norm is not None and tscfg.gradient_clip_norm > 0:
             # Global norm over every gradient, with each sparse table's
             # duplicate rows summed first (the true gradient's norm).
-            sq = sum(torch.sum(torch.square(g)) for g in dense_grads + table_grads)
+            sq = sum(torch.sum(torch.square(g)) for g in dense_grads)
+            if table_grads:
+                sq = sq + layout.reduce_table_sq(sum(torch.sum(torch.square(g)) for g in table_grads))
             for n in sparse_names:
-                _, summed = coalesce_row_grads(
-                    row_idx[n], row_grads[n], scratch_row=tables[n].shape[0] - 1
-                )
-                sq = sq + torch.sum(torch.square(summed))
+                sq = sq + layout.sparse_sq(tables[n], lanes[n])
             scale = torch.clamp(tscfg.gradient_clip_norm / (torch.sqrt(sq) + 1e-6), max=1.0)
             dense_grads = [g * scale for g in dense_grads]
             table_grads = [g * scale for g in table_grads]
-            row_grads = {n: g * scale for n, g in row_grads.items()}
+            lanes = {n: ln._replace(grad=ln.grad * scale) for n, ln in lanes.items()}
 
         dense_opt_update(
-            [t for _, t in state.dense_targets()], dense_grads + table_grads,
-            state.opt_dense, opt,
+            [t for _, t in state.dense_targets()], dense_grads + table_grads, state.opt_dense, opt,
         )
         lr_t = opt.lr * lr_scale(opt, state.step + 1)
         for n in sparse_names:
-            sparse_adam_update(
-                tables[n], state.opt_sparse[n], row_idx[n], row_grads[n],
-                lr=lr_t, b1=opt.b1, b2=opt.b2, weight_decay=tscfg.sparse_weight_decay,
-            )
+            layout.sparse_update(tables[n], state.opt_sparse[n], lanes[n], tscfg, lr_t)
         state.step += 1
+        retrieval, mu, mi = layout.reduce_losses(parts)
+        cal = None if cal_loss is None else cal_loss.detach()
         metrics = {
-            "loss": total.detach(),
-            "retrieval_loss": retrieval_loss.detach(),
-            "mimic_user_loss": mu_loss.detach(),
-            "mimic_item_loss": mi_loss.detach(),
-            "category_alignment_loss": cal_loss.detach(),
+            "loss": combine(retrieval, mu, mi, cal),
+            "retrieval_loss": retrieval,
+            "mimic_user_loss": mu,
+            "mimic_item_loss": mi,
+            "category_alignment_loss": retrieval.new_zeros(()) if cal is None else cal,
         }
         return state, metrics
 
     return train_step
 
 
-def make_eval_loss_step(cfg: ModelConfig, tscfg: TrainStepConfig) -> Callable[..., torch.Tensor]:
+def make_eval_loss_step(
+    cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None
+) -> Callable[..., torch.Tensor]:
     """Build ``eval_loss_step(state, data, u_idx, pos_idx, *, generator,
     negatives=None) -> loss``: the BCE on [positives; sampled negatives],
-    no dropout, no auxiliary terms (0-d device tensor)."""
+    no dropout, no auxiliary terms (0-d device tensor). ``mesh``: the
+    batch's loss from the data shards' parts (:class:`_Mesh` describes the
+    layout)."""
     _check_supported(tscfg)
+    layout = _layout(tscfg, mesh)
 
     @torch.no_grad()
     def eval_loss_step(state, data, u_idx, pos_idx, *, generator, negatives=None):
-        u_idx, pos_idx = u_idx.to(torch.int32), pos_idx.to(torch.int32)
-        neg_flat = _negatives(tscfg, data, u_idx, generator, negatives)
-        item_idx_all = torch.cat([pos_idx, neg_flat])
-        row_idx = _row_indices(u_idx, item_idx_all)
-        rows = {n: torch.index_select(t, 0, row_idx[n]) for n, t in state.tables.items()}
-        user_emb, pos_emb, neg_emb, _, _ = _forward_embeddings(
-            state.model, tscfg, data, u_idx, item_idx_all, rows, None
+        batch, lo, hi, u_l, item_l = _batch_lanes(
+            layout, tscfg, data, u_idx, pos_idx, generator, negatives
         )
-        return _bce_stack(user_emb, pos_emb, neg_emb)
+        row_idx = _row_indices(u_l, item_l)
+        rows = {n: layout.lookup(t, row_idx[n]) for n, t in state.tables.items()}
+        user_emb, pos_emb, neg_emb, _, _ = _forward_embeddings(
+            state.model, tscfg, data, u_l, item_l, rows, None, layout.lookup
+        )
+        (loss,) = layout.reduce_losses(layout.weigh(batch, hi - lo, [_bce_stack(user_emb, pos_emb, neg_emb)]))
+        return loss
 
     return eval_loss_step
 
@@ -267,6 +476,7 @@ def encode_corpus(
     features: torch.Tensor | None = None,
     *,
     chunk_size: int = 65536,
+    num_rows: int | None = None,
 ) -> torch.Tensor:
     """Encode every user or item through its tower (+ mimic augmentation).
 
@@ -274,11 +484,13 @@ def encode_corpus(
     device and returns f32 ``[num_rows, D]`` there. ``features`` is the
     side's ``[num_rows, F]`` feature matrix (or None / empty for an ID-only
     tower); chunks of it are moved to the model's device as they are used.
+    ``num_rows`` (default: the side's users or items) encodes the first rows
+    of the tables; a model shard passes its local row count.
     """
     tower = model.tower(side)
     table = tower.id_embedding.weight  # a sparse table ends in its scratch row
     dev = table.device
-    n = tower.num_embeddings
+    n = tower.num_embeddings if num_rows is None else num_rows
     if features is not None and features.numel() == 0:
         features = None
     aug = model.mimic.table(side).weight if model.mimic is not None else None
@@ -291,3 +503,65 @@ def encode_corpus(
             emb = emb + aug[start:end]
         out[start:end] = emb
     return out
+
+
+# ---------------------------------------------------------------------------
+# Lane bookkeeping of the sharded step
+# ---------------------------------------------------------------------------
+
+
+def _data_shard(batch: int, dp: int, d: int) -> tuple[int, int]:
+    """Lanes ``[lo, hi)`` of the batch that data shard ``d`` takes:
+    contiguous chunks of ``ceil(batch / dp)`` (the last ones may be short
+    or empty)."""
+    chunk = -(-batch // dp)
+    lo = min(d * chunk, batch)
+    return lo, min(lo + chunk, batch)
+
+
+@functools.lru_cache(maxsize=64)
+def _lane_orders(batch: int, dp: int, num_neg: int) -> tuple[np.ndarray | None, np.ndarray | None]:
+    """Permutations of the user and item lanes gathered over ``data``
+    (rank-major, each rank's lanes padded to one length) into the step's
+    global lane order: users in batch order, items as [every positive;
+    every negative], padding lanes last. None where the gather order is
+    already the global one."""
+    chunk = -(-batch // dp)
+    user, pos, neg, user_pad, item_pad = [], [], [], [], []
+    for d in range(dp):
+        lo, hi = _data_shard(batch, dp, d)
+        n = hi - lo
+        ub, ib = d * chunk, d * chunk * (1 + num_neg)
+        user.append(np.arange(ub, ub + n))
+        user_pad.append(np.arange(ub + n, ub + chunk))
+        pos.append(np.arange(ib, ib + n))
+        neg.append(np.arange(ib + n, ib + n * (1 + num_neg)))
+        item_pad.append(np.arange(ib + n * (1 + num_neg), ib + chunk * (1 + num_neg)))
+    user_order = np.concatenate(user + user_pad)
+    item_order = np.concatenate(pos + neg + item_pad)
+    identity = lambda order: np.array_equal(order, np.arange(order.size))  # noqa: E731
+    return (
+        None if identity(user_order) else user_order,
+        None if identity(item_order) else item_order,
+    )
+
+
+def _pad_lanes(idx: torch.Tensor, grads: torch.Tensor, lanes: int):
+    """Lanes padded to ``lanes`` with id -1 and zero gradients."""
+    extra = lanes - idx.shape[0]
+    if extra == 0:
+        return idx, grads
+    return (
+        torch.cat([idx, idx.new_full((extra,), -1)]),
+        torch.cat([grads, grads.new_zeros((extra, grads.shape[1]))]),
+    )
+
+
+def _shard_parts(batch: int, n_local: int, terms: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Each mean over this data shard weighted by its share of the batch, so
+    the sum over data shards is the batch mean (an empty shard adds zero
+    and keeps its graph, so every rank runs the same backward)."""
+    weight = n_local / batch
+    if n_local == 0:
+        return [torch.nan_to_num(t) * 0.0 for t in terms]
+    return [t * weight for t in terms]
