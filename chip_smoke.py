@@ -9,17 +9,24 @@ Run from the root of a checkout, with one card visible:
 Phases (each prints its seconds; any failure exits non-zero and prints no
 result line):
 
-1. build the CUDA kernels from ``ttamm_torch/csrc/`` and report the card;
+1. build the CUDA kernels from ``ttamm_torch/csrc/`` and report the card,
+   the ``ptxas`` registers and spills of every kernel, and the SASS
+   counts of the search kernels (groupmax_matmul must contain ``wgmma``,
+   HGMMA, and TMA loads, UTMALDG);
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes and time kernel, plain version and the nearest library call
    (device time from ``torch.profiler``; the row kernels are timed in
    phase 4):
-   small_k_topk, gather_rows and scatter_set_rows bit-identical (the
+   small_k_topk bit-identical at its four search widths (782, 2560, 3072
+   and 15,625; each timed against torch.topk, the widest the headline row,
+   the others its ``parts``), gather_rows and scatter_set_rows
+   bit-identical (the
    scatter away from its scratch row, with duplicate-heavy indices and the
    scratch row); select_topk_from_groups bit-identical at the val eval's
    shape (one query block of a 4096-user batch over 99,880 items, KG = k =
    21) with a ragged tail, finfo.min blocked columns and tied rows;
-   groupmax_matmul and rescore_groups
+   groupmax_matmul (1024 x 2M x 128 bf16 and a ragged float32 case, each
+   with its share of the bf16 peak) and rescore_groups
    within rtol 1e-6 + atol 1e-5 (exact bf16 products, f32 sums in another
    order); segment_second_moments forward within 2e-5 x the largest |M2|
    entry of each category and backward within 2e-5 x the largest |dx| (f32
@@ -79,6 +86,8 @@ result line):
    masked bf16 search (M = 32 blocked ids per query, half of them each
    query's own top ids), which ``auto`` must route to ``fused`` and whose
    ids must equal the plain-version masked fused ids and hold no blocked id;
+   then the bf16 group_exact / fused device-ms sweep at 500k, 1M and 2M
+   items (logged, not acted on);
 8. the launch counts of phases 5-7 and, for the masked row kernels, of
    phase 4b's sharded steps (every kernel must have run), leaving out the
    launches made to compare or time a kernel against its plain version.
@@ -254,7 +263,8 @@ def device_ms_cold(fn, iters: int = 20) -> float:
     each call evicts what the earlier calls left in the L2, and the fill's
     kernels (``FillFunctor``, which ``fn`` must not launch) are left out of
     the sum (``torch.profiler``; CUDA events around each call where the
-    profiler sees no device work)."""
+    profiler sees no device work, or so few fills that its records cannot
+    be trusted to tell the flush from ``fn``)."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
@@ -265,13 +275,12 @@ def device_ms_cold(fn, iters: int = 20) -> float:
             fn()
 
     events = _profiled(lambda: calls(2), lambda: calls(iters))
-    if _device_us(events) > 0:
-        fills = sum(e.count for e in events if "FillFunctor" in e.key)
-        # the profiler drops a record now and then; most fills must show,
-        # or the flush's kernel is not the one left out by name
-        check(fills >= iters // 2, f"L2 flush: {fills} of {iters} fill kernels seen")
+    fills = sum(e.count for e in events if "FillFunctor" in e.key)
+    # the profiler drops a record now and then; most fills must show, or
+    # the flush's kernel is not the one left out by name
+    if _device_us(events) > 0 and fills >= iters // 2:
         return _per_call_us([e for e in events if "FillFunctor" not in e.key], iters) / 1e3
-    log("  (the profiler saw no device time: timing with CUDA events)")
+    log(f"  (the profiler saw {fills} of {iters} flush kernels: timing with CUDA events)")
     total = 0.0
     for i in range(iters):
         flush.fill_(float(i + 1))
@@ -341,6 +350,28 @@ def _log_row(name: str, row: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
+def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
+    """HGMMA / UTMALDG / MATCH instructions of the search kernels' SASS
+    (``cuobjdump -sass`` beside ``nvcc``)."""
+    from ttamm_torch.ops import kernels
+
+    cuobjdump = Path(kernels.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    ops = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            ops = None
+            if "groupmax_kernel" in name or "small_k_topk_kernel" in name:
+                ops = counts.setdefault(name, {"HGMMA": 0, "UTMALDG": 0, "MATCH": 0})
+        elif ops is not None:
+            for op in ops:
+                ops[op] += op in line
+    return counts
+
+
 def phase_build(dev) -> str:
     import torch
 
@@ -354,6 +385,14 @@ def phase_build(dev) -> str:
         for line in build_log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
+    # what the search kernels run: warpgroup MMAs (HGMMA) and TMA loads
+    # (UTMALDG) in groupmax_matmul, warp matches (MATCH) in small_k_topk
+    sass = sass_counts(lib)
+    for fn, ops in sass.items():
+        log(f"  sass: {fn}: {ops}")
+    gm = [ops for fn, ops in sass.items() if "groupmax_kernel" in fn]
+    check(gm and all(o["HGMMA"] > 0 and o["UTMALDG"] > 0 for o in gm),
+          f"groupmax_matmul has no wgmma or no TMA load: {gm}")
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(dev)} | nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -428,8 +467,11 @@ def _search_kernels(dev) -> dict[str, dict]:
     rows: dict[str, dict] = {}
     # small_k_topk at the path's widths: 100k-item group pick (782) and final
     # top-k (20 groups x 128), the fused candidates ((20+4) x 128), and the
-    # 2M-item group pick (15,625), the row kept. Bit-identical values and ids.
-    topk_err = 0.0
+    # 2M-item group pick (15,625), the headline row. Bit-identical values and
+    # ids; each width timed against its plain version and torch.topk (time
+    # only: its tie order differs), its bound one read of the rows and one
+    # write of k values and ids.
+    parts = []
     for width, k in ((782, 20), (2560, 20), (3072, 20), (15625, 24)):
         x = _topk_rows(width, width, dev)
         kv, ki = kernels.small_k_topk_cuda(x, k)
@@ -437,16 +479,19 @@ def _search_kernels(dev) -> dict[str, dict]:
         torch.cuda.synchronize()
         same = torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ki, pi)
         check(same, f"small_k_topk [{BATCH}, {width}] k={k}: kernel != plain")
-        # equal values (-inf included) differ by 0, not by inf - inf = nan
-        topk_err = max(topk_err, float(torch.where(kv == pv, 0.0, (kv - pv).abs()).max()))
-        ms = device_ms(lambda: kernels.small_k_topk_cuda(x, k))
-        plain_ms = device_ms(lambda: kernels.small_k_topk_plain(x, k))
-        log(f"small_k_topk [{BATCH}, {width}] k={k}: bit-identical | kernel {ms:.4f} ms "
-            f"| plain {plain_ms:.4f} ms")
-    rows["small_k_topk"] = _row(
-        shape=f"[{BATCH}, {width}] k={k}", max_abs_err=topk_err, ms=ms, plain_ms=plain_ms,
-        library_ms=device_ms(lambda: torch.topk(x, k, dim=1)),  # time only: ties differ
-        nbytes=x.numel() * 4 + BATCH * k * 8,
+        part = _row(
+            shape=f"[{BATCH}, {width}] k={k}",
+            # equal values (-inf included) differ by 0, not by inf - inf = nan
+            max_abs_err=float(torch.where(kv == pv, 0.0, (kv - pv).abs()).max()),
+            ms=device_ms(lambda: kernels.small_k_topk_cuda(x, k)),
+            plain_ms=device_ms(lambda: kernels.small_k_topk_plain(x, k)),
+            library_ms=device_ms(lambda: torch.topk(x, k, dim=1)),
+            nbytes=x.numel() * 4 + BATCH * k * 8,
+        )
+        _log_row("small_k_topk", part)
+        parts.append(part)
+    rows["small_k_topk"] = dict(
+        parts[-1], max_abs_err=max(p["max_abs_err"] for p in parts), parts=parts[:-1]
     )
 
     # groupmax_matmul at B=1024, N=2M, D=128 in bf16, unit rows (cosine).
@@ -465,6 +510,10 @@ def _search_kernels(dev) -> dict[str, dict]:
     e2 = (kernels.groupmax_matmul_cuda(small_q, small_i, 2900)
           - kernels.groupmax_matmul_plain(small_q, small_i, 2900)).abs().max()
     check(float(e2) <= KERNEL_ATOL, f"groupmax_matmul ragged f32: max abs err {float(e2):.3e}")
+    ragged_ms = device_ms(lambda: kernels.groupmax_matmul_cuda(small_q, small_i, 2900))
+    log(f"groupmax_matmul ragged f32 [200, 40] x [3000, 40]: max abs err {float(e2):.3e} | kernel "
+        f"{ragged_ms:.4f} ms = {2.0 * 200 * 3000 * 40 / (ragged_ms * 1e-3) / BF16_FLOPS:.2%} of the "
+        "bf16 peak (launch-bound)")
     ng = CORPUS_ROWS // kernels.GROUP
 
     def library_groupmax():  # cuBLAS slab + group max, in 4 query blocks
@@ -480,6 +529,9 @@ def _search_kernels(dev) -> dict[str, dict]:
         nbytes=(items.numel() + q.numel()) * 2 + got.numel() * 4,
         flops=2.0 * BATCH * CORPUS_ROWS * CORPUS_DIM,
     )
+    gm = rows["groupmax_matmul"]
+    log(f"groupmax_matmul {gm['shape']}: {2.0 * BATCH * CORPUS_ROWS * CORPUS_DIM / (gm['ms'] * 1e-3) / BF16_FLOPS:.2%} "
+        "of the bf16 peak")
 
     # rescore_groups at the fused path's shapes: the top (k + 4) groups of
     # those maxima.
@@ -1306,6 +1358,17 @@ def phase_corpus_scale(dev) -> None:
     check(not (got_i[:, :, None] == mask[:, None, :]).any(), "a blocked id came back")
     log("masked bf16 fused (auto, M = 32): ids agree with the plain version, no blocked id returned")
     _search_table(index, queries)
+    # bf16 crossover sweep (logged, not acted on): mips_topk device ms of
+    # group_exact and fused over the first n rows of the index (a whole-group
+    # slice, the rows past n masked by num_valid_rows, so no per-call pad)
+    unit_t = torch.from_numpy(unit).to(dev)
+    for n in (500_000, 1_000_000, CORPUS_ROWS):
+        rows_n = index.corpus[: -(-n // kernels.GROUP) * kernels.GROUP]
+        ms = {alg: device_ms(lambda alg=alg: topk.mips_topk(
+            unit_t, rows_n, k=K, num_valid_rows=n, algorithm=alg, score_dtype="bfloat16"), iters=5)
+            for alg in ("group_exact", "fused")}
+        log(f"bf16 sweep {n} items: group_exact {ms['group_exact']:.4f} ms | fused "
+            f"{ms['fused']:.4f} ms on the device (B={BATCH}, k={K})")
     del index, q, mask_t
     torch.cuda.empty_cache()
 

@@ -109,6 +109,79 @@ def test_groupmax_kernel_matches_plain(cuda, dtype):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
 
 
+def _edge_rows(layout, width, k, device):
+    """The layouts of tests/test_torch_port_kernel_edges.py at card widths."""
+    gen = torch.Generator().manual_seed(width + k)
+    if layout == "ties_at_kth_scattered":
+        x = torch.randn((16, width), generator=gen)
+        kth = torch.sort(x, dim=1, descending=True).values[:, k - 1 : k]
+        spots = torch.rand((16, width), generator=gen) < 0.01
+        x = torch.where(spots, kth, x)
+    elif layout == "one_top_digit":
+        x = 1.0 + torch.randint(0, 48, (16, width), generator=gen).float() * 2.0**-23
+    elif layout == "signed_zeros":
+        x = torch.where(torch.rand((16, width), generator=gen) < 0.5, 0.0, -0.0)
+        x[:, ::17] = torch.randn(x[:, ::17].shape, generator=gen) * 1e-30
+    elif layout == "fewer_finite_than_k":
+        x = torch.full((16, width), float("-inf"))
+        x[0, [3, width // 2, width - 1]] = torch.tensor([0.5, -0.25, 0.5])
+        x[1, ::50] = torch.finfo(torch.float32).min
+        x[2, ::40] = -3.0e38
+    else:  # random rows
+        x = torch.randn((16, width), generator=gen)
+    return x.to(device)
+
+
+@pytest.mark.parametrize(
+    "layout", ["ties_at_kth_scattered", "one_top_digit", "signed_zeros", "fewer_finite_than_k"]
+)
+@pytest.mark.parametrize("width,k", [(782, 20), (3072, 128), (15625, 24), (60000, 600)])
+def test_small_k_topk_kernel_edges_bit_identical(cuda, layout, width, k):
+    """Narrow rows (128-thread blocks), wide rows in shared memory and beyond
+    it, the candidate path, the tied-top path and the radix path, rank
+    counting and the bitonic sort."""
+    x = _edge_rows(layout, width, k, cuda)
+    kv, ki = kernels.small_k_topk_cuda(x, k)
+    pv, pi = kernels.small_k_topk_plain(x, k)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("width", [1, 40, 128, 700, 7000])
+def test_small_k_topk_kernel_k_equals_width(cuda, width):
+    x = _edge_rows("random", width, width, cuda)
+    x[:, ::3] = torch.round(x[:, ::3])  # ties
+    kv, ki = kernels.small_k_topk_cuda(x, width)
+    pv, pi = kernels.small_k_topk_plain(x, width)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,n,d,num_items",
+    [
+        (1, 3000, 128, 2999),
+        (63, 1000, 36, 1000),
+        (65, 4100, 40, 4000),
+        (1024, 5000, 128, 4870),
+        (200, 2000, 496, 1999),  # warpgroups in lockstep (128-query tile)
+        (300, 3000, 256, 2990),  # in lockstep (256-query tile); 128 and below take turns
+        (1024, 600_000, 128, 599_990),  # a stripe walk of ~36 groups a block
+    ],
+)
+def test_groupmax_kernel_ragged_shapes_match_plain(cuda, dtype, b, n, d, num_items):
+    gen = torch.Generator().manual_seed(b + n + d)
+    q = torch.nn.functional.normalize(torch.randn((b, d), generator=gen), dim=1)
+    items = torch.nn.functional.normalize(torch.randn((n, d), generator=gen), dim=1)
+    if b % 2:  # all-negative scores, so pad rows must not win a tail group
+        q, items = q.abs(), -items.abs()
+    q, items = q.to(cuda, dtype), items.to(cuda, dtype)
+    got = kernels.groupmax_matmul_cuda(q, items, num_items)
+    want = kernels.groupmax_matmul_plain(q, items, num_items)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rescore_kernel_matches_plain(cuda, dtype):
     gen = torch.Generator().manual_seed(2)

@@ -5,192 +5,438 @@
 // [B, N] score slab (8 MB per query at N = 2M in f32) never reaches device
 // memory; only the [B, N/128] maxima are written.
 //
-// Semantics kept from the TPU kernel: both operands are rounded to bf16
-// (round-to-nearest-even) and multiplied with f32 accumulation; rows at or
-// beyond `num_items` score -3e38 before the max, so a group holding only pad
-// rows reports -3e38 and a tail group's maximum covers its real rows only.
-// Any B and N are accepted (ragged edges are masked here); D is padded to a
-// multiple of 16 with zeros in shared memory.
+// Semantics kept from the TPU kernel: both operands in bf16, products
+// summed in f32; rows at or beyond `num_items` score -3e38 before the max, so
+// a group holding only pad rows reports -3e38 and a tail group's maximum
+// covers its real rows only. Any B and N; D is padded with zeros to whole
+// 64-column chunks by the TMA loads. The wrapper hands over bf16 operands
+// (float32 ones rounded to nearest even first) with D % 8 == 0 (TMA's 16-byte
+// row pitch; narrower D zero-padded in a copy).
 //
-// What bounds it on Hopper: 2*B*N*D flops on the tensor cores against one
-// read of the corpus (N*D*itemsize bytes) per 64-query tile. Query tiles of
-// the same corpus stripe are adjacent in blockIdx.x, so they run together and
-// the stripe is served from L2 after its first read.
+// What bounds it on Hopper: 2*B*N*D operations on the tensor cores (0.53 ms at
+// 1024 x 2M x 128 against the bf16 peak) over one read of the corpus (N*D*2
+// bytes, 0.15 ms). The first port ran legacy 16x16x16 WMMA on synchronously
+// staged tiles, spilled every 64x128 score tile to shared memory for the max
+// and streamed the corpus once per 64-query tile: 9% of the bf16 peak.
 //
-// What the design does about it: each block stages one 64-query tile in
-// shared memory once, then streams its stripe of 128-item groups through
-// shared memory (16-byte vector loads, rounded to bf16 on the way, rows
-// padded against bank conflicts); eight warps run bf16 WMMA tiles (16x16x16,
-// f32 accumulate), spill the 64x128 f32 tile to shared memory and reduce
-// each query's group maximum with warp shuffles. Loads are synchronous and
-// unpipelined: simple and right first (cp.async/TMA, wgmma and a deeper
-// pipeline are later work).
+// What the design does about it:
+// - wgmma m64n128k16 (bf16 in, f32 accumulators in registers): one group's
+//   128 items are the N of one product, so a thread's group maximum is a
+//   reduction over its own accumulator fragment plus two quad shuffles. No
+//   score tile goes through shared memory.
+// - A query tile of 256 rows (128 when B <= 128 or D > 256) stays resident
+//   in shared memory; two consumer warpgroups each own half of it (two or
+//   one 64-row accumulators each).
+// - One producer warp keeps a ring of 3..8 item chunks (128 items x 64
+//   columns, 16 KB, 128-byte swizzle) in flight with TMA and mbarriers.
+// - The two consumer warpgroups take turns (two named barriers) to launch
+//   a group's products, so one warpgroup's maxima overlap the other's
+//   products on the tensor cores (0.77 against 1.04 ms in lockstep at
+//   1024 x 2M x 128 on an NVIDIA H100 80GB HBM3, 700 W). The turns need the
+//   chunks of two groups in the ring (D <= 192 at a 256-query tile, D <= 256
+//   at 128); for wider D the warpgroups run in lockstep and release each
+//   chunk as soon as the products after it are in flight.
+// - Persistent blocks: blockIdx = (query tile, stripe), a block walks one
+//   contiguous stripe of groups, and the blocks of all query tiles of one
+//   stripe are adjacent and run at once, so each item chunk is read from
+//   device memory about once a call and served to the other query tiles
+//   from L2 (the TPU kernel keeps all queries resident and reads it exactly
+//   once; 256 KB of queries do not fit one SM's shared memory).
+// - Maxima are staged per warpgroup in shared memory and written in runs of
+//   16 consecutive groups a query row.
 
-#include <cuda_bf16.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <dlfcn.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kGroup = 128;           // items per group
-constexpr int kTileQ = 64;            // queries per block
-constexpr int kGroupsPerBlock = 8;    // groups streamed per block
-constexpr int kThreads = 256;         // 8 warps
-constexpr int kRowsPerWarp = kTileQ / (kThreads / 32);
-// Row padding of the shared tiles (8 bf16 = 16 B; 4 f32 = 16 B): with
-// unpadded 256-byte rows every row of a fragment load hits the same banks.
-constexpr int kPadBf16 = 8;
-constexpr int kPadF32 = 4;
-constexpr int kLdS = kGroup + kPadF32;
+constexpr int kGroup = 128;                       // items per group
+constexpr int kChunk = 64;                        // bf16 columns per TMA box (128 B)
+constexpr int kChunkBytes = kGroup * kChunk * 2;  // one item box, 16 KB
+constexpr int kRun = 16;                          // groups staged per output run
+constexpr int kConsumers = 2;                     // consumer warpgroups
+constexpr int kThreads = kConsumers * 128 + 32;   // + one producer warp
+constexpr int kMaxStages = 8;
+constexpr int kMinStages = 3;
+// A block's shared memory on Hopper (227 KB).
+constexpr int kSmemLimit = 232448;
 constexpr float kPadScore = -3.0e38f;
 
-__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
-  return __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
-
-// Eight consecutive elements (16-byte aligned for bf16, 32 for f32) as
-// eight bf16 packed in a uint4, rounded to nearest even.
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-__device__ __forceinline__ uint4 load8(const float* p) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  return make_uint4(pack2(a.x, a.y), pack2(a.z, a.w), pack2(b.x, b.y), pack2(b.z, b.w));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Stage rows [row0, row0 + rows) of a [n_rows, dim] matrix into a bf16
-// shared tile with leading dimension ld, zero-filling rows past n_rows and
-// columns past dim. Vector loads when dim % 8 == 0 (rows stay aligned).
-template <typename T>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* tile, const T* __restrict__ src,
-                                           int64_t row0, int rows, int64_t n_rows,
-                                           int dim, int dp, int ld) {
-  if (dim % 8 == 0) {
-    const int vecs = dp / 8;
-    for (int v = threadIdx.x; v < rows * vecs; v += kThreads) {
-      const int r = v / vecs;
-      const int c = (v - r * vecs) * 8;
-      const int64_t sr = row0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (sr < n_rows && c < dim) val = load8(src + sr * dim + c);
-      *reinterpret_cast<uint4*>(tile + r * ld + c) = val;
-    }
-  } else {
-    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-    for (int e = threadIdx.x; e < rows * dp; e += kThreads) {
-      const int r = e / dp;
-      const int c = e - r * dp;
-      const int64_t sr = row0 + r;
-      tile[r * ld + c] = (sr < n_rows && c < dim) ? to_bf16(src[sr * dim + c]) : zero;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major bf16 tile with 128-byte rows
+// in the 128-byte swizzle (as TMA writes it): 8-row atoms 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+// Named barriers 3 and 4 order the two consumer warpgroups' products
+// (bar.sync by the waiting warpgroup, bar.arrive by the other: 256 threads).
+constexpr int kTurnBarrier = 3;
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;" ::"r"(kTurnBarrier + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(kTurnBarrier + 1 - wg) : "memory");
+}
+
+// The group maxima of one 64-row accumulator: d[i] holds row
+// wq + 8 * ((i >> 1) & 1) and item column 8 * (i >> 2) + 2 * (lane & 3) +
+// (i & 1); a quad of lanes shares its two rows.
+template <bool kMasked>
+__device__ __forceinline__ void fragment_max(const float (&d)[64], int lane, int64_t valid,
+                                             float& m0, float& m1) {
+  m0 = -INFINITY;
+  m1 = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    const float v = (kMasked && col >= valid) ? kPadScore : d[i];
+    if ((i >> 1) & 1) {
+      m1 = fmaxf(m1, v);
+    } else {
+      m0 = fmaxf(m0, v);
     }
   }
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-groupmax_kernel(const T* __restrict__ q, const T* __restrict__ items,
-                float* __restrict__ out, int batch, int64_t n_rows,
-                int64_t num_items, int dim, int dp, int num_groups) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = dp + kPadBf16;
-  __nv_bfloat16* q_tile = reinterpret_cast<__nv_bfloat16*>(smem);  // [kTileQ, ld]
-  __nv_bfloat16* i_tile = q_tile + kTileQ * ld;                     // [kGroup, ld]
-  float* s_tile = reinterpret_cast<float*>(i_tile + kGroup * ld);   // [kTileQ, kLdS]
+// kMT: 64-row accumulators per consumer warpgroup (query tile 128 * kMT).
+template <int kMT>
+__global__ void __launch_bounds__(kThreads, 1)
+groupmax_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap i_map, float* __restrict__ out,
+                int batch, int num_groups, int64_t num_items, int chunks, int stages,
+                int q_tiles, int stripes, int pingpong) {
+  constexpr int kRows = kConsumers * kMT * 64;  // query rows per block
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw_smem) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* q_smem = base;                              // chunks x [kRows x 64] bf16
+  unsigned char* i_smem = q_smem + chunks * kRows * 128;     // stages x [128 x 64] bf16
+  float* staged = reinterpret_cast<float*>(i_smem + stages * kChunkBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + kConsumers * kMT * 64 * kRun);
+  uint64_t* empty = full + stages;
+  uint64_t* q_full = empty + stages;
 
-  const int q0 = blockIdx.x * kTileQ;
-  const int g_begin = blockIdx.y * kGroupsPerBlock;
-  const int g_end = min(g_begin + kGroupsPerBlock, num_groups);
+  const int qtile = blockIdx.x % q_tiles;
+  const int stripe = blockIdx.x / q_tiles;
+  const int g_begin = static_cast<int>(static_cast<int64_t>(num_groups) * stripe / stripes);
+  const int g_end = static_cast<int>(static_cast<int64_t>(num_groups) * (stripe + 1) / stripes);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int warp_m = warp >> 1;        // 16-row strip of the query tile
-  const int warp_n = (warp & 1) * 4;   // first of this warp's 4 16-item columns
 
-  stage_tile(q_tile, q, q0, kTileQ, batch, dim, dp, ld);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // lane 0 of every consumer warp
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (g_begin >= g_end) return;
 
+  if (warp == kConsumers * 4) {
+    // Producer: the query tile once, then the stripe's item chunks.
+    if (lane == 0) {
+      mbar_expect_tx(q_full, chunks * kRows * 128);
+      for (int c = 0; c < chunks; ++c) {
+        tma_load_2d(q_smem + c * kRows * 128, &q_map, q_full, c * kChunk, qtile * kRows);
+      }
+      int s = 0;
+      uint32_t phase = 0;
+      for (int g = g_begin; g < g_end; ++g) {
+        for (int c = 0; c < chunks; ++c) {
+          mbar_wait(&empty[s], phase ^ 1);
+          mbar_expect_tx(&full[s], kChunkBytes);
+          tma_load_2d(i_smem + s * kChunkBytes, &i_map, &full[s], c * kChunk, g * kGroup);
+          if (++s == stages) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns query rows [wg * kMT * 64, (wg + 1) * kMT * 64).
+  const int wg = warp >> 2;
+  const int t = threadIdx.x & 127;
+  const int wq = (t >> 5) * 16 + (lane >> 2);  // fragment row of d[i], (i >> 1) & 1 == 0
+  float* my_staged = staged + wg * kMT * 64 * kRun;
+  float acc[kMT][64];
+
+  mbar_wait(q_full, 0);
+  int s = 0;
+  uint32_t phase = 0;
+  int run0 = g_begin;
   for (int g = g_begin; g < g_end; ++g) {
-    const int64_t row0 = static_cast<int64_t>(g) * kGroup;
-    __syncthreads();  // q_tile staged; previous group's tiles consumed
-    stage_tile(i_tile, items, row0, kGroup, n_rows, dim, dp, ld);
-    __syncthreads();
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+    // The chunks' products go out back to back. With pingpong the two
+    // warpgroups take turns to launch a group's products, so one's maxima
+    // overlap the other's products, and a group's chunks are released when
+    // its sums are complete; otherwise a chunk is released once the
+    // products after it are in flight (wait_group 1).
+    if (pingpong && (wg == 1 || g > g_begin)) turn_wait(wg);
+    const int s_first = s;
+    int prev = -1;
+    for (int c = 0; c < chunks; ++c) {
+      mbar_wait(&full[s], phase);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    for (int kk = 0; kk < dp; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, q_tile + warp_m * 16 * ld + kk, ld);
+      for (int mt = 0; mt < kMT; ++mt) fence_acc(acc[mt]);
+      wgmma_fence();
+      const uint64_t b_desc = sw128_desc(i_smem + s * kChunkBytes);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // B[k][n] = item[n][k]: the item tile read column-major.
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, i_tile + (warp_n + j) * 16 * ld + kk, ld);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
+      for (int mt = 0; mt < kMT; ++mt) {
+        const uint64_t a_desc =
+            sw128_desc(q_smem + c * kRows * 128 + (wg * kMT + mt) * 64 * 128);
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          // +32 bytes along K per 16 columns (descriptor addresses are in 16 B)
+          wgmma_m64n128k16(acc[mt], a_desc + 2 * kk, b_desc + 2 * kk, (c | kk) != 0);
+        }
+      }
+      wgmma_commit();
+      if (!pingpong && prev >= 0) {
+        wgmma_wait_one();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
       }
     }
+    if (pingpong) turn_pass(wg);
+    wgmma_wait_all();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(s_tile + warp_m * 16 * kLdS + (warp_n + j) * 16,
-                              acc[j], kLdS, wmma::mem_row_major);
+    for (int mt = 0; mt < kMT; ++mt) fence_acc(acc[mt]);
+    if (lane == 0) {
+      if (pingpong) {
+        for (int c = 0, r = s_first; c < chunks; ++c, r = (r + 1 == stages ? 0 : r + 1)) {
+          mbar_arrive(&empty[r]);
+        }
+      } else {
+        mbar_arrive(&empty[prev]);
+      }
     }
-    __syncthreads();
 
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      float m = kPadScore;
-      for (int c = lane; c < kGroup; c += 32) {
-        const float s = (row0 + c < num_items) ? s_tile[r * kLdS + c] : kPadScore;
-        m = fmaxf(m, s);
-      }
+    const int64_t valid = num_items - static_cast<int64_t>(g) * kGroup;
+    const int j = g - run0;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    for (int mt = 0; mt < kMT; ++mt) {
+      float m0, m1;
+      if (valid >= kGroup) {
+        fragment_max<false>(acc[mt], lane, valid, m0, m1);
+      } else {
+        fragment_max<true>(acc[mt], lane, valid, m0, m1);
       }
-      if (lane == 0 && q0 + r < batch) {
-        out[static_cast<int64_t>(q0 + r) * num_groups + g] = m;
+      if ((lane & 3) == 0) {
+        my_staged[(mt * 64 + wq) * kRun + j] = m0;
+        my_staged[(mt * 64 + wq + 8) * kRun + j] = m1;
       }
+    }
+    if (j == kRun - 1 || g == g_end - 1) {
+      warpgroup_sync(1 + wg);
+      const int len = j + 1;
+      const int q0 = qtile * kRows + wg * kMT * 64;
+      for (int e = t; e < kMT * 64 * len; e += 128) {
+        const int r = e / len;
+        const int jj = e - r * len;
+        if (q0 + r < batch) {
+          out[static_cast<int64_t>(q0 + r) * num_groups + run0 + jj] = my_staged[r * kRun + jj];
+        }
+      }
+      warpgroup_sync(1 + wg);
+      run0 = g + 1;
     }
   }
+  if (pingpong && wg == 0) turn_wait(0);  // the other's last turn_pass
 }
 
-template <typename T>
-int launch(const void* q, const void* items, float* out, int batch,
-           int64_t n_rows, int64_t num_items, int dim, cudaStream_t stream) {
-  const int dp = (dim + 15) / 16 * 16;
-  const int num_groups = static_cast<int>((n_rows + kGroup - 1) / kGroup);
-  const int smem = (kTileQ + kGroup) * (dp + kPadBf16) * static_cast<int>(sizeof(__nv_bfloat16)) +
-                   kTileQ * kLdS * static_cast<int>(sizeof(float));
-  const cudaError_t err = cudaFuncSetAttribute(
-      groupmax_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda.so.1, which PyTorch has already
+// loaded (no link against it).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A [rows, dim] bf16 row-major matrix read in boxes of box_rows x 64
+// columns, 128-byte swizzled; out-of-range rows and columns read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int64_t rows, int dim, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(dim), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(dim) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kChunk), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kMT>
+int launch(const void* q, const void* items, float* out, int batch, int64_t n_rows,
+           int64_t num_items, int dim, int chunks, cudaStream_t stream) {
+  constexpr int kRows = kConsumers * kMT * 64;
+  // 1 KB to align the tiles, the query tile, the staged maxima, then as many
+  // 16 KB item chunks (each with two 8-byte barriers) as fit, at most 8.
+  const int fixed = 1024 + chunks * kRows * 128 + kConsumers * kMT * 64 * kRun * 4 + 8;
+  const int stages = (kSmemLimit - fixed) / (kChunkBytes + 16) < kMaxStages
+                         ? (kSmemLimit - fixed) / (kChunkBytes + 16)
+                         : kMaxStages;
+  if (stages < kMinStages) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = fixed + stages * (kChunkBytes + 16);
+
+  CUtensorMap q_map, i_map;
+  if (!make_map(&q_map, q, batch, dim, kRows) || !make_map(&i_map, items, n_rows, dim, kGroup)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((batch + kTileQ - 1) / kTileQ,
-                  (num_groups + kGroupsPerBlock - 1) / kGroupsPerBlock);
-  groupmax_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(items), out, batch,
-      n_rows, num_items, dim, dp, num_groups);
+  err = cudaFuncSetAttribute(groupmax_kernel<kMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int num_groups = static_cast<int>((n_rows + kGroup - 1) / kGroup);
+  const int q_tiles = (batch + kRows - 1) / kRows;
+  int stripes = sms / q_tiles;
+  if (stripes < 1) stripes = 1;
+  if (stripes > num_groups) stripes = num_groups;
+  groupmax_kernel<kMT><<<q_tiles * stripes, kThreads, smem, stream>>>(
+      q_map, i_map, out, batch, num_groups, num_items, chunks, stages, q_tiles, stripes,
+      static_cast<int>(2 * chunks <= stages));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q: [batch, dim], items: [n_rows, dim], both float32 (is_bf16 = 0) or both
-// bfloat16 (is_bf16 = 1), contiguous. out: f32 [batch, ceil(n_rows / 128)].
-// Shape limits (dim <= 496, the shared-memory bound; grid size) are checked
-// by the Python wrapper.
-extern "C" int ttamm_groupmax_matmul(const void* q, const void* items,
-                                     float* out, int batch, int64_t n_rows,
-                                     int64_t num_items, int dim, int is_bf16,
+// q: bf16 [batch, dim], items: bf16 [n_rows, dim], contiguous, 16-byte
+// aligned, dim % 8 == 0 (TMA row pitch), dim <= 640 (shared memory), n_rows
+// < 2^31 (TMA coordinates); all checked by the Python wrapper.
+// out: f32 [batch, ceil(n_rows / 128)].
+extern "C" int ttamm_groupmax_matmul(const void* q, const void* items, float* out, int batch,
+                                     int64_t n_rows, int64_t num_items, int dim,
                                      cudaStream_t stream) {
-  if (is_bf16) {
-    return launch<__nv_bfloat16>(q, items, out, batch, n_rows, num_items, dim, stream);
+  const int chunks = (dim + kChunk - 1) / kChunk;
+  if (batch > 128 && chunks <= 4) {
+    return launch<2>(q, items, out, batch, n_rows, num_items, dim, chunks, stream);
   }
-  return launch<float>(q, items, out, batch, n_rows, num_items, dim, stream);
+  return launch<1>(q, items, out, batch, n_rows, num_items, dim, chunks, stream);
 }

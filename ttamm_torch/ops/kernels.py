@@ -25,6 +25,12 @@ back from the card to the plain version. The plain versions also run on
 CUDA tensors when called by name; that is how the kernels are checked on the
 card.
 
+What the kernels take: ``small_k_topk`` any ``0 < k <= W`` (one block a
+row, 128 / 256 / 512 threads by width); ``groupmax_matmul`` bf16 operands
+through TMA and ``wgmma`` (float32 ones rounded to bf16 and D % 8 != 0
+zero-padded by the wrapper, in a copy), D up to ``MAX_DIM`` = 640, fewer
+than 2^31 rows.
+
 The kernels are compiled by ``nvcc`` at first use into one shared library
 with a plain C interface, loaded with ``ctypes`` (``build/ttamm_torch/``,
 named by a hash of the sources and flags, so an edited source rebuilds).
@@ -47,10 +53,15 @@ from .. import device as _device  # noqa: F401  (owns the TF32 settings)
 
 GROUP = 128  # items per pruning group
 PAD_SCORE = -3.0e38  # score of rows at or beyond num_items in groupmax_matmul
-# Widest embedding groupmax_matmul takes: its query, item and score tiles
-# ((64 + 128) * (D + 8) * 2 + 64 * 132 * 4 bytes) fit the 227 KB of shared
-# memory a Hopper block may use up to D = 496.
-MAX_DIM = 496
+# Widest embedding groupmax_matmul takes. Its block holds a 128-query tile
+# of ceil(D / 64) 16 KB chunks, 8 KB of staged maxima, 1 KB of alignment and
+# at least 3 16 KB item chunks (+16 B of barriers each) within the 232,448
+# bytes of shared memory a Hopper block may use:
+# 16384 * ceil(D / 64) <= 232448 - 1024 - 8192 - 8 - 3 * 16400 = 174024,
+# so ceil(D / 64) <= 10 and D <= 640.
+MAX_DIM = 640
+# groupmax_matmul's TMA coordinates are int32: rows below 2^31.
+_MAX_TMA_ROWS = 2**31 - 1
 # Widest rows the second-moment backward takes: its H tile and row chunk
 # ((64 * (D + 1) + 32 * D) * 4 bytes) fit 227 KB up to D = 604.
 MAX_M2_DIM = 512
@@ -67,7 +78,6 @@ NVCC_FLAGS = (
 # Working-set budget of the plain versions' query blocks (plain versions
 # only; the kernels need no blocking).
 _PLAIN_BLOCK_BYTES = 1 << 30
-_GRID_Y_MAX = 65535
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -168,7 +178,7 @@ def load_library() -> ctypes.CDLL:
             lib.ttamm_small_k_topk.restype = i32
             lib.ttamm_select_topk_from_groups.argtypes = [p, p, p, p, i32, i64, i32, i32, i64, p]
             lib.ttamm_select_topk_from_groups.restype = i32
-            lib.ttamm_groupmax_matmul.argtypes = [p, p, p, i32, i64, i64, i32, i32, p]
+            lib.ttamm_groupmax_matmul.argtypes = [p, p, p, i32, i64, i64, i32, p]
             lib.ttamm_groupmax_matmul.restype = i32
             lib.ttamm_rescore_groups.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, p]
             lib.ttamm_rescore_groups.restype = i32
@@ -232,7 +242,9 @@ def _f32_keys(x: torch.Tensor) -> torch.Tensor:
 def small_k_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact per-row top-k of f32 rows: ``(values f32 [B, k], indices i32
     [B, k])``, descending, ties to the lowest index, values bit-identical to
-    the inputs. Any ``0 < k <= W``; the cost grows as ``k * W``."""
+    the inputs. Any ``0 < k <= W``; the kernel reads each row once and its
+    cost does not grow with k on rows without heavy ties at the top (see
+    ``csrc/small_k_topk.cu``)."""
     if x.device.type == "cpu":
         return small_k_topk_plain(x, k)
     return small_k_topk_cuda(x, k)
@@ -415,6 +427,10 @@ def groupmax_matmul_plain(
 def groupmax_matmul_cuda(
     queries: torch.Tensor, items: torch.Tensor, num_items: int
 ) -> torch.Tensor:
+    """The kernel takes bf16 operands with ``D % 8 == 0`` (TMA's 16-byte row
+    pitch): float32 operands are rounded to bf16 (round-to-nearest-even, the
+    rounding of the plain version) and a narrower D is zero-padded, each in a
+    copy; that is the same function."""
     dev = _check_cuda("groupmax_matmul", queries, items)
     _check_groupmax(queries, items, num_items)
     batch, dim = queries.shape
@@ -422,18 +438,19 @@ def groupmax_matmul_cuda(
     ng = -(-n_rows // GROUP)
     if dim > MAX_DIM:
         raise ValueError(f"groupmax_matmul: dim {dim} > {MAX_DIM}")
-    if -(-ng // 8) > _GRID_Y_MAX:
-        raise ValueError(f"groupmax_matmul: {n_rows} rows exceed the launch grid")
-    # The kernel reads rows with 16/32-byte vector loads when dim % 8 == 0.
-    align = 8 * queries.element_size()
-    if dim % 8 == 0 and (queries.data_ptr() % align or items.data_ptr() % align):
-        raise ValueError(f"groupmax_matmul: tensors must be {align}-byte aligned")
+    if n_rows > _MAX_TMA_ROWS or batch > _MAX_TMA_ROWS:
+        raise ValueError(f"groupmax_matmul: {n_rows} rows exceed the TMA coordinates")
+    q, it = queries.to(torch.bfloat16), items.to(torch.bfloat16)
+    if dim % 8:
+        pad = (0, 8 - dim % 8)
+        q, it = torch.nn.functional.pad(q, pad), torch.nn.functional.pad(it, pad)
+    # TMA reads from 16-byte aligned rows
+    q, it = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, it))
     out = torch.empty((batch, ng), dtype=torch.float32, device=dev)
     if batch and ng:
         _launch(
             "groupmax_matmul", dev,
-            queries.data_ptr(), items.data_ptr(), out.data_ptr(), batch,
-            n_rows, num_items, dim, int(queries.dtype == torch.bfloat16),
+            q.data_ptr(), it.data_ptr(), out.data_ptr(), batch, n_rows, num_items, q.shape[1],
         )
     return out
 
