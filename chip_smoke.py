@@ -12,7 +12,8 @@ result line):
 1. build the CUDA kernels from ``ttamm_torch/csrc/`` and report the card,
    the ``ptxas`` registers and spills of every kernel, and the SASS
    counts of the search kernels (groupmax_matmul must contain ``wgmma``,
-   HGMMA, and TMA loads, UTMALDG);
+   HGMMA, and TMA loads, UTMALDG; select_topk_from_groups's 16-byte loads,
+   block barriers and warp matches are printed);
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes and time kernel, plain version and the nearest library call
    (device time from ``torch.profiler``; the row kernels are timed in
@@ -22,9 +23,12 @@ result line):
    the others its ``parts``), gather_rows and scatter_set_rows
    bit-identical (the
    scatter away from its scratch row, with duplicate-heavy indices and the
-   scratch row); select_topk_from_groups bit-identical at the val eval's
-   shape (one query block of a 4096-user batch over 99,880 items, KG = k =
-   21) with a ragged tail, finfo.min blocked columns and tied rows;
+   scratch row); select_topk_from_groups bit-identical at its three
+   shapes (``select_shapes``: one query block of a 4096-user val batch over
+   99,880 items, KG = k = 21, with a ragged tail, finfo.min blocked columns
+   and tied rows, the headline row; float32 serving of 1,024 queries over
+   the same items and a 134-query block over 2M items, KG = k = 20), each
+   timed against its plain version and a gather + torch.topk;
    groupmax_matmul (1024 x 2M x 128 bf16 and a ragged float32 case, each
    with its share of the bf16 peak) and rescore_groups
    within rtol 1e-6 + atol 1e-5 (exact bf16 products, f32 sums in another
@@ -62,8 +66,9 @@ result line):
    step with the same negatives and no dropout, within phase 4's
    tolerances, and their device and host ms per step;
 5. train two epochs of ``configs/default.yaml`` on the card with the
-   retrieval eval after each (the main path's launches are counted from
-   here): finite losses, the last epoch's mean train loss below the first
+   retrieval eval after each, through ``run_training`` (the main path's
+   launches are counted from here; its sweep ledger must hold the one
+   run): finite losses, the last epoch's mean train loss below the first
    step's; each epoch's val and test recall/ndcg@{5,10,20}, with recall@5 <=
    recall@10 <= recall@20, and the eval's seconds (host clock); the best
    val recall@10 above 20x chance (10 / items); the best checkpoint under
@@ -79,7 +84,10 @@ result line):
    end (``/healthz``, GET user, POST user, POST embedding); ids must equal
    the host numpy search except where scores tie within 1e-5 (within 2^-6
    for a bf16 index: bf16 operands and slab move each score by up to ~2^-8,
-   so near items may swap);
+   so near items may swap); then the same from the trainer's own index
+   directory, whose vocab must equal the export's and whose user
+   embeddings must be within 1e-5 of the export's (the same encode of the
+   same best state);
 7. corpus scale: a 2M x 128 index of seeded random rows searched through
    ``auto``, ``group_exact`` and ``fused`` at B=1024, k=20; fused ids must
    equal the plain-version fused ids (ties within 1e-5 aside); then one
@@ -351,8 +359,9 @@ def _log_row(name: str, row: dict) -> None:
 
 
 def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
-    """HGMMA / UTMALDG / MATCH instructions of the search kernels' SASS
-    (``cuobjdump -sass`` beside ``nvcc``)."""
+    """HGMMA / UTMALDG / MATCH instructions of the search kernels' SASS, and
+    16-byte loads (LDG.E.128), block barriers (BAR.SYNC) and MATCH of the
+    select kernel's (``cuobjdump -sass`` beside ``nvcc``)."""
     from ttamm_torch.ops import kernels
 
     cuobjdump = Path(kernels.find_nvcc()).parent / "cuobjdump"
@@ -366,6 +375,8 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
             ops = None
             if "groupmax_kernel" in name or "small_k_topk_kernel" in name:
                 ops = counts.setdefault(name, {"HGMMA": 0, "UTMALDG": 0, "MATCH": 0})
+            elif "select_topk_kernel" in name:
+                ops = counts.setdefault(name, {"LDG.E.128": 0, "BAR.SYNC": 0, "MATCH": 0})
         elif ops is not None:
             for op in ops:
                 ops[op] += op in line
@@ -386,7 +397,9 @@ def phase_build(dev) -> str:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
     # what the search kernels run: warpgroup MMAs (HGMMA) and TMA loads
-    # (UTMALDG) in groupmax_matmul, warp matches (MATCH) in small_k_topk
+    # (UTMALDG) in groupmax_matmul, warp matches (MATCH) in small_k_topk and
+    # select_topk_from_groups, and the select kernel's 16-byte loads and
+    # block barriers
     sass = sass_counts(lib)
     for fn, ops in sass.items():
         log(f"  sass: {fn}: {ops}")
@@ -414,47 +427,91 @@ def _topk_rows(width: int, seed: int, dev):
     return x.to(dev)
 
 
-def _select_kernel(dev) -> dict[str, dict]:
-    """select_topk_from_groups at the val eval's shape: the slab of one
-    group_exact query block of a 4096-user batch over the canonical
-    corpus's 99,880 items, KG = k = 21 (metrics up to k = 20, plus the one
-    held-out item per user). Rows rounded to quarters (ties), 32 finfo.min
-    blocked columns per row, the ragged tail group selected in every other
-    row; the group ids are each row's top 21 groups by maximum."""
-    import torch
-
+def select_shapes() -> list[tuple[str, int, int, int, bool]]:
+    """(label, rows, items, k, eval rows) of select_topk_from_groups on the
+    main path: one group_exact query block of the val eval's 4096-user batch
+    over the canonical corpus's 99,880 items (KG = k = 21: metrics up to
+    k = 20, plus the one held-out item per user), float32 serving of B = 1024
+    at k = 20 over the same corpus, and one 134-query block of a float32
+    search of 2M items."""
     from ttamm_torch.ops import kernels, topk
 
-    n, k, g = 99_880, 21, kernels.GROUP
+    def block(n):
+        return topk.SCORES_BYTES_BUDGET // (-(-n // kernels.GROUP) * kernels.GROUP * 4)
+
+    return [
+        ("val eval block", min(EVAL_USERS, block(99_880)), 99_880, 21, True),
+        ("float32 serving", min(BATCH, block(99_880)), 99_880, K, False),
+        ("2M float32 query block", block(CORPUS_ROWS), CORPUS_ROWS, K, False),
+    ]
+
+
+def select_case(rows: int, n: int, k: int, eval_rows: bool, dev):
+    """A float32 score slab [rows, NG * 128] of n items (pad columns 0, as
+    the score matmul writes them) and each row's top k groups by maximum,
+    as group_exact selects them. Eval rows: a third of them rounded to
+    quarters (ties), 32 finfo.min blocked columns per row, and the ragged
+    tail group selected in every other row."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+
+    g = kernels.GROUP
     ng = -(-n // g)
-    qb = min(EVAL_USERS, topk.SCORES_BYTES_BUDGET // (ng * g * 4))
-    gen = torch.Generator(device=dev).manual_seed(21)
-    s = torch.randn((qb, ng * g), generator=gen, device=dev)
-    s[::3] = torch.round(s[::3] * 4) / 4
-    blocked = torch.randint(0, n, (qb, 32), generator=gen, device=dev)
-    s.scatter_(1, blocked, torch.finfo(torch.float32).min)
-    s[:, n:] = 0.0  # pad columns, as the score matmul writes them
-    gmax = s.view(qb, ng, g).amax(dim=-1)
+    gen = torch.Generator(device=dev).manual_seed(k)
+    s = torch.randn((rows, ng * g), generator=gen, device=dev)
+    if eval_rows:
+        s[::3] = torch.round(s[::3] * 4) / 4
+        blocked = torch.randint(0, n, (rows, 32), generator=gen, device=dev)
+        s.scatter_(1, blocked, torch.finfo(torch.float32).min)
+    s[:, n:] = 0.0
+    gmax = s.view(rows, ng, g).amax(dim=-1)
     gmax[:, -1] = s[:, (ng - 1) * g : n].amax(dim=-1)
     _, gi = kernels.small_k_topk_cuda(gmax, k)
-    even = gi[::2]
-    even[:, -1] = torch.where((even == ng - 1).any(dim=1), even[:, -1], ng - 1)
-    kv, ki = kernels.select_topk_from_groups_cuda(s, gi, k=k, num_items=n)
-    pv, pi = kernels.select_topk_from_groups_plain(s, gi, k=k, num_items=n)
-    torch.cuda.synchronize()
-    same = torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ki, pi)
-    check(same, f"select_topk_from_groups [{qb}, {ng * g}] k={k}: kernel != plain")
-    sg, gl = s.view(qb, ng, g), gi.long()[:, :, None].expand(-1, -1, g)
-    return {"select_topk_from_groups": _row(
-        shape=f"[{qb}, {ng * g}] f32 slab, KG = k = {k}",
-        max_abs_err=float(torch.where(kv == pv, 0.0, (kv - pv).abs()).max()),
-        ms=device_ms(lambda: kernels.select_topk_from_groups_cuda(s, gi, k=k, num_items=n)),
-        plain_ms=device_ms(
-            lambda: kernels.select_topk_from_groups_plain(s, gi, k=k, num_items=n), iters=5
-        ),
-        # time only: torch.topk's tie order differs
-        library_ms=device_ms(lambda: torch.topk(torch.gather(sg, 1, gl).view(qb, -1), k)),
-        nbytes=qb * k * g * 4 + gi.numel() * 4 + qb * k * 8,
+    if eval_rows:
+        even = gi[::2]
+        even[:, -1] = torch.where((even == ng - 1).any(dim=1), even[:, -1], ng - 1)
+    return s, gi
+
+
+def _select_kernel(dev) -> dict[str, dict]:
+    """select_topk_from_groups at its three main-path shapes
+    (``select_shapes``), bit-identical to its plain version; each timed
+    against the plain version and a gather + torch.topk (time only: its tie
+    order differs), its bound one read of each selected 512-byte group row
+    and of the group ids and one write of k values and ids. The val eval
+    block is the headline row, the other two its ``parts``."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+
+    parts = []
+    g = kernels.GROUP
+    for label, qb, n, k, eval_rows in select_shapes():
+        s, gi = select_case(qb, n, k, eval_rows, dev)
+        ng = s.shape[1] // g
+        kv, ki = kernels.select_topk_from_groups_cuda(s, gi, k=k, num_items=n)
+        pv, pi = kernels.select_topk_from_groups_plain(s, gi, k=k, num_items=n)
+        torch.cuda.synchronize()
+        same = torch.equal(kv.view(torch.int32), pv.view(torch.int32)) and torch.equal(ki, pi)
+        check(same, f"select_topk_from_groups [{qb}, {ng * g}] k={k}: kernel != plain")
+        sg, gl = s.view(qb, ng, g), gi.long()[:, :, None].expand(-1, -1, g)
+        part = _row(
+            shape=f"[{qb}, {ng * g}] f32 slab, KG = k = {k} ({label})",
+            max_abs_err=float(torch.where(kv == pv, 0.0, (kv - pv).abs()).max()),
+            ms=device_ms(lambda: kernels.select_topk_from_groups_cuda(s, gi, k=k, num_items=n)),
+            plain_ms=device_ms(
+                lambda: kernels.select_topk_from_groups_plain(s, gi, k=k, num_items=n), iters=5
+            ),
+            library_ms=device_ms(lambda: torch.topk(torch.gather(sg, 1, gl).view(qb, -1), k)),
+            nbytes=qb * k * g * 4 + gi.numel() * 4 + qb * k * 8,
+        )
+        _log_row("select_topk_from_groups", part)
+        parts.append(part)
+        del s, sg, gl
+        torch.cuda.empty_cache()
+    return {"select_topk_from_groups": dict(
+        parts[0], max_abs_err=max(p["max_abs_err"] for p in parts), parts=parts[1:]
     )}
 
 
@@ -671,6 +728,7 @@ def _config(data_dir: Path, work: Path) -> dict:
     config["training"]["checkpointing"]["dir"] = str(work / "checkpoints")
     config["evaluation"]["faiss"]["index_path"] = str(work / "faiss" / "items.index")
     config["evaluation"]["faiss"]["embedding_path"] = str(work / "faiss" / "item_embeddings.npy")
+    config["experiment"]["benchmark_report"] = str(work / "reports" / "benchmark_summary.md")
     return config
 
 
@@ -1139,11 +1197,14 @@ def _profile_steps(dev, config: dict, dataset, result) -> dict:
 def phase_train(dev, config: dict, dataset, excluded: collections.Counter):
     import math as _math
 
-    from ttamm_torch.pipelines.training import run_single_experiment
+    from ttamm_torch.pipelines.training import run_training
     from ttamm_torch.train.checkpoint import checkpoint_filename
 
     start = time.perf_counter()
-    result = run_single_experiment(config, device=dev, dataset=dataset)
+    result = run_training(config, device=dev, dataset=dataset)  # no grid: one run
+    ledger = Path(config["experiment"]["benchmark_report"]).read_text().splitlines()
+    check(ledger[-1].startswith("1 | - | "), f"sweep ledger: {ledger[-1:]}")
+    log(f"ledger {config['experiment']['benchmark_report']}: {ledger[-1]}")
     log(f"train: {time.perf_counter() - start:.2f} s for {result.steps} steps of "
         f"{config['training']['batch_size']} | {result.train_seconds / result.steps * 1e3:.3f} ms/step "
         f"| {result.examples_per_second:.1f} examples/s | first step loss {result.first_step_loss:.5f} "
@@ -1254,11 +1315,49 @@ def _search_table(index, queries) -> None:
         del idx
 
 
+def _serve_checks(service, dev, tol: float, label: str) -> None:
+    """``service`` behind the HTTP front end (``/healthz``, GET user, POST
+    user, POST embedding): every answer's ids equal the host numpy search
+    but where scores tie within ``tol``."""
+    from ttamm_torch.serve import start_in_thread
+
+    check(service.index.device == dev, f"index on {service.index.device}, not {dev}")
+    srv, thread = start_in_thread(service, port=0)
+    port = srv.server_address[1]
+    try:
+        status, body = _http(port, "/healthz")
+        check(status == 200 and body["items"] == len(service.index), f"/healthz: {status} {body}")
+        log(f"/healthz: {body}")
+        item_pos = {asin: i for i, asin in enumerate(service.item_ids)}
+        requests = [
+            ("GET user", service.user_ids[0], None, f"/v1/recommend?user_id={service.user_ids[0]}&k={K}"),
+            ("POST user", service.user_ids[1], {"user_id": service.user_ids[1], "k": K}, "/v1/recommend"),
+            ("POST user", service.user_ids[2], {"user_id": service.user_ids[2], "k": K}, "/v1/recommend"),
+            ("POST embedding", service.user_ids[3],
+             {"embedding": service.user_embeddings[3].tolist(), "k": K}, "/v1/recommend"),
+        ]
+        for what, uid, payload, path in requests:
+            status, body = _http(port, path, payload)
+            check(status == 200 and len(body["items"]) == K, f"{what}: {status}, {len(body.get('items', []))} items")
+            query = service.user_embeddings[service.user_to_idx[uid]][None, :]
+            ref_s, ref_i = service.index.search(query, K, backend="numpy")
+            ids = [item_pos[it["asin"]] for it in body["items"]]
+            scores = [it["score"] for it in body["items"]]
+            check(ids_agree(ids, scores, ref_i[0], ref_s[0], tol), f"{what} ({label}): ids differ from the numpy search")
+            log(f"{what} {uid} ({label}): 200, {K} items, ids agree with the numpy search")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "HTTP server thread did not stop")
+
+
 def phase_serve(dev, work: Path, config: dict, dataset, checkpoint: Path, score_dtype: str) -> None:
+    import numpy as np
     import torch
 
     from ttamm_torch.pipelines.export import export_bundle
-    from ttamm_torch.serve import RetrievalService, start_in_thread
+    from ttamm_torch.serve import RetrievalService
 
     config = dict(config, serving=dict(config["serving"], score_dtype=score_dtype))
     tol = TIE_TOL if score_dtype == "float32" else BF16_TIE_TOL
@@ -1272,35 +1371,19 @@ def phase_serve(dev, work: Path, config: dict, dataset, checkpoint: Path, score_
         log(f"encode {side}s: {rows} rows in {secs * 1e3:.3f} ms = {rows / secs:.1f} rows/s")
 
     service = RetrievalService.from_artifacts(work / "bundle", device=dev)
-    check(service.index.device == dev, f"index on {service.index.device}, not {dev}")
-    srv, thread = start_in_thread(service, port=0)
-    port = srv.server_address[1]
-    try:
-        status, body = _http(port, "/healthz")
-        check(status == 200 and body["items"] == result.num_items, f"/healthz: {status} {body}")
-        log(f"/healthz: {body}")
-        item_pos = {asin: i for i, asin in enumerate(service.item_ids)}
-        requests = [
-            ("GET user", service.user_ids[0], None, f"/v1/recommend?user_id={service.user_ids[0]}&k={K}"),
-            ("POST user", service.user_ids[1], {"user_id": service.user_ids[1], "k": K}, "/v1/recommend"),
-            ("POST user", service.user_ids[2], {"user_id": service.user_ids[2], "k": K}, "/v1/recommend"),
-            ("POST embedding", service.user_ids[3],
-             {"embedding": service.user_embeddings[3].tolist(), "k": K}, "/v1/recommend"),
-        ]
-        for label, uid, payload, path in requests:
-            status, body = _http(port, path, payload)
-            check(status == 200 and len(body["items"]) == K, f"{label}: {status}, {len(body.get('items', []))} items")
-            query = service.user_embeddings[service.user_to_idx[uid]][None, :]
-            ref_s, ref_i = service.index.search(query, K, backend="numpy")
-            ids = [item_pos[it["asin"]] for it in body["items"]]
-            scores = [it["score"] for it in body["items"]]
-            check(ids_agree(ids, scores, ref_i[0], ref_s[0], tol), f"{label}: ids differ from the numpy search")
-            log(f"{label} {uid}: 200, {K} items, ids agree with the numpy search")
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=30)
-    check(not thread.is_alive(), "HTTP server thread did not stop")
+    _serve_checks(service, dev, tol, "export bundle")
+
+    # the trainer's own index directory is a bundle too: the best state's
+    # user embeddings (equal to export's from the best checkpoint) and vocab
+    trained_dir = Path(config["evaluation"]["faiss"]["index_path"]).parent
+    trained = RetrievalService.from_artifacts(trained_dir, device=dev)
+    check(trained.user_ids == service.user_ids and trained.item_ids == service.item_ids,
+          "the trainer's vocab.json differs from the export's")
+    diff = float(np.abs(trained.user_embeddings - service.user_embeddings).max())
+    log(f"trainer's bundle {trained_dir.name}/: user embeddings within {diff:.3e} of the export's")
+    check(diff <= 1e-5, f"the trainer's user embeddings differ from the export's by {diff:.3e}")
+    _serve_checks(trained, dev, tol, "trainer's bundle")
+    del trained
 
     queries = service.user_embeddings[:BATCH]
     got_s, got_i = service.index.search(queries, K)

@@ -84,6 +84,50 @@ def test_select_topk_kernel_bit_identical(cuda, b, num_items, k, kg):
     assert torch.equal(ki, pi)
 
 
+def _select_edge_case(layout, device):
+    """(slab, group ids, k, num_items) of the select kernel's other paths:
+    rows tied at the top (all equal, all finfo.min: T = L and the ordered
+    selection), one group, 32 groups at k = 32, k = 600 beyond the 512
+    ranked candidates (radix select, then the bitonic sort in the output
+    row), and group ids outside [0, NG) (scored finfo.min, ids wrapped as
+    the plain version's int64 -> int32 cast)."""
+    num_items, kg, k = 5000, 21, 21
+    if layout == "kg1":
+        kg, k = 1, 20
+    elif layout == "kg1_k128":
+        kg, k = 1, 128
+    elif layout == "kg32_k32":
+        kg, k = 32, 32
+    elif layout == "k600":
+        kg, k = 8, 600
+    elif layout == "kg32_k600":
+        kg, k = 32, 600
+    s, gi = _select_case(64, num_items, kg, kg + k, device)
+    if layout == "all_equal":
+        s[:, :num_items] = 1.5
+    elif layout == "all_min":
+        s[:, :num_items] = torch.finfo(torch.float32).min
+    elif layout == "gids_out_of_range":
+        ng = s.shape[1] // 128
+        gi[::2, 3] = -1
+        gi[1::4, 5] = ng
+        gi[3::4, 5] = ng + 7
+        gi[5::8, 7] = 2**30  # its ids wrap past 2^31
+    return s, gi, k, num_items
+
+
+@pytest.mark.parametrize(
+    "layout",
+    ["all_equal", "all_min", "kg1", "kg1_k128", "kg32_k32", "k600", "kg32_k600", "gids_out_of_range"],
+)
+def test_select_topk_kernel_edges_bit_identical(cuda, layout):
+    s, gi, k, num_items = _select_edge_case(layout, cuda)
+    kv, ki = kernels.select_topk_from_groups_cuda(s, gi, k=k, num_items=num_items)
+    pv, pi = kernels.select_topk_from_groups_plain(s, gi, k=k, num_items=num_items)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+    assert torch.equal(ki, pi)
+
+
 def test_select_topk_kernel_domain(cuda):
     s = torch.zeros((4, 40 * 128), device=cuda)
     gi = torch.arange(33, dtype=torch.int32, device=cuda).repeat(4, 1)
@@ -219,6 +263,22 @@ def test_mips_topk_on_the_card_counts_launches(cuda, algorithm, score_dtype):
     # ids may differ only where the scores tie within the tolerance
     differ = gi.cpu() != wi
     assert torch.all((gs.cpu() - ws).abs()[differ] <= tol)
+
+
+def test_bf16_search_beyond_the_groupmax_kernel_takes_the_slab(cuda):
+    """At D = 648 groupmax_matmul refuses the shape, so a bf16 'auto' search
+    of 500k items (which would go to 'fused') answers through group_exact."""
+    from ttamm_torch.ops import topk
+
+    gen = torch.Generator(device=cuda).manual_seed(648)
+    items = torch.randn((topk.BF16_FUSED_MIN_ITEMS, 648), generator=gen, device=cuda)
+    items = torch.nn.functional.normalize(items, dim=1).to(torch.bfloat16)
+    q = torch.nn.functional.normalize(torch.randn((64, 648), generator=gen, device=cuda), dim=1)
+    kernels.reset_launch_counts()
+    got = mips_topk(q, items, k=20, score_dtype="bfloat16")
+    assert kernels.launch_counts()["groupmax_matmul"] == 0
+    want = mips_topk(q, items, k=20, algorithm="group_exact", score_dtype="bfloat16")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("k", [21, 40])

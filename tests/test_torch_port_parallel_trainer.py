@@ -8,7 +8,7 @@ is the order of the float32 sums over the data shards (dense gradients, the
 category statistics, the loss means). Tolerance: epoch train and val losses
 rtol 1e-4; val recall@10 and ndcg@10 of the best epoch within 1e-3 (a
 ranking flip between two near-tied items of one user would move recall by
->= 1/300 and fail it).
+>= 1/300 and fail it); the serving bundle's user embeddings within 1e-3.
 """
 
 import json
@@ -83,3 +83,17 @@ def test_only_rank_0_prints_and_every_rank_writes_its_shard(runs):
     ]
     assert (root / "faiss" / "items.index").is_file()
     assert np.load(root / "faiss" / "item_embeddings.npy").shape[0] == summary["items"]
+
+
+def test_the_mesh_runs_bundle_matches_the_one_device_run(runs):
+    """Rank 0 writes the whole serving bundle: the user rows of every model
+    shard, gathered, beside the items, as the one-device run writes them."""
+    root, _, summary, _ = runs
+    mesh_dir, single_dir = root / "faiss", root / "single"
+    assert (mesh_dir / "vocab.json").read_text() == (single_dir / "vocab.json").read_text()
+    users = np.load(mesh_dir / "user_embeddings.npy")
+    assert users.shape == (summary["users"], 16)
+    # an epoch of float32 sums in another order moves the (cosine) item
+    # rows by ~4e-4 and the user rows by ~5e-5; a row from the wrong shard
+    # or place would move by O(1)
+    np.testing.assert_allclose(users, np.load(single_dir / "user_embeddings.npy"), rtol=0, atol=1e-3)

@@ -123,3 +123,48 @@ def test_auto_routing(monkeypatch):
     monkeypatch.setattr(topk, "SCORES_BYTES_CEILING", 64 * 4 * 599)
     with pytest.raises(NotImplementedError, match="chunked"):
         mips_topk(qt, it, k=5)
+
+
+@pytest.mark.parametrize("algorithm", ["auto", "fused"])
+@pytest.mark.parametrize("dim", [640, 648])
+def test_fused_routes_within_the_kernels_limits(monkeypatch, dim, algorithm):
+    """A bf16 search that would go to 'fused' goes to 'group_exact' exactly
+    where groupmax_matmul refuses the shape (D > 640), for 'auto' and an
+    explicit 'fused', as the JAX package reroutes a fused search its kernels
+    cannot take; the answer is the JAX package's for that algorithm. Sparse
+    dyadic items keep every score exact in bf16, so ids must be equal."""
+    from ttamm_torch.ops import kernels, topk
+
+    rng = np.random.default_rng(dim)
+    n = 600
+    items = np.zeros((n, dim), np.float32)
+    cols = rng.integers(0, dim, (n, 6))
+    np.put_along_axis(items, cols, rng.integers(-4, 5, (n, 6)) / 4, 1)
+    q = (rng.integers(-4, 5, (4, dim)) / 4).astype(np.float32)
+    monkeypatch.setattr(topk, "BF16_FUSED_MIN_ITEMS", n)
+    ran = []
+    for name in ("_fused_groupmax_topk", "_group_exact_topk"):
+        fn = getattr(topk, name)
+        monkeypatch.setattr(topk, name, lambda *a, _fn=fn, _name=name, **kw: ran.append(_name) or _fn(*a, **kw))
+    got = mips_topk(
+        torch.from_numpy(q), torch.from_numpy(items), k=5, algorithm=algorithm, score_dtype="bfloat16",
+    )
+    fits = kernels.groupmax_matmul_fits(4, 640, dim)
+    assert fits == (dim <= kernels.MAX_DIM)
+    assert ran == ["_fused_groupmax_topk" if fits else "_group_exact_topk"]
+    q16, it16 = jnp.asarray(q).astype(jnp.bfloat16), jnp.asarray(items).astype(jnp.bfloat16)
+    if fits:
+        want = _fused_groupmax_topk(q16, it16, 5, n, use_pallas=False, interpret=True)
+    else:
+        want = jax_mips_topk(q16, it16, k=5, algorithm="group_exact", score_dtype="bfloat16")
+    _check(got, want)
+
+    # past the slab ceiling a refused fused search has nowhere to go
+    monkeypatch.setattr(topk, "SCORES_BYTES_CEILING", 64 * 4 * (n - 1))
+    if fits:
+        mips_topk(torch.from_numpy(q), torch.from_numpy(items), k=5, algorithm=algorithm,
+                  score_dtype="bfloat16")
+    else:
+        with pytest.raises(NotImplementedError, match="chunked"):
+            mips_topk(torch.from_numpy(q), torch.from_numpy(items), k=5, algorithm=algorithm,
+                      score_dtype="bfloat16")

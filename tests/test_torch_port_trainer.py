@@ -4,8 +4,10 @@ JAX package, and its copy of the synthetic corpus generator.
 - ``python -m ttamm_torch.train --device cpu`` trains 2 epochs of a small
   gated-tower config on a synthetic corpus, writes its last checkpoint and
   prints one JSON line; ``python -m ttamm_torch.pipelines.export
-  --checkpoint`` builds the serving bundle from that checkpoint; a resumed
-  run starts after the checkpoint's epoch.
+  --checkpoint`` builds the serving bundle from that checkpoint; the
+  trainer's own index directory is a serving bundle too, equal to the
+  export from its best checkpoint (stale files there overwritten); a
+  resumed run starts after the checkpoint's epoch.
 - Importing every ``ttamm_torch`` module loads neither ``jax`` nor
   ``ttamm_tpu``.
 - The port's generator writes the JAX package's CSVs byte for byte.
@@ -24,6 +26,7 @@ import yaml
 
 import ttamm_torch
 from ttamm_torch.data import write_synthetic_csvs
+from ttamm_torch.pipelines.export import export_bundle
 from ttamm_torch.pipelines.training import run_single_experiment
 from ttamm_torch.serve import RetrievalService
 from ttamm_tpu.data.synthetic import write_synthetic_csvs as jax_write_synthetic_csvs
@@ -79,6 +82,10 @@ def trained(tmp_path_factory):
     write_synthetic_csvs(root / "data", num_users=300, num_items=200, num_interactions=4000, seed=3)
     cfg_path = root / "config.yaml"
     cfg_path.write_text(yaml.safe_dump(_config(root)))
+    # an earlier export's files in the trainer's index directory
+    (root / "faiss").mkdir()
+    np.save(root / "faiss" / "user_embeddings.npy", np.zeros((3, 16), np.float32))
+    (root / "faiss" / "vocab.json").write_text(json.dumps({"user_ids": ["stale"], "item_ids": []}))
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-m", "ttamm_torch.train", "--config", str(cfg_path), "--device", "cpu"],
@@ -123,6 +130,39 @@ def test_export_from_the_trainers_checkpoint(trained):
         assert not np.allclose(blob["tables/user_id"][:3], 0)
 
 
+def test_the_trainers_index_directory_serves(trained):
+    """The trainer writes the serving bundle of its best state beside the
+    index: vocab.json equal to export_bundle's from the best checkpoint, the
+    user embeddings equal to export's within 1e-6 (the same encode of the
+    same tables), and it answers userId -> top-K as the numpy search does."""
+    root, cfg_path, _, summary = trained
+    serve_dir = root / "faiss"
+    export_bundle(
+        yaml.safe_load(cfg_path.read_text()), root / "bundle_best", device="cpu",
+        checkpoint=summary["best_checkpoint"],
+    )
+    assert (serve_dir / "vocab.json").read_text() == (root / "bundle_best" / "vocab.json").read_text()
+    users = np.load(serve_dir / "user_embeddings.npy")
+    assert users.shape == (summary["users"], 16)
+    np.testing.assert_allclose(users, np.load(root / "bundle_best" / "user_embeddings.npy"), rtol=0, atol=1e-6)
+
+    service = RetrievalService.from_artifacts(serve_dir, device="cpu")
+    assert len(service.user_ids) == summary["users"] and len(service.index) == summary["items"]
+    # the precision gate may pick a bf16 index: its scores move by up to
+    # ~2^-8, so ids may differ from the float32 numpy search only where the
+    # reference scores tie within 2^-6
+    tol = 1e-5 if summary["serving_score_dtype"] == "float32" else 2.0**-6
+    item_pos = {asin: i for i, asin in enumerate(service.item_ids)}
+    for uid in service.user_ids[:3]:
+        recs = service.recommend_for_user(uid, k=5)
+        query = service.user_embeddings[service.user_to_idx[uid]][None, :]
+        ref_scores, ref_ids = service.index.search(query, 5, backend="numpy")
+        ids = np.array([item_pos[asin] for asin, _ in recs])
+        scores = np.array([s for _, s in recs])
+        np.testing.assert_allclose(scores, ref_scores[0], rtol=0, atol=tol)
+        assert np.all(np.abs(scores - ref_scores[0])[ids != ref_ids[0]] <= tol)
+
+
 def test_resume_starts_after_the_checkpoint(trained):
     root, _, _, summary = trained
     config = _config(root)
@@ -143,7 +183,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "ttamm_torch.parallel.launch", "ttamm_torch.parallel.mesh",
         "ttamm_torch.parallel.sharding", "ttamm_torch.parallel.embedding_lookup",
         "ttamm_torch.parallel.sparse_update", "ttamm_torch.parallel.step",
-        "ttamm_torch.train.sharded_checkpoint",
+        "ttamm_torch.train.sharded_checkpoint", "ttamm_torch.reporting.reports",
     } <= set(modules)
     script = (
         "import importlib, sys\n"

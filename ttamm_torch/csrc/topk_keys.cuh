@@ -1,6 +1,6 @@
-// Order-preserving int32 keys of float32 scores and the (key, position)
-// block-argmax pieces shared by the top-k kernels (small_k_topk.cu,
-// select_topk.cu).
+// Order-preserving int32 keys of float32 scores and their tie rule, shared
+// by the top-k kernels (small_k_topk.cu, select_topk.cu, through
+// bound_rank.cuh).
 //
 // Keys are the monotone int32 image of the f32 bits (u < 0 ? u ^ 0x7FFFFFFF
 // : u), the TPU kernels' `_f32_keys`: comparisons and tie-breaks are exact
@@ -28,19 +28,6 @@ __device__ __forceinline__ float key_f32(int32_t k) {
 __device__ __forceinline__ bool ranks_before(int32_t ka, int32_t ia,
                                              int32_t kb, int32_t ib) {
   return ka > kb || (ka == kb && ia < ib);
-}
-
-// The best (key, index) pair of the warp, in every lane.
-__device__ __forceinline__ void warp_best(int32_t& key, int32_t& idx) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int32_t ok = __shfl_xor_sync(0xffffffffu, key, off);
-    const int32_t oi = __shfl_xor_sync(0xffffffffu, idx, off);
-    if (ranks_before(ok, oi, key, idx)) {
-      key = ok;
-      idx = oi;
-    }
-  }
 }
 
 }  // namespace

@@ -114,14 +114,16 @@ def _corpus(
     return item_embeddings
 
 
-def full_corpus(model: TwoTower, items: torch.Tensor, mesh=None) -> torch.Tensor:
-    """The whole ``[num_items, D]`` corpus from this shard's rows (gathered
-    over ``model``), or ``items`` itself without a mesh."""
+def full_corpus(model: TwoTower, rows: torch.Tensor, mesh=None, side: str = "item") -> torch.Tensor:
+    """The whole ``[num_items, D]`` corpus (``[num_users, D]`` for
+    ``side="user"``) from this shard's rows (gathered over ``model``), or
+    ``rows`` itself without a mesh."""
     if mesh is None:
-        return items
+        return rows
     from ..parallel.mesh import MODEL_AXIS, all_gather_rows
 
-    return all_gather_rows(items, mesh, MODEL_AXIS)[: model.num_items]
+    count = model.num_items if side == "item" else model.num_users
+    return all_gather_rows(rows, mesh, MODEL_AXIS)[:count]
 
 
 def _search(

@@ -29,7 +29,10 @@ What the kernels take: ``small_k_topk`` any ``0 < k <= W`` (one block a
 row, 128 / 256 / 512 threads by width); ``groupmax_matmul`` bf16 operands
 through TMA and ``wgmma`` (float32 ones rounded to bf16 and D % 8 != 0
 zero-padded by the wrapper, in a copy), D up to ``MAX_DIM`` = 640, fewer
-than 2^31 rows.
+than 2^31 rows (``groupmax_matmul_fits``, by which the search routes);
+``select_topk_from_groups`` up to 32 groups and any ``0 < k <= KG * 128``
+(one block of 128 threads a row, the bound-and-rank steps of
+``small_k_topk``).
 
 The kernels are compiled by ``nvcc`` at first use into one shared library
 with a plain C interface, loaded with ``ctypes`` (``build/ttamm_torch/``,
@@ -424,6 +427,14 @@ def groupmax_matmul_plain(
     return out
 
 
+def groupmax_matmul_fits(batch: int, n_rows: int, dim: int) -> bool:
+    """Whether ``groupmax_matmul_cuda`` takes ``[batch, dim]`` queries
+    against ``[n_rows, dim]`` items: D up to ``MAX_DIM`` (its shared
+    memory), and rows and queries within the TMA coordinates. The search
+    routes by it on every device, so the CPU picks what the card would."""
+    return dim <= MAX_DIM and n_rows <= _MAX_TMA_ROWS and batch <= _MAX_TMA_ROWS
+
+
 def groupmax_matmul_cuda(
     queries: torch.Tensor, items: torch.Tensor, num_items: int
 ) -> torch.Tensor:
@@ -436,10 +447,11 @@ def groupmax_matmul_cuda(
     batch, dim = queries.shape
     n_rows = items.shape[0]
     ng = -(-n_rows // GROUP)
-    if dim > MAX_DIM:
-        raise ValueError(f"groupmax_matmul: dim {dim} > {MAX_DIM}")
-    if n_rows > _MAX_TMA_ROWS or batch > _MAX_TMA_ROWS:
-        raise ValueError(f"groupmax_matmul: {n_rows} rows exceed the TMA coordinates")
+    if not groupmax_matmul_fits(batch, n_rows, dim):
+        raise ValueError(
+            f"groupmax_matmul: [{batch}, {dim}] x [{n_rows}, {dim}] is beyond the kernel "
+            f"(D <= {MAX_DIM}, rows < 2^31)"
+        )
     q, it = queries.to(torch.bfloat16), items.to(torch.bfloat16)
     if dim % 8:
         pad = (0, 8 - dim % 8)

@@ -31,6 +31,12 @@ from ``BF16_FUSED_MIN_ITEMS`` items and masks at most
 ``FUSED_MASK_WIDTH_MAX`` wide, and ``group_exact`` otherwise. (So the JAX
 eval's switch of a float32 fused search to a bf16-stored corpus, a TPU
 bandwidth trick, has no counterpart: float32 never routes to ``fused``.)
+``fused``, chosen or asked for, becomes ``group_exact`` where
+``groupmax_matmul`` would refuse the shape (``kernels.groupmax_matmul_fits``:
+D > 640, or rows beyond its TMA coordinates), as the JAX package reroutes a
+fused search its kernels cannot take; on every device alike. Where the slab
+algorithm was not asked for and exceeds the slab ceiling, the search raises
+(the JAX package's ``chunked`` is not ported).
 """
 
 from __future__ import annotations
@@ -48,11 +54,14 @@ SCORES_BYTES_BUDGET = 1 << 30
 # 64-query float32 slab would exceed it (~8M items). Beyond it the JAX
 # package scans the corpus in chunks ('chunked'), which is not ported.
 SCORES_BYTES_CEILING = 2 << 30
-# bfloat16 searches of at least this many items route to 'fused'. Measured
-# on an NVIDIA H100 80GB HBM3 at a 700 W power limit (B=1024, k=20, D=128;
-# PERF.md): the two tie at 100k and 500k,
-# group_exact leads at 200k-300k, fused leads from 1M (3.7 vs 4.3 ms) to
-# 2M (6.5 vs 8.5 ms).
+# bfloat16 searches of at least this many items route to 'fused'. The
+# current kernels' sweep (chip_smoke.py phases 6-7, NVIDIA H100 80GB HBM3 at
+# a 700 W power limit, B=1024, k=20, D=128; device ms of fused vs
+# group_exact; PERF.md) has fused ahead at every size it ran: 0.409 vs
+# 0.466-0.468 at 99,880 items, 0.598 vs 1.953 at 500k, 0.810 vs 3.930 at 1M,
+# 1.214 vs 8.176 at 2M. So the crossover lies below 100k items. This value
+# was set against an earlier, slower group-max kernel; moving it waits for a
+# sweep below 100k items.
 BF16_FUSED_MIN_ITEMS = 500_000
 SAFETY_GROUPS = 4  # extra groups selected by the fused path
 # Widest per-query mask that auto routes to 'fused': each blocked id costs
@@ -137,18 +146,20 @@ def mips_topk(
     k_eff = min(k, num_items)
 
     fits = 64 * num_items * 4 <= SCORES_BYTES_CEILING
+    requested = algorithm
     if algorithm == "auto":
-        if score_dtype == "bfloat16":
-            narrow = mask_rows is None or mask_rows.shape[1] <= FUSED_MASK_WIDTH_MAX
-            big = (num_items >= BF16_FUSED_MIN_ITEMS and narrow) or not fits
-            algorithm = "fused" if big else "group_exact"
-        elif fits:
-            algorithm = "group_exact"
-        else:
-            raise NotImplementedError(
-                f"float32 search over {num_items} items exceeds the slab "
-                "ceiling; the chunked algorithm is not ported"
-            )
+        narrow = mask_rows is None or mask_rows.shape[1] <= FUSED_MASK_WIDTH_MAX
+        big = (num_items >= BF16_FUSED_MIN_ITEMS and narrow) or not fits
+        algorithm = "fused" if score_dtype == "bfloat16" and big else "group_exact"
+    if algorithm == "fused" and not kernels.groupmax_matmul_fits(
+        queries.shape[0], -(-num_items // GROUP) * GROUP, queries.shape[1]
+    ):
+        algorithm = "group_exact"  # a shape the fused kernels refuse
+    if algorithm == "group_exact" != requested and not fits:
+        raise NotImplementedError(
+            f"{score_dtype} search over {num_items} items exceeds the slab "
+            "ceiling; the chunked algorithm is not ported"
+        )
     if algorithm == "fused":
         return _fused_groupmax_topk(
             queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows

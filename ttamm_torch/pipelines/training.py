@@ -20,7 +20,14 @@ the checkpoints by ``training.checkpointing``: the best one under
 restored at the end. Last, ``serving.score_dtype: auto`` re-runs the final
 val eval in bf16 and takes bf16 only if no recall@k drops by more than
 ``bf16_recall_gate``, and the item index (TTFLAT1) and embeddings are
-written to ``evaluation.faiss.index_path`` / ``embedding_path``.
+written to ``evaluation.faiss.index_path`` / ``embedding_path``, with the
+best state's ``user_embeddings.npy`` and ``vocab.json`` beside the index:
+that directory is a serving bundle (``RetrievalService.from_artifacts``).
+
+``run_training`` is the entry point: one run, or one per point of the
+Cartesian ``experiment.grid`` (named ``{experiment.name}_sweepNN``), then
+the sweep ledger at ``experiment.benchmark_report`` when the config names
+one (``ttamm_torch.reporting.write_benchmark_report``).
 
 With ``evaluation.faiss.enabled: false`` the eval takes the sampled path
 (``candidate_samples`` random candidates per user). Checkpoints are written
@@ -40,24 +47,26 @@ search when mp > 1). ``training.update_routing`` / ``update_capacity_factor``
 choose the sparse tables' exchange. ``checkpointing.sharded`` (``auto``: more
 than one process) writes per-rank shard directories in the JAX format;
 otherwise the state is gathered and rank 0 writes the flat ``.npz``.
-``resume_from`` takes either. Only rank 0 logs and writes the item index
-and embeddings.
+``resume_from`` takes either. Only rank 0 logs and writes the serving
+bundle and the ledger.
 
-Not ported yet (ROADMAP Queue 1): reports, recommendation samples and the
-diagnostics, the in-batch softmax and its options, sparse mimic tables,
-``comm_dtype``, ``packed_moments``, bf16 feature storage, and of the mesh
-``tensor_parallel`` and ``embedding_exchange: alltoall``; each option
-raises when a config asks for it. The TPU knobs ``steps_per_call``,
-``use_pallas`` and ``mesh.multi_host`` are not read.
+Not ported yet (ROADMAP Queue 1): the in-batch softmax and its options,
+sparse mimic tables, ``comm_dtype``, ``packed_moments``, bf16 feature
+storage, and of the mesh ``tensor_parallel`` and ``embedding_exchange:
+alltoall``; each raises when a config asks for it. The recommendation
+report, loss plot and embedding diagnostics (``diagnostics.*``,
+``recommendations.*``) are not written yet and not refused. The TPU knobs
+``steps_per_call``, ``use_pallas`` and ``mesh.multi_host`` are not read.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -93,6 +102,7 @@ from ..parallel import (
     place_data,
     place_state,
 )
+from ..reporting import write_benchmark_report
 from ..serve.flat_index import build_flat_index
 from ..train.checkpoint import checkpoint_filename, load_checkpoint, save_checkpoint
 from ..train.sharded_checkpoint import (
@@ -104,7 +114,7 @@ from ..train.sharded_checkpoint import (
 from ..train.optim import parse_dense_opt_config
 from ..train.state import BatchData, TrainState, create_train_state
 from ..train.step import TrainStepConfig, encode_corpus, make_eval_loss_step, make_train_step
-from ..utils import configure_logging, get_logger
+from ..utils import configure_logging, expand_grid, get_logger
 from .export import prepare_data
 
 logger = get_logger("pipeline")
@@ -189,6 +199,11 @@ class TrainingResult:
     data: BatchData | None = None
     step_config: TrainStepConfig | None = None
     val_plan: EvalPlan | None = None
+    # what the sweep ledger reads (ttamm_tpu's TrainingResult)
+    config: Mapping[str, Any] | None = None  # this run's config
+    runtime_seconds: float = 0.0  # host clock, data prep to artifacts
+    best_metric: float | None = None  # the monitored value (or loss) of the best epoch
+    overrides: Mapping[str, Any] | None = None  # this grid point's values
 
 
 def _sync(device: torch.device) -> None:
@@ -253,11 +268,14 @@ def run_single_experiment(
     device: torch.device | str | None = None,
     max_steps: int | None = None,
     dataset: TrainingDataset | None = None,
+    overrides: Mapping[str, Any] | None = None,
 ) -> TrainingResult:
     """Train ``config`` on ``device`` (``None``: the CUDA card) for
     ``training.num_epochs`` epochs, or until early stopping or ``max_steps``
     steps in all, evaluating after every epoch. ``dataset`` skips the data
-    prep when the caller already holds it."""
+    prep when the caller already holds it; ``overrides`` (the grid point's
+    values) is recorded for the ledger."""
+    start_time = time.time()
     config = dict(config)
     configure_logging(str((config.get("logging") or {}).get("level", "INFO")))
     _refuse_unported(config)
@@ -322,9 +340,12 @@ def run_single_experiment(
         "Dataset | users=%d items=%d train=%d validation=%d test=%d",
         num_users, num_items, len(train_df), len(val_df), len(test_df),
     )
-    result = TrainingResult(num_users=num_users, num_items=num_items, steps=0)
+    result = TrainingResult(
+        num_users=num_users, num_items=num_items, steps=0, config=config, overrides=overrides,
+    )
     if train_df.empty:
         logger.warning("No training interactions available; exiting early.")
+        result.runtime_seconds = time.time() - start_time
         return result
 
     model_cfg = parse_model_config(
@@ -500,7 +521,7 @@ def run_single_experiment(
         # One encode of the item corpus serves both evals.
         item_embeddings = None
         if len(val_users) or len(test_users):
-            item_embeddings = _encode_items(state, data, search_mesh)
+            item_embeddings = _encode_side(state, data, "item", search_mesh)
         val_loss_value = float("nan")
         val_metrics = test_metrics = None
         monitor_value: float | None = None
@@ -602,17 +623,74 @@ def run_single_experiment(
     result.state, result.data, result.step_config = state, data, tscfg
     result.val_plan = val_plan
 
+    if best_metric_value is None and result.train_loss:  # as the JAX trainer
+        best_metric_value = result.train_loss[-1]
+    result.best_metric = best_metric_value
+
     if mips_enabled:
         _write_retrieval_artifacts(
-            result, metrics_k, requested_dtype, gate_eps, index_path, embedding_path, search_mesh,
+            result, dataset, metrics_k, requested_dtype, gate_eps, index_path, embedding_path,
+            search_mesh,
         )
+    result.runtime_seconds = time.time() - start_time
     return result
 
 
-def _encode_items(state: TrainState, data: BatchData, search_mesh) -> torch.Tensor:
-    """The item corpus, encoded (under a model-sharded mesh: this shard's rows)."""
-    rows = None if search_mesh is None else state.model.item_tower.id_embedding.weight.shape[0]
-    return encode_corpus(state.model, "item", data.item_features, num_rows=rows)
+def run_experiment_grid(
+    config: Mapping[str, Any],
+    grid: Mapping[str, Sequence[Any]],
+    *,
+    device: torch.device | str | None = None,
+    max_steps: int | None = None,
+    dataset: TrainingDataset | None = None,
+) -> list[TrainingResult]:
+    """One run per point of the Cartesian ``grid`` (dotted path -> values;
+    ``ttamm_tpu/pipelines/training.py run_experiment_grid``). A finished
+    point drops its state, data and eval plan before the next one starts,
+    so no two points hold a model on the device at once. ``dataset`` is
+    ``config``'s prepared data; a point that overrides a ``data.`` key
+    prepares its own."""
+    if not grid:
+        return [run_single_experiment(config, device=device, max_steps=max_steps, dataset=dataset)]
+    results: list[TrainingResult] = []
+    for run_config, overrides in expand_grid(config, grid):
+        own_data = any(str(key).startswith("data.") for key in overrides)
+        result = run_single_experiment(
+            run_config, device=device, max_steps=max_steps,
+            dataset=None if own_data else dataset, overrides=overrides,
+        )
+        result.state = result.data = result.val_plan = None
+        results.append(result)
+    return results
+
+
+def run_training(
+    config: Mapping[str, Any],
+    *,
+    device: torch.device | str | None = None,
+    max_steps: int | None = None,
+    dataset: TrainingDataset | None = None,
+) -> list[TrainingResult] | TrainingResult:
+    """Entry point: one run, or the sweep of ``experiment.grid``, then the
+    ledger at ``experiment.benchmark_report`` (written by rank 0) when the
+    config names one (``ttamm_tpu/pipelines/training.py run_training``).
+    Returns the one result of a single run, else the list."""
+    experiment_cfg = dict(config.get("experiment") or {})
+    results = run_experiment_grid(
+        config, experiment_cfg.get("grid") or {}, device=device, max_steps=max_steps,
+        dataset=dataset,
+    )
+    benchmark_path = experiment_cfg.get("benchmark_report")
+    if benchmark_path and is_primary_host():
+        write_benchmark_report(Path(benchmark_path), results)
+    return results[0] if len(results) == 1 else results
+
+
+def _encode_side(state: TrainState, data: BatchData, side: str, search_mesh) -> torch.Tensor:
+    """Every user or item, encoded (under a model-sharded mesh: this shard's rows)."""
+    rows = None if search_mesh is None else state.model.tower(side).id_embedding.weight.shape[0]
+    features = data.item_features if side == "item" else data.user_features
+    return encode_corpus(state.model, side, features, num_rows=rows)
 
 
 def _checkpoint_host(state: TrainState, mesh, sharded: bool):
@@ -626,6 +704,7 @@ def _checkpoint_host(state: TrainState, mesh, sharded: bool):
 
 def _write_retrieval_artifacts(
     result: TrainingResult,
+    dataset: TrainingDataset,
     metrics_k: list[int],
     requested_dtype: str,
     gate_eps: float,
@@ -633,12 +712,14 @@ def _write_retrieval_artifacts(
     embedding_path: Path,
     search_mesh=None,
 ) -> None:
-    """The serving-precision gate, then the item index and embeddings of the
-    (best) state (written by rank 0). bf16 serving ships under ``auto`` only
-    when the final val eval re-scored in bf16 loses at most ``gate_eps`` of
-    any recall@k."""
+    """The serving-precision gate, then the serving bundle of the (best)
+    state, written by rank 0: the item index and embeddings, and beside the
+    index ``user_embeddings.npy`` and ``vocab.json`` (the layout of
+    ``export_bundle`` and of the JAX trainer). bf16 serving ships under
+    ``auto`` only when the final val eval re-scored in bf16 loses at most
+    ``gate_eps`` of any recall@k."""
     model, data, val_plan = result.state.model, result.data, result.val_plan
-    item_embeddings = _encode_items(result.state, data, search_mesh)
+    item_embeddings = _encode_side(result.state, data, "item", search_mesh)
     dtype = "float32"
     if requested_dtype != "auto":
         dtype = requested_dtype
@@ -661,6 +742,9 @@ def _write_retrieval_artifacts(
             {k: round(v, 5) for k, v in deltas.items()}, worst, gate_eps, dtype,
         )
     item_embeddings = full_corpus(model, item_embeddings, search_mesh)
+    user_embeddings = full_corpus(
+        model, _encode_side(result.state, data, "user", search_mesh), search_mesh, side="user"
+    )
     result.serving_score_dtype = dtype
     if not is_primary_host():
         return
@@ -671,4 +755,14 @@ def _write_retrieval_artifacts(
     index.save(index_path)
     embedding_path.parent.mkdir(parents=True, exist_ok=True)
     np.save(embedding_path, index.embeddings)
-    logger.info("Saved retrieval artifacts to %s / %s", index_path, embedding_path)
+    serve_dir = index_path.parent
+    np.save(serve_dir / "user_embeddings.npy", user_embeddings.cpu().numpy())
+    (serve_dir / "vocab.json").write_text(
+        json.dumps({
+            "user_ids": dataset.user_mapping.index_to_id,
+            "item_ids": dataset.item_mapping.index_to_id,
+            "similarity": model.cfg.similarity,
+        }),
+        encoding="utf-8",
+    )
+    logger.info("Saved the serving bundle to %s (item embeddings %s)", serve_dir, embedding_path)

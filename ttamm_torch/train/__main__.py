@@ -10,13 +10,16 @@ one process per device:
         [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` asks for the CPU (a mesh then
-runs over gloo, on cards over NCCL). Logs each
+runs over gloo, on cards over NCCL). Runs once, or once per point of
+``experiment.grid``, then writes the sweep ledger at
+``experiment.benchmark_report`` when the config names one. Logs each
 epoch's losses and val metrics, writes the checkpoints under
-``training.checkpointing.dir`` and the item index and embeddings under
-``evaluation.faiss``, and prints one JSON line of the results: losses, the
-best epoch with its val recall and ndcg at each k, the best and the last
-checkpoint, and the serving score dtype. Under a mesh only rank 0 logs and
-prints.
+``training.checkpointing.dir`` and the serving bundle (item index and
+embeddings, user embeddings, ``vocab.json``) beside
+``evaluation.faiss.index_path``, and prints one JSON line of results per
+run: its grid overrides, losses, the best epoch with its val recall and
+ndcg at each k, the best and the last checkpoint, and the serving score
+dtype. Under a mesh only rank 0 logs and prints.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from pathlib import Path
 import torch.distributed as dist
 
 from ..parallel import is_primary_host
-from ..pipelines.training import run_single_experiment
+from ..pipelines.training import run_training
 from ..utils import load_config
 
 
@@ -43,15 +46,22 @@ def main(argv: list[str] | None = None) -> None:
     config = load_config(args.config)
     if args.data_root is not None:
         config.setdefault("data", {})["root"] = str(args.data_root)
-    result = run_single_experiment(config, device=args.device, max_steps=args.max_steps)
+    results = run_training(config, device=args.device, max_steps=args.max_steps)
     primary = is_primary_host()
     if dist.is_initialized():
         dist.barrier()  # every rank's files are written
         dist.destroy_process_group()
     if not primary:
         return
+    for result in results if isinstance(results, list) else [results]:
+        print(json.dumps(_summary(result)))
+
+
+def _summary(result) -> dict:
     best = result.best_val_metrics
-    print(json.dumps({
+    return {
+        "experiment": (result.config.get("experiment") or {}).get("name"),
+        "overrides": dict(result.overrides or {}),
         "users": result.num_users,
         "items": result.num_items,
         "steps": result.steps,
@@ -66,7 +76,7 @@ def main(argv: list[str] | None = None) -> None:
         "best_checkpoint": _path(result.best_checkpoint_path),
         "checkpoint": _path(result.checkpoint_path),
         "serving_score_dtype": result.serving_score_dtype,
-    }))
+    }
 
 
 def _path(path: Path | None) -> str | None:
