@@ -11,9 +11,11 @@ result line):
 
 1. build the CUDA kernels from ``ttamm_torch/csrc/`` and report the card,
    the ``ptxas`` registers and spills of every kernel, and the SASS
-   counts of the search kernels (groupmax_matmul must contain ``wgmma``,
-   HGMMA, and TMA loads, UTMALDG; select_topk_from_groups's 16-byte loads,
-   block barriers and warp matches are printed);
+   counts of the search and moments kernels (groupmax_matmul must contain
+   ``wgmma``, HGMMA, and TMA loads, UTMALDG; the moments' chunk kernel f64
+   ``mma.sync``, DMMA, and their backward bf16 ``mma.sync``, HMMA, beside
+   their ``ldmatrix`` and 16-byte loads; select_topk_from_groups's 16-byte
+   loads, block barriers and warp matches are printed);
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes and time kernel, plain version and the nearest library call
    (device time from ``torch.profiler``; the row kernels are timed in
@@ -33,9 +35,13 @@ result line):
    with its share of the bf16 peak) and rescore_groups
    within rtol 1e-6 + atol 1e-5 (exact bf16 products, f32 sums in another
    order); segment_second_moments forward within 2e-5 x the largest |M2|
-   entry of each category and backward within 2e-5 x the largest |dx| (f32
-   sums of up to N products in another order), with empty and one-member
-   categories and ids >= C;
+   entry of each category (its entries off the f64 sum rounded to f32
+   counted) and backward within 2e-5 x the largest |dx| (f32 sums of up to
+   N products in another order), with empty and one-member
+   categories and ids >= C, each direction timed as the loss calls it (the
+   forward with the row grouping it builds, the backward given that
+   grouping), the forward's kernels and the grouping kernel also timed
+   alone, the grouping bit-identical to its plain version (PyTorch ops);
 3. the canonical corpus (200k users x 100k items x 2M interactions) from
    the port's generator, and its data prep;
 4. one training step of ``configs/default.yaml`` from a seeded state with
@@ -49,7 +55,9 @@ result line):
    on the item table at that step's coalesced targets (its 12,288 item
    lanes, every duplicate on the scratch row), bit-identical to their plain
    versions and timed with a cold L2 (a 256 MB fill before each call, its
-   kernels left out), their bound counting each distinct row once;
+   kernels left out), their bound counting each distinct row once; and
+   segment_second_moments checked and timed as in phase 2 at that step's
+   item lanes' real category ids (``parts`` ``*_canonical``);
 4b. the multi-device layer on one card: gather_rows_masked and
    scatter_set_rows_masked at that step's item lanes, coalesced and
    localized for each of 4 virtual model shards of the padded item table
@@ -359,9 +367,10 @@ def _log_row(name: str, row: dict) -> None:
 
 
 def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
-    """HGMMA / UTMALDG / MATCH instructions of the search kernels' SASS, and
+    """HGMMA / UTMALDG / MATCH instructions of the search kernels' SASS,
     16-byte loads (LDG.E.128), block barriers (BAR.SYNC) and MATCH of the
-    select kernel's (``cuobjdump -sass`` beside ``nvcc``)."""
+    select kernel's, and DMMA / HMMA / LDSM / LDG.E.128 of the moments' chunk
+    and backward kernels (``cuobjdump -sass`` beside ``nvcc``)."""
     from ttamm_torch.ops import kernels
 
     cuobjdump = Path(kernels.find_nvcc()).parent / "cuobjdump"
@@ -377,6 +386,8 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
                 ops = counts.setdefault(name, {"HGMMA": 0, "UTMALDG": 0, "MATCH": 0})
             elif "select_topk_kernel" in name:
                 ops = counts.setdefault(name, {"LDG.E.128": 0, "BAR.SYNC": 0, "MATCH": 0})
+            elif "m2_chunk_kernel" in name or "m2_bwd_kernel" in name:
+                ops = counts.setdefault(name, {"DMMA": 0, "HMMA": 0, "LDSM": 0, "LDG.E.128": 0})
         elif ops is not None:
             for op in ops:
                 ops[op] += op in line
@@ -406,6 +417,12 @@ def phase_build(dev) -> str:
     gm = [ops for fn, ops in sass.items() if "groupmax_kernel" in fn]
     check(gm and all(o["HGMMA"] > 0 and o["UTMALDG"] > 0 for o in gm),
           f"groupmax_matmul has no wgmma or no TMA load: {gm}")
+    # the moments' forward on the f64 tensor cores (DMMA), the backward on the
+    # bf16 ones (HMMA)
+    fwd = [ops for fn, ops in sass.items() if "m2_chunk_kernel" in fn]
+    bwd = [ops for fn, ops in sass.items() if "m2_bwd_kernel" in fn]
+    check(len(fwd) == 1 and fwd[0]["DMMA"] > 0 and len(bwd) == 1 and bwd[0]["HMMA"] > 0,
+          f"the moments kernels do not run on the tensor cores: {fwd} {bwd}")
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(dev)} | nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -660,45 +677,86 @@ def _training_kernels(dev, num_users: int, num_items: int, batch: int, negatives
     ids[0] = c - 2  # the one member of category C-2
     ids[1:3] = c + 5  # ids >= C add nothing
     x = torch.randn((n, dim), generator=gen, device=dev) * 0.3
-    got, want = kernels.segment_second_moments_cuda(ids, x, c), kernels.segment_second_moments_plain(ids, x, c)
-    scale = want.abs().amax(dim=(1, 2), keepdim=True)
-    err = (got - want).abs()
-    check(bool((err <= M2_TOL * scale).all()), f"segment_second_moments: max abs err {float(err.max()):.3e}")
+    fwd, bwd, err, got, got_b = _moments(ids, x, c, gen, "skewed ids")
     check(bool((got[7] == 0).all()) and bool((got[c - 1] == 0).all()), "empty categories not zero")
-    h = torch.randn((c, dim, dim), generator=gen, device=dev)
-    h = (h + h.transpose(1, 2)).contiguous()
-    got_b = kernels.segment_second_moments_bwd_cuda(ids, x, h)
-    want_b = kernels.segment_second_moments_bwd_plain(ids, x, h)
-    err_b = (got_b - want_b).abs()
-    check(bool((err_b <= M2_TOL * want_b.abs().max()).all()),
-          f"segment_second_moments bwd: max abs err {float(err_b.max()):.3e}")
     check(bool((got_b[1:3] == 0).all()), "rows with ids >= C got a gradient")
-    sel = kernels._selector(ids, c)
-    xb, hb = kernels._bf16(x), kernels._bf16(h)
-    fwd = dict(
-        ms=device_ms(lambda: kernels.segment_second_moments_cuda(ids, x, c)),
-        plain_ms=device_ms(lambda: kernels.segment_second_moments_plain(ids, x, c), iters=5),
-        library_ms=device_ms(lambda: torch.einsum("cn,nd,ne->cde", sel, xb, xb), iters=5),
-        bound=bound_ms(n * dim * 4 + n * 4 + c * dim * dim * 4, 2.0 * n * dim * dim)[0],
-    )
-    bwd = dict(
-        ms=device_ms(lambda: kernels.segment_second_moments_bwd_cuda(ids, x, h)),
-        plain_ms=device_ms(lambda: kernels.segment_second_moments_bwd_plain(ids, x, h), iters=5),
-        library_ms=device_ms(lambda: torch.einsum("cn,ced,nd->ne", sel, hb, xb), iters=5),
-        bound=bound_ms(2 * n * dim * 4 + n * 4 + c * dim * dim * 4, 2.0 * n * dim * dim)[0],
-    )
-    for part, r in (("fwd", fwd), ("bwd", bwd)):
-        log(f"segment_second_moments {part} [{n}, {dim}] C={c}: kernel {r['ms']:.4f} ms | plain "
-            f"{r['plain_ms']:.4f} ms | library {r['library_ms']:.4f} ms | bound {r['bound']:.4f} ms")
     rows["segment_second_moments"] = dict(
-        shape=f"fwd+bwd [{n}, {dim}] f32, C={c}",
-        max_abs_err=float(max(err.max(), err_b.max())),
+        shape=f"fwd+bwd [{n}, {dim}] f32, C={c}, skewed ids",
+        max_abs_err=err,
         ms=fwd["ms"] + bwd["ms"], plain_ms=fwd["plain_ms"] + bwd["plain_ms"],
         library_ms=fwd["library_ms"] + bwd["library_ms"],
         bound_ms=fwd["bound"] + bwd["bound"], bound_by="bytes",
         parts={"fwd": fwd, "bwd": bwd},
     )
     return rows
+
+
+def _moments(ids, x, c: int, gen, label: str):
+    """segment_second_moments forward and backward at ``ids`` / ``x`` and a
+    random symmetric cotangent: each within M2_TOL of its plain version (of
+    each category's largest |M2| entry, of the largest |dx|), then the
+    device ms of each direction as the loss calls it (``ms``: the forward
+    builds the row grouping, once a loss call, and the backward reuses it),
+    of its kernels alone (``kernel_ms``), of its plain version and of the
+    einsum, its bound, the grouping's own device ms and its work list.
+    Returns ``(fwd, bwd, max abs err, M2, dx)``."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+
+    n, dim = x.shape
+    grouping = kernels.category_grouping(ids, c)
+    check(all(torch.equal(a, b) for a, b in zip(grouping, kernels._group_by_category(ids, c))),
+          f"category_grouping ({label}): kernel != plain")
+    got = kernels.segment_second_moments_cuda(ids, x, c, grouping)
+    want = kernels.segment_second_moments_plain(ids, x, c)
+    scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    err = (got - want).abs()
+    check(bool((err <= M2_TOL * scale).all()),
+          f"segment_second_moments ({label}): max abs err {float(err.max()):.3e}")
+    xd = kernels._bf16(x).double()
+    exact = torch.einsum("cn,nd,ne->cde", kernels._selector(ids, c).double(), xd, xd).float()
+    off_exact = int((got != exact).sum())  # entries not the exact sum rounded to f32
+    h = torch.randn((c, dim, dim), generator=gen, device=x.device)
+    h = (h + h.transpose(1, 2)).contiguous()
+    got_b = kernels.segment_second_moments_bwd_cuda(ids, x, h, grouping)
+    want_b = kernels.segment_second_moments_bwd_plain(ids, x, h)
+    err_b = (got_b - want_b).abs()
+    check(bool((err_b <= M2_TOL * want_b.abs().max()).all()),
+          f"segment_second_moments bwd ({label}): max abs err {float(err_b.max()):.3e}")
+    sel = kernels._selector(ids, c)
+    xb, hb = kernels._bf16(x), kernels._bf16(h)
+    fwd = dict(
+        ms=device_ms(lambda: kernels.segment_second_moments_cuda(ids, x, c)),
+        kernel_ms=device_ms(lambda: kernels.segment_second_moments_cuda(ids, x, c, grouping)),
+        plain_ms=device_ms(lambda: kernels.segment_second_moments_plain(ids, x, c), iters=5),
+        library_ms=device_ms(lambda: torch.einsum("cn,nd,ne->cde", sel, xb, xb), iters=5),
+        bound=bound_ms(n * dim * 4 + n * 4 + c * dim * dim * 4, 2.0 * n * dim * dim)[0],
+    )
+    bwd_ms = device_ms(lambda: kernels.segment_second_moments_bwd_cuda(ids, x, h, grouping))
+    bwd = dict(
+        ms=bwd_ms,
+        kernel_ms=bwd_ms,
+        plain_ms=device_ms(lambda: kernels.segment_second_moments_bwd_plain(ids, x, h), iters=5),
+        library_ms=device_ms(lambda: torch.einsum("cn,ced,nd->ne", sel, hb, xb), iters=5),
+        bound=bound_ms(2 * n * dim * 4 + n * 4 + c * dim * dim * 4, 2.0 * n * dim * dim)[0],
+    )
+    chunks = int(grouping.chunk_offsets[c])  # the chunks of categories [0, C)
+    fwd["grouping_ms"] = device_ms(lambda: kernels.category_grouping(ids, c))
+    fwd["grouping_plain_ms"] = device_ms(lambda: kernels._group_by_category(ids, c))
+    fwd["chunks"] = bwd["chunks"] = chunks
+    fwd["off_exact"] = off_exact
+    populated = int((grouping.offsets[1 : c + 1] > grouping.offsets[:c]).sum())
+    log(f"segment_second_moments [{n}, {dim}] C={c} ({label}): {populated} populated "
+        f"categories, {chunks} chunks of {kernels.M2_CHUNK_ROWS} rows; grouping kernel "
+        f"{fwd['grouping_ms']:.4f} ms (bit-identical to its plain version, PyTorch ops, "
+        f"{fwd['grouping_plain_ms']:.4f} ms); M2 entries off the f64 sum rounded to f32: "
+        f"{off_exact} of {got.numel()}")
+    for part, r in (("fwd", fwd), ("bwd", bwd)):
+        log(f"  {part}: as the loss calls it {r['ms']:.4f} ms (kernels {r['kernel_ms']:.4f} ms) | "
+            f"plain {r['plain_ms']:.4f} ms | library {r['library_ms']:.4f} ms | bound "
+            f"{r['bound']:.4f} ms")
+    return fwd, bwd, float(max(err.max(), err_b.max())), got, got_b
 
 
 @contextlib.contextmanager
@@ -822,7 +880,14 @@ def phase_step_vs_plain(dev, config: dict, dataset) -> tuple[dict[str, dict], di
     log(f"one step, kernels vs plain on the card: losses {mk} | table rows max abs err {worst}")
     context = dict(cfg=cfg, tscfg=tscfg, data=data, users=users, items=items, nu=nu, ni=ni, batch=b,
                    item_idx=item_idx, state=sk)
-    return _row_kernels(sk.tables["item_id"], item_idx, ni), context
+    rows = _row_kernels(sk.tables["item_id"], item_idx, ni)
+    # the category moments at this batch's real ids: the item lanes' categories
+    ids = data.category_ids[item_idx]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((item_idx.numel(), 128), generator=gen, device=dev) * 0.3
+    fwd, bwd, err, _, _ = _moments(ids, x, tscfg.cal_max_categories, gen, "one canonical batch's ids")
+    rows["segment_second_moments_canonical"] = {"fwd": fwd, "bwd": bwd, "max_abs_err": err}
+    return rows, context
 
 
 def _row_kernels(table, lanes, scratch: int) -> dict[str, dict]:
@@ -1488,6 +1553,10 @@ def main() -> int:
                 config, dataset = phase_corpus(work)
             with Phase("4 one train step, kernels vs plain versions"):
                 rows, step_ctx = phase_step_vs_plain(dev, config, dataset)
+                canonical = rows.pop("segment_second_moments_canonical")
+                m2_row = kernel_rows["segment_second_moments"]
+                m2_row["max_abs_err"] = max(m2_row["max_abs_err"], canonical.pop("max_abs_err"))
+                m2_row["parts"].update({f"{k}_canonical": v for k, v in canonical.items()})
                 kernel_rows.update(rows)
             with Phase("4b the multi-device layer on one card"):
                 rows, mesh_counts, mesh_timing = phase_mesh(dev, step_ctx)

@@ -11,7 +11,8 @@ scatter_set_rows are bit-identical; groupmax_matmul and rescore_groups multiply 
 operands exactly and differ from the plain f32 matmul only in the order of
 the f32 sums (rtol 1e-6, atol 1e-5 at O(1) scores); segment_second_moments
 forward and backward likewise, summing up to N products: 2e-5 of the
-largest entry of each category (forward) or of dx (backward).
+largest entry of each category (forward) or of dx (backward); the forward
+sums in f64 and is also the f64 einsum rounded to f32, bit for bit.
 """
 
 import pytest
@@ -358,6 +359,140 @@ def test_segment_second_moments_autograd_matches_plain_backward(cuda):
     assert bool(((gk - want).abs() <= 2e-5 * want.abs().max()).all())
 
 
+def _m2_edge_ids(layout, c, seed):
+    """Ids of the moments' edge layouts (R = the shipped chunk rows)."""
+    gen = torch.Generator().manual_seed(seed)
+    r = kernels.M2_CHUNK_ROWS
+    if layout == "one_category":  # every row in one category
+        return torch.full((3 * r + 5,), 3, dtype=torch.int32)
+    if layout == "run_lengths":  # runs of R - 1, R, R + 1 and 2R + 1 rows, and ids outside
+        ids = torch.repeat_interleave(torch.arange(4), torch.tensor([r - 1, r, r + 1, 2 * r + 1]))
+        ids = torch.cat([ids, torch.tensor([-1, c, c + 9])])
+        return ids[torch.randperm(ids.numel(), generator=gen)].to(torch.int32)
+    if layout == "all_outside":
+        return torch.tensor([-1, c, c + 3, -7] * 50, dtype=torch.int32)
+    # skewed: the largest category ~30% of the rows, an empty one, a single member
+    ids = torch.clamp((torch.empty(700).exponential_(generator=gen) * 6).int(), max=c - 3)
+    ids[ids == 7] = 8
+    ids[0] = c - 2
+    return ids
+
+
+@pytest.mark.parametrize("layout", ["one_category", "run_lengths", "all_outside", "skewed"])
+@pytest.mark.parametrize("d", [8, 9, 30, 40, 128, 136, 512])
+def test_segment_second_moments_kernel_edges(cuda, d, layout):
+    """Both kernels against the einsums at narrow, ragged (D % 4 != 0: the
+    scalar loads and stores) and the widest D, over the chunking's edge
+    layouts: 2e-5 of each category's largest |M2| entry (exactly 0 for an
+    empty category) and of the largest |dx|; rows with ids outside [0, C)
+    get exactly 0."""
+    c = 16
+    ids = _m2_edge_ids(layout, c, d).to(cuda)
+    gen = torch.Generator().manual_seed(d)
+    x = (torch.randn((ids.numel(), d), generator=gen) * 0.3).to(cuda)
+    got = kernels.segment_second_moments_cuda(ids, x, c)
+    want = kernels.segment_second_moments_plain(ids, x, c)
+    assert bool(((got - want).abs() <= 2e-5 * want.abs().amax(dim=(1, 2), keepdim=True)).all())
+    h = torch.randn((c, d, d), generator=gen).to(cuda)
+    h = (h + h.transpose(1, 2)).contiguous()
+    got_b = kernels.segment_second_moments_bwd_cuda(ids, x, h)
+    want_b = kernels.segment_second_moments_bwd_plain(ids, x, h)
+    assert bool(((got_b - want_b).abs() <= 2e-5 * want_b.abs().max()).all())
+    assert bool((got_b[(ids < 0) | (ids >= c)] == 0).all())
+
+
+def test_segment_second_moments_kernels_repeat_their_bits(cuda):
+    """Two calls of each direction give the same bits: the chunk partials
+    are summed in chunk order and nothing uses atomics."""
+    ids, x = _m2_case(cuda, 12288, 64, 128, 9)
+    assert torch.equal(kernels.segment_second_moments_cuda(ids, x, 64),
+                       kernels.segment_second_moments_cuda(ids, x, 64))
+    h = torch.randn((64, 128, 128), device=cuda)
+    h = (h + h.transpose(1, 2)).contiguous()
+    assert torch.equal(kernels.segment_second_moments_bwd_cuda(ids, x, h),
+                       kernels.segment_second_moments_bwd_cuda(ids, x, h))
+
+
+@pytest.mark.parametrize("layout", ["one_category", "run_lengths", "skewed"])
+@pytest.mark.parametrize("d", [40, 128])
+def test_segment_second_moments_forward_is_the_rounded_exact_sum(cuda, d, layout):
+    """The forward sums each chunk on the f64 tensor cores and the chunks in
+    f64, then rounds once: M2 is the f64 einsum rounded to f32 bit for bit
+    (one chunk, several chunks of one category, and both), and symmetric."""
+    c = 16
+    ids = _m2_edge_ids(layout, c, d).to(cuda)
+    gen = torch.Generator().manual_seed(d + 1)
+    x = (torch.randn((ids.numel(), d), generator=gen) * 0.3).to(cuda)
+    xb = kernels._bf16(x).double()
+    want = torch.einsum("cn,nd,ne->cde", kernels._selector(ids, c).double(), xb, xb).float()
+    got = kernels.segment_second_moments_cuda(ids, x, c)
+    assert torch.equal(got, want)
+    assert torch.equal(got, got.transpose(1, 2))
+
+
+def test_segment_second_moments_groups_once_per_loss_call(cuda, monkeypatch):
+    """One forward + backward through the autograd function builds the row
+    grouping once (one launch of the grouping kernel, its stable sort, and
+    no other sort): the backward reuses the forward's."""
+    groupings, sorts = [], []
+    group, sort = kernels._group_by_category_cuda, torch.sort
+    monkeypatch.setattr(kernels, "_group_by_category_cuda",
+                        lambda *a, **k: groupings.append(1) or group(*a, **k))
+    monkeypatch.setattr(torch, "sort", lambda *a, **k: sorts.append(1) or sort(*a, **k))
+    ids, x = _m2_case(cuda, 3000, 16, 128, 5)
+    xk = x.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    m2 = SegmentSecondMoments.apply(ids, xk, 16)
+    torch.autograd.grad(m2, xk, torch.randn_like(m2))
+    torch.cuda.synchronize()
+    assert len(groupings) == 1 and len(sorts) == 0
+    counts = kernels.launch_counts()
+    assert counts["category_grouping"] == 1
+    assert counts["segment_second_moments"] == 1 and counts["segment_second_moments_bwd"] == 1
+
+
+def _grouping_ids(layout):
+    """Category ids and C of the grouping's layouts."""
+    gen = torch.Generator().manual_seed(len(layout))
+    r = kernels.M2_CHUNK_ROWS
+    if layout == "canonical":  # 10 populated ids of 64, near-uniform
+        return torch.randint(0, 10, (12288,), generator=gen), 64
+    if layout == "skewed":  # one category with ~30% of the rows, ids >= C
+        return (torch.empty(12288).exponential_(generator=gen) * 6).long(), 64
+    if layout == "one_category":
+        return torch.full((5 * r + 3,), 7), 64
+    if layout == "run_lengths":  # R - 1, R, R + 1, 2R + 1 rows, shuffled, ids outside
+        return _m2_edge_ids("run_lengths", 64, 1), 64
+    if layout == "all_outside":
+        return _m2_edge_ids("all_outside", 64, 1), 64
+    if layout == "ragged_n":  # rows not a multiple of the block's 32 warps x 32 lanes
+        return torch.randint(-2, 20, (1001,), generator=gen), 16
+    if layout == "wide_c":  # C + 1 = 301 runs: the counts in shared memory
+        return torch.randint(-2, 303, (3000,), generator=gen), 300
+    if layout == "widest_c":  # C + 1 = 1001 runs: the counts in a scratch buffer
+        return torch.randint(-2, 1003, (5000,), generator=gen), 1000
+    return torch.zeros(0, dtype=torch.int64), 64  # "empty": N = 0
+
+
+@pytest.mark.parametrize(
+    "layout",
+    ["canonical", "skewed", "one_category", "run_lengths", "all_outside", "ragged_n", "wide_c",
+     "widest_c", "empty"],
+)
+def test_category_grouping_kernel_matches_plain(cuda, layout):
+    """The grouping kernel gives its plain version's order (a stable sort),
+    run offsets, chunk offsets and work list, bit for bit, for int32 and
+    int64 ids, and the same bits on a second call."""
+    ids, c = _grouping_ids(layout)
+    for dtype in (torch.int32, torch.int64):
+        dev_ids = ids.to(cuda, dtype)
+        got = kernels.category_grouping(dev_ids, c)
+        want = kernels._group_by_category(dev_ids, c)
+        for name, a, b in zip(got._fields, got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+        assert all(torch.equal(a, b) for a, b in zip(got, kernels.category_grouping(dev_ids, c)))
+
+
 def test_sparse_adam_on_the_card_counts_launches(cuda):
     gen = torch.Generator().manual_seed(6)
     table = torch.randn((1001, 128), generator=gen).to(cuda)
@@ -387,10 +522,12 @@ def test_sparse_adam_on_the_card_counts_launches(cuda):
 STEP_KERNELS = ("gather_rows", "scatter_set_rows", "segment_second_moments", "segment_second_moments_bwd")
 
 
-def _one_step(cuda, plain):
+def _one_step(cuda, plain, seeds=(8, 4), swap=None):
     """One step of a gated-tower model (D = 128, C = 16) from a seeded state
-    with injected negatives and no dropout, with the kernels or with their
-    plain versions on the card: (state, metrics, launch counts)."""
+    (``seeds``: data, state) with injected negatives and no dropout, with the
+    kernels or with their plain versions on the card, and any kernel
+    replaced by the function ``swap`` maps its name to: (state, metrics,
+    launch counts)."""
     from ttamm_torch.models import parse_model_config
     from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state, make_train_step
     from ttamm_torch.train.optim import DenseOptConfig
@@ -404,7 +541,7 @@ def _one_step(cuda, plain):
     cfg = parse_model_config(
         {"user_encoder": tower, "item_encoder": tower}, user_feature_dim=12, item_feature_dim=9
     )
-    gen = torch.Generator().manual_seed(8)
+    gen = torch.Generator().manual_seed(seeds[0])
     nu, ni, b, neg = 500, 400, 64, 5
     data = BatchData(
         user_features=torch.randn((nu, 12), generator=gen).to(cuda),
@@ -422,13 +559,15 @@ def _one_step(cuda, plain):
     p = torch.randint(0, ni, (b,), generator=gen, dtype=torch.int32).to(cuda)
     negs = torch.randint(0, ni, (b, neg), generator=gen, dtype=torch.int32).to(cuda)
     step = make_train_step(cfg, tscfg)
-    state = create_train_state(cfg, num_users=nu, num_items=ni, seed=4, device=cuda)
+    state = create_train_state(cfg, num_users=nu, num_items=ni, seed=seeds[1], device=cuda)
     saved = {n: getattr(kernels, n) for n in STEP_KERNELS}
     kernels.reset_launch_counts()
     try:
         if plain:
             for n in STEP_KERNELS:
                 setattr(kernels, n, getattr(kernels, f"{n}_plain"))
+        for n, fn in (swap or {}).items():
+            setattr(kernels, n, fn)
         state, metrics = step(state, data, u, p, generator=None, negatives=negs)
     finally:
         for n, fn in saved.items():

@@ -120,11 +120,12 @@ def test_plain_versions_do_not_count_launches():
     kernels.scatter_set_rows(x, ids[:4] - 1, torch.randn(4, 8), masked=True)
     kernels.segment_second_moments(ids, x, 3)
     kernels.segment_second_moments_bwd(ids, x, torch.randn(3, 8, 8))
+    assert kernels.category_grouping(ids, 3) is None
     counts = kernels.launch_counts()
     assert set(counts) == {
         "small_k_topk", "select_topk_from_groups", "groupmax_matmul", "rescore_groups",
         "gather_rows", "gather_rows_masked", "scatter_set_rows", "scatter_set_rows_masked",
-        "segment_second_moments", "segment_second_moments_bwd",
+        "segment_second_moments", "segment_second_moments_bwd", "category_grouping",
     }
     assert all(n == 0 for n in counts.values())
 

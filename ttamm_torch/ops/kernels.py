@@ -32,7 +32,12 @@ zero-padded by the wrapper, in a copy), D up to ``MAX_DIM`` = 640, fewer
 than 2^31 rows (``groupmax_matmul_fits``, by which the search routes);
 ``select_topk_from_groups`` up to 32 groups and any ``0 < k <= KG * 128``
 (one block of 128 threads a row, the bound-and-rank steps of
-``small_k_topk``).
+``small_k_topk``); ``segment_second_moments`` and its backward D up to
+``MAX_M2_DIM`` = 512, any C > 0 and N >= 0, over chunks of at most
+``M2_CHUNK_ROWS`` rows of one category (the rows grouped once per loss
+call, :class:`CategoryGrouping`): the forward on the f64 tensor cores with
+f64 sums (M2 is the exact sum rounded to f32), the backward on the bf16
+ones.
 
 The kernels are compiled by ``nvcc`` at first use into one shared library
 with a plain C interface, loaded with ``ctypes`` (``build/ttamm_torch/``,
@@ -49,8 +54,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import device as _device  # noqa: F401  (owns the TF32 settings)
 
@@ -65,10 +72,13 @@ PAD_SCORE = -3.0e38  # score of rows at or beyond num_items in groupmax_matmul
 MAX_DIM = 640
 # groupmax_matmul's TMA coordinates are int32: rows below 2^31.
 _MAX_TMA_ROWS = 2**31 - 1
-# Widest rows the second-moment backward takes: its H tile and row chunk
-# ((64 * (D + 1) + 32 * D) * 4 bytes) fit 227 KB up to D = 604.
+# Widest rows the second-moment kernels take: the backward stages a chunk's
+# 128 bf16 rows and a 64-row bf16 H tile, (128 + 64) * (D' + 8) * 2 bytes
+# with D' = D rounded up to 32, beside 1 KB of row ids, within a block's
+# 232,448 bytes up to D = 576.
 MAX_M2_DIM = 512
-_M2_BWD_ROWS = 32  # rows per backward block (kBwdRows in category_stats.cu)
+# Rows per chunk of one category (R; kChunkRows in category_stats.cu).
+M2_CHUNK_ROWS = 128
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ttamm_torch"
@@ -95,6 +105,7 @@ _launches = {
     "scatter_set_rows_masked": 0,
     "segment_second_moments": 0,
     "segment_second_moments_bwd": 0,
+    "category_grouping": 0,  # the moments' row grouping (glue, not a TPU kernel)
 }
 
 
@@ -191,10 +202,14 @@ def load_library() -> ctypes.CDLL:
             lib.ttamm_scatter_set_rows.restype = i32
             lib.ttamm_gather_rows_masked.argtypes = [p, p, p, i64, i64, i32, p]
             lib.ttamm_gather_rows_masked.restype = i32
-            lib.ttamm_segment_second_moments.argtypes = [p, p, p, p, i32, i32, p]
+            lib.ttamm_segment_second_moments.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, p]
             lib.ttamm_segment_second_moments.restype = i32
-            lib.ttamm_segment_second_moments_bwd.argtypes = [p, p, p, p, p, p, i32, i32, i32, p]
+            lib.ttamm_segment_second_moments_bwd.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, p]
             lib.ttamm_segment_second_moments_bwd.restype = i32
+            lib.ttamm_category_grouping.argtypes = [p, i32, i32, i32, p, p, p, p, i32, p, p, p]
+            lib.ttamm_category_grouping.restype = i32
+            lib.ttamm_category_grouping_warps.argtypes = [i32]
+            lib.ttamm_category_grouping_warps.restype = i32
             _lib = lib
         return _lib
 
@@ -654,26 +669,60 @@ def scatter_set_rows_cuda(
 # ---------------------------------------------------------------------------
 
 
+class CategoryGrouping(NamedTuple):
+    """The moments kernels' row grouping and work list, built once per loss
+    call on the device (:func:`category_grouping`) and shared by the forward
+    and the backward. R = ``M2_CHUNK_ROWS``.
+
+    ``order`` int64 ``[N]``: the row ids, stably sorted by category, ids
+    outside ``[0, C)`` last (run ``C``); ``offsets`` int32 ``[C + 2]``: run
+    ``c`` is ``order[offsets[c]:offsets[c + 1]]``; ``chunk_offsets`` int32
+    ``[C + 2]``: run ``c`` is cut into chunks of R rows, work items
+    ``[chunk_offsets[c], chunk_offsets[c + 1])``; ``chunk_cat`` int32
+    ``[ceil(N / R) + C + 1]``: each work item's run, ``C + 1`` past the
+    last chunk. Item ``j`` of run ``c`` covers ``order[b:min(b + R,
+    offsets[c + 1])]`` with ``b = offsets[c] + (j - chunk_offsets[c]) * R``.
+    """
+
+    order: torch.Tensor
+    offsets: torch.Tensor
+    chunk_offsets: torch.Tensor
+    chunk_cat: torch.Tensor
+
+
+def category_grouping(cat_ids: torch.Tensor, num_categories: int) -> CategoryGrouping | None:
+    """The row grouping that :func:`segment_second_moments` and its
+    backward take, built once for both by one kernel launch; ``None`` for
+    ids on the CPU, whose plain versions need none."""
+    if cat_ids.device.type == "cpu":
+        return None
+    return _group_by_category_cuda(cat_ids, num_categories)
+
+
 def segment_second_moments(
-    cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int
+    cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int,
+    grouping: CategoryGrouping | None = None,
 ) -> torch.Tensor:
     """``M2[c] = sum_{n: cat_ids[n] = c} bf16(x_n) bf16(x_n)^T`` summed in
     f32: ``[C, D, D]`` for int ``cat_ids [N]`` and f32 ``x [N, D]``; rows
-    with ids outside ``[0, C)`` add nothing."""
+    with ids outside ``[0, C)`` add nothing. ``grouping``: the rows'
+    :class:`CategoryGrouping`, built here when not given (the kernel's; the
+    plain version does not need it)."""
     if x.device.type == "cpu":
         return segment_second_moments_plain(cat_ids, x, num_categories)
-    return segment_second_moments_cuda(cat_ids, x, num_categories)
+    return segment_second_moments_cuda(cat_ids, x, num_categories, grouping)
 
 
 def segment_second_moments_bwd(
-    cat_ids: torch.Tensor, x: torch.Tensor, h: torch.Tensor
+    cat_ids: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
+    grouping: CategoryGrouping | None = None,
 ) -> torch.Tensor:
     """The gradient of :func:`segment_second_moments` for the symmetrised
     cotangent ``h = G + G^T`` ``[C, D, D]``: ``dx_n = bf16(h_c) bf16(x_n)``
-    (f32 sums), zero for ids outside ``[0, C)``."""
+    (f32 sums), zero for ids outside ``[0, C)``; ``grouping`` as there."""
     if x.device.type == "cpu":
         return segment_second_moments_bwd_plain(cat_ids, x, h)
-    return segment_second_moments_bwd_cuda(cat_ids, x, h)
+    return segment_second_moments_bwd_cuda(cat_ids, x, h, grouping)
 
 
 def _check_m2(cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int) -> None:
@@ -699,57 +748,120 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def segment_second_moments_plain(
-    cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int
+    cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int,
+    grouping: CategoryGrouping | None = None,
 ) -> torch.Tensor:
+    """The einsum of the TPU kernel's selector (``grouping`` is ignored)."""
     _check_m2(cat_ids, x, num_categories)
     xb = _bf16(x)
     return torch.einsum("cn,nd,ne->cde", _selector(cat_ids, num_categories), xb, xb)
 
 
 def segment_second_moments_bwd_plain(
-    cat_ids: torch.Tensor, x: torch.Tensor, h: torch.Tensor
+    cat_ids: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
+    grouping: CategoryGrouping | None = None,
 ) -> torch.Tensor:
+    """The einsum of the TPU kernel's selector (``grouping`` is ignored)."""
     _check_m2(cat_ids, x, h.shape[0])
     sel = _selector(cat_ids, h.shape[0])
     return torch.einsum("cn,ced,nd->ne", sel, _bf16(h), _bf16(x))
 
 
-def _group_by_category(
-    cat_ids: torch.Tensor, num_categories: int
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Glue for the kernels, on the device and without a host sync: the row
-    ids ordered by category (stable; ids outside ``[0, C)`` form a last run
-    C), the runs' offsets ``[C + 2]`` and the offsets of their 32-row
-    backward chunks ``[C + 2]``."""
-    ids = cat_ids.to(torch.int64)
-    key = torch.where((ids >= 0) & (ids < num_categories), ids, num_categories)
-    order = torch.argsort(key, stable=True).to(torch.int32)
-    counts = torch.zeros(num_categories + 1, dtype=torch.int64, device=ids.device)
-    counts.index_add_(0, key, torch.ones_like(key))
-    offsets = torch.zeros(num_categories + 2, dtype=torch.int64, device=ids.device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    chunk_offsets = torch.zeros_like(offsets)
-    chunk_offsets[1:] = torch.cumsum((counts + _M2_BWD_ROWS - 1) // _M2_BWD_ROWS, 0)
-    return order, offsets.to(torch.int32), chunk_offsets.to(torch.int32)
+def _group_by_category(cat_ids: torch.Tensor, num_categories: int) -> CategoryGrouping:
+    """The :class:`CategoryGrouping` of ``cat_ids`` from PyTorch ops, on
+    the ids' device and without a host sync: the grouping kernel's plain
+    version."""
+    c, rows = num_categories, M2_CHUNK_ROWS
+    # the narrowest key that holds [0, C + 1]: a radix sort of 8-bit keys
+    # makes one pass
+    dtype = torch.uint8 if c < 255 else torch.int16 if c < 32767 else torch.int32
+    key = cat_ids.clamp(-1, c).remainder(c + 1).to(dtype)  # outside [0, C) -> C
+    sorted_key, order = torch.sort(key, stable=True)
+    runs = torch.arange(c + 2, dtype=dtype, device=key.device)
+    offsets = torch.searchsorted(sorted_key, runs, out_int32=True)
+    per_run = (offsets[1:] - offsets[:-1] + (rows - 1)) // rows
+    chunk_offsets = F.pad(torch.cumsum(per_run, 0, dtype=torch.int32), (1, 0))
+    work = torch.arange(m2_max_chunks(key.shape[0], c), dtype=torch.int32, device=key.device)
+    chunk_cat = torch.searchsorted(chunk_offsets, work, right=True, out_int32=True) - 1
+    return CategoryGrouping(order, offsets, chunk_offsets, chunk_cat)
+
+
+def m2_max_chunks(n: int, num_categories: int) -> int:
+    """Work items of :class:`CategoryGrouping`: a bound on the chunks of
+    ``n`` rows in ``C + 1`` runs (each run's last chunk may be short)."""
+    return -(-n // M2_CHUNK_ROWS) + num_categories + 1
+
+
+def _group_by_category_cuda(cat_ids: torch.Tensor, num_categories: int) -> CategoryGrouping:
+    """The :class:`CategoryGrouping` of ``cat_ids`` from the grouping
+    kernels (a stable counting sort of the category keys over many blocks,
+    the run and chunk offsets and the work list; no host sync),
+    bit-identical to :func:`_group_by_category`."""
+    dev = _check_cuda("category_grouping", cat_ids)
+    if cat_ids.dim() != 1 or cat_ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"category_grouping: cat_ids {cat_ids.dtype} {tuple(cat_ids.shape)}")
+    if num_categories <= 0:
+        raise ValueError(f"category_grouping: num_categories={num_categories}")
+    ids = cat_ids.contiguous()
+    n, runs = ids.shape[0], num_categories + 1
+    order = torch.empty(n, dtype=torch.int64, device=dev)
+    offsets = torch.empty(runs + 1, dtype=torch.int32, device=dev)
+    chunk_offsets = torch.empty(runs + 1, dtype=torch.int32, device=dev)
+    chunk_cat = torch.empty(m2_max_chunks(n, num_categories), dtype=torch.int32, device=dev)
+    # each warp's count of each key, and the ticket of the block that scans them
+    counts = torch.empty(runs * load_library().ttamm_category_grouping_warps(n), dtype=torch.int32,
+                         device=dev)
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    _launch(
+        "category_grouping", dev, ids.data_ptr(), int(ids.dtype == torch.int64), n,
+        num_categories, order.data_ptr(), offsets.data_ptr(), chunk_offsets.data_ptr(),
+        chunk_cat.data_ptr(), chunk_cat.shape[0], counts.data_ptr(), ticket.data_ptr(),
+    )
+    return CategoryGrouping(order, offsets, chunk_offsets, chunk_cat)
+
+
+def _m2_grouping(
+    cat_ids: torch.Tensor, num_categories: int, grouping: CategoryGrouping | None
+) -> CategoryGrouping:
+    if grouping is None:
+        return _group_by_category_cuda(cat_ids, num_categories)
+    if grouping.order.shape != cat_ids.shape or grouping.offsets.shape != (num_categories + 2,):
+        raise ValueError("segment_second_moments: the grouping is not of these ids")
+    return grouping
+
+
+def _check_m2_dim(name: str, dim: int) -> None:
+    if dim > MAX_M2_DIM:
+        raise ValueError(f"{name}: dim {dim} > {MAX_M2_DIM}")
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def segment_second_moments_cuda(
-    cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int
+    cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int,
+    grouping: CategoryGrouping | None = None,
 ) -> torch.Tensor:
     dev = _check_cuda("segment_second_moments", cat_ids, x)
     _check_m2(cat_ids, x, num_categories)
     dim = x.shape[1]
+    _check_m2_dim("segment_second_moments", dim)
+    g = _m2_grouping(cat_ids, num_categories, grouping)
+    chunks = g.chunk_cat.shape[0]
     m2 = torch.empty((num_categories, dim, dim), dtype=torch.float32, device=dev)
-    order, offsets, _ = _group_by_category(cat_ids, num_categories)
+    partial = torch.empty((chunks, dim, dim), dtype=torch.float64, device=dev)  # scratch
     _launch(
-        "segment_second_moments", dev, x.data_ptr(), order.data_ptr(),
-        offsets.data_ptr(), m2.data_ptr(), num_categories, dim,
+        "segment_second_moments", dev, x.data_ptr(), g.order.data_ptr(), g.offsets.data_ptr(),
+        g.chunk_offsets.data_ptr(), g.chunk_cat.data_ptr(), m2.data_ptr(), partial.data_ptr(),
+        num_categories, dim, chunks, int(dim % 4 == 0 and _aligned(x)),
     )
     return m2
 
 
 def segment_second_moments_bwd_cuda(
-    cat_ids: torch.Tensor, x: torch.Tensor, h: torch.Tensor
+    cat_ids: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
+    grouping: CategoryGrouping | None = None,
 ) -> torch.Tensor:
     dev = _check_cuda("segment_second_moments_bwd", cat_ids, x, h)
     num_categories = h.shape[0]
@@ -757,15 +869,14 @@ def segment_second_moments_bwd_cuda(
     n, dim = x.shape
     if h.shape != (num_categories, dim, dim) or h.dtype != torch.float32:
         raise ValueError(f"segment_second_moments_bwd: h {h.dtype} {tuple(h.shape)}")
-    if dim > MAX_M2_DIM:
-        raise ValueError(f"segment_second_moments_bwd: dim {dim} > {MAX_M2_DIM}")
+    _check_m2_dim("segment_second_moments_bwd", dim)
     dx = torch.empty((n, dim), dtype=torch.float32, device=dev)
     if n:
-        order, offsets, chunk_offsets = _group_by_category(cat_ids, num_categories)
-        max_chunks = -(-n // _M2_BWD_ROWS) + num_categories + 1
+        g = _m2_grouping(cat_ids, num_categories, grouping)
         _launch(
-            "segment_second_moments_bwd", dev, x.data_ptr(), h.data_ptr(),
-            order.data_ptr(), offsets.data_ptr(), chunk_offsets.data_ptr(),
-            dx.data_ptr(), num_categories, dim, max_chunks,
+            "segment_second_moments_bwd", dev, x.data_ptr(), h.data_ptr(), g.order.data_ptr(),
+            g.offsets.data_ptr(), g.chunk_offsets.data_ptr(), g.chunk_cat.data_ptr(),
+            dx.data_ptr(), num_categories, dim, g.chunk_cat.shape[0],
+            int(dim % 4 == 0 and _aligned(x, h)),
         )
     return dx

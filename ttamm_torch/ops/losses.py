@@ -34,18 +34,23 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 class SegmentSecondMoments(torch.autograd.Function):
     """``M2[c] = sum_{cat(n)=c} bf16(x_n) bf16(x_n)^T`` with the kernel's
-    gradient ``dx_n = bf16(G_c + G_c^T) bf16(x_n)``."""
+    gradient ``dx_n = bf16(G_c + G_c^T) bf16(x_n)``.
+
+    The rows are grouped by category once (the kernels' work list, on the
+    device) and the backward reuses the forward's grouping.
+    """
 
     @staticmethod
     def forward(ctx, cat_ids: torch.Tensor, x: torch.Tensor, num_categories: int):
         ctx.save_for_backward(cat_ids, x)
-        return kernels.segment_second_moments(cat_ids, x, num_categories)
+        ctx.grouping = kernels.category_grouping(cat_ids, num_categories)
+        return kernels.segment_second_moments(cat_ids, x, num_categories, ctx.grouping)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         cat_ids, x = ctx.saved_tensors
         h = (grad + grad.transpose(-1, -2)).contiguous()
-        return None, kernels.segment_second_moments_bwd(cat_ids, x, h), None
+        return None, kernels.segment_second_moments_bwd(cat_ids, x, h, ctx.grouping), None
 
 
 def category_alignment_loss(
