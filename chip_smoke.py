@@ -15,7 +15,9 @@ result line):
    ``wgmma``, HGMMA, and TMA loads, UTMALDG; the moments' chunk kernel f64
    ``mma.sync``, DMMA, and their backward bf16 ``mma.sync``, HMMA, beside
    their ``ldmatrix`` and 16-byte loads; select_topk_from_groups's 16-byte
-   loads, block barriers and warp matches are printed);
+   loads, block barriers and warp matches are printed; sparse_adam_rows must
+   have 16-byte loads and stores and no local memory, and its FFMA count is
+   printed);
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes and time kernel, plain version and the nearest library call
    (device time from ``torch.profiler``; the row kernels are timed in
@@ -25,7 +27,9 @@ result line):
    the others its ``parts``), gather_rows and scatter_set_rows
    bit-identical (the
    scatter away from its scratch row, with duplicate-heavy indices and the
-   scratch row); select_topk_from_groups bit-identical at its three
+   scratch row), sparse_adam_rows at duplicate-heavy lanes coalesced with
+   the non-head lanes masked, table, m and v bit-identical to its plain
+   version over every row at steps 1 and 1000, weight decay 0 and 0.01; select_topk_from_groups bit-identical at its three
    shapes (``select_shapes``: one query block of a 4096-user val batch over
    99,880 items, KG = k = 21, with a ragged tail, finfo.min blocked columns
    and tied rows, the headline row; float32 serving of 1,024 queries over
@@ -55,7 +59,14 @@ result line):
    on the item table at that step's coalesced targets (its 12,288 item
    lanes, every duplicate on the scratch row), bit-identical to their plain
    versions and timed with a cold L2 (a 256 MB fill before each call, its
-   kernels left out), their bound counting each distinct row once; and
+   kernels left out), their bound counting each distinct row once;
+   gather_rows at the sparse ID tables' forward reads (every lane), equal to
+   index_select and timed against it; sparse_adam_rows at that step's item
+   lanes (the row) and user lanes (``parts``), checked as in phase 2 and
+   timed with a cold L2 beside its plain version and the composition it
+   replaces (gather_rows x 3, eager Adam, scatter_set_rows x 3, the row's
+   ``library_ms``), its bound every lane's index and, for each live lane,
+   the gradient row in and the table, m and v rows in and out; and
    segment_second_moments checked and timed as in phase 2 at that step's
    item lanes' real category ids (``parts`` ``*_canonical``);
 4b. the multi-device layer on one card: gather_rows_masked and
@@ -86,7 +97,8 @@ result line):
    masked ids against a host numpy masked search (equal but where scores tie
    within 1e-5); then steps, ms/step, examples/s, launches per step and a
    ``torch.profiler`` table of the top device ops with the device's idle
-   share over 20 more steps;
+   share over 20 more steps (each step must launch gather_rows and
+   sparse_adam_rows twice, once a sparse table, and scatter_set_rows never);
 6. export the serving bundle from the best checkpoint at the score dtype
    the trainer's precision gate chose, and serve it behind the HTTP front
    end (``/healthz``, GET user, POST user, POST embedding); ids must equal
@@ -106,7 +118,9 @@ result line):
    items (logged, not acted on);
 8. the launch counts of phases 5-7 and, for the masked row kernels, of
    phase 4b's sharded steps (every kernel must have run), leaving out the
-   launches made to compare or time a kernel against its plain version.
+   launches made to compare or time a kernel against its plain version;
+   scatter_set_rows, whose work sparse_adam_rows does on the one-device
+   path, must have run in the comparisons of phases 2 and 4 instead.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -118,6 +132,7 @@ import collections
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -159,8 +174,13 @@ KERNEL_INFO = {
     ),
     "gather_rows_masked": ("ttamm_torch/csrc/rows.cu", "ttamm_tpu/ops/pallas/rows.py:133"),
     "scatter_set_rows_masked": ("ttamm_torch/csrc/rows.cu", "ttamm_tpu/ops/pallas/rows.py:248"),
+    # gather_rows x 3 -> Adam -> scatter_set_rows x 3 of the JAX row-kernel path
+    "sparse_adam_rows": ("ttamm_torch/csrc/rows.cu", "ttamm_tpu/ops/sparse_adam.py:191-208"),
 }
 MESH_KERNELS = ("gather_rows_masked", "scatter_set_rows_masked")  # counted in phase 4b
+# Off the main path since sparse_adam_rows took its work: launched and held
+# to its plain version in phases 2 and 4.
+COMPARED_ONLY = ("scatter_set_rows",)
 
 
 def log(msg: str) -> None:
@@ -369,8 +389,11 @@ def _log_row(name: str, row: dict) -> None:
 def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
     """HGMMA / UTMALDG / MATCH instructions of the search kernels' SASS,
     16-byte loads (LDG.E.128), block barriers (BAR.SYNC) and MATCH of the
-    select kernel's, and DMMA / HMMA / LDSM / LDG.E.128 of the moments' chunk
-    and backward kernels (``cuobjdump -sass`` beside ``nvcc``)."""
+    select kernel's, DMMA / HMMA / LDSM / LDG.E.128 of the moments' chunk
+    and backward kernels, and the fused row update's 16-byte loads and
+    stores (any cache hint), FFMA, and local-memory loads and stores
+    (spills) (``cuobjdump -sass`` beside ``nvcc``). Each op is matched by
+    ``sass_op``."""
     from ttamm_torch.ops import kernels
 
     cuobjdump = Path(kernels.find_nvcc()).parent / "cuobjdump"
@@ -388,10 +411,23 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
                 ops = counts.setdefault(name, {"LDG.E.128": 0, "BAR.SYNC": 0, "MATCH": 0})
             elif "m2_chunk_kernel" in name or "m2_bwd_kernel" in name:
                 ops = counts.setdefault(name, {"DMMA": 0, "HMMA": 0, "LDSM": 0, "LDG.E.128": 0})
+            elif "sparse_adam_rows_kernel" in name:
+                ops = counts.setdefault(name, {"LDG.128": 0, "STG.128": 0, "FFMA": 0, "LDL": 0, "STL": 0})
         elif ops is not None:
             for op in ops:
-                ops[op] += op in line
+                ops[op] += bool(sass_op(op).search(line))
     return counts
+
+
+def sass_op(op: str) -> re.Pattern:
+    """The SASS instructions ``op`` names: its mnemonic as a whole word,
+    then each of its modifiers in order, with any others (cache hints,
+    widths) around them, so ``LDG.128`` matches ``LDG.E.EF.128`` and
+    ``LDL`` matches ``LDL.LU`` but not ``ULDL``."""
+    first, *mods = op.split(".")
+    return re.compile(
+        rf"\b{re.escape(first)}" + "".join(rf"(?:\.\w+)*?\.{re.escape(m)}" for m in mods) + r"\b"
+    )
 
 
 def phase_build(dev) -> str:
@@ -423,6 +459,13 @@ def phase_build(dev) -> str:
     bwd = [ops for fn, ops in sass.items() if "m2_bwd_kernel" in fn]
     check(len(fwd) == 1 and fwd[0]["DMMA"] > 0 and len(bwd) == 1 and bwd[0]["HMMA"] > 0,
           f"the moments kernels do not run on the tensor cores: {fwd} {bwd}")
+    # the fused row update: 16-byte loads and stores, no local memory. Its
+    # FFMAs come from the correctly rounded division and square root
+    # sequences (nvcc contracts none of the _rn operations).
+    adam = [ops for fn, ops in sass.items() if "sparse_adam_rows_kernel" in fn]
+    check(len(adam) == 1 and adam[0]["LDG.128"] > 0 and adam[0]["STG.128"] > 0
+          and adam[0]["LDL"] == adam[0]["STL"] == 0,
+          f"sparse_adam_rows: no 16-byte loads or stores, or spills: {adam}")
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(dev)} | nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -666,7 +709,21 @@ def _training_kernels(dev, num_users: int, num_items: int, batch: int, negatives
     check(torch.equal(t_kernel[:scratch], t_plain[:scratch]), "scatter_set_rows: kernel != plain")
     log(f"gather_rows / scatter_set_rows [{num_items + 1}, {dim}] at {n} duplicate-heavy "
         "indices: bit-identical")
-    del table, t_kernel, t_plain
+    del t_kernel, t_plain
+
+    # the fused row update at duplicate-heavy lanes (no lane on the scratch
+    # row, as a step gives them), coalesced with the non-head lanes masked;
+    # its own generator leaves the moments' inputs below as they were
+    adam_gen = torch.Generator(device=dev).manual_seed(8)
+    table[scratch] = 0.0
+    m = torch.randn((num_items + 1, dim), generator=adam_gen, device=dev).abs_() * 0.1
+    v = torch.rand((num_items + 1, dim), generator=adam_gen, device=dev) * 0.01
+    m[scratch], v[scratch] = 0.0, 0.0
+    lanes = idx.clone()
+    lanes[-64:] = lanes[:64]
+    grads = torch.randn((n, dim), generator=adam_gen, device=dev)
+    check_sparse_adam_rows(table, m, v, lanes, grads, "duplicate-heavy lanes")
+    del table, m, v
 
     # category moments: skewed ids (the largest category holds ~30% of the
     # rows), empty categories, a one-member category and ids >= C
@@ -689,6 +746,36 @@ def _training_kernels(dev, num_users: int, num_items: int, batch: int, negatives
         parts={"fwd": fwd, "bwd": bwd},
     )
     return rows
+
+
+ADAM_CASES = [(step, wd) for step in (1, 1000) for wd in (0.0, 0.01)]
+
+
+def check_sparse_adam_rows(table, m, v, lanes, grads, label: str):
+    """sparse_adam_rows at ``lanes`` coalesced as ``sparse_adam_update``
+    gives them (each touched row on its head lane, every other lane -1):
+    table, m and v equal to the plain version's over every row, the
+    untouched scratch row included, at steps 1 and 1000 with weight decay 0
+    and 0.01. Returns the coalesced ``(target, grads)``."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.ops.sparse_adam import coalesce_row_grads
+
+    target, summed = coalesce_row_grads(lanes, grads, scratch_row=-1)
+    for step, wd in ADAM_CASES:
+        hyper = dict(step=step, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd)
+        got, want = [t.clone() for t in (table, m, v)], [t.clone() for t in (table, m, v)]
+        kernels.sparse_adam_rows_cuda(*got, target, summed, **hyper)
+        kernels.sparse_adam_rows_plain(*want, target, summed, **hyper)
+        for name, a, b in zip(("table", "m", "v"), got, want):
+            check(torch.equal(a, b), f"sparse_adam_rows ({label}, step {step}, weight decay {wd}): "
+                  f"{name} kernel != plain")
+    live = int((target >= 0).sum())
+    log(f"sparse_adam_rows [{table.shape[0]}, {table.shape[1]}] at {lanes.numel()} {label} "
+        f"({live} live after the coalesce), steps 1 / 1000, weight decay 0 / 0.01: table, m, v "
+        "bit-identical to the plain version over every row")
+    return target, summed
 
 
 def _moments(ids, x, c: int, gen, label: str):
@@ -765,7 +852,7 @@ def plain_kernels():
     from ttamm_torch.ops import kernels
 
     names = ("small_k_topk", "select_topk_from_groups", "groupmax_matmul", "rescore_groups",
-             "gather_rows", "scatter_set_rows", "segment_second_moments",
+             "gather_rows", "scatter_set_rows", "sparse_adam_rows", "segment_second_moments",
              "segment_second_moments_bwd")
     saved = {n: getattr(kernels, n) for n in names}
     for n in names:
@@ -881,6 +968,8 @@ def phase_step_vs_plain(dev, config: dict, dataset) -> tuple[dict[str, dict], di
     context = dict(cfg=cfg, tscfg=tscfg, data=data, users=users, items=items, nu=nu, ni=ni, batch=b,
                    item_idx=item_idx, state=sk)
     rows = _row_kernels(sk.tables["item_id"], item_idx, ni)
+    rows["gather_rows"]["parts"] = _forward_reads(sk, {"user_id": u, "item_id": item_idx})
+    rows["sparse_adam_rows"] = _sparse_adam_rows(sk, {"item_id": item_idx, "user_id": u.long()}, tscfg)
     # the category moments at this batch's real ids: the item lanes' categories
     ids = data.category_ids[item_idx]
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -935,6 +1024,87 @@ def _row_kernels(table, lanes, scratch: int) -> dict[str, dict]:
     for name, row in rows.items():
         _log_row(name, row)
     return rows
+
+
+def _forward_reads(state, lanes: dict) -> dict[str, dict]:
+    """gather_rows at the sparse ID tables' forward reads of one step (every
+    lane, duplicates included), equal to index_select and timed against it
+    with a cold L2; the bound reads each lane's index and each distinct row
+    once, and writes every lane's row (as ``_row_kernels``)."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+
+    parts = {}
+    for name, lane in lanes.items():
+        table, idx = state.tables[name], lane.to(torch.int32)
+        n, distinct = idx.numel(), int(torch.unique(idx).numel())
+        check(torch.equal(kernels.gather_rows_cuda(table, idx), torch.index_select(table, 0, idx)),
+              f"gather_rows at the {name} forward reads != index_select")
+        parts[f"forward_{name}"] = dict(
+            lanes=n, distinct=distinct,
+            ms=device_ms_cold(lambda: kernels.gather_rows_cuda(table, idx)),
+            library_ms=device_ms_cold(lambda: torch.index_select(table, 0, idx)),
+            bound_ms=bound_ms(n * 4 + (distinct + n) * table.shape[1] * 4)[0],
+        )
+        log(f"gather_rows at the {name} forward reads ({n} lanes, {distinct} distinct rows): kernel "
+            f"{parts[f'forward_{name}']['ms']:.4f} ms | index_select "
+            f"{parts[f'forward_{name}']['library_ms']:.4f} ms | bound "
+            f"{parts[f'forward_{name}']['bound_ms']:.4f} ms")
+    return parts
+
+
+def _sparse_adam_rows(state, lanes: dict, tscfg) -> dict:
+    """sparse_adam_rows at one step's item and user lanes (the item table
+    the headline row, the user table its ``parts``): held to its plain
+    version (``check_sparse_adam_rows``), then timed with a cold L2 at the
+    next step's hyperparameters beside its plain version and the composition
+    it replaces on the card (the row's ``library_ms``: no single PyTorch call
+    computes the fused update): the coalesce with every
+    duplicate lane on the scratch row, gather_rows x 3, eager adam_rows,
+    scatter_set_rows x 3, the coalesce itself outside every timing. The
+    bound moves every lane's index and, for each live lane, its gradient row
+    in and its table, m and v rows in and out."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.ops.sparse_adam import coalesce_row_grads, unfused_row_update
+
+    opt = tscfg.opt
+    out = {}
+    for name, lane in lanes.items():
+        table, sparse = state.tables[name], state.opt_sparse[name]
+        n, dim = lane.numel(), table.shape[1]
+        gen = torch.Generator(device=table.device).manual_seed(17)
+        grads = torch.randn((n, dim), generator=gen, device=table.device) * 1e-2
+        target, summed = check_sparse_adam_rows(table, sparse.m, sparse.v, lane, grads,
+                                                f"one step's {name} lanes")
+        scratch_target, scratch_summed = coalesce_row_grads(lane, grads, scratch_row=table.shape[0] - 1)
+        hyper = dict(step=sparse.step + 1, lr=opt.lr, b1=opt.b1, b2=opt.b2, eps=1e-8,
+                     weight_decay=tscfg.sparse_weight_decay)
+        copies = [t.clone() for t in (table, sparse.m, sparse.v)]
+
+        def composition():
+            unfused_row_update(*copies, scratch_target, scratch_summed,
+                               gather=kernels.gather_rows_cuda,
+                               scatter=kernels.scatter_set_rows_cuda, **hyper)
+
+        live = int((target >= 0).sum())
+        out[name] = _row(
+            shape=f"[{table.shape[0]}, {dim}] f32 table, m, v at one step's {n} {name} lanes "
+                  f"({live} live)",
+            max_abs_err=0.0,
+            ms=device_ms_cold(lambda: kernels.sparse_adam_rows_cuda(*copies, target, summed, **hyper)),
+            plain_ms=device_ms_cold(lambda: kernels.sparse_adam_rows_plain(*copies, target, summed, **hyper)),
+            library_ms=device_ms_cold(composition),
+            nbytes=n * 4 + live * dim * 4 * 7,
+        )
+        out[name].update(lanes=n, live=live)
+        _log_row(f"sparse_adam_rows ({name}; library = the composition it replaces)", out[name])
+        del copies
+    row = out.pop("item_id")
+    row["parts"] = {"user_id": out["user_id"]}
+    return row
 
 
 def _masked_row_kernels(table, lanes) -> dict[str, dict]:
@@ -1251,6 +1421,10 @@ def _profile_steps(dev, config: dict, dataset, result) -> dict:
         f"{device_ms_total / PROFILE_STEPS:.3f} ms/step, idle share {idle:.3f}, "
         f"{device_work / PROFILE_STEPS:.1f} kernels/copies/fills per step")
     log(f"launches per step: {per_step}")
+    # each sparse table: one forward read (gather_rows) and one fused update
+    want = {"gather_rows": 2, "sparse_adam_rows": 2, "scatter_set_rows": 0}
+    check(all(per_step.get(k, 0) == n for k, n in want.items()),
+          f"launches per step {per_step}, expected {want}")
     try:
         table = averages.table(sort_by="self_device_time_total", row_limit=15)
     except (AttributeError, KeyError, ValueError):
@@ -1558,6 +1732,7 @@ def main() -> int:
                 m2_row["max_abs_err"] = max(m2_row["max_abs_err"], canonical.pop("max_abs_err"))
                 m2_row["parts"].update({f"{k}_canonical": v for k, v in canonical.items()})
                 kernel_rows.update(rows)
+            compared = kernels.launch_counts()  # phases 2-4 (phase 4b counts from zero)
             with Phase("4b the multi-device layer on one card"):
                 rows, mesh_counts, mesh_timing = phase_mesh(dev, step_ctx)
                 kernel_rows.update(rows)
@@ -1579,7 +1754,10 @@ def main() -> int:
                 log(f"launch counts (phases 5-7): {counts} | left out (comparisons): {dict(excluded)}")
                 counts.update({k: mesh_counts[k] for k in MESH_KERNELS})
                 for name, n in counts.items():
-                    check(n > 0, f"{name} never launched on its path")
+                    if name in COMPARED_ONLY:
+                        check(compared[name] > 0, f"{name} never held to its plain version")
+                    else:
+                        check(n > 0, f"{name} never launched on its path")
                 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "ttamm_tpu")))
                 check(not leaked, f"imported {leaked[:5]}")
     except Exception:

@@ -6,8 +6,9 @@ imports jax, which the port does not need):
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
-Tolerances: small_k_topk, select_topk_from_groups, gather_rows and
-scatter_set_rows are bit-identical; groupmax_matmul and rescore_groups multiply bf16-rounded
+Tolerances: small_k_topk, select_topk_from_groups, gather_rows,
+scatter_set_rows and sparse_adam_rows are bit-identical (the last one's
+arithmetic is the eager composition's, one rounding per op); groupmax_matmul and rescore_groups multiply bf16-rounded
 operands exactly and differ from the plain f32 matmul only in the order of
 the f32 sums (rtol 1e-6, atol 1e-5 at O(1) scores); segment_second_moments
 forward and backward likewise, summing up to N products: 2e-5 of the
@@ -493,7 +494,59 @@ def test_category_grouping_kernel_matches_plain(cuda, layout):
         assert all(torch.equal(a, b) for a, b in zip(got, kernels.category_grouping(dev_ids, c)))
 
 
+def _adam_case(dim, layout, seed, device):
+    """Table, m, v (1000 rows) and lanes of sparse_adam_rows: live lanes on
+    distinct rows, in the given layout."""
+    gen = torch.Generator().manual_seed(seed)
+    rows = 1000
+    table = torch.randn((rows, dim), generator=gen)
+    m = torch.randn((rows, dim), generator=gen) * 0.1
+    v = torch.rand((rows, dim), generator=gen) * 0.01
+    v[::7] = 0.0  # rows never touched before: sqrt(0) + eps
+    n = {"all_live": 777, "every_other": 777, "all_masked": 300, "empty": 0, "one_lane": 1}[layout]
+    idx = torch.randperm(rows, generator=gen)[:n].to(torch.int32)
+    if layout == "every_other":
+        idx[1::2] = -1
+    elif layout == "all_masked":
+        idx[:] = -1
+    grads = torch.randn((n, dim), generator=gen)
+    grads[: n // 5] *= 1e-6  # |g| near eps
+    return [t.to(device) for t in (table, m, v, idx, grads)]
+
+
+@pytest.mark.parametrize("layout", ["all_live", "every_other", "all_masked", "empty", "one_lane"])
+@pytest.mark.parametrize("dim", [4, 8, 36, 128, 132, 512])
+def test_sparse_adam_rows_kernel_bit_identical(cuda, dim, layout):
+    """The fused row update gives its plain version's table, m and v over
+    every row, at steps 1, 2 and 1000 with and without weight decay, and the
+    same bits on a second run; masked lanes touch nothing."""
+    table, m, v, idx, grads = _adam_case(dim, layout, dim, cuda)
+    for step in (1, 2, 1000):
+        for wd in (0.0, 0.01):
+            hyper = dict(step=step, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd)
+            runs = []
+            for fn in (kernels.sparse_adam_rows_cuda, kernels.sparse_adam_rows_cuda,
+                       kernels.sparse_adam_rows_plain):
+                out = [t.clone() for t in (table, m, v)]
+                kernels.reset_launch_counts()
+                fn(*out, idx, grads, **hyper)
+                torch.cuda.synchronize()
+                assert kernels.launch_counts()["sparse_adam_rows"] == (
+                    int(fn is kernels.sparse_adam_rows_cuda and idx.numel() > 0))
+                runs.append(out)
+            for got, again, want in zip(*runs):
+                assert torch.equal(got, want), (step, wd)
+                assert torch.equal(got, again), (step, wd)
+            live = torch.zeros(table.shape[0], dtype=torch.bool, device=cuda)
+            live[idx[idx >= 0].long()] = True
+            for got, before in zip(runs[0], (table, m, v)):
+                assert torch.equal(got[~live], before[~live])
+
+
 def test_sparse_adam_on_the_card_counts_launches(cuda):
+    """One sparse_adam_rows launch a table update and no row-kernel launch;
+    the kernel path and the plain path agree bit for bit over every row, the
+    (untouched) last row included."""
     gen = torch.Generator().manual_seed(6)
     table = torch.randn((1001, 128), generator=gen).to(cuda)
     ref = table.clone()
@@ -503,23 +556,22 @@ def test_sparse_adam_on_the_card_counts_launches(cuda):
     kernels.reset_launch_counts()
     sparse_adam_update(table, state, idx, grads, lr=0.01)
     counts = kernels.launch_counts()
-    assert counts["gather_rows"] == 3 and counts["scatter_set_rows"] == 3
-    names = ("gather_rows", "scatter_set_rows")
-    saved = {n: getattr(kernels, n) for n in names}
+    assert counts["sparse_adam_rows"] == 1
+    assert counts["gather_rows"] == counts["scatter_set_rows"] == 0
+    saved = kernels.sparse_adam_rows
     try:
-        for n in names:
-            setattr(kernels, n, getattr(kernels, f"{n}_plain"))
+        kernels.sparse_adam_rows = kernels.sparse_adam_rows_plain
         sparse_adam_update(ref, ref_state, idx, grads, lr=0.01)
     finally:
-        for n, fn in saved.items():
-            setattr(kernels, n, fn)
+        kernels.sparse_adam_rows = saved
     # the duplicate rows are summed in a fixed order (no atomics) and the
-    # row kernels move bits: kernel and plain runs agree bit for bit
+    # kernel rounds each op as the eager composition does: kernel and plain
+    # runs agree bit for bit
     for a, b in ((table, ref), (state.m, ref_state.m), (state.v, ref_state.v)):
-        assert torch.equal(a[:1000], b[:1000])
+        assert torch.equal(a, b)
 
 
-STEP_KERNELS = ("gather_rows", "scatter_set_rows", "segment_second_moments", "segment_second_moments_bwd")
+STEP_KERNELS = ("gather_rows", "sparse_adam_rows", "segment_second_moments", "segment_second_moments_bwd")
 
 
 def _one_step(cuda, plain, seeds=(8, 4), swap=None):
@@ -579,10 +631,12 @@ def test_train_step_on_the_card_matches_plain(cuda):
     """The step with the kernels and with their plain versions: the same
     losses and, within lr / 100, the same parameters (Adam's first step
     amplifies summation-order differences where |g| is near eps). Every
-    kernel of the step launches: 6 + 6 row ops and one moments pass each
-    way."""
+    kernel of the step launches: one read and one fused update of each
+    sparse table, and one moments pass each way; the standalone scatter
+    does not run."""
     (sk, mk, ck), (sp, mp, cp) = _one_step(cuda, False), _one_step(cuda, True)
-    assert [ck[n] for n in STEP_KERNELS] == [6, 6, 1, 1]
+    assert [ck[n] for n in STEP_KERNELS] == [2, 2, 1, 1]
+    assert ck["scatter_set_rows"] == 0
     assert all(cp[n] == 0 for n in STEP_KERNELS)
     for name in mk:
         torch.testing.assert_close(mk[name], mp[name], rtol=1e-5, atol=1e-7)

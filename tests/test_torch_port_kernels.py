@@ -118,6 +118,10 @@ def test_plain_versions_do_not_count_launches():
     kernels.scatter_set_rows(x, ids[:4], torch.randn(4, 8))
     kernels.gather_rows(x, ids - 1, masked=True)
     kernels.scatter_set_rows(x, ids[:4] - 1, torch.randn(4, 8), masked=True)
+    kernels.sparse_adam_rows(
+        x, torch.zeros_like(x), torch.zeros_like(x), torch.tensor([2, -1, 0], dtype=torch.int32),
+        torch.randn(3, 8), step=1, lr=0.01, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
+    )
     kernels.segment_second_moments(ids, x, 3)
     kernels.segment_second_moments_bwd(ids, x, torch.randn(3, 8, 8))
     assert kernels.category_grouping(ids, 3) is None
@@ -125,7 +129,8 @@ def test_plain_versions_do_not_count_launches():
     assert set(counts) == {
         "small_k_topk", "select_topk_from_groups", "groupmax_matmul", "rescore_groups",
         "gather_rows", "gather_rows_masked", "scatter_set_rows", "scatter_set_rows_masked",
-        "segment_second_moments", "segment_second_moments_bwd", "category_grouping",
+        "sparse_adam_rows", "segment_second_moments", "segment_second_moments_bwd",
+        "category_grouping",
     }
     assert all(n == 0 for n in counts.values())
 

@@ -1,12 +1,14 @@
-// Embedding-row gather and in-place row scatter for sparse-row Adam.
+// Embedding-row gather and in-place row scatter, and the fused sparse-row
+// Adam update of one table.
 //
 // Replace the TPU kernels `gather_rows` and `scatter_set_rows`
 // (ttamm_tpu/ops/pallas/rows.py, bodies `_gather_kernel` and
 // `_scatter_set_kernel`): out[r] = table[idx[r]], and table[idx[r]] = rows[r]
 // in place. On the TPU each lane is one async row DMA between HBM and a VMEM
-// block. The sparse-row Adam update reads the m, v and weight rows of the
+// block. There the sparse-row Adam update reads the m, v and weight rows of the
 // touched table rows through the gather and writes them back through the
-// scatter (3 + 3 launches per table per step).
+// scatter (3 + 3 launches per table per step), with XLA's fused arithmetic in
+// between (ttamm_tpu/ops/sparse_adam.py, the `use_pallas` path).
 //
 // What bounds them on Hopper: device-memory bandwidth. They do no arithmetic;
 // the least they can move is each index once, each source row once and each
@@ -20,9 +22,9 @@
 //
 // Indices are trusted to lie in [0, rows): a gather lane outside it writes a
 // NaN row instead of reading outside the table, and a scatter lane outside it
-// writes nothing. Duplicate scatter indices race (one lane's row wins); the
-// caller sends every duplicate lane to the table's scratch row, which is never
-// read (coalesce_row_grads), exactly as on the TPU.
+// writes nothing. Duplicate scatter indices race (one lane's row wins), so a
+// caller sends every duplicate lane to a row whose value is never read, or
+// masks it (idx < 0).
 //
 // The masked forms replace `gather_rows(masked=True)` and
 // `scatter_set_rows(masked=True)` (rows.py, bodies `_gather_kernel_masked` and
@@ -43,7 +45,35 @@
 // branch taken by the whole warp together, and a masked lane costs one index
 // load and no row traffic. The masked lanes come contiguous (sorted lanes),
 // so whole blocks of masked warps exit at once.
-
+//
+// sparse_adam_rows replaces the whole row update of one sparse table after
+// the coalesce (ttamm_tpu/ops/sparse_adam.py:191-208: gather_rows x 3, the
+// Adam arithmetic, scatter_set_rows x 3) with one read-modify-write pass:
+// for each lane r with i = idx[r] >= 0 it reads w[i], m[i], v[i] and
+// grads[r], applies Adam and writes w[i], m[i], v[i] back. Bound by bytes:
+// each live lane moves its gradient row in and three rows in and out, 7 x
+// 512 B at D = 128 (40.7 MB at one canonical item-table step), and its
+// index. The [N, D] intermediates of the unfused composition (three gathered
+// rows, fourteen eager elementwise passes, three scattered rows) never leave
+// registers. One warp takes one row: it loads the row's index, then each
+// lane its 16-byte vectors of w, m, v and grads (four independent loads in
+// flight per lane) before any arithmetic or store; the loads and stores
+// stream (evict-first), as no row is read twice. Measured at one canonical
+// step (scripts/sparse_adam_variants.py): 2, 4 or 8 rows a warp, 128 or 512
+// threads and plain loads and stores are no faster; the occupancy of one
+// row a warp already hides the index load. Each live row is the target of
+// one lane at most (the caller gives the non-head lanes of a duplicate run
+// idx = -1), so no two lanes touch one row: no atomics, no shared memory,
+// and no write storm on a scratch row.
+//
+// The arithmetic is the eager PyTorch composition's on the card, bit for
+// bit: one correctly rounded operation per eager op, in the eager order,
+// through the _rn intrinsics, which nvcc does not contract into FMAs. A
+// tensor divided by a Python scalar c is, in PyTorch on CUDA, a multiply by
+// 1 / c formed in double and rounded to f32 once (measured:
+// scripts/sparse_adam_variants.py); Python scalars reach the eager ops cast
+// to f32. So the bias corrections' reciprocals and the f32 scalars come from
+// the host (AdamScalars), formed there exactly as PyTorch forms them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,6 +117,70 @@ scatter_set_rows_kernel(float* __restrict__ table, const int32_t* __restrict__ i
   for (int v = lane; v < vecs; v += 32) dst[v] = __ldg(src + v);
 }
 
+// The host-formed f32 scalars of one Adam step (ttamm_torch/ops/kernels.py
+// `_adam_scalars`): b1, 1 - b1, b2, 1 - b2 (each formed in double, then
+// cast), the reciprocals of the two bias corrections (formed in double),
+// eps, lr, and lr * weight_decay (formed in double); `decay` =
+// weight_decay != 0.
+struct AdamScalars {
+  float b1, one_minus_b1, b2, one_minus_b2, inv_bias1, inv_bias2, eps, lr, lr_wd;
+  int decay;
+};
+
+constexpr int kAdamThreads = 256;
+constexpr int kAdamWarps = kAdamThreads / 32;
+
+// One element of adam_rows (ttamm_torch/ops/sparse_adam.py), one rounding
+// per eager op.
+__device__ __forceinline__ void adam_element(float& w, float& m, float& v, float g,
+                                             const AdamScalars& s) {
+  const float m_new = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.one_minus_b1, g));
+  const float v_new =
+      __fadd_rn(__fmul_rn(s.b2, v), __fmul_rn(s.one_minus_b2, __fmul_rn(g, g)));
+  const float m_hat = __fmul_rn(m_new, s.inv_bias1);
+  const float v_hat = __fmul_rn(v_new, s.inv_bias2);
+  float delta = __fdiv_rn(__fmul_rn(s.lr, m_hat), __fadd_rn(__fsqrt_rn(v_hat), s.eps));
+  if (s.decay) delta = __fadd_rn(delta, __fmul_rn(s.lr_wd, w));
+  w = __fsub_rn(w, delta);
+  m = m_new;
+  v = v_new;
+}
+
+__device__ __forceinline__ void adam_vec(float4& w, float4& m, float4& v, const float4& g,
+                                         const AdamScalars& s) {
+  adam_element(w.x, m.x, v.x, g.x, s);
+  adam_element(w.y, m.y, v.y, g.y, s);
+  adam_element(w.z, m.z, v.z, g.z, s);
+  adam_element(w.w, m.w, v.w, g.w, s);
+}
+
+__global__ void __launch_bounds__(kAdamThreads)
+sparse_adam_rows_kernel(float* __restrict__ w, float* __restrict__ m, float* __restrict__ v,
+                        const int32_t* __restrict__ idx, const float* __restrict__ grads,
+                        int64_t n, int64_t rows, int dim, AdamScalars s) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kAdamWarps + (threadIdx.x >> 5);
+  if (r >= n) return;
+  const int32_t i = __ldg(idx + r);
+  if (i < 0 || i >= rows) return;  // a masked lane: no read, no write
+  const int lane = threadIdx.x & 31;
+  const int vecs = dim >> 2;
+  const int64_t target = static_cast<int64_t>(i) * vecs;
+  float4* w4 = reinterpret_cast<float4*>(w) + target;
+  float4* m4 = reinterpret_cast<float4*>(m) + target;
+  float4* v4 = reinterpret_cast<float4*>(v) + target;
+  const float4* g4 = reinterpret_cast<const float4*>(grads) + r * vecs;
+  for (int col = lane; col < vecs; col += 32) {
+    float4 wr = __ldcs(w4 + col);
+    float4 mr = __ldcs(m4 + col);
+    float4 vr = __ldcs(v4 + col);
+    const float4 gr = __ldcs(g4 + col);
+    adam_vec(wr, mr, vr, gr, s);
+    __stcs(w4 + col, wr);
+    __stcs(m4 + col, mr);
+    __stcs(v4 + col, vr);
+  }
+}
+
 unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kRowsPerBlock - 1) / kRowsPerBlock);
 }
@@ -119,5 +213,21 @@ extern "C" int ttamm_scatter_set_rows(float* table, const int32_t* idx, const fl
                                       cudaStream_t stream) {
   scatter_set_rows_kernel<<<blocks_for(n), kThreads, 0, stream>>>(table, idx, rows_in, n,
                                                                     rows, dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// w, m, v: f32 [rows, dim], distinct, updated in place; idx: i32 [n], each
+// live row (0 <= idx < rows) at most once; grads: f32 [n, dim]. Contiguous,
+// 16-byte aligned, dim % 4 == 0, n > 0.
+extern "C" int ttamm_sparse_adam_rows(float* w, float* m, float* v, const int32_t* idx,
+                                      const float* grads, int64_t n, int64_t rows, int dim,
+                                      float b1, float one_minus_b1, float b2, float one_minus_b2,
+                                      float inv_bias1, float inv_bias2, float eps, float lr,
+                                      float lr_wd, int decay, cudaStream_t stream) {
+  const AdamScalars s{b1, one_minus_b1, b2, one_minus_b2, inv_bias1, inv_bias2, eps, lr, lr_wd,
+                      decay};
+  const auto blocks = static_cast<unsigned int>((n + kAdamWarps - 1) / kAdamWarps);
+  sparse_adam_rows_kernel<<<blocks, kAdamThreads, 0, stream>>>(w, m, v, idx, grads, n, rows,
+                                                               dim, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,8 @@ port (CUDA, ``sm_90a``)             TPU kernel it replaces
 ``rescore_groups``                  ``ttamm_tpu/ops/pallas/fused_mips.py`` rescore_groups
 ``gather_rows`` (+masked)           ``ttamm_tpu/ops/pallas/rows.py`` gather_rows
 ``scatter_set_rows`` (+masked)      ``ttamm_tpu/ops/pallas/rows.py`` scatter_set_rows
+``sparse_adam_rows``                ``ttamm_tpu/ops/sparse_adam.py`` (its row-kernel
+                                    path: gather_rows x 3, Adam, scatter_set_rows x 3)
 ``segment_second_moments`` (+bwd)   ``ttamm_tpu/ops/pallas/category_stats.py``
                                     segment_second_moments and its VJP
 ==================================  ==========================================
@@ -37,7 +39,9 @@ than 2^31 rows (``groupmax_matmul_fits``, by which the search routes);
 ``M2_CHUNK_ROWS`` rows of one category (the rows grouped once per loss
 call, :class:`CategoryGrouping`): the forward on the f64 tensor cores with
 f64 sums (M2 is the exact sum rounded to f32), the backward on the bf16
-ones.
+ones; ``sparse_adam_rows`` any N with D % 4 == 0 and 16-byte aligned
+rows, each live row the target of one lane at most, and gives the bits of
+the eager composition it fuses.
 
 The kernels are compiled by ``nvcc`` at first use into one shared library
 with a plain C interface, loaded with ``ctypes`` (``build/ttamm_torch/``,
@@ -48,6 +52,7 @@ Each launch goes on PyTorch's current stream; a refused launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -56,6 +61,7 @@ import threading
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -103,6 +109,7 @@ _launches = {
     "gather_rows_masked": 0,
     "scatter_set_rows": 0,
     "scatter_set_rows_masked": 0,
+    "sparse_adam_rows": 0,
     "segment_second_moments": 0,
     "segment_second_moments_bwd": 0,
     "category_grouping": 0,  # the moments' row grouping (glue, not a TPU kernel)
@@ -202,6 +209,9 @@ def load_library() -> ctypes.CDLL:
             lib.ttamm_scatter_set_rows.restype = i32
             lib.ttamm_gather_rows_masked.argtypes = [p, p, p, i64, i64, i32, p]
             lib.ttamm_gather_rows_masked.restype = i32
+            f32 = ctypes.c_float
+            lib.ttamm_sparse_adam_rows.argtypes = [p, p, p, p, p, i64, i64, i32, *[f32] * 9, i32, p]
+            lib.ttamm_sparse_adam_rows.restype = i32
             lib.ttamm_segment_second_moments.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, p]
             lib.ttamm_segment_second_moments.restype = i32
             lib.ttamm_segment_second_moments_bwd.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, p]
@@ -662,6 +672,111 @@ def scatter_set_rows_cuda(
             idx.shape[0], table.shape[0], table.shape[1], counter=name,
         )
     return table
+
+
+# ---------------------------------------------------------------------------
+# sparse_adam_rows: gather, Adam and scatter of one table in one pass
+# ---------------------------------------------------------------------------
+
+
+def sparse_adam_rows(
+    table: torch.Tensor, m: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
+    grads: torch.Tensor, *, step: int, lr: float, b1: float, b2: float, eps: float,
+    weight_decay: float,
+) -> None:
+    """One sparse-row Adam step in place at (1-indexed) ``step``: for each
+    lane ``r`` with ``i = idx[r] >= 0``, ``table[i]``, ``m[i]`` and ``v[i]``
+    take :func:`ttamm_torch.ops.sparse_adam.adam_rows` of those rows and
+    ``grads[r]``; a lane with ``idx < 0`` reads and writes nothing.
+
+    f32 ``[rows, D]`` table, m and v (distinct tensors), int32 ``[N]``
+    indices, f32 ``[N, D]`` gradients. Each live row is the target of one
+    lane at most: two lanes on one row would apply the update twice, in an
+    order the kernel does not fix."""
+    if table.device.type == "cpu":
+        return sparse_adam_rows_plain(
+            table, m, v, idx, grads, step=step, lr=lr, b1=b1, b2=b2, eps=eps,
+            weight_decay=weight_decay,
+        )
+    return sparse_adam_rows_cuda(
+        table, m, v, idx, grads, step=step, lr=lr, b1=b1, b2=b2, eps=eps,
+        weight_decay=weight_decay,
+    )
+
+
+def _check_sparse_adam(
+    table: torch.Tensor, m: torch.Tensor, v: torch.Tensor, idx: torch.Tensor, grads: torch.Tensor
+) -> None:
+    _check_rows("sparse_adam_rows", table, idx)
+    for name, t in (("m", m), ("v", v)):
+        if t.shape != table.shape or t.dtype != table.dtype:
+            raise ValueError(
+                f"sparse_adam_rows: {name} {t.dtype} {tuple(t.shape)} for a table "
+                f"{table.dtype} {tuple(table.shape)}"
+            )
+    if grads.dtype != torch.float32 or grads.shape != (idx.shape[0], table.shape[1]):
+        raise ValueError(
+            f"sparse_adam_rows: grads {grads.dtype} {tuple(grads.shape)} for "
+            f"{idx.shape[0]} indices into {tuple(table.shape)}"
+        )
+    spans = sorted(
+        (t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+        for t in (table, m, v, grads) if t.numel()
+    )
+    if any(lo < hi for (_, hi), (lo, _) in zip(spans, spans[1:])):
+        raise ValueError("sparse_adam_rows: table, m, v and grads must be distinct tensors")
+
+
+def _adam_scalars(*, step: int, lr: float, b1: float, b2: float, eps: float,
+                  weight_decay: float) -> tuple:
+    """The f32 scalars of one step as eager PyTorch on the card forms them in
+    ``adam_rows``: each Python scalar cast to f32 once (``1 - b1``, ``1 - b2``
+    and ``lr * weight_decay`` formed in double first), and a tensor divided
+    by a Python scalar ``c`` multiplied by ``1 / c`` formed in double and
+    rounded to f32 once (measured on the card, PyTorch 2.11:
+    ``scripts/sparse_adam_variants.py``; neither the f32 reciprocal of the
+    f32 scalar nor an IEEE division gives its bits). Host arithmetic on host
+    ints and floats: no sync."""
+    scalars = (
+        b1, 1.0 - b1, b2, 1.0 - b2, 1.0 / (1.0 - b1**step), 1.0 / (1.0 - b2**step),
+        eps, lr, lr * weight_decay,
+    )
+    return (*(float(np.float32(x)) for x in scalars), int(bool(weight_decay)))
+
+
+def sparse_adam_rows_plain(
+    table: torch.Tensor, m: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
+    grads: torch.Tensor, *, step: int, lr: float, b1: float, b2: float, eps: float,
+    weight_decay: float,
+) -> None:
+    """The unfused composition: the masked plain gathers of m, v and the
+    weights, ``adam_rows``, the masked plain scatters back."""
+    from .sparse_adam import unfused_row_update
+
+    _check_sparse_adam(table, m, v, idx, grads)
+    unfused_row_update(
+        table, m, v, idx, grads, gather=functools.partial(gather_rows_plain, masked=True),
+        scatter=functools.partial(scatter_set_rows_plain, masked=True), step=step, lr=lr, b1=b1,
+        b2=b2, eps=eps, weight_decay=weight_decay,
+    )
+
+
+def sparse_adam_rows_cuda(
+    table: torch.Tensor, m: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
+    grads: torch.Tensor, *, step: int, lr: float, b1: float, b2: float, eps: float,
+    weight_decay: float,
+) -> None:
+    """The kernel (``csrc/rows.cu``); the arguments are checked before the
+    device."""
+    _check_sparse_adam(table, m, v, idx, grads)
+    _check_vec4("sparse_adam_rows", table, m, v, grads)
+    dev = _check_cuda("sparse_adam_rows", table, m, v, idx, grads)
+    if idx.shape[0]:
+        _launch(
+            "sparse_adam_rows", dev, table.data_ptr(), m.data_ptr(), v.data_ptr(),
+            idx.data_ptr(), grads.data_ptr(), idx.shape[0], table.shape[0], table.shape[1],
+            *_adam_scalars(step=step, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay),
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -9,17 +9,20 @@
 
 The training step gathers rows outside the differentiated function, so
 gradients arrive as ``(indices [N], row_grads [N, D])``, never as a
-table-shaped zero tensor. The update is the JAX kernel path: coalesce (a
-stable sort, a segment sum, and every lane that is not the head of its
-segment sent to the table's scratch row, its last row), then
-``gather_rows`` of m, v and the weights, the Adam arithmetic on ``[N, D]``,
-and ``scatter_set_rows`` of the three back in place. Table and moments are
-updated in place; the scratch row absorbs the duplicate lanes' writes and
-is never read. Any N (the TPU kernels needed N to divide a DMA block).
+table-shaped zero tensor. The update computes the JAX kernel path's
+function: coalesce (a stable sort, a segment sum, and every lane that is
+not the head of its segment masked, idx = -1), then one
+``kernels.sparse_adam_rows`` launch that reads each head lane's m, v and
+weight row, applies Adam and writes the three back in place (the JAX
+package: ``gather_rows`` x 3, the arithmetic, ``scatter_set_rows`` x 3,
+with the duplicate lanes written to the scratch row). The masked lanes
+touch nothing, so the table's scratch row (its last row) stays zero. Any N
+(the TPU kernels needed N to divide a DMA block).
 """
 
 from __future__ import annotations
 
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import torch
@@ -45,10 +48,10 @@ def coalesce_row_grads(
 
     Returns ``(target_rows int32 [N], summed_grads [N, D])``: the head lane
     of each run of equal (sorted) indices carries its row and the run's
-    summed gradient; every other lane targets ``scratch_row`` with a zero
-    payload. Each run is summed in lane order by one thread per column
-    (``segment_reduce``; no atomics), so the card gives the same bits on
-    every run, and the CPU the same bits as a sequential sum.
+    summed gradient; every other lane targets ``scratch_row`` (-1: no row)
+    with a zero payload. Each run is summed in lane order by one thread per
+    column (``segment_reduce``; no atomics), so the card gives the same bits
+    on every run, and the CPU the same bits as a sequential sum.
     """
     n = indices.shape[0]
     order = torch.argsort(indices, stable=True)
@@ -103,21 +106,40 @@ def sparse_adam_update(
 ) -> None:
     """One SparseAdam step for the rows at ``indices``, in place on
     ``table``, ``state.m`` and ``state.v`` (all with the scratch row as
-    their last row)."""
+    their last row, which no lane touches)."""
     state.step += 1
-    target_rows, grads = coalesce_row_grads(
-        indices, row_grads.to(table.dtype), scratch_row=table.shape[0] - 1
+    # non-head lanes masked: each live row is the target of one lane
+    target_rows, grads = coalesce_row_grads(indices, row_grads.to(table.dtype), scratch_row=-1)
+    kernels.sparse_adam_rows(
+        table, state.m, state.v, target_rows, grads, step=state.step, lr=lr, b1=b1, b2=b2,
+        eps=eps, weight_decay=weight_decay,
     )
-    m_rows = kernels.gather_rows(state.m, target_rows)
-    v_rows = kernels.gather_rows(state.v, target_rows)
-    w_rows = kernels.gather_rows(table, target_rows)
-    w_new, m_new, v_new = adam_rows(
-        w_rows, m_rows, v_rows, grads, step=state.step, lr=lr, b1=b1, b2=b2, eps=eps,
-        weight_decay=weight_decay,
-    )
-    kernels.scatter_set_rows(table, target_rows, w_new)
-    kernels.scatter_set_rows(state.m, target_rows, m_new)
-    kernels.scatter_set_rows(state.v, target_rows, v_new)
+
+
+def unfused_row_update(
+    table: torch.Tensor,
+    m: torch.Tensor,
+    v: torch.Tensor,
+    idx: torch.Tensor,
+    grads: torch.Tensor,
+    *,
+    gather: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    scatter: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], object],
+    **hyper,
+) -> None:
+    """The row update in separate passes, in place: ``gather(t, idx)`` of
+    m, v and the weights, :func:`adam_rows` (``hyper``: its keywords), then
+    ``scatter(t, idx, rows)`` of the three back. With the masked plain row
+    functions it is ``kernels.sparse_adam_rows``' plain version; with the
+    masked row kernels, the sharded update; with the unmasked ones at
+    scratch-row targets, the composition the fused kernel replaces."""
+    m_rows = gather(m, idx)
+    v_rows = gather(v, idx)
+    w_rows = gather(table, idx)
+    w_new, m_new, v_new = adam_rows(w_rows, m_rows, v_rows, grads, **hyper)
+    scatter(table, idx, w_new)
+    scatter(m, idx, m_new)
+    scatter(v, idx, v_new)
 
 
 def adam_rows(
@@ -134,8 +156,10 @@ def adam_rows(
     weight_decay: float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The Adam arithmetic of gathered rows at (1-indexed) ``step``:
-    ``(new weights, new m, new v)``. One function for the single-device and
-    the sharded update, so both compute the same bits."""
+    ``(new weights, new m, new v)``. The arithmetic of
+    :func:`unfused_row_update`; ``csrc/rows.cu``
+    (``sparse_adam_rows``) repeats it op for op, so all compute the same
+    bits."""
     m_new = b1 * m_rows + (1.0 - b1) * grads
     v_new = b2 * v_rows + (1.0 - b2) * torch.square(grads)
     m_hat = m_new / (1.0 - b1**step)

@@ -42,12 +42,14 @@ stay bit-identical without a reduction.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops import kernels
-from ..ops.sparse_adam import SparseAdamState, adam_rows
+from ..ops.sparse_adam import SparseAdamState, unfused_row_update
 from .mesh import DATA_AXIS, MODEL_AXIS, all_gather_rows, axis_size
 from .sharding import row_offset
 
@@ -116,16 +118,12 @@ def _apply(table, state, lane_idx, grads, *, lr, b1, b2, eps, weight_decay) -> N
     ``lane_idx`` is shard-local, -1 where the lane is skipped; duplicate
     lanes carry identical totals."""
     state.step += 1
-    m_rows = kernels.gather_rows(state.m, lane_idx, masked=True)
-    v_rows = kernels.gather_rows(state.v, lane_idx, masked=True)
-    w_rows = kernels.gather_rows(table, lane_idx, masked=True)
-    w_new, m_new, v_new = adam_rows(
-        w_rows, m_rows, v_rows, grads, step=state.step, lr=lr, b1=b1, b2=b2, eps=eps,
-        weight_decay=weight_decay,
+    unfused_row_update(
+        table, state.m, state.v, lane_idx, grads,
+        gather=functools.partial(kernels.gather_rows, masked=True),
+        scatter=functools.partial(kernels.scatter_set_rows, masked=True), step=state.step, lr=lr,
+        b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
     )
-    kernels.scatter_set_rows(table, lane_idx, w_new, masked=True)
-    kernels.scatter_set_rows(state.m, lane_idx, m_new, masked=True)
-    kernels.scatter_set_rows(state.v, lane_idx, v_new, masked=True)
 
 
 def _localize(sorted_idx: torch.Tensor, base: int, rows: int) -> torch.Tensor:

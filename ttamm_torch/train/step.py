@@ -5,14 +5,16 @@ One training step, in the JAX step's order:
 
 1. sample the negatives on the device (5 per positive by default);
 2. gather every table's rows as fresh leaf tensors (outside the
-   differentiated function, so table gradients arrive batch-row shaped);
+   differentiated function, so table gradients arrive batch-row shaped;
+   the sparse ID tables through the ``gather_rows`` kernel);
 3. run the towers (dropout from the caller's generator) and the mimic;
 4. BCE over [positives; negatives] + the mimic losses + category alignment;
 5. backward;
 6. rebuild each dense table's gradient by a fixed-order row sum;
 7. the optional global-norm clip (sparse row gradients coalesced first);
 8. the dense optimizer over the dense parameters and dense tables;
-9. sparse-row Adam on the sparse tables.
+9. sparse-row Adam on the sparse tables (one ``sparse_adam_rows`` kernel a
+   table after the coalesce).
 
 With ``mesh`` (a ``DeviceMesh`` with dims ``("data", "model")``, one process
 per device) the step runs on this rank's parts of a state and data placed by
@@ -39,6 +41,7 @@ import torch
 
 from ..models.adaptive_mimic import mimic_forward
 from ..models.two_tower import ModelConfig, TwoTower
+from ..ops import kernels
 from ..ops.losses import bce_with_logits, category_alignment_loss
 from ..ops.sampling import sample_negative_items
 from ..ops.sparse_adam import coalesce_row_grads, sparse_adam_update, sum_rows
@@ -186,6 +189,11 @@ class _OneDevice:
         """Rows of a table, feature matrix or dataset array, outside autograd."""
         return _gather_opt(features, idx)
 
+    def table_rows(self, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Rows of a sparse ID table at int32 ids, outside autograd: the
+        ``gather_rows`` kernel (the same copy as ``index_select``)."""
+        return kernels.gather_rows(table, idx)
+
     def dense_table_rows(self, table: torch.Tensor, idx: torch.Tensor):
         """``(grad_input, rows)``: the tensor whose gradient the step takes
         and the differentiable rows of a dense (optimizer-updated) table."""
@@ -270,6 +278,9 @@ class _Mesh(_OneDevice):
 
     def lookup(self, features, idx):
         return self._lookup.sharded_rows(features, idx, self.mesh)
+
+    def table_rows(self, table, idx):
+        return self.lookup(table, idx)
 
     def dense_table_rows(self, table, idx):
         leaf = table.detach().requires_grad_()
@@ -383,7 +394,7 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
             if n in dense_tbl_names:
                 inputs[n], rows[n] = layout.dense_table_rows(t, row_idx[n])
             else:
-                inputs[n] = rows[n] = layout.lookup(t, row_idx[n]).requires_grad_()
+                inputs[n] = rows[n] = layout.table_rows(t, row_idx[n]).requires_grad_()
 
         user_emb, pos_emb, neg_emb, mu_loss, mi_loss = _forward_embeddings(
             model, tscfg, data, u_l, item_l, rows,
@@ -452,6 +463,7 @@ def make_eval_loss_step(
     layout)."""
     _check_supported(tscfg)
     layout = _layout(tscfg, mesh)
+    sparse_names = sparse_table_names(cfg)
 
     @torch.no_grad()
     def eval_loss_step(state, data, u_idx, pos_idx, *, generator, negatives=None):
@@ -459,7 +471,10 @@ def make_eval_loss_step(
             layout, tscfg, data, u_idx, pos_idx, generator, negatives
         )
         row_idx = _row_indices(u_l, item_l)
-        rows = {n: layout.lookup(t, row_idx[n]) for n, t in state.tables.items()}
+        rows = {
+            n: (layout.table_rows if n in sparse_names else layout.lookup)(t, row_idx[n])
+            for n, t in state.tables.items()
+        }
         user_emb, pos_emb, neg_emb, _, _ = _forward_embeddings(
             state.model, tscfg, data, u_l, item_l, rows, None, layout.lookup
         )
