@@ -69,21 +69,32 @@ result line):
    the gradient row in and the table, m and v rows in and out; and
    segment_second_moments checked and timed as in phase 2 at that step's
    item lanes' real category ids (``parts`` ``*_canonical``);
-4b. the multi-device layer on one card: gather_rows_masked and
-   scatter_set_rows_masked at that step's item lanes, coalesced and
-   localized for each of 4 virtual model shards of the padded item table
-   (foreign lanes at the head and the tail) and for the owner routing's
-   buffer at 1x1 (a sentinel tail), bit-identical to their plain versions
-   (owned lanes of the gather, every row of the scatter) and timed with a
-   cold L2, the bound counting owned distinct rows; the shard loop (the
-   allgather routing's update applied to each shard's row slice) against
-   the single-device sparse_adam_update, bit-identical; then the sharded
+4b. the multi-device layer on one card, at that step's item lanes for each
+   of 4 virtual model shards of the padded item table and at 1x1:
+   gather_rows_masked at the lookup's lanes (global ids in batch order, a
+   shard's base; zeros on the lanes it does not own), bit-identical to its
+   plain version on every lane and to the lookup it replaced, timed with a
+   cold L2 beside it (index_select + where, the row's ``library_ms``), the
+   bound every lane's index and row and each owned distinct row;
+   sparse_adam_rows at the sharded update's lanes (coalesced, localized,
+   non-heads and foreign lanes -1 at the head and the tail; the owner
+   buffer at 1x1 with its sentinel tail), bit-identical to its plain
+   version over every row at steps 1 / 1000, weight decay 0 / 0.01, timed
+   beside it and the composition it replaced (3 masked gathers, adam_rows,
+   3 masked scatters); scatter_set_rows_masked, on no path now, held to its
+   plain version at the lanes the update gave it before and timed; the
+   shard loop (one sparse_adam_rows launch a shard) against the
+   single-device sparse_adam_update, bit-identical; then the sharded
    training step on a 1x1 DeviceMesh over a one-rank NCCL group at
    ``configs/default.yaml`` width, 3 steps under the allgather and 3 under
-   the owner routing (their launches are the masked kernels' path counts,
-   counted from zero just before them), each against the single-device
-   step with the same negatives and no dropout, within phase 4's
-   tolerances, and their device and host ms per step;
+   the owner routing (their launches are the mesh path's counts, counted
+   from zero just before them: gather_rows_masked and sparse_adam_rows
+   must run, the scatters and the unmasked gather must not), each against
+   the single-device step with the same negatives and no dropout, within
+   phase 4's tolerances, and against the same steps through the parent's
+   row code (``parent_mesh_path``), bit for bit; then the device ms and
+   device ops and the host ms per step of the one-device step, of both
+   routings and of both through the parent's row code;
 5. train two epochs of ``configs/default.yaml`` on the card with the
    retrieval eval after each, through ``run_training`` (the main path's
    launches are counted from here; its sweep ledger must hold the one
@@ -116,11 +127,12 @@ result line):
    ids must equal the plain-version masked fused ids and hold no blocked id;
    then the bf16 group_exact / fused device-ms sweep at 500k, 1M and 2M
    items (logged, not acted on);
-8. the launch counts of phases 5-7 and, for the masked row kernels, of
-   phase 4b's sharded steps (every kernel must have run), leaving out the
+8. the launch counts of phases 5-7 and, for gather_rows_masked, of phase
+   4b's sharded steps (every kernel must have run), leaving out the
    launches made to compare or time a kernel against its plain version;
-   scatter_set_rows, whose work sparse_adam_rows does on the one-device
-   path, must have run in the comparisons of phases 2 and 4 instead.
+   scatter_set_rows and scatter_set_rows_masked, whose work
+   sparse_adam_rows does on the one-device and the mesh path, must have
+   run in the comparisons of phases 2, 4 and 4b instead.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -177,10 +189,10 @@ KERNEL_INFO = {
     # gather_rows x 3 -> Adam -> scatter_set_rows x 3 of the JAX row-kernel path
     "sparse_adam_rows": ("ttamm_torch/csrc/rows.cu", "ttamm_tpu/ops/sparse_adam.py:191-208"),
 }
-MESH_KERNELS = ("gather_rows_masked", "scatter_set_rows_masked")  # counted in phase 4b
-# Off the main path since sparse_adam_rows took its work: launched and held
-# to its plain version in phases 2 and 4.
-COMPARED_ONLY = ("scatter_set_rows",)
+MESH_KERNELS = ("gather_rows_masked",)  # counted in phase 4b (sparse_adam_rows runs there too)
+# Off every path since sparse_adam_rows took their work: launched and held
+# to their plain versions in phases 2, 4 and 4b.
+COMPARED_ONLY = ("scatter_set_rows", "scatter_set_rows_masked")
 
 
 def log(msg: str) -> None:
@@ -1107,108 +1119,230 @@ def _sparse_adam_rows(state, lanes: dict, tscfg) -> dict:
     return row
 
 
-def _masked_row_kernels(table, lanes) -> dict[str, dict]:
-    """gather_rows_masked and scatter_set_rows_masked at one step's item
-    lanes, coalesced and localized as the sharded update gives them: for each
-    of VIRTUAL_SHARDS model shards of the padded item table (the allgather
-    routing: foreign lanes at the head and the tail), and the owner routing's
-    buffer at one data shard (capacity n, the distinct lanes then a sentinel
-    tail). Each bit-identical to its plain version (the owned lanes of the
-    gather, every row of the scatter). Timed with a cold L2: the four shards
-    in one call (their mean is the row), the owner layout on its own; the
-    bound moves every lane's index and each owned lane's row and owned
-    distinct row once. The library calls (index_select / index_copy_ over
-    the lanes clamped to 0) compute another function: time only."""
+def _mesh_layouts(table, m, v, lanes):
+    """One canonical step's item lanes as the mesh path gives them to its
+    kernels, on the item table padded to VIRTUAL_SHARDS shards: ``lookups``
+    (each shard's rows, the step's global ids in batch order, the shard's
+    base; then the whole table at 1x1, every lane owned), ``updates`` (each
+    shard's rows of table, m and v, the lanes coalesced and localized with
+    the non-heads and the foreign lanes -1, which sit at the head and the
+    tail, the run totals, and the same lanes before head masking; then the
+    owner buffer at 1x1: each row once, ascending, then a sentinel tail)."""
     import torch
 
-    from ttamm_torch.ops import kernels
     from ttamm_torch.parallel.sharding import padded_rows
-    from ttamm_torch.parallel.sparse_update import _coalesce_sorted, _localize, owner_capacity
+    from ttamm_torch.parallel.sparse_update import _localize, owner_capacity, sort_lanes
 
     n, dim = lanes.numel(), table.shape[1]
     rows_total = padded_rows(table.shape[0] - 1, VIRTUAL_SHARDS)
-    padded = torch.cat([table, table.new_zeros((rows_total - table.shape[0], dim))])
+
+    def pad(t):
+        return torch.cat([t, t.new_zeros((rows_total - t.shape[0], dim))])
+
+    padded = [pad(t) for t in (table, m, v)]
     rps = rows_total // VIRTUAL_SHARDS
-    sorted_idx, _, is_head, _ = _coalesce_sorted(
-        lanes.long(), table.new_zeros((n, 1)), head_init=-2
-    )
-    shards = [
-        (padded[s * rps : (s + 1) * rps], _localize(sorted_idx, s * rps, rps))
-        for s in range(VIRTUAL_SHARDS)
-    ]
-    heads = sorted_idx[is_head].to(torch.int32)
+    gen = torch.Generator(device=table.device).manual_seed(17)
+    grads = torch.randn((n, dim), generator=gen, device=table.device) * 1e-2
+    runs = sort_lanes(lanes.long(), grads, head_init=-2)
+    totals = runs.totals()
+    lookups, updates = [], []
+    for s in range(VIRTUAL_SHARDS):
+        part = slice(s * rps, (s + 1) * rps)
+        lookups.append((padded[0][part], lanes, s * rps))
+        updates.append(dict(
+            tensors=[t[part] for t in padded], totals=totals,
+            heads=_localize(runs.idx, s * rps, rps, runs.is_head),
+            every=_localize(runs.idx, s * rps, rps),
+        ))
+    heads = runs.idx[runs.is_head].to(torch.int32)
     owner = torch.full((owner_capacity(n, 1, 1, 2.0),), -1, dtype=torch.int32, device=table.device)
     owner[: heads.numel()] = heads
-    layouts = {"shards": shards, "owner": [(table, owner)]}
-    cases = {}
-    for label, group in layouts.items():
-        nbytes = 0
-        for local, lane in group:
-            live = lane >= 0
-            owned, distinct = int(live.sum()), int(torch.unique(lane[live]).numel())
-            nbytes += lane.numel() * 4 + (owned + distinct) * dim * 4
-            got = kernels.gather_rows_cuda(local, lane, masked=True)
-            want = kernels.gather_rows_plain(local, lane, masked=True)
-            check(torch.equal(got[live], want[live]), f"gather_rows_masked ({label}): kernel != plain")
-            t_kernel, t_plain = local.clone(), local.clone()
-            src = got * 0.5  # lanes of one row carry identical bytes
-            kernels.scatter_set_rows_cuda(t_kernel, lane, src, masked=True)
-            kernels.scatter_set_rows_plain(t_plain, lane, src, masked=True)
-            check(torch.equal(t_kernel, t_plain), f"scatter_set_rows_masked ({label}): kernel != plain")
-            log(f"masked row kernels ({label}): {lane.numel()} lanes, {owned} owned, {distinct} "
-                "distinct rows: bit-identical")
-        cases[label] = (group, nbytes)
+    owner_grads = torch.zeros((owner.numel(), dim), device=table.device)
+    owner_grads[: heads.numel()] = totals[runs.is_head]
+    return dict(
+        rps=rps, lookups=lookups, lookup_1x1=(table, lanes, 0), updates=updates,
+        owner=dict(tensors=[table, m, v], totals=owner_grads, heads=owner, every=owner),
+    )
 
-    srcs = {id(lane): torch.zeros((lane.numel(), dim), device=table.device) for _, lane in shards + [(table, owner)]}
-    copies = {id(lane): local.clone() for local, lane in shards + [(table, owner)]}
-    rows: dict[str, dict] = {}
-    for name in ("gather_rows_masked", "scatter_set_rows_masked"):
-        if name == "gather_rows_masked":
-            kernel = lambda local, lane: kernels.gather_rows_cuda(local, lane, masked=True)  # noqa: E731
-            plain = lambda local, lane: kernels.gather_rows_plain(local, lane, masked=True)  # noqa: E731
-            library = lambda local, lane: torch.index_select(local, 0, lane.clamp_min(0))  # noqa: E731
-        else:
-            kernel = lambda local, lane: kernels.scatter_set_rows_cuda(  # noqa: E731
-                copies[id(lane)], lane, srcs[id(lane)], masked=True)
-            plain = lambda local, lane: kernels.scatter_set_rows_plain(  # noqa: E731
-                copies[id(lane)], lane, srcs[id(lane)], masked=True)
-            library = lambda local, lane: copies[id(lane)].index_copy_(  # noqa: E731
-                0, lane.clamp_min(0).long(), srcs[id(lane)])
-        group, nbytes = cases["shards"]
-        k = VIRTUAL_SHARDS
-        row = _row(
-            shape=f"[{rps}, {dim}] f32 shard of {VIRTUAL_SHARDS} at {n} step lanes (mean per shard)",
+
+def _lookup_gather(layouts) -> dict:
+    """gather_rows_masked at the lookup's lanes of each shard (the row: the
+    mean a shard, the four in one timed call) and at 1x1 (``parts``):
+    bit-identical to its plain version on every lane, zeros included; timed
+    with a cold L2 beside the lookup it replaced (``index_select`` of the
+    clamped lanes, then ``where``: the row's ``library_ms``). The bound
+    reads every lane's index and each owned distinct row once, and writes
+    every lane's row."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+
+    def parent(local, idx, base):
+        lane = idx.long() - base
+        owned = (lane >= 0) & (lane < local.shape[0])
+        return torch.where(owned[:, None], torch.index_select(local, 0, torch.where(owned, lane, 0)), 0.0)
+
+    def measure(group):
+        nbytes = 0
+        for local, idx, base in group:
+            got = kernels.gather_rows_cuda(local, idx, masked=True, base=base)
+            check(torch.equal(got, kernels.gather_rows_plain(local, idx, masked=True, base=base)),
+                  f"gather_rows_masked (base {base}): kernel != plain")
+            check(torch.equal(got, parent(local, idx, base)), f"gather_rows_masked (base {base}) != lookup")
+            lane = idx.long() - base
+            owned = lane[(lane >= 0) & (lane < local.shape[0])]
+            distinct = int(torch.unique(owned).numel())
+            nbytes += idx.numel() * 4 + (distinct + idx.numel()) * local.shape[1] * 4
+            log(f"gather_rows_masked at the lookup (base {base}): {idx.numel()} lanes, {owned.numel()} "
+                f"owned, {distinct} distinct rows: bit-identical to plain and to the lookup")
+        k = len(group)
+        return dict(
             max_abs_err=0.0,
-            ms=device_ms_cold(lambda: [kernel(*c) for c in group]) / k,
-            plain_ms=device_ms_cold(lambda: [plain(*c) for c in group]) / k,
-            library_ms=device_ms_cold(lambda: [library(*c) for c in group]) / k,
+            ms=device_ms_cold(lambda: [kernels.gather_rows_cuda(l, i, masked=True, base=b)
+                                       for l, i, b in group]) / k,
+            plain_ms=device_ms_cold(lambda: [kernels.gather_rows_plain(l, i, masked=True, base=b)
+                                             for l, i, b in group]) / k,
+            library_ms=device_ms_cold(lambda: [parent(*c) for c in group]) / k,
             nbytes=nbytes / k,
         )
-        (o_group, o_bytes) = cases["owner"]
-        row["parts"] = {"owner_1x1": dict(
-            ms=device_ms_cold(lambda: [kernel(*c) for c in o_group]),
-            bound_ms=bound_ms(o_bytes)[0], lanes=int(owner.numel()), live=int(heads.numel()),
-        )}
-        _log_row(name, row)
-        log(f"  {name} owner layout at 1x1 ({heads.numel()} of {owner.numel()} lanes live): "
-            f"kernel {row['parts']['owner_1x1']['ms']:.4f} ms | bound "
-            f"{row['parts']['owner_1x1']['bound_ms']:.4f} ms")
-        rows[name] = row
-    return rows
+
+    local, idx, _ = layouts["lookups"][0]
+    row = _row(shape=f"[{local.shape[0]}, {local.shape[1]}] f32 shard of {VIRTUAL_SHARDS} at one step's "
+                     f"{idx.numel()} item lookup lanes (mean per shard)", **measure(layouts["lookups"]))
+    one = measure([layouts["lookup_1x1"]])
+    one["bound_ms"] = bound_ms(one.pop("nbytes"))[0]
+    row["parts"] = {"1x1": one}
+    _log_row("gather_rows_masked (library = index_select + where, the lookup it replaced)", row)
+    log(f"  gather_rows_masked at 1x1 (every lane owned): kernel {one['ms']:.4f} ms | plain "
+        f"{one['plain_ms']:.4f} ms | library {one['library_ms']:.4f} ms | bound {one['bound_ms']:.4f} ms")
+    return row
+
+
+def _masked_scatter(layouts) -> dict:
+    """scatter_set_rows_masked, which no path runs since the sharded update
+    moved onto sparse_adam_rows, at the lanes the update gave it before (each
+    shard's lanes localized, every lane of a run carrying the run's bytes;
+    the owner buffer at 1x1): bit-identical to its plain version on every
+    row, timed with a cold L2; the bound moves every lane's index and each
+    owned lane's row and owned distinct row once. The library call
+    (``index_copy_`` over the lanes clamped to 0) computes another function:
+    time only."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+
+    def cases(group):
+        out, nbytes = [], 0
+        for u in group:
+            table, lane = u["tensors"][0], u["every"]
+            live = lane >= 0
+            owned, distinct = int(live.sum()), int(torch.unique(lane[live]).numel())
+            nbytes += lane.numel() * 4 + (owned + distinct) * table.shape[1] * 4
+            src = u["totals"]  # every lane of a run carries its bytes
+            t_kernel, t_plain = table.clone(), table.clone()
+            kernels.scatter_set_rows_cuda(t_kernel, lane, src, masked=True)
+            kernels.scatter_set_rows_plain(t_plain, lane, src, masked=True)
+            check(torch.equal(t_kernel, t_plain), "scatter_set_rows_masked: kernel != plain")
+            out.append((t_kernel, lane, src))
+        return out, nbytes
+
+    shard_cases, nbytes = cases(layouts["updates"])
+    owner_cases, o_bytes = cases([layouts["owner"]])
+    k = len(shard_cases)
+    row = _row(
+        shape=f"[{layouts['rps']}, {shard_cases[0][0].shape[1]}] f32 shard of {VIRTUAL_SHARDS} at one "
+              f"step's {shard_cases[0][1].numel()} item lanes coalesced (mean per shard)",
+        max_abs_err=0.0,
+        ms=device_ms_cold(lambda: [kernels.scatter_set_rows_cuda(*c, masked=True) for c in shard_cases]) / k,
+        plain_ms=device_ms_cold(lambda: [kernels.scatter_set_rows_plain(*c, masked=True)
+                                         for c in shard_cases]) / k,
+        library_ms=device_ms_cold(lambda: [t.index_copy_(0, lane.clamp_min(0).long(), src)
+                                           for t, lane, src in shard_cases]) / k,
+        nbytes=nbytes / k,
+    )
+    row["parts"] = {"owner_1x1": dict(
+        ms=device_ms_cold(lambda: [kernels.scatter_set_rows_cuda(*c, masked=True) for c in owner_cases]),
+        bound_ms=bound_ms(o_bytes)[0],
+    )}
+    _log_row("scatter_set_rows_masked (compared only)", row)
+    return row
+
+
+def _mesh_sparse_adam(layouts) -> dict:
+    """sparse_adam_rows at the sharded update's lanes: each shard's
+    (``mesh_shard_of_4``, the mean a shard, the four in one timed call) and
+    the owner buffer at 1x1 (``mesh_owner_1x1``). Bit-identical to its plain
+    version over every row at steps 1 and 1000, weight decay 0 and 0.01;
+    timed with a cold L2 at step 2 beside its plain version and the
+    composition it replaces on the mesh path (the masked gathers x 3, eager
+    adam_rows and the masked scatters x 3 at the lanes before head masking:
+    ``composition_ms``). The bound moves every lane's index and, for each
+    live lane, its gradient row in and its table, m and v rows in and out."""
+    import functools
+
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.ops.sparse_adam import unfused_row_update
+
+    parts = {}
+    for label, group in (("mesh_shard_of_4", layouts["updates"]), ("mesh_owner_1x1", [layouts["owner"]])):
+        for u in group:
+            for step, wd in ADAM_CASES:
+                hyper = dict(step=step, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd)
+                got = [t.clone() for t in u["tensors"]]
+                want = [t.clone() for t in u["tensors"]]
+                kernels.sparse_adam_rows_cuda(*got, u["heads"], u["totals"], **hyper)
+                kernels.sparse_adam_rows_plain(*want, u["heads"], u["totals"], **hyper)
+                for name, a, b in zip(("table", "m", "v"), got, want):
+                    check(torch.equal(a, b), f"sparse_adam_rows ({label}, step {step}, weight decay "
+                          f"{wd}): {name} kernel != plain")
+        hyper = dict(step=2, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
+        copies = [[t.clone() for t in u["tensors"]] for u in group]
+        lanes = [(u["heads"], u["totals"], u["every"]) for u in group]
+        k = len(group)
+
+        def composition():
+            for c, (_, totals, every) in zip(copies, lanes):
+                unfused_row_update(*c, every, totals,
+                                   gather=functools.partial(kernels.gather_rows_cuda, masked=True),
+                                   scatter=functools.partial(kernels.scatter_set_rows_cuda, masked=True),
+                                   **hyper)
+
+        live = sum(int((h >= 0).sum()) for h, _, _ in lanes)
+        dim = group[0]["tensors"][0].shape[1]
+        parts[label] = dict(
+            ms=device_ms_cold(lambda: [kernels.sparse_adam_rows_cuda(*c, h, t, **hyper)
+                                       for c, (h, t, _) in zip(copies, lanes)]) / k,
+            plain_ms=device_ms_cold(lambda: [kernels.sparse_adam_rows_plain(*c, h, t, **hyper)
+                                             for c, (h, t, _) in zip(copies, lanes)]) / k,
+            composition_ms=device_ms_cold(composition) / k,
+            bound_ms=bound_ms((sum(h.numel() for h, _, _ in lanes) * 4 + live * dim * 4 * 7) / k)[0],
+            lanes=int(lanes[0][0].numel()), live=live / k,
+        )
+        p = parts[label]
+        log(f"sparse_adam_rows ({label}; {p['lanes']} lanes, {p['live']:.1f} live a shard; bit-identical "
+            f"at steps 1 / 1000, weight decay 0 / 0.01): kernel {p['ms']:.4f} ms | plain "
+            f"{p['plain_ms']:.4f} ms | composition it replaces {p['composition_ms']:.4f} ms | bound "
+            f"{p['bound_ms']:.4f} ms")
+        del copies
+    return parts
 
 
 def _shard_loop(ctx, lanes) -> None:
     """One sparse-Adam update of the item table applied shard by shard (the
-    allgather routing's body on each of VIRTUAL_SHARDS row slices of the
-    padded table) against the single-device ``sparse_adam_update``:
-    bit-identical table, m and v (the same coalesce order and per-row
-    arithmetic), the scratch row aside (the single-device update parks its
-    duplicate lanes there)."""
+    allgather routing's body, one ``sparse_adam_rows`` launch on each of
+    VIRTUAL_SHARDS row slices of the padded table) against the
+    single-device ``sparse_adam_update``: bit-identical table, m and v (the
+    same coalesce order and per-row arithmetic), the scratch row aside (the
+    single-device update leaves it untouched; a shard's pad rows stay
+    zero)."""
     import torch
 
+    from ttamm_torch.ops import kernels
     from ttamm_torch.ops.sparse_adam import SparseAdamState, sparse_adam_update
     from ttamm_torch.parallel.sharding import padded_rows
-    from ttamm_torch.parallel.sparse_update import _apply, _coalesce_sorted, _localize
+    from ttamm_torch.parallel.sparse_update import _apply, _localize, sort_lanes
 
     state, ni, opt = ctx["state"], ctx["ni"], ctx["tscfg"].opt
     table, sparse = state.tables["item_id"], state.opt_sparse["item_id"]
@@ -1226,18 +1360,76 @@ def _shard_loop(ctx, lanes) -> None:
         return torch.cat([t, t.new_zeros((rows_total - t.shape[0], dim))])
 
     tab, m, v = pad(table), pad(sparse.m), pad(sparse.v)
-    sorted_idx, g_coal, _, _ = _coalesce_sorted(lanes.long(), grads, head_init=-2)
+    runs = sort_lanes(lanes.long(), grads, head_init=-2)
+    totals = runs.totals()
+    before = kernels.launch_counts()
     for s in range(VIRTUAL_SHARDS):
         rows = slice(s * rps, (s + 1) * rps)
         local = SparseAdamState(m=m[rows], v=v[rows], step=sparse.step)
-        _apply(tab[rows], local, _localize(sorted_idx, s * rps, rps), g_coal, **hyper)
+        _apply(tab[rows], local, _localize(runs.idx, s * rps, rps, runs.is_head), totals, **hyper)
     torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    check(after["sparse_adam_rows"] - before["sparse_adam_rows"] == VIRTUAL_SHARDS,
+          "shard loop: not one sparse_adam_rows launch a shard")
     for name, got, want in (("table", tab, ref_table), ("m", m, ref.m), ("v", v, ref.v)):
         err = float((got[:ni] - want[:ni]).abs().max())
         check(torch.equal(got[:ni], want[:ni]), f"shard loop {name}: max abs err {err:.3e}")
         check(not bool(got[ni + 1 :].any()), f"shard loop {name}: a pad row was written")
-    log(f"shard loop: {VIRTUAL_SHARDS} shards of {rps} rows, {n} lanes: table, m and v "
-        "bit-identical to the single-device sparse_adam_update")
+    log(f"shard loop: {VIRTUAL_SHARDS} shards of {rps} rows, {n} lanes, one sparse_adam_rows a shard: "
+        "table, m and v bit-identical to the single-device sparse_adam_update")
+
+
+def _parent_apply(table, state, lane_idx, grads, *, lr, b1, b2, eps, weight_decay) -> None:
+    """The shard-local row update before sparse_adam_rows took it: the
+    masked gathers of m, v and the weights, eager adam_rows, the masked
+    scatters back (given head-only lanes, it writes what it wrote at every
+    lane of a run: the run's bytes)."""
+    import functools
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.ops.sparse_adam import unfused_row_update
+
+    state.step += 1
+    unfused_row_update(
+        table, state.m, state.v, lane_idx, grads,
+        gather=functools.partial(kernels.gather_rows, masked=True),
+        scatter=functools.partial(kernels.scatter_set_rows, masked=True), step=state.step, lr=lr,
+        b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+    )
+
+
+@contextlib.contextmanager
+def parent_mesh_path():
+    """The mesh step's row traffic as it was before the masked gather and
+    sparse_adam_rows took it: the sparse tables read by ``sharded_rows``
+    (``index_select``, then ``where`` and zeros above one model shard), the
+    mimic tables by ``index_select`` and ``where``, the sparse update by
+    :func:`_parent_apply`. The replica the 1x1 steps are held to, bit for
+    bit, and timed beside."""
+    import torch
+
+    from ttamm_torch.parallel import embedding_lookup as el
+    from ttamm_torch.parallel import sparse_update as su
+    from ttamm_torch.parallel.mesh import MODEL_AXIS, all_reduce, axis_size
+
+    class ParentLookup(el._ShardedLookup):
+        @staticmethod
+        def forward(ctx, local, idx, mesh):
+            owned, lane = el._owned(local.shape[0], idx, mesh)
+            ctx.save_for_backward(idx)
+            ctx.mesh, ctx.rows = mesh, local.shape[0]
+            rows = torch.where(owned[:, None], torch.index_select(local, 0, lane), 0.0)
+            if axis_size(mesh, MODEL_AXIS) > 1:
+                all_reduce(rows, mesh, MODEL_AXIS)
+            return rows
+
+    saved = (su._apply, el.sharded_table_rows, el.sharded_lookup)
+    su._apply, el.sharded_table_rows = _parent_apply, el.sharded_rows
+    el.sharded_lookup = ParentLookup.apply
+    try:
+        yield
+    finally:
+        su._apply, el.sharded_table_rows, el.sharded_lookup = saved
 
 
 def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
@@ -1245,9 +1437,11 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
     ``configs/default.yaml`` width: MESH_STEPS steps from the seeded state
     under the allgather and the owner routing (the launches of these six
     steps are the path's counts), each against the single-device step on the
-    same batches and negatives, no dropout, within phase 4's tolerances;
-    then each step's device ms (profiler) and host ms (clock) beside the
-    single-device step's."""
+    same batches and negatives, no dropout, within phase 4's tolerances, and
+    against the same steps through :func:`parent_mesh_path`, bit for bit
+    (losses, every table, moment and dense parameter); then each step's
+    device ms and device ops (profiler) and host ms (clock) beside the
+    single-device step's and the parent path's."""
     import datetime
     import socket
 
@@ -1277,6 +1471,15 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
     def fresh():
         return create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED, device=dev)
 
+    def run(step, state, d, path=contextlib.nullcontext):
+        out = []
+        with path():
+            for u, p, neg in batches[:MESH_STEPS]:
+                _, metrics = step(state, d, u, p, generator=None, negatives=neg)
+                out.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        return out
+
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -1288,24 +1491,28 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
     try:
         mesh = build_mesh(MeshConfig(1, 1), "cuda")
         mdata = place_data(mesh, data)
-        runs = {}
-        for routing in ("allgather", "owner"):
-            runs[routing] = (place_state(mesh, fresh()), make_sharded_train_step(
-                cfg, tscfg._replace(update_routing=routing), mesh))
+        steps = {r: make_sharded_train_step(cfg, tscfg._replace(update_routing=r), mesh)
+                 for r in ("allgather", "owner")}
+        runs = {r: (place_state(mesh, fresh()), stp) for r, stp in steps.items()}
         kernels.reset_launch_counts()  # the path's launches: the sharded steps
-        losses = {r: [] for r in runs}
-        for routing, (state, step) in runs.items():
-            for u, p, neg in batches[:MESH_STEPS]:
-                _, metrics = step(state, mdata, u, p, generator=None, negatives=neg)
-                losses[routing].append({k: float(v) for k, v in metrics.items()})
-        torch.cuda.synchronize()
+        losses = {r: run(stp, state, mdata) for r, (state, stp) in runs.items()}
         counts = kernels.launch_counts()
+        parents = {r: (place_state(mesh, fresh()), stp) for r, stp in steps.items()}
+        for routing, (state, stp) in parents.items():
+            want = run(stp, state, mdata, parent_mesh_path)
+            check(want == losses[routing], f"1x1 {routing}: losses {losses[routing]} != parent path {want}")
+            got_state = runs[routing][0]
+            pairs = [(f"{n} table", got_state.tables[n], state.tables[n]) for n in state.tables]
+            pairs += [(f"{n} {mom}", getattr(got_state.opt_sparse[n], mom), getattr(s, mom))
+                      for n, s in state.opt_sparse.items() for mom in ("m", "v")]
+            pairs += [(k, a.detach(), bb.detach()) for (k, a), (_, bb) in
+                      zip(got_state.dense_targets(), state.dense_targets())]
+            for name, a, bb in pairs:
+                check(torch.equal(a, bb), f"1x1 {routing} {name}: differs from the parent path")
+            log(f"1x1 sharded step ({routing}), {MESH_STEPS} steps: losses and {len(pairs)} state "
+                "tensors bit-identical to the parent path")
         ref_state, ref_step = fresh(), make_train_step(cfg, tscfg)
-        ref_losses = []
-        for u, p, neg in batches[:MESH_STEPS]:
-            _, metrics = ref_step(ref_state, data, u, p, generator=None, negatives=neg)
-            ref_losses.append({k: float(v) for k, v in metrics.items()})
-        torch.cuda.synchronize()
+        ref_losses = run(ref_step, ref_state, data)
         touched = {
             "user_id": torch.cat([u for u, _, _ in batches[:MESH_STEPS]]).long(),
             "item_id": torch.cat([torch.cat([p, neg.reshape(-1)]) for _, p, neg in
@@ -1335,24 +1542,33 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
                 f"diff {worst:.3e} | max abs err {errs}")
 
         timing = {}
-        timed = {"one device": (ref_state, ref_step, data), **{
-            f"1x1 {r}": (st, stp, mdata) for r, (st, stp) in runs.items()}}
-        for label, (state, step, d) in timed.items():
+        timed = {"one device": (ref_state, ref_step, data, contextlib.nullcontext)}
+        for r in runs:
+            timed[f"1x1 {r}"] = (*runs[r], mdata, contextlib.nullcontext)
+            timed[f"1x1 {r} (parent path)"] = (*parents[r], mdata, parent_mesh_path)
+        for label, (state, step, d, path) in timed.items():
             it = iter(batches[MESH_STEPS:])
 
             def one(state=state, step=step, d=d, it=it):
                 u, p, neg = next(it)
                 step(state, d, u, p, generator=None, negatives=neg)
 
-            dev_ms = device_ms(one, iters=4, warmup=1)
-            u, p, neg = batches[-1]
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            for _ in range(3):
-                step(state, d, u, p, generator=None, negatives=neg)
-            torch.cuda.synchronize()
-            timing[label] = {"device_ms": dev_ms, "host_ms": (time.perf_counter() - start) / 3 * 1e3}
-            log(f"step {label}: device {dev_ms:.3f} ms | host clock {timing[label]['host_ms']:.3f} ms")
+            with path():
+                events = _profiled(one, lambda: [one() for _ in range(4)])
+                dev_ms = _per_call_us(events, 4) / 1e3
+                check(dev_ms > 0, f"step {label}: the profiler saw no device work")
+                ops = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.key.startswith("ProfilerStep")) / 4
+                u, p, neg = batches[-1]
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                for _ in range(3):
+                    step(state, d, u, p, generator=None, negatives=neg)
+                torch.cuda.synchronize()
+            timing[label] = {"device_ms": dev_ms, "device_ops": ops,
+                             "host_ms": (time.perf_counter() - start) / 3 * 1e3}
+            log(f"step {label}: device {dev_ms:.3f} ms, {ops:.1f} device ops | host clock "
+                f"{timing[label]['host_ms']:.3f} ms")
         log(f"owner routing: {OWNER_STATS['checks']} overflow checks (one host sync each), "
             f"{OWNER_STATS['overflows']} overflows")
         timing["owner_stats"] = dict(OWNER_STATS)
@@ -1361,18 +1577,32 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
     return counts, timing
 
 
-def phase_mesh(dev, ctx) -> tuple[dict[str, dict], dict[str, int], dict]:
-    """Phase 4b: the multi-device layer on one card."""
+def phase_mesh(dev, ctx) -> tuple[dict[str, dict], dict[str, int], dict[str, int], dict]:
+    """Phase 4b: the multi-device layer on one card. Returns the kernel
+    rows, the launches of the comparisons before the sharded steps, the
+    sharded steps' launches (the path's counts) and their timing."""
     import torch
 
+    from ttamm_torch.ops import kernels
+
     lanes = ctx["item_idx"].to(torch.int32)
-    rows = _masked_row_kernels(ctx["state"].tables["item_id"], lanes)
+    state = ctx["state"]
+    sparse = state.opt_sparse["item_id"]
+    layouts = _mesh_layouts(state.tables["item_id"], sparse.m, sparse.v, lanes)
+    rows = {"gather_rows_masked": _lookup_gather(layouts),
+            "scatter_set_rows_masked": _masked_scatter(layouts)}
+    adam_parts = _mesh_sparse_adam(layouts)
+    del layouts
     _shard_loop(ctx, lanes)
+    compared = kernels.launch_counts()
     counts, timing = _mesh_step(dev, ctx)
-    for name in ("gather_rows_masked", "scatter_set_rows_masked", "segment_second_moments"):
+    for name in ("gather_rows_masked", "sparse_adam_rows", "segment_second_moments"):
         check(counts[name] > 0, f"{name} never launched in the 1x1 sharded steps")
+    for name in ("gather_rows", "scatter_set_rows", "scatter_set_rows_masked"):
+        check(counts[name] == 0, f"{name} launched in the 1x1 sharded steps")
     log(f"launch counts of the 1x1 sharded steps: {counts}")
-    return rows, counts, timing
+    timing["sparse_adam_rows"] = adam_parts
+    return rows, compared, counts, timing
 
 
 def _profile_steps(dev, config: dict, dataset, result) -> dict:
@@ -1732,10 +1962,12 @@ def main() -> int:
                 m2_row["max_abs_err"] = max(m2_row["max_abs_err"], canonical.pop("max_abs_err"))
                 m2_row["parts"].update({f"{k}_canonical": v for k, v in canonical.items()})
                 kernel_rows.update(rows)
-            compared = kernels.launch_counts()  # phases 2-4 (phase 4b counts from zero)
             with Phase("4b the multi-device layer on one card"):
-                rows, mesh_counts, mesh_timing = phase_mesh(dev, step_ctx)
+                # compared: the launches of phases 2-4b's comparisons (the
+                # sharded steps count from zero)
+                rows, compared, mesh_counts, mesh_timing = phase_mesh(dev, step_ctx)
                 kernel_rows.update(rows)
+                kernel_rows["sparse_adam_rows"]["parts"].update(mesh_timing.pop("sparse_adam_rows"))
                 del step_ctx
                 torch.cuda.empty_cache()
             kernels.reset_launch_counts()  # the main path's launches start here

@@ -503,19 +503,31 @@ def _adam_case(dim, layout, seed, device):
     m = torch.randn((rows, dim), generator=gen) * 0.1
     v = torch.rand((rows, dim), generator=gen) * 0.01
     v[::7] = 0.0  # rows never touched before: sqrt(0) + eps
-    n = {"all_live": 777, "every_other": 777, "all_masked": 300, "empty": 0, "one_lane": 1}[layout]
+    n = {"all_live": 777, "every_other": 777, "all_masked": 300, "empty": 0, "one_lane": 1,
+         "foreign_head_tail": 777, "owner_tail": 777}[layout]
     idx = torch.randperm(rows, generator=gen)[:n].to(torch.int32)
     if layout == "every_other":
         idx[1::2] = -1
     elif layout == "all_masked":
         idx[:] = -1
+    elif layout == "foreign_head_tail":  # a shard's sorted lanes, the allgather routing
+        idx = torch.sort(idx).values
+        idx[:200], idx[600:] = -1, -1
+    elif layout == "owner_tail":  # the owner buffer at one data shard
+        idx = torch.sort(idx[:500]).values
+        idx = torch.cat([idx, torch.full((n - 500,), -1, dtype=torch.int32)])
     grads = torch.randn((n, dim), generator=gen)
     grads[: n // 5] *= 1e-6  # |g| near eps
     return [t.to(device) for t in (table, m, v, idx, grads)]
 
 
-@pytest.mark.parametrize("layout", ["all_live", "every_other", "all_masked", "empty", "one_lane"])
-@pytest.mark.parametrize("dim", [4, 8, 36, 128, 132, 512])
+ADAM_LAYOUTS = ["all_live", "every_other", "all_masked", "empty", "one_lane",
+                "foreign_head_tail", "owner_tail"]
+ADAM_DIMS = [4, 8, 36, 128, 132, 512]
+
+
+@pytest.mark.parametrize("layout", ADAM_LAYOUTS)
+@pytest.mark.parametrize("dim", ADAM_DIMS)
 def test_sparse_adam_rows_kernel_bit_identical(cuda, dim, layout):
     """The fused row update gives its plain version's table, m and v over
     every row, at steps 1, 2 and 1000 with and without weight decay, and the
@@ -664,10 +676,41 @@ def test_train_step_on_the_card_is_deterministic(cuda):
         assert torch.equal(a, bb)
 
 
+@pytest.mark.parametrize("layout", ["lookup", "foreign_head_tail", "all_masked", "empty",
+                                    "owner_tail"])
+@pytest.mark.parametrize("dim", ADAM_DIMS)
+def test_masked_gather_kernel_bit_identical(cuda, dim, layout):
+    """The lookup gather of a shard (rows 300-799 of 1000 as a 500-row
+    shard) equals its plain version on every lane, its zeros included: at
+    a step's lookup lanes (global ids in batch order, foreign lanes
+    everywhere) and at the sparse update's layouts (-1 lanes at the head
+    and the tail, all masked, none, a sentinel tail)."""
+    gen = torch.Generator().manual_seed(dim)
+    rows, base = 500, 300
+    local = torch.randn((rows, dim), generator=gen).to(cuda)
+    if layout == "lookup":
+        idx = torch.randint(0, 1000, (4096,), generator=gen, dtype=torch.int32)
+    else:
+        _, _, _, idx, _ = _adam_case(dim, layout, dim, "cpu")
+        idx = torch.where(idx >= 0, idx % rows + base, idx)
+    idx = idx.to(cuda)
+    kernels.reset_launch_counts()
+    got = kernels.gather_rows_cuda(local, idx, masked=True, base=base)
+    again = kernels.gather_rows_cuda(local, idx, masked=True, base=base)
+    want = kernels.gather_rows_plain(local, idx, masked=True, base=base)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gather_rows_masked"] == 2 * int(idx.numel() > 0)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    own = (idx >= base) & (idx < base + rows)
+    assert not got[~own].any()
+    assert torch.equal(got[own], local[(idx[own] - base).long()])
+
+
 @pytest.mark.parametrize("layout", ["head_and_tail", "tail", "all_masked", "duplicates"])
 def test_masked_row_kernels_bit_identical(cuda, layout):
-    """gather_rows_masked on the owned lanes and scatter_set_rows_masked on
-    every row equal their plain versions; masked lanes write nothing."""
+    """gather_rows_masked and scatter_set_rows_masked equal their plain
+    versions, the gather on every lane (zeros on the masked ones), the
+    scatter on every row; masked lanes of the scatter write nothing."""
     gen = torch.Generator().manual_seed(11)
     table = torch.randn((5000, 128), generator=gen).to(cuda)
     idx = torch.sort(torch.randint(0, 5000, (4096,), generator=gen)).values.to(torch.int32)
@@ -684,7 +727,7 @@ def test_masked_row_kernels_bit_identical(cuda, layout):
     kernels.reset_launch_counts()
     got = kernels.gather_rows_cuda(table, idx, masked=True)
     want = kernels.gather_rows_plain(table, idx, masked=True)
-    assert torch.equal(got[live], want[live])
+    assert torch.equal(got, want) and not got[~live].any()
     src = got * 0.5  # lanes of one row carry identical bytes
     t_kernel, t_plain = table.clone(), table.clone()
     kernels.scatter_set_rows_cuda(t_kernel, idx, src, masked=True)
@@ -696,10 +739,12 @@ def test_masked_row_kernels_bit_identical(cuda, layout):
 
 
 def test_shard_local_update_on_the_card_matches_one_device(cuda):
-    """The allgather routing's update applied to 4 row slices equals the
-    single-device sparse_adam_update bit for bit (the scratch row aside)."""
+    """The allgather routing's update applied to 4 row slices (one
+    sparse_adam_rows launch each, non-heads and foreign lanes -1) equals
+    the single-device sparse_adam_update bit for bit (the scratch row
+    aside)."""
     from ttamm_torch.ops.sparse_adam import SparseAdamState
-    from ttamm_torch.parallel.sparse_update import _apply, _coalesce_sorted, _localize
+    from ttamm_torch.parallel.sparse_update import _apply, _localize, sort_lanes
 
     gen = torch.Generator().manual_seed(5)
     rows, shards = 4001, 4  # 4000 rows + the scratch row
@@ -712,12 +757,17 @@ def test_shard_local_update_on_the_card_matches_one_device(cuda):
     rps = -(-(rows) // shards)
     pad = lambda t: torch.cat([t, t.new_zeros((rps * shards - rows, 128))])  # noqa: E731
     tab, m, v = pad(table), pad(torch.zeros_like(table)), pad(torch.zeros_like(table))
-    sorted_idx, g, _, _ = _coalesce_sorted(idx, grads, head_init=-2)
+    lanes = sort_lanes(idx, grads, head_init=-2)
+    kernels.reset_launch_counts()
     for s in range(shards):
         sl = slice(s * rps, (s + 1) * rps)
-        _apply(tab[sl], SparseAdamState(m=m[sl], v=v[sl]), _localize(sorted_idx, s * rps, rps), g,
+        _apply(tab[sl], SparseAdamState(m=m[sl], v=v[sl]),
+               _localize(lanes.idx, s * rps, rps, lanes.is_head), lanes.totals(),
                lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
     torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["sparse_adam_rows"] == shards
+    assert counts["gather_rows_masked"] == counts["scatter_set_rows_masked"] == 0
     n = rows - 1
     assert torch.equal(tab[:n], ref_table[:n])
     assert torch.equal(m[:n], ref.m[:n]) and torch.equal(v[:n], ref.v[:n])

@@ -17,23 +17,32 @@ squared norm, so losses rtol 1e-6 and every state leaf atol 1e-6.
 
 from datetime import timedelta
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from torch_ranks import free_port
 from ttamm_torch.models import parse_model_config
 from ttamm_torch.models.convert import train_state_to_flat
 from ttamm_torch.ops import kernels
+from ttamm_torch.ops.sparse_adam import SparseAdamState, init_sparse_adam, unfused_row_update
 from ttamm_torch.parallel import MeshConfig, build_mesh, place_data, place_state
 from ttamm_torch.parallel import sparse_update as port_su
 from ttamm_torch.parallel.step import make_sharded_multi_train_step
 from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state, make_train_step
 from ttamm_torch.train.optim import DenseOptConfig
 from ttamm_tpu.ops.pallas.rows import gather_rows, scatter_set_rows
+from ttamm_tpu.parallel import MODEL_AXIS as JAX_MODEL_AXIS
+from ttamm_tpu.parallel import MeshConfig as JaxMeshConfig
+from ttamm_tpu.parallel import build_mesh as jax_build_mesh
 from ttamm_tpu.parallel import sparse_update as jax_su
+from ttamm_tpu.parallel.embedding_lookup import make_sharded_lookup
 
 BLOCK, D, ROWS = 16, 16, 96
 
@@ -69,6 +78,35 @@ def test_masked_gather_equals_jax_on_owned_lanes(layout):
     live = idx >= 0
     np.testing.assert_array_equal(got.numpy()[live], want[live])
     np.testing.assert_array_equal(got.numpy()[live], table[idx[live]])
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_masked_gather_is_the_sharded_lookup(layout):
+    """The masked gather at a shard's ``base`` is that shard's part of the
+    JAX package's sharded lookup (``make_sharded_lookup`` on a 1x4 mesh):
+    the lookup's rows on the lanes the shard owns, zeros on every other
+    lane, and the four parts sum to the lookup bit for bit. The layout's
+    lanes are global ids here (-1 lanes belong to no shard)."""
+    shards = 4
+    rows = ROWS // shards
+    rng = np.random.default_rng(3)
+    table = rng.standard_normal((ROWS, D)).astype(np.float32)
+    idx = _lanes(layout)
+    rng.shuffle(idx)  # lookups come in batch order
+    mesh = jax_build_mesh(JaxMeshConfig(1, shards))
+    placed = jax.device_put(jnp.asarray(table), NamedSharding(mesh, P(JAX_MODEL_AXIS, None)))
+    want = np.asarray(make_sharded_lookup(mesh, num_rows=ROWS, dim=D)(placed, jnp.asarray(idx)))
+    total = np.zeros_like(want)
+    for s in range(shards):
+        base = s * rows
+        got = kernels.gather_rows(torch.from_numpy(table[base : base + rows]),
+                                  torch.from_numpy(idx), masked=True, base=base).numpy()
+        own = (idx >= base) & (idx < base + rows)
+        np.testing.assert_array_equal(got[own], want[own])
+        assert not got[~own].any()
+        total += got
+    np.testing.assert_array_equal(total, want)
+    assert not want[idx < 0].any()
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -187,3 +225,167 @@ def test_multi_step_on_a_one_rank_mesh_equals_the_one_device_steps(one_rank_mesh
     assert set(got) == set(ref_flat)
     for key, value in ref_flat.items():
         np.testing.assert_allclose(got[key], value, rtol=0, atol=1e-6, err_msg=key)
+
+
+def _parent_update(table, m, v, lanes, grads, *, base, hyper):
+    """The sharded update's row composition before it moved onto
+    ``sparse_adam_rows``: every lane of a run carrying the run's total, no
+    head masking, the masked plain gathers and scatters around
+    ``adam_rows`` (duplicate lanes write identical bytes)."""
+    sorted_idx, totals, _, _ = port_su._coalesce_sorted(lanes, grads, head_init=-2)
+    unfused_row_update(
+        table, m, v, port_su._localize(sorted_idx, base, table.shape[0]), totals,
+        gather=functools.partial(kernels.gather_rows_plain, masked=True),
+        scatter=functools.partial(kernels.scatter_set_rows_plain, masked=True), **hyper,
+    )
+
+
+def _update_case(seed, rows=60, n=96, dim=D):
+    """Table, m, v and one step's lanes: a third of them on three rows,
+    every shard owning some, and padding lanes (-1)."""
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.standard_normal((rows, dim)).astype(np.float32))
+    m = torch.from_numpy((0.1 * rng.standard_normal((rows, dim))).astype(np.float32))
+    v = torch.from_numpy((0.01 * rng.random((rows, dim))).astype(np.float32))
+    idx = rng.integers(0, rows, n)
+    idx[: n // 3] = rng.choice([3, 17, 41], n // 3)
+    idx[-5:] = -1
+    grads = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32))
+    return table, m, v, torch.from_numpy(idx), grads
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+@pytest.mark.parametrize("step", [1, 1000])
+def test_allgather_update_keeps_the_parent_composition_bits(one_rank_mesh, step, weight_decay):
+    """The allgather routing's update equals the composition it replaced,
+    bit for bit over every row of table, m and v: on the 1x1 mesh through
+    ``sharded_sparse_adam_update``, and on each of 4 row shards (foreign
+    lanes at the head and the tail) through its shard-local body."""
+    table, m, v, idx, grads = _update_case(step)
+    hyper = dict(lr=1e-2, b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay)
+    want = [t.clone() for t in (table, m, v)]
+    _parent_update(*want, idx, grads, base=0, hyper=dict(hyper, step=step))
+    state = SparseAdamState(m=m.clone(), v=v.clone(), step=step - 1)
+    got = table.clone()
+    port_su.sharded_sparse_adam_update(one_rank_mesh, got, state, idx, grads, **hyper)
+    for a, b in zip((got, state.m, state.v), want):
+        assert torch.equal(a, b)
+    shards, rows = 4, table.shape[0] // 4
+    lanes = port_su.sort_lanes(idx, grads, head_init=-2)
+    for s in range(shards):
+        part = slice(s * rows, (s + 1) * rows)
+        local = [t[part].clone() for t in (table, m, v)]
+        parent = [t[part].clone() for t in (table, m, v)]
+        port_su._apply(local[0], SparseAdamState(m=local[1], v=local[2], step=step - 1),
+                       port_su._localize(lanes.idx, s * rows, rows, lanes.is_head),
+                       lanes.totals(), **hyper)
+        _parent_update(*parent, idx, grads, base=s * rows, hyper=dict(hyper, step=step))
+        for a, b in zip(local, parent):
+            assert torch.equal(a, b)
+
+
+def _clip_step_case(routing, clip):
+    """A two-sparse-table model and one batch for the sharded step."""
+    nu, ni, dim, batch = 40, 30, 8, 6
+    tower = {"type": "tower", "id_embedding": {"params": {"embedding_dim": dim, "sparse": True}},
+             "feature_encoder": {"type": "mlp", "hidden_dims": [8], "output_dim": dim,
+                                 "dropout": 0.0},
+             "fusion": "gated"}
+    cfg = parse_model_config({"user_encoder": tower, "item_encoder": tower},
+                             user_feature_dim=3, item_feature_dim=2)
+    rng = np.random.default_rng(9)
+    data = BatchData(
+        torch.from_numpy(rng.normal(0, 1, (nu, 3)).astype(np.float32)),
+        torch.from_numpy(rng.normal(0, 1, (ni, 2)).astype(np.float32)),
+        torch.from_numpy(rng.integers(0, ni, (nu, 3)).astype(np.int32)), None,
+    )
+    tscfg = TrainStepConfig(num_items=ni, negatives_per_positive=3, gradient_clip_norm=clip,
+                            update_routing=routing,
+                            opt=DenseOptConfig(name="adamw", lr=1e-2, weight_decay=0.01))
+    u = torch.from_numpy(rng.integers(0, nu, batch).astype(np.int32))
+    p = torch.from_numpy(rng.integers(0, ni, batch).astype(np.int32))
+    neg = torch.from_numpy(rng.integers(0, ni, (batch, 3)).astype(np.int32))
+    state = create_train_state(cfg, num_users=nu, num_items=ni, seed=2, device="cpu")
+    return cfg, tscfg, data, state, u, p, neg
+
+
+@pytest.mark.parametrize("clip", [None, 0.05])
+def test_clip_and_update_gather_and_sort_a_table_once(one_rank_mesh, monkeypatch, clip):
+    """Under the allgather routing each sparse table's lanes are
+    all-gathered (ids and gradients) and sorted once a step, whether or not
+    the clip runs; each sparse table is updated by one ``sparse_adam_rows``
+    call, and each table (the sparse ID and the dense mimic ones) read by
+    one masked ``gather_rows``."""
+    calls = {"sort": 0, "gather": 0, "update": 0, "read": 0}
+
+    def counted(key, fn):
+        def wrapped(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(port_su, "sort_lanes", counted("sort", port_su.sort_lanes))
+    monkeypatch.setattr(port_su, "all_gather_rows", counted("gather", port_su.all_gather_rows))
+    monkeypatch.setattr(kernels, "sparse_adam_rows", counted("update", kernels.sparse_adam_rows))
+    real_gather = kernels.gather_rows
+
+    def read(table, idx, *, masked=False, base=0):
+        calls["read"] += masked
+        return real_gather(table, idx, masked=masked, base=base)
+
+    monkeypatch.setattr(kernels, "gather_rows", read)
+    cfg, tscfg, data, state, u, p, neg = _clip_step_case("allgather", clip)
+    mesh = one_rank_mesh
+    step = make_train_step(cfg, tscfg, mesh=mesh)
+    assert sorted(state.tables) == ["item_aug", "item_id", "user_aug", "user_id"]
+    step(place_state(mesh, state), place_data(mesh, data), u, p, generator=None, negatives=neg)
+    assert calls == {"sort": 2, "gather": 4, "update": 2, "read": 4}
+
+
+def test_shared_gather_keeps_the_clip_and_update_bits(one_rank_mesh):
+    """The clip's squared norm from the shared gathered lanes equals the
+    parent's (its own gather, ``_coalesce_sorted``, the heads' totals
+    squared and summed) bit for bit, and the update from those lanes
+    scaled equals the update that gathers and sorts the scaled lanes
+    itself, in the one-device lane order."""
+    from ttamm_torch.train.step import _Lanes, _Mesh
+
+    mesh = one_rank_mesh
+    table, m, v, idx, grads = _update_case(5)
+    order = torch.from_numpy(np.random.default_rng(1).permutation(idx.numel()))
+    tscfg = TrainStepConfig(num_items=table.shape[0] - 1)
+    layout = _Mesh(mesh, tscfg)
+    lanes, sq = layout.sparse_sq(table, _Lanes(idx.to(torch.int32), grads, order))
+    _, totals, heads, _ = port_su._coalesce_sorted(idx[order], grads[order], head_init=-2)
+    assert torch.equal(sq, torch.sum(torch.square(torch.where(heads[:, None], totals, 0.0))))
+    scale = torch.tensor(0.37)
+    lanes = lanes.scaled(scale)
+    got, want = [table.clone(), init_sparse_adam(table)], [table.clone(), init_sparse_adam(table)]
+    port_su.sharded_sparse_adam_update(mesh, got[0], got[1], lanes.idx, lanes.grad, lr=1e-2,
+                                       gather_order=order, gathered=lanes.gathered)
+    port_su.sharded_sparse_adam_update(mesh, want[0], want[1], lanes.idx, lanes.grad, lr=1e-2,
+                                       gather_order=order)
+    for a, b in ((got[0], want[0]), (got[1].m, want[1].m), (got[1].v, want[1].v)):
+        assert torch.equal(a, b)
+
+
+def test_owner_buffer_at_one_data_shard_holds_sorted_rows_then_sentinels(one_rank_mesh, monkeypatch):
+    """At dp = 1 the owner routing hands ``sparse_adam_rows`` its compacted
+    buffer as it is: each owned row once, ascending, then -1 lanes."""
+    seen = []
+    fused = kernels.sparse_adam_rows
+
+    def spy(table, m, v, idx, grads, **hyper):
+        seen.append(idx.clone())
+        fused(table, m, v, idx, grads, **hyper)
+
+    monkeypatch.setattr(kernels, "sparse_adam_rows", spy)
+    table, m, v, idx, grads = _update_case(7)
+    state = SparseAdamState(m=m, v=v)
+    port_su.sharded_sparse_adam_update(one_rank_mesh, table, state, idx, grads, lr=1e-2,
+                                       routing="owner")
+    (lanes,) = seen
+    live = int((lanes >= 0).sum())
+    want = torch.unique(idx[idx >= 0]).to(torch.int32)
+    assert torch.equal(lanes[:live], want)
+    assert live < lanes.numel() and (lanes[live:] == -1).all()

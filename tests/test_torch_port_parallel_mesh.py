@@ -12,7 +12,9 @@ mode. The scenarios:
   ``_pick_block`` takes its Pallas path. Tolerances: allgather table, m and
   v atol 1e-6 (the same coalesce order; only the bias corrections' f32 vs
   f64 powers differ); owner atol 1e-5 (two-phase duplicate sums, the
-  tolerance of ``ttamm_tpu/parallel/sparse_update.py``);
+  tolerance of ``ttamm_tpu/parallel/sparse_update.py``); and each rank's
+  one ``sparse_adam_rows`` call holding every row its shard owns once,
+  -1 on every other lane;
 - the sharded training step on a 2x2 mesh, two steps under both routings
   (the owner run with the global-norm clip), from one state (``convert.py``), with injected negatives and no dropout,
   against JAX ``make_sharded_train_step(use_pallas=True)``: losses rel 1e-4,
@@ -249,6 +251,32 @@ def test_sharded_sparse_adam_update_matches_jax(mesh_run, name):
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=atol, err_msg=key)
     assert int(got["step"]) == 3
     assert bool(got["overflow"]) == skew  # the skewed owner runs fell back
+
+
+@pytest.mark.parametrize("name", sorted(UPDATES))
+def test_sharded_update_lanes_hold_each_owned_row_once(mesh_run, name):
+    """Each rank's update is one ``sparse_adam_rows`` call whose lanes hold
+    every row its shard owns among the step's ids exactly once (shard-local)
+    and -1 on every other lane: a run's non-heads, the rows of other
+    shards, the owner buffer's sentinel tail (at one data shard, 1x4)."""
+    got = mesh_run["outs"][name]
+    x = _update_inputs(name, *UPDATES[name][3:])
+    mp = UPDATES[name][0][1]
+    rows = R // mp
+    assert (got["calls"] == 1).all()
+    for lanes, base in zip(got["lanes"], got["bases"]):
+        live = lanes[lanes >= 0]
+        assert (lanes[lanes < 0] == -1).all()
+        assert live.size == np.unique(live).size and (live < rows).all()
+        ids = np.unique(x["idx"])
+        owned = ids[(ids >= base) & (ids < base + rows)] - base
+        np.testing.assert_array_equal(np.sort(live), owned)
+    if UPDATES[name][1] == "owner" and UPDATES[name][0][0] == 1 and not UPDATES[name][4]:
+        # one data shard: the buffer is the owned rows, sorted, then sentinels
+        for lanes in got["lanes"]:
+            live = (lanes >= 0).sum()
+            assert (lanes[:live] >= 0).all() and (np.diff(lanes[:live]) > 0).all()
+            assert live < lanes.size and (lanes[live:] == -1).all()
 
 
 @pytest.mark.parametrize("routing", ROUTINGS)

@@ -26,6 +26,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from ttamm_torch.models import parse_model_config  # noqa: E402
 from ttamm_torch.models.convert import train_state_from_flat  # noqa: E402
+from ttamm_torch.ops import kernels  # noqa: E402
 from ttamm_torch.ops.sparse_adam import SparseAdamState  # noqa: E402
 from ttamm_torch.parallel import (  # noqa: E402
     DATA_AXIS,
@@ -67,6 +68,9 @@ def _slice(mesh, t):
 
 
 def sparse_update(task, inputs):
+    """The update of one table shard; besides the shards, every rank's
+    ``sparse_adam_rows`` lanes (``lanes`` [world, L] shard-local, ``bases``
+    [world] the shards' first global rows, ``calls`` the launches a rank)."""
     mesh = _mesh(task)
     name = task["name"]
     table, m, v = (_slice(mesh, _t(inputs, f"{name}/{k}")) for k in ("table", "m", "v"))
@@ -75,13 +79,32 @@ def sparse_update(task, inputs):
     dp = mesh[DATA_AXIS].size()
     chunk = idx.shape[0] // dp
     lo = axis_index(mesh, DATA_AXIS) * chunk
-    overflow = sharded_sparse_adam_update(
-        mesh, table, state, idx[lo : lo + chunk], grads[lo : lo + chunk], lr=task["lr"],
-        routing=task["routing"], capacity_factor=task["capacity_factor"],
-    )
+    lanes, fused = [], kernels.sparse_adam_rows
+
+    def spy(table, m, v, lane_idx, grads, **hyper):
+        lanes.append(lane_idx.clone())
+        fused(table, m, v, lane_idx, grads, **hyper)
+
+    kernels.sparse_adam_rows = spy
+    try:
+        overflow = sharded_sparse_adam_update(
+            mesh, table, state, idx[lo : lo + chunk], grads[lo : lo + chunk], lr=task["lr"],
+            routing=task["routing"], capacity_factor=task["capacity_factor"],
+        )
+    finally:
+        kernels.sparse_adam_rows = fused
     out = {k: all_gather_rows(t, mesh, MODEL_AXIS).numpy() for k, t in
            (("table", table), ("m", state.m), ("v", state.v))}
-    return dict(out, overflow=np.asarray(overflow), step=np.asarray(state.step))
+    world = dist.get_world_size()
+    mine = torch.cat(lanes) if lanes else torch.zeros(0, dtype=torch.int32)
+    every = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(every, mine)
+    own = torch.tensor([axis_index(mesh, MODEL_AXIS) * table.shape[0], len(lanes)])
+    meta = [torch.empty_like(own) for _ in range(world)]
+    dist.all_gather(meta, own)
+    meta = torch.stack(meta).numpy()
+    return dict(out, overflow=np.asarray(overflow), step=np.asarray(state.step),
+                lanes=torch.stack(every).numpy(), bases=meta[:, 0], calls=meta[:, 1])
 
 
 def _model(task, inputs):

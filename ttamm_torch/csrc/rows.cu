@@ -26,25 +26,39 @@
 // caller sends every duplicate lane to a row whose value is never read, or
 // masks it (idx < 0).
 //
-// The masked forms replace `gather_rows(masked=True)` and
-// `scatter_set_rows(masked=True)` (rows.py, bodies `_gather_kernel_masked` and
-// `_scatter_set_kernel_masked`): the shard-local row update of a row-sharded
-// table (ttamm_torch/parallel/sparse_update.py), where idx < 0 marks a lane
-// whose row another shard owns, or a capacity-padding lane. Such a lane issues
-// no read and no write: the masked gather leaves its output row as it was
-// (uninitialised; callers never read it), and the masked scatter writes
-// nothing for it. Lanes of the masked scatter that target one row carry
-// identical bytes (every lane of a duplicate run holds the run's coalesced
-// update), so their race is benign and no scratch row is needed. The scatter
-// kernel already writes nothing for idx < 0, so the masked scatter launches
-// it through the same entry point (the Python wrapper counts it apart).
+// The masked gather replaces `gather_rows(masked=True)` (rows.py, body
+// `_gather_kernel_masked`, which leaves a masked lane's row uninitialised),
+// and computes the function of the lookup of a row-sharded table
+// (ttamm_torch/parallel/embedding_lookup.py; the JAX package's
+// parallel/embedding_lookup.py:27-35 takes the clamped lanes, then zeroes
+// the foreign ones with `jnp.where`): out[r] = local[idx[r] - base] where
+// 0 <= idx[r] - base < rows (the lanes this shard owns), else zeros, so that
+// a sum over the model shards gives every lane its row. The localisation
+// (idx - base, the range test) and the zeros happen in the kernel: the
+// eager ops around a plain gather (shift, range test, clamp, where, zeros)
+// become none. Bound by bytes: every lane's index, each owned distinct row
+// read once, every lane's row written (12,288 lanes x 512 B at one
+// canonical step's item lanes). One warp moves one row with 16-byte
+// vectors; a foreign lane's warp stores zeros and reads no row. Lanes come
+// in batch order, so owned and foreign lanes interleave, and a warp's
+// branch is taken by all of its threads together. Measured at one step's
+// lookup (scripts/masked_gather_variants.py): 2, 4 or 8 rows a warp (every
+// index, then every row's loads, before the stores; or the zeros stored
+// first), 128 or 512 threads and streaming stores are no faster.
+//
+// The masked scatter replaces `scatter_set_rows(masked=True)` (rows.py,
+// body `_scatter_set_kernel_masked`): idx < 0 marks a lane whose row another
+// shard owns, or a capacity-padding lane, and such a lane writes nothing.
+// The scatter kernel already writes nothing for idx < 0, so the masked
+// scatter launches it through the same entry point (the Python wrapper
+// counts it apart). Since the sharded sparse-row update runs on
+// sparse_adam_rows, the masked scatter is on no path; it stays, held to its
+// plain version and to the JAX kernel.
 //
 // The TPU kernels sort their blocks into skip / full / mixed classes
 // (`_block_classes`), because predicating every lane costs its scalar unit
-// ~35% per update there. Not carried: one warp moves one row, so `i < 0` is a
-// branch taken by the whole warp together, and a masked lane costs one index
-// load and no row traffic. The masked lanes come contiguous (sorted lanes),
-// so whole blocks of masked warps exit at once.
+// ~35% per update there. Not carried: one warp moves one row, so a masked
+// lane is a branch taken by the whole warp together.
 //
 // sparse_adam_rows replaces the whole row update of one sparse table after
 // the coalesce (ttamm_tpu/ops/sparse_adam.py:191-208: gather_rows x 3, the
@@ -64,7 +78,10 @@
 // row a warp already hides the index load. Each live row is the target of
 // one lane at most (the caller gives the non-head lanes of a duplicate run
 // idx = -1), so no two lanes touch one row: no atomics, no shared memory,
-// and no write storm on a scratch row.
+// and no write storm on a scratch row. The sharded update of a row-sharded
+// table (ttamm_torch/parallel/sparse_update.py) gives idx = -1 to the lanes
+// another shard owns as well: one launch a table a step on each shard, in
+// place of 3 masked gathers, the eager Adam passes and 3 masked scatters.
 //
 // The arithmetic is the eager PyTorch composition's on the card, bit for
 // bit: one correctly rounded operation per eager op, in the eager order,
@@ -82,7 +99,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;
 
-template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const float* __restrict__ table, const int32_t* __restrict__ idx,
                    float* __restrict__ out, int64_t n, int64_t rows, int dim) {
@@ -93,12 +109,29 @@ gather_rows_kernel(const float* __restrict__ table, const int32_t* __restrict__ 
   const int32_t i = idx[r];
   float4* dst = reinterpret_cast<float4*>(out + r * dim);
   if (i < 0 || i >= rows) {
-    if (kMasked) return;  // a masked lane: no read, no write
     const float nan = __int_as_float(0x7fc00000);
     for (int v = lane; v < vecs; v += 32) dst[v] = make_float4(nan, nan, nan, nan);
     return;
   }
   const float4* src = reinterpret_cast<const float4*>(table + static_cast<int64_t>(i) * dim);
+  for (int v = lane; v < vecs; v += 32) dst[v] = __ldg(src + v);
+}
+
+__global__ void __launch_bounds__(kThreads)
+gather_rows_masked_kernel(const float* __restrict__ local, const int32_t* __restrict__ idx,
+                          float* __restrict__ out, int64_t n, int64_t rows, int dim,
+                          int64_t base) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+  if (r >= n) return;
+  const int lane = threadIdx.x & 31;
+  const int vecs = dim >> 2;
+  const int64_t i = static_cast<int64_t>(__ldg(idx + r)) - base;
+  float4* dst = reinterpret_cast<float4*>(out + r * dim);
+  if (i < 0 || i >= rows) {  // another shard's lane: zeros, no read
+    for (int v = lane; v < vecs; v += 32) dst[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  const float4* src = reinterpret_cast<const float4*>(local + i * dim);
   for (int v = lane; v < vecs; v += 32) dst[v] = __ldg(src + v);
 }
 
@@ -191,18 +224,18 @@ unsigned int blocks_for(int64_t n) {
 // 16-byte aligned, dim % 4 == 0, n > 0.
 extern "C" int ttamm_gather_rows(const float* table, const int32_t* idx, float* out,
                                  int64_t n, int64_t rows, int dim, cudaStream_t stream) {
-  gather_rows_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(table, idx, out, n, rows,
-                                                                     dim);
+  gather_rows_kernel<<<blocks_for(n), kThreads, 0, stream>>>(table, idx, out, n, rows, dim);
   return static_cast<int>(cudaGetLastError());
 }
 
-// As ttamm_gather_rows; a lane with idx < 0 (or >= rows) leaves its out row
-// unwritten.
-extern "C" int ttamm_gather_rows_masked(const float* table, const int32_t* idx, float* out,
-                                        int64_t n, int64_t rows, int dim,
+// local: f32 [rows, dim], this shard's rows of a table whose global row
+// base + j is local row j; idx: i32 [n] global row ids; out: f32 [n, dim],
+// zeros at the lanes outside [base, base + rows). Layout as the gather.
+extern "C" int ttamm_gather_rows_masked(const float* local, const int32_t* idx, float* out,
+                                        int64_t n, int64_t rows, int dim, int64_t base,
                                         cudaStream_t stream) {
-  gather_rows_kernel<true><<<blocks_for(n), kThreads, 0, stream>>>(table, idx, out, n, rows,
-                                                                    dim);
+  gather_rows_masked_kernel<<<blocks_for(n), kThreads, 0, stream>>>(local, idx, out, n, rows,
+                                                                     dim, base);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -207,7 +207,7 @@ def load_library() -> ctypes.CDLL:
             lib.ttamm_gather_rows.restype = i32
             lib.ttamm_scatter_set_rows.argtypes = [p, p, p, i64, i64, i32, p]
             lib.ttamm_scatter_set_rows.restype = i32
-            lib.ttamm_gather_rows_masked.argtypes = [p, p, p, i64, i64, i32, p]
+            lib.ttamm_gather_rows_masked.argtypes = [p, p, p, i64, i64, i32, i64, p]
             lib.ttamm_gather_rows_masked.restype = i32
             f32 = ctypes.c_float
             lib.ttamm_sparse_adam_rows.argtypes = [p, p, p, p, p, i64, i64, i32, *[f32] * 9, i32, p]
@@ -587,39 +587,48 @@ def _check_vec4(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: rows must have D % 4 == 0 and be 16-byte aligned")
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor, *, masked: bool = False) -> torch.Tensor:
+def gather_rows(
+    table: torch.Tensor, idx: torch.Tensor, *, masked: bool = False, base: int = 0
+) -> torch.Tensor:
     """``table[idx]``: f32 ``[N, D]`` rows of a f32 ``[rows, D]`` table at
     int32 indices in ``[0, rows)``; any N.
 
-    ``masked=True`` (the shard-local form, kernel ``gather_rows_masked``): a
-    lane with ``idx < 0`` reads nothing and its output row is left
-    unwritten; callers never read it."""
+    ``masked=True`` (kernel ``gather_rows_masked``): the lookup of a
+    row-sharded table whose local shard ``table`` holds global rows
+    ``[base, base + rows)``. Lane ``r`` gets ``table[idx[r] - base]`` where
+    that lies in the shard, and zeros elsewhere (``idx`` global ids; with
+    ``base`` 0, every ``idx < 0`` lane is zeros). ``base`` is read only
+    with ``masked=True``."""
     if table.device.type == "cpu":
-        return gather_rows_plain(table, idx, masked=masked)
-    return gather_rows_cuda(table, idx, masked=masked)
+        return gather_rows_plain(table, idx, masked=masked, base=base)
+    return gather_rows_cuda(table, idx, masked=masked, base=base)
 
 
-def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor, *, masked: bool = False) -> torch.Tensor:
+def gather_rows_plain(
+    table: torch.Tensor, idx: torch.Tensor, *, masked: bool = False, base: int = 0
+) -> torch.Tensor:
     _check_rows("gather_rows", table, idx)
     if not masked:
         return table[idx]
-    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
-    live = idx >= 0
-    out[live] = table[idx[live]]
+    out = table.new_zeros((idx.shape[0], table.shape[1]))
+    local = idx.long() - base
+    live = (local >= 0) & (local < table.shape[0])
+    out[live] = table[local[live]]
     return out
 
 
-def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor, *, masked: bool = False) -> torch.Tensor:
+def gather_rows_cuda(
+    table: torch.Tensor, idx: torch.Tensor, *, masked: bool = False, base: int = 0
+) -> torch.Tensor:
     name = "gather_rows_masked" if masked else "gather_rows"
     dev = _check_cuda(name, table, idx)
     _check_rows(name, table, idx)
     out = torch.empty((idx.shape[0], table.shape[1]), dtype=torch.float32, device=dev)
     _check_vec4(name, table, out)
     if idx.shape[0]:
-        _launch(
-            name, dev, table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            idx.shape[0], table.shape[0], table.shape[1],
-        )
+        args = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], table.shape[0],
+                table.shape[1])
+        _launch(name, dev, *args, *([base] if masked else []))
     return out
 
 

@@ -131,8 +131,9 @@ def unfused_row_update(
     m, v and the weights, :func:`adam_rows` (``hyper``: its keywords), then
     ``scatter(t, idx, rows)`` of the three back. With the masked plain row
     functions it is ``kernels.sparse_adam_rows``' plain version; with the
-    masked row kernels, the sharded update; with the unmasked ones at
-    scratch-row targets, the composition the fused kernel replaces."""
+    masked row kernels, the composition the fused kernel replaced on the
+    mesh path; with the unmasked ones at scratch-row targets, the one it
+    replaced on one device."""
     m_rows = gather(m, idx)
     v_rows = gather(v, idx)
     w_rows = gather(table, idx)

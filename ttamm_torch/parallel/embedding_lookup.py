@@ -4,16 +4,22 @@
 Each model shard owns a contiguous row range. A lookup at global ids that
 every rank of a model group holds alike: the shard reads the rows it owns,
 leaves zeros for the others, and a sum over ``model`` combines the shards'
-parts. The same lookup serves the ID and mimic tables, the feature matrices,
-the padded positives and the category ids (an integer sum of one owner's
-value and zeros is exact).
+parts.
 
-:func:`sharded_rows` reads outside autograd: the sparse tables' rows become
-fresh leaves whose gradients go to the sharded sparse-row update.
+The embedding tables' reads (:func:`sharded_table_rows` for the sparse ID
+tables, :func:`sharded_lookup` for the dense mimic tables) are one masked
+``gather_rows`` launch a table: the kernel localises the ids and writes
+the zeros itself. :func:`sharded_rows` serves the feature matrices, the
+padded positives and the category ids (not 2-D float32 rows of a width the
+kernel takes; an integer sum of one owner's value and zeros is exact) with
+PyTorch ops.
+
+:func:`sharded_table_rows` reads outside autograd: the sparse tables' rows
+become fresh leaves whose gradients go to the sharded sparse-row update.
 :func:`sharded_lookup` is differentiable in the table shard: its backward
 sums the gradients of the lanes this shard owns into its rows, in the fixed
 order of ``sum_rows``, then over ``data`` (the dense optimizer's table
-gradient). With one model shard both are a plain row gather.
+gradient). With one model shard no sum over ``model`` runs.
 """
 
 from __future__ import annotations
@@ -21,17 +27,27 @@ from __future__ import annotations
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..ops import kernels
 from ..ops.sparse_adam import sum_rows
 from .mesh import DATA_AXIS, MODEL_AXIS, all_reduce, axis_size
 from .sharding import row_offset
 
 
-def _owned(local: torch.Tensor, idx: torch.Tensor, mesh: DeviceMesh) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(owned [N] bool, shard-local row [N] int64, 0 where not owned)``."""
-    rows = local.shape[0]
+def _owned(rows: int, idx: torch.Tensor, mesh: DeviceMesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(owned [N] bool, shard-local row [N] int64, 0 where not owned)``
+    for a shard of ``rows`` rows."""
     lane = idx.long() - row_offset(mesh, rows)
     owned = (lane >= 0) & (lane < rows)
     return owned, torch.where(owned, lane, 0)
+
+
+def _lookup(local: torch.Tensor, idx: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """This shard's rows at the lanes it owns and zeros elsewhere (one masked
+    ``gather_rows``), summed over ``model`` above one model shard."""
+    rows = kernels.gather_rows(local, idx, masked=True, base=row_offset(mesh, local.shape[0]))
+    if axis_size(mesh, MODEL_AXIS) > 1:
+        all_reduce(rows, mesh, MODEL_AXIS)
+    return rows
 
 
 @torch.no_grad()
@@ -42,26 +58,30 @@ def sharded_rows(local: torch.Tensor | None, idx: torch.Tensor, mesh: DeviceMesh
         return None
     if axis_size(mesh, MODEL_AXIS) == 1:
         return torch.index_select(local, 0, idx)
-    owned, lane = _owned(local, idx, mesh)
+    owned, lane = _owned(local.shape[0], idx, mesh)
     rows = torch.index_select(local, 0, lane)
     rows = torch.where(owned.view(-1, *([1] * (rows.dim() - 1))), rows, torch.zeros_like(rows))
     return all_reduce(rows, mesh, MODEL_AXIS)
 
 
+@torch.no_grad()
+def sharded_table_rows(local: torch.Tensor, idx: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """Rows ``[N, D]`` of a row-sharded f32 table at int32 global ids
+    ``idx``, outside autograd, at any number of model shards."""
+    return _lookup(local, idx, mesh)
+
+
 class _ShardedLookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, local, idx, mesh):
-        owned, lane = _owned(local, idx, mesh)
-        ctx.save_for_backward(owned, lane)
+        ctx.save_for_backward(idx)
         ctx.mesh, ctx.rows = mesh, local.shape[0]
-        rows = torch.where(owned[:, None], torch.index_select(local, 0, lane), 0.0)
-        if axis_size(mesh, MODEL_AXIS) > 1:
-            all_reduce(rows, mesh, MODEL_AXIS)
-        return rows
+        return _lookup(local, idx, mesh)
 
     @staticmethod
     def backward(ctx, grad):
-        owned, lane = ctx.saved_tensors
+        (idx,) = ctx.saved_tensors
+        owned, lane = _owned(ctx.rows, idx, ctx.mesh)
         # lanes another shard owns add their (zeroed) rows to a dropped row
         target = torch.where(owned, lane, ctx.rows)
         g = sum_rows(target, torch.where(owned[:, None], grad, 0.0), ctx.rows + 1)[: ctx.rows]

@@ -1,5 +1,5 @@
-"""Sparse-row Adam on a row-sharded table: the masked row kernels run on
-each shard's own rows (port of ``ttamm_tpu/parallel/sparse_update.py``).
+"""Sparse-row Adam on a row-sharded table: one ``sparse_adam_rows`` launch
+on each shard's own rows (port of ``ttamm_tpu/parallel/sparse_update.py``).
 
 Every rank holds the row gradients of its data shard's lanes; each model
 shard applies the update to the rows it owns. Two routings for the exchange
@@ -7,34 +7,39 @@ of row gradients over ``data``:
 
 ``allgather``:
 1. all-gather the ``(indices, row_grads)`` lanes over ``data`` (batch-sized
-   traffic, never a table-sized gradient);
+   traffic, never a table-sized gradient) and put them in the one-device
+   order (``gather_order``);
 2. coalesce duplicate indices as the single-device update does (stable sort,
-   then each run summed in lane order by ``segment_reduce``), with every lane
-   of a run carrying the run's total, so duplicate lanes write identical
-   bytes and their races are benign: no head masking, no scratch row;
-3. map global row ids to this shard's range and mask (idx = -1) the lanes
-   another shard owns: after the sort they sit at the head and the tail;
-4. the masked ``gather_rows`` / ``scatter_set_rows`` kernels read and write
-   only the owned lanes' rows.
-With the lanes in the single-device order (``gather_order``), this routing
-gives the single-device update's bits.
+   then each run summed in lane order by ``segment_reduce``);
+3. keep the head lane of each run and map its global row id to this shard's
+   range; every other lane (a run's non-heads, the rows another shard owns,
+   which after the sort sit at the head and the tail) gets idx = -1;
+4. one ``sparse_adam_rows`` launch reads, steps and writes back the owned
+   rows' weights and moments in place.
+Each live row is the target of exactly one lane, so the read-modify-write
+kernel applies each row's update once. This routing gives the
+single-device update's bits. Steps 1 and 2 are :func:`gather_lanes`, which
+the step's global-norm clip runs first and hands to the update
+(``gathered``), so a table's lanes are gathered and sorted once a step.
 
 ``owner``: the batch is replicated over ``model``, so each rank already
 holds every lane its shard owns from its own data shard. It coalesces its
 local lanes, compacts the ones its model shard owns into a fixed buffer of
 ``owner_capacity`` lanes (sentinel -1 after them), all-gathers only that
-buffer over ``data`` and coalesces again (the same row from two data shards
-arrives twice; skipped at one data shard). The receive per rank drops from
-``n`` lanes to ``dp * capacity``. Duplicates are summed in two phases, so
-the result matches the allgather routing to ``allclose`` (1e-5), not bit
-for bit.
+buffer over ``data`` and coalesces again, non-head lanes -1 (the same row
+from two data shards arrives twice). At one data shard the buffer already
+holds distinct sorted rows and its sentinel tail, so it is not coalesced
+again. The receive per rank drops from ``n`` lanes to ``dp * capacity``.
+Duplicates are summed in two phases, so the result matches the allgather
+routing to ``allclose`` (1e-5), not bit for bit.
 
 Overflow is never dropped: if any rank owns more coalesced lanes than the
 capacity, a one-integer ``all_reduce(MAX)`` over the whole mesh tells every
-rank, and that step takes the allgather routing. In eager torch the flag is
-read on the host (``.item()``): one host sync per sparse table per step,
-counted in ``OWNER_STATS``. ``owner_unchecked`` skips the check and drops
-overflowing lanes; use it only where the capacity has been audited.
+rank, and that step takes the allgather routing (with ``gathered`` where
+the caller has it). In eager torch the flag is read on the host
+(``.item()``): one host sync per sparse table per step, counted in
+``OWNER_STATS``. ``owner_unchecked`` skips the check and drops overflowing
+lanes; use it only where the capacity has been audited.
 
 Every data replica of a table shard applies the same update, so replicas
 stay bit-identical without a reduction.
@@ -42,14 +47,14 @@ stay bit-identical without a reduction.
 
 from __future__ import annotations
 
-import functools
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops import kernels
-from ..ops.sparse_adam import SparseAdamState, unfused_row_update
+from ..ops.sparse_adam import SparseAdamState
 from .mesh import DATA_AXIS, MODEL_AXIS, all_gather_rows, axis_size
 from .sharding import row_offset
 
@@ -86,51 +91,93 @@ def owner_capacity(n: int, dp: int, mp: int, capacity_factor: float) -> int:
     return n_local
 
 
-def _coalesce_sorted(idx: torch.Tensor, grads: torch.Tensor, *, head_init: int):
-    """Stable-sort lanes by row id and sum each run of equal ids.
+class SortedLanes(NamedTuple):
+    """Lanes stably sorted by row id, with their runs of equal ids:
+    ``idx`` int64 ``[n]`` sorted, ``grads`` ``[n, D]`` in the same order,
+    ``is_head`` (the first lane of each run), ``seg`` (each lane's run,
+    -1 for lanes before the first head) and ``lengths`` (the run lengths,
+    padded to ``n`` with empty runs)."""
 
-    Returns ``(sorted_idx, grads_coal, is_head, seg)``: every lane of a run
-    carries the run's total (summed in lane order, as
-    ``coalesce_row_grads``). ``head_init`` must sort below every id (-1 for
-    ids >= 0, -2 where sentinel -1 lanes occur); lanes equal to it form no
-    run of their own (seg -1), as in the JAX package.
-    """
+    idx: torch.Tensor
+    grads: torch.Tensor
+    is_head: torch.Tensor
+    seg: torch.Tensor
+    lengths: torch.Tensor
+
+    def totals(self) -> torch.Tensor:
+        """Each lane's run total, summed in lane order (as
+        ``coalesce_row_grads``); lanes before the first head join run 0 as
+        zeros (exact), so no host sync is needed to drop them."""
+        data = torch.where((self.seg >= 0)[:, None], self.grads, 0.0)
+        summed = torch.segment_reduce(data, "sum", lengths=self.lengths, unsafe=True)
+        return summed[self.seg]
+
+    def scaled(self, scale: torch.Tensor) -> "SortedLanes":
+        """The same lanes with every gradient times ``scale``: the bits of
+        scaling the lanes before the sort."""
+        return self._replace(grads=self.grads * scale)
+
+
+def sort_lanes(idx: torch.Tensor, grads: torch.Tensor, *, head_init: int) -> SortedLanes:
+    """Stable-sort lanes by row id and find their runs. ``head_init`` must
+    sort below every id (-1 for ids >= 0, -2 where sentinel -1 lanes
+    occur); lanes equal to it form no run of their own (seg -1), as in the
+    JAX package."""
     n = idx.shape[0]
     order = torch.argsort(idx, stable=True)
     sorted_idx = idx[order]
-    sorted_grads = grads[order]
     prev = torch.cat([sorted_idx.new_full((1,), head_init), sorted_idx[:-1]])
     is_head = sorted_idx != prev
     seg = torch.cumsum(is_head, 0) - 1
-    # lanes before the first head join run 0 as leading zeros (exact), so
-    # no host sync is needed to drop them
-    first = seg.clamp_min(0)
     lengths = torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
-        0, first, torch.ones_like(first)
+        0, seg.clamp_min(0), torch.ones_like(seg)
     )
-    data = torch.where((seg >= 0)[:, None], sorted_grads, 0.0)
-    summed = torch.segment_reduce(data, "sum", lengths=lengths, unsafe=True)
-    return sorted_idx, summed[seg], is_head, seg
+    return SortedLanes(sorted_idx, grads[order], is_head, seg, lengths)
+
+
+def _coalesce_sorted(idx: torch.Tensor, grads: torch.Tensor, *, head_init: int):
+    """``(sorted_idx, totals, is_head, seg)`` of :func:`sort_lanes`, every
+    lane of a run carrying the run's total (the JAX package's
+    ``_coalesce_sorted``)."""
+    lanes = sort_lanes(idx, grads, head_init=head_init)
+    return lanes.idx, lanes.totals(), lanes.is_head, lanes.seg
+
+
+def gather_lanes(
+    mesh: DeviceMesh, indices: torch.Tensor, row_grads: torch.Tensor,
+    gather_order: torch.Tensor | None = None,
+) -> SortedLanes:
+    """The lanes of every data shard, all-gathered over ``data``, put in the
+    one-device order (``gather_order``, see
+    :func:`sharded_sparse_adam_update`) and sorted: what the allgather
+    routing and the global-norm clip both start from."""
+    idx_all = all_gather_rows(indices.to(torch.int64), mesh, DATA_AXIS)
+    g_all = all_gather_rows(row_grads, mesh, DATA_AXIS)
+    if gather_order is not None:
+        idx_all, g_all = idx_all[gather_order], g_all[gather_order]
+    return sort_lanes(idx_all, g_all, head_init=-2)
 
 
 def _apply(table, state, lane_idx, grads, *, lr, b1, b2, eps, weight_decay) -> None:
-    """Gather the live lanes' rows, step them, scatter them back, in place.
-    ``lane_idx`` is shard-local, -1 where the lane is skipped; duplicate
-    lanes carry identical totals."""
+    """One ``sparse_adam_rows`` launch on this shard's rows, in place.
+    ``lane_idx`` is shard-local, -1 where the lane is skipped, and holds
+    each live row once."""
     state.step += 1
-    unfused_row_update(
-        table, state.m, state.v, lane_idx, grads,
-        gather=functools.partial(kernels.gather_rows, masked=True),
-        scatter=functools.partial(kernels.scatter_set_rows, masked=True), step=state.step, lr=lr,
-        b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+    kernels.sparse_adam_rows(
+        table, state.m, state.v, lane_idx, grads, step=state.step, lr=lr, b1=b1, b2=b2,
+        eps=eps, weight_decay=weight_decay,
     )
 
 
-def _localize(sorted_idx: torch.Tensor, base: int, rows: int) -> torch.Tensor:
-    """Shard-local int32 row ids, -1 for lanes of other shards and for
-    sentinel lanes."""
+def _localize(sorted_idx: torch.Tensor, base: int, rows: int,
+              heads: torch.Tensor | None = None) -> torch.Tensor:
+    """Shard-local int32 row ids, -1 for lanes of other shards, sentinel
+    lanes and (given ``heads``) every lane that is not a head."""
     local = sorted_idx - base
-    return torch.where((local >= 0) & (local < rows), local, -1).to(torch.int32)
+    live = (local >= 0) & (local < rows)
+    if heads is not None:
+        live &= heads
+    return torch.where(live, local, -1).to(torch.int32)
 
 
 @torch.no_grad()
@@ -149,6 +196,7 @@ def sharded_sparse_adam_update(
     routing: str = "allgather",
     capacity_factor: float = 2.0,
     gather_order: torch.Tensor | None = None,
+    gathered: SortedLanes | None = None,
 ) -> bool:
     """One SparseAdam step of a row-sharded table, in place on this rank's
     ``table`` / ``state.m`` / ``state.v`` shards.
@@ -157,8 +205,11 @@ def sharded_sparse_adam_update(
     and ``row_grads`` ``[n / dp, D]`` are this rank's data shard; every rank
     passes the same count. ``gather_order``: an optional permutation of the
     ``n`` lanes gathered over ``data`` (rank-major) into the order the
-    coalesce sums them in. Returns True when the owner routing overflowed
-    and the step took the allgather routing."""
+    coalesce sums them in. ``gathered``: :func:`gather_lanes` of these
+    lanes, where the caller has it already; the allgather routing (and an
+    owner step that overflows) then gathers and sorts nothing again.
+    Returns True when the owner routing overflowed and the step took the
+    allgather routing."""
     if routing not in ROUTINGS:
         raise ValueError(f"Unknown update routing: {routing}")
     rows = table.shape[0]
@@ -169,12 +220,9 @@ def sharded_sparse_adam_update(
     hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
 
     def allgather_update() -> None:
-        idx_all = all_gather_rows(idx, mesh, DATA_AXIS)
-        g_all = all_gather_rows(grads, mesh, DATA_AXIS)
-        if gather_order is not None:
-            idx_all, g_all = idx_all[gather_order], g_all[gather_order]
-        sorted_idx, g_coal, _, _ = _coalesce_sorted(idx_all, g_all, head_init=-2)
-        _apply(table, state, _localize(sorted_idx, base, rows), g_coal, **hyper)
+        lanes = gathered if gathered is not None else gather_lanes(mesh, idx, grads, gather_order)
+        _apply(table, state, _localize(lanes.idx, base, rows, lanes.is_head), lanes.totals(),
+               **hyper)
 
     if routing == "allgather":
         allgather_update()
@@ -206,10 +254,11 @@ def sharded_sparse_adam_update(
     idx_all = all_gather_rows(idx_c, mesh, DATA_AXIS)
     g_all = all_gather_rows(g_c, mesh, DATA_AXIS)
     if dp == 1:
-        # one data shard: the buffer holds sorted distinct totals already,
-        # its sentinel tail last
-        s2, g2 = idx_all, g_all
+        # one data shard: the buffer holds distinct sorted rows already, its
+        # sentinel tail last
+        _apply(table, state, _localize(idx_all, base, rows), g_all, **hyper)
     else:
-        s2, g2, _, _ = _coalesce_sorted(idx_all, g_all, head_init=-2)
-    _apply(table, state, _localize(s2, base, rows), g2, **hyper)
+        lanes = sort_lanes(idx_all, g_all, head_init=-2)
+        _apply(table, state, _localize(lanes.idx, base, rows, lanes.is_head), lanes.totals(),
+               **hyper)
     return False

@@ -34,7 +34,7 @@ Only ``loss: bce`` is ported; the in-batch softmax and its options raise.
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -164,11 +164,19 @@ TrainStep = Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]
 class _Lanes(NamedTuple):
     """One sparse table's update lanes: global row ids, their gradients and,
     under a mesh, the permutation of the lanes gathered over ``data`` into
-    the one-device lane order (None where it is the identity)."""
+    the one-device lane order (None where it is the identity) and, once the
+    clip has gathered and sorted them, those lanes of every data shard
+    (``parallel.sparse_update.SortedLanes``, which the update reuses)."""
 
     idx: torch.Tensor
     grad: torch.Tensor
     order: torch.Tensor | None = None
+    gathered: Any = None
+
+    def scaled(self, scale: torch.Tensor) -> "_Lanes":
+        """Every gradient times ``scale`` (the clip)."""
+        gathered = None if self.gathered is None else self.gathered.scaled(scale)
+        return self._replace(grad=self.grad * scale, gathered=gathered)
 
 
 class _OneDevice:
@@ -219,10 +227,11 @@ class _OneDevice:
     def lanes(self, side: str, idx: torch.Tensor, grad: torch.Tensor, batch: int) -> _Lanes:
         return _Lanes(idx, grad)
 
-    def sparse_sq(self, table: torch.Tensor, lanes: _Lanes) -> torch.Tensor:
-        """Squared norm of a sparse table's gradient, duplicate rows summed."""
+    def sparse_sq(self, table: torch.Tensor, lanes: _Lanes) -> tuple[_Lanes, torch.Tensor]:
+        """``(lanes, squared norm of a sparse table's gradient)``, duplicate
+        rows summed."""
         _, summed = coalesce_row_grads(lanes.idx, lanes.grad, scratch_row=table.shape[0] - 1)
-        return torch.sum(torch.square(summed))
+        return lanes, torch.sum(torch.square(summed))
 
     def sparse_update(self, table, opt_state, lanes: _Lanes, tscfg: TrainStepConfig, lr) -> None:
         opt = tscfg.opt
@@ -246,9 +255,11 @@ class _Mesh(_OneDevice):
        run of one seed draw the same negatives only with dropout off, or
        with the one-device step's masks from a ``dropout_generator`` of its
        own (else they come from ``generator`` and shift its stream);
-    2. rows come through the sharded lookups: the sparse tables' as fresh
-       leaves, the dense (mimic) tables' through ``sharded_lookup``, whose
-       backward gives this shard's table gradient summed over data;
+    2. rows come through the sharded lookups, one masked ``gather_rows`` a
+       table at any number of model shards: the sparse tables' as fresh
+       leaves (``sharded_table_rows``), the dense (mimic) tables' through
+       ``sharded_lookup``, whose backward gives this shard's table gradient
+       summed over data;
     3. dropout comes from ``dropout_generator`` (this rank's own; none
        without it); each loss term is weighted by the shard's share of the
        batch, so the sums over data are the global means; the
@@ -256,9 +267,11 @@ class _Mesh(_OneDevice):
     4. dense gradients are summed over data (model ranks hold the same batch
        rows, so never over model);
     5. the clip norm is global: the dense tables' shards summed over model,
-       each sparse table's duplicate rows summed over the whole batch;
+       each sparse table's duplicate rows summed over the whole batch, its
+       lanes gathered over data and sorted once (``gather_lanes``);
     6. ``sharded_sparse_adam_update`` (``update_routing``) updates the sparse
-       tables, with the lanes in the one-device order.
+       tables, with the lanes in the one-device order (the clip's gathered
+       lanes, scaled, where it ran): one ``sparse_adam_rows`` a table.
     """
 
     def __init__(self, mesh, tscfg: TrainStepConfig):
@@ -280,7 +293,7 @@ class _Mesh(_OneDevice):
         return self._lookup.sharded_rows(features, idx, self.mesh)
 
     def table_rows(self, table, idx):
-        return self.lookup(table, idx)
+        return self._lookup.sharded_table_rows(table, idx, self.mesh)
 
     def dense_table_rows(self, table, idx):
         leaf = table.detach().requires_grad_()
@@ -315,13 +328,11 @@ class _Mesh(_OneDevice):
         return _Lanes(idx, grad, None if order is None else torch.from_numpy(order).to(idx.device))
 
     def sparse_sq(self, table, lanes):
-        data = self._pm.DATA_AXIS
-        idx_all = self._pm.all_gather_rows(lanes.idx, self.mesh, data)
-        g_all = self._pm.all_gather_rows(lanes.grad, self.mesh, data)
-        if lanes.order is not None:
-            idx_all, g_all = idx_all[lanes.order], g_all[lanes.order]
-        _, summed, is_head, _ = self._update._coalesce_sorted(idx_all.long(), g_all, head_init=-2)
-        return torch.sum(torch.square(torch.where(is_head[:, None], summed, 0.0)))
+        """The lanes of every data shard gathered and sorted once: the norm
+        sums each run's total once, and the update reuses them."""
+        gathered = self._update.gather_lanes(self.mesh, lanes.idx, lanes.grad, lanes.order)
+        totals = torch.where(gathered.is_head[:, None], gathered.totals(), 0.0)
+        return lanes._replace(gathered=gathered), torch.sum(torch.square(totals))
 
     def sparse_update(self, table, opt_state, lanes, tscfg, lr):
         opt = tscfg.opt
@@ -329,7 +340,7 @@ class _Mesh(_OneDevice):
             self.mesh, table, opt_state, lanes.idx, lanes.grad,
             lr=lr, b1=opt.b1, b2=opt.b2, weight_decay=tscfg.sparse_weight_decay,
             routing=tscfg.update_routing, capacity_factor=tscfg.update_capacity_factor,
-            gather_order=lanes.order,
+            gather_order=lanes.order, gathered=lanes.gathered,
         )
 
 
@@ -426,11 +437,12 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
             if table_grads:
                 sq = sq + layout.reduce_table_sq(sum(torch.sum(torch.square(g)) for g in table_grads))
             for n in sparse_names:
-                sq = sq + layout.sparse_sq(tables[n], lanes[n])
+                lanes[n], table_sq = layout.sparse_sq(tables[n], lanes[n])
+                sq = sq + table_sq
             scale = torch.clamp(tscfg.gradient_clip_norm / (torch.sqrt(sq) + 1e-6), max=1.0)
             dense_grads = [g * scale for g in dense_grads]
             table_grads = [g * scale for g in table_grads]
-            lanes = {n: ln._replace(grad=ln.grad * scale) for n, ln in lanes.items()}
+            lanes = {n: ln.scaled(scale) for n, ln in lanes.items()}
 
         dense_opt_update(
             [t for _, t in state.dense_targets()], dense_grads + table_grads, state.opt_dense, opt,
