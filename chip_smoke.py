@@ -110,6 +110,24 @@ result line):
    ``torch.profiler`` table of the top device ops with the device's idle
    share over 20 more steps (each step must launch gather_rows and
    sparse_adam_rows twice, once a sparse table, and scatter_set_rows never);
+5b. the recommended configuration, ``configs/in_batch_softmax.yaml`` (the
+   logQ-corrected in-batch softmax, sparse-row Adam on the mimic tables):
+   (a) one step from the seeded state with an injected pool of 256 mixed
+   negatives and with the shipped M = 0, no dropout, kernels vs plain
+   versions within phase 4's tolerances on all four sparse tables, each
+   launching gather_rows and sparse_adam_rows 4 times and scatter_set_rows
+   never; (b) gather_rows and sparse_adam_rows on both mimic tables at the
+   M = 0 step's lanes, bit-identical to their plain versions and timed with
+   a cold L2 beside their bound (the rows' ``parts`` ``in_batch_*``), and
+   segment_second_moments at its N = B item lanes' real category ids
+   (``parts`` ``*_in_batch``); (c) two epochs through ``run_training``
+   (its launches counted from zero just before it), checked as phase 5 and
+   profiled over 20 steps (4 gather_rows and 4 sparse_adam_rows a step, no
+   scatter_set_rows), its ms/step, examples/s, device ms and ops per step
+   and idle share printed beside phase 5's; (d) the best checkpoint
+   exported and 256 users searched, ids equal to the host numpy search but
+   where scores tie; (e) 3 steps a routing on the 1x1 NCCL mesh, each held
+   to the one-device step within phase 4's tolerances;
 6. export the serving bundle from the best checkpoint at the score dtype
    the trainer's precision gate chose, and serve it behind the HTTP front
    end (``/healthz``, GET user, POST user, POST embedding); ids must equal
@@ -127,7 +145,8 @@ result line):
    ids must equal the plain-version masked fused ids and hold no blocked id;
    then the bf16 group_exact / fused device-ms sweep at 500k, 1M and 2M
    items (logged, not acted on);
-8. the launch counts of phases 5-7 and, for gather_rows_masked, of phase
+8. the launch counts of phases 5-7 (phase 5b's are its own, in the
+   summary's ``in_batch_softmax``) and, for gather_rows_masked, of phase
    4b's sharded steps (every kernel must have run), leaving out the
    launches made to compare or time a kernel against its plain version;
    scatter_set_rows and scatter_set_rows_masked, whose work
@@ -163,7 +182,8 @@ M2_TOL = 2e-5  # relative to the largest entry of each category (fwd) / of dx (b
 STEP_ATOL = 1e-5  # parameters after one step, kernels vs plain (lr / 100)
 STEP_SEED = 7  # the seeded state of the single steps (phases 4 and 4b)
 VIRTUAL_SHARDS = 4  # model shards of the masked kernels' layouts (phase 4b)
-MESH_STEPS = 3  # sharded steps per routing (phase 4b)
+MESH_STEPS = 3  # sharded steps per routing (phases 4b and 5b)
+IB_POOL = 256  # mixed negatives of phase 5b's second one-step comparison
 CORPUS_ROWS, CORPUS_DIM = 2_000_000, 128
 PROFILE_STEPS = 20
 L2_FLUSH_BYTES = 256 << 20  # five times the 50 MB L2 of an H100
@@ -876,10 +896,10 @@ def plain_kernels():
             setattr(kernels, n, fn)
 
 
-def _config(data_dir: Path, work: Path) -> dict:
+def _config(data_dir: Path, work: Path, name: str = "default.yaml") -> dict:
     import yaml
 
-    config = yaml.safe_load((REPO / "configs" / "default.yaml").read_text())
+    config = yaml.safe_load((REPO / "configs" / name).read_text())
     config["data"]["root"] = str(data_dir)
     config["training"]["num_epochs"] = 2
     config["training"]["checkpointing"]["dir"] = str(work / "checkpoints")
@@ -905,7 +925,11 @@ def phase_corpus(work: Path):
     return config, dataset
 
 
-def phase_step_vs_plain(dev, config: dict, dataset) -> tuple[dict[str, dict], dict]:
+def _step_inputs(dev, config: dict, dataset) -> dict:
+    """What one step of ``config`` needs at the canonical scale: the model
+    and step configs, the dataset arrays on the card (the train split's log
+    q, as the trainer builds it, when the in-batch loss reads it) and the
+    train split's (user, item) arrays."""
     import numpy as np
     import torch
 
@@ -913,8 +937,7 @@ def phase_step_vs_plain(dev, config: dict, dataset) -> tuple[dict[str, dict], di
         build_item_categories, interaction_arrays, pack_positives, split_train_validation_test,
     )
     from ttamm_torch.models.two_tower import parse_model_config
-    from ttamm_torch.ops.sampling import sample_negative_items
-    from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state, make_train_step
+    from ttamm_torch.train import BatchData, TrainStepConfig
     from ttamm_torch.train.optim import parse_dense_opt_config
 
     nu, ni = len(dataset.user_mapping), len(dataset.item_mapping)
@@ -924,29 +947,72 @@ def phase_step_vs_plain(dev, config: dict, dataset) -> tuple[dict[str, dict], di
     )
     cats = build_item_categories(dataset.items, num_items=ni)
     pos = pack_positives(dataset.user_positive_items, num_users=nu, num_items=ni)
+    tr = config["training"]
+    train_df, _, _ = split_train_validation_test(
+        dataset.interactions, train_fraction=config["data"]["train_fraction"],
+        test_fraction=config["data"]["test_fraction"], seed=config["experiment"]["seed"],
+    )
+    log_q = None
+    if tr["loss"] == "in_batch_softmax" and tr["logq_correction"]:
+        counts = np.bincount(train_df["item_idx"].to_numpy(), minlength=ni).astype(np.float64)
+        log_q = torch.from_numpy(np.log(np.maximum(counts, 1.0) / counts.sum()).astype(np.float32))
     data = BatchData(
         user_features=torch.from_numpy(dataset.user_feature_matrix.astype(np.float32)).to(dev),
         item_features=torch.from_numpy(dataset.item_feature_matrix.astype(np.float32)).to(dev),
         positive_rows=torch.from_numpy(pos.rows).to(dev),
         category_ids=torch.from_numpy(cats.category_ids).to(dev),
+        item_log_q=None if log_q is None else log_q.to(dev),
     )
-    tr = config["training"]
     tscfg = TrainStepConfig(
         num_items=ni, negatives_per_positive=tr["negatives_per_positive"],
+        loss_type=tr["loss"], logq_correction=tr["logq_correction"],
+        softmax_temperature=tr["softmax_temperature"],
         lambda_mimic_user=tr["loss_weights"]["mimic_user"],
         lambda_mimic_item=tr["loss_weights"]["mimic_item"],
         lambda_category_alignment=tr["loss_weights"]["category_alignment"],
         cal_max_categories=tr["category_alignment_max_categories"],
         opt=parse_dense_opt_config(tr),
     )
-    train_df, _, _ = split_train_validation_test(
-        dataset.interactions, train_fraction=config["data"]["train_fraction"],
-        test_fraction=config["data"]["test_fraction"], seed=config["experiment"]["seed"],
-    )
     users, items = interaction_arrays(train_df)
-    b = tr["batch_size"]
-    u = torch.from_numpy(users[:b]).to(dev)
-    p = torch.from_numpy(items[:b]).to(dev)
+    return dict(cfg=cfg, tscfg=tscfg, data=data, users=users, items=items, nu=nu, ni=ni,
+                batch=tr["batch_size"])
+
+
+def _check_steps(label: str, got, got_metrics: dict, want, want_metrics: dict, lanes: dict) -> dict:
+    """A step's state and losses held to another run's within phase 4's
+    tolerances: losses rtol 1e-5, the sparse tables' touched rows (``lanes``
+    by table) atol STEP_ATOL and their Adam moments rtol 1e-4 + atol 1e-9,
+    every dense parameter atol STEP_ATOL. Returns the worst row errors."""
+    for name in want_metrics:
+        g, w = got_metrics[name], want_metrics[name]
+        check(math.isfinite(g) and abs(g - w) <= 1e-5 * max(abs(w), 1e-3),
+              f"{label} {name}: {g!r} vs {w!r}")
+    worst = {}
+    for name, idx in lanes.items():
+        w_err = float((got.tables[name][idx] - want.tables[name][idx]).abs().max())
+        check(w_err <= STEP_ATOL, f"{label} {name} rows: max abs err {w_err:.3e}")
+        for mom in ("m", "v"):
+            a = getattr(got.opt_sparse[name], mom)[idx]
+            bb = getattr(want.opt_sparse[name], mom)[idx]
+            check(bool(((a - bb).abs() <= 1e-9 + 1e-4 * bb.abs()).all()), f"{label} {name} {mom}: differ")
+        worst[name] = w_err
+    for (key, a), (_, bb) in zip(got.dense_targets(), want.dense_targets()):
+        d_err = float((a.detach() - bb.detach()).abs().max())
+        check(d_err <= STEP_ATOL, f"{label} {key}: max abs err {d_err:.3e}")
+        worst["dense"] = max(worst.get("dense", 0.0), d_err)
+    return worst
+
+
+def phase_step_vs_plain(dev, config: dict, dataset) -> tuple[dict[str, dict], dict]:
+    import torch
+
+    from ttamm_torch.ops.sampling import sample_negative_items
+    from ttamm_torch.train import create_train_state, make_train_step
+
+    ctx = _step_inputs(dev, config, dataset)
+    cfg, tscfg, data, nu, ni, b = (ctx[k] for k in ("cfg", "tscfg", "data", "nu", "ni", "batch"))
+    u = torch.from_numpy(ctx["users"][:b]).to(dev)
+    p = torch.from_numpy(ctx["items"][:b]).to(dev)
     neg = sample_negative_items(
         data.positive_rows[u.long()], num_items=ni, num_negatives=tscfg.negatives_per_positive,
         generator=torch.Generator(device=dev).manual_seed(3),
@@ -960,28 +1026,15 @@ def phase_step_vs_plain(dev, config: dict, dataset) -> tuple[dict[str, dict], di
         torch.cuda.synchronize()
         results.append((state, {k: float(v) for k, v in metrics.items()}))
     (sk, mk), (sp, mp) = results
-    for name in mk:
-        check(math.isfinite(mk[name]) and abs(mk[name] - mp[name]) <= 1e-5 * max(abs(mp[name]), 1e-3),
-              f"{name}: kernels {mk[name]!r} vs plain {mp[name]!r}")
     item_idx = torch.cat([p, neg.reshape(-1)]).long()
-    worst = {}
-    for name, idx in (("user_id", u.long()), ("item_id", item_idx)):
-        w_err = float((sk.tables[name][idx] - sp.tables[name][idx]).abs().max())
-        check(w_err <= STEP_ATOL, f"{name} rows: max abs err {w_err:.3e}")
-        for mom in ("m", "v"):
-            a = getattr(sk.opt_sparse[name], mom)[idx]
-            bb = getattr(sp.opt_sparse[name], mom)[idx]
-            check(bool(((a - bb).abs() <= 1e-9 + 1e-4 * bb.abs()).all()), f"{name} {mom}: differ")
-        worst[name] = w_err
-    for (key, a), (_, bb) in zip(sk.dense_targets(), sp.dense_targets()):
-        d_err = float((a.detach() - bb.detach()).abs().max())
-        check(d_err <= STEP_ATOL, f"{key}: max abs err {d_err:.3e}")
-    log(f"one step, kernels vs plain on the card: losses {mk} | table rows max abs err {worst}")
-    context = dict(cfg=cfg, tscfg=tscfg, data=data, users=users, items=items, nu=nu, ni=ni, batch=b,
-                   item_idx=item_idx, state=sk)
+    worst = _check_steps("one step, kernels vs plain", sk, mk, sp, mp,
+                         {"user_id": u.long(), "item_id": item_idx})
+    log(f"one step, kernels vs plain on the card: losses {mk} | max abs err {worst}")
+    context = dict(ctx, item_idx=item_idx, state=sk)
     rows = _row_kernels(sk.tables["item_id"], item_idx, ni)
     rows["gather_rows"]["parts"] = _forward_reads(sk, {"user_id": u, "item_id": item_idx})
-    rows["sparse_adam_rows"] = _sparse_adam_rows(sk, {"item_id": item_idx, "user_id": u.long()}, tscfg)
+    adam = _sparse_adam_rows(sk, {"item_id": item_idx, "user_id": u.long()}, tscfg)
+    rows["sparse_adam_rows"] = dict(adam["item_id"], parts={"user_id": adam["user_id"]})
     # the category moments at this batch's real ids: the item lanes' categories
     ids = data.category_ids[item_idx]
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1114,9 +1167,7 @@ def _sparse_adam_rows(state, lanes: dict, tscfg) -> dict:
         out[name].update(lanes=n, live=live)
         _log_row(f"sparse_adam_rows ({name}; library = the composition it replaces)", out[name])
         del copies
-    row = out.pop("item_id")
-    row["parts"] = {"user_id": out["user_id"]}
-    return row
+    return out
 
 
 def _mesh_layouts(table, m, v, lanes):
@@ -1605,9 +1656,12 @@ def phase_mesh(dev, ctx) -> tuple[dict[str, dict], dict[str, int], dict[str, int
     return rows, compared, counts, timing
 
 
-def _profile_steps(dev, config: dict, dataset, result) -> dict:
+def _profile_steps(dev, config: dict, dataset, result) -> tuple[dict, dict]:
     """Profile PROFILE_STEPS more steps of the trained state: top device
-    ops, device idle share and launches per step."""
+    ops, device idle share and launches per step (each sparse table: one
+    forward read, gather_rows, and one fused update, sparse_adam_rows; the
+    scatter never). Returns the launches per step and the step's wall ms,
+    device ms, device ops and idle share."""
     import numpy as np
     import torch
 
@@ -1651,8 +1705,10 @@ def _profile_steps(dev, config: dict, dataset, result) -> dict:
         f"{device_ms_total / PROFILE_STEPS:.3f} ms/step, idle share {idle:.3f}, "
         f"{device_work / PROFILE_STEPS:.1f} kernels/copies/fills per step")
     log(f"launches per step: {per_step}")
-    # each sparse table: one forward read (gather_rows) and one fused update
-    want = {"gather_rows": 2, "sparse_adam_rows": 2, "scatter_set_rows": 0}
+    from ttamm_torch.train.state import sparse_table_names
+
+    tables = len(sparse_table_names(state.model.cfg))
+    want = {"gather_rows": tables, "sparse_adam_rows": tables, "scatter_set_rows": 0}
     check(all(per_step.get(k, 0) == n for k, n in want.items()),
           f"launches per step {per_step}, expected {want}")
     try:
@@ -1660,7 +1716,9 @@ def _profile_steps(dev, config: dict, dataset, result) -> dict:
     except (AttributeError, KeyError, ValueError):
         table = averages.table(sort_by="self_cuda_time_total", row_limit=15)
     log(table)
-    return per_step
+    stats = {"wall_ms": wall * 1e3 / PROFILE_STEPS, "device_ms": device_ms_total / PROFILE_STEPS,
+             "device_ops": device_work / PROFILE_STEPS, "idle_share": idle}
+    return per_step, stats
 
 
 def phase_train(dev, config: dict, dataset, excluded: collections.Counter):
@@ -1748,6 +1806,213 @@ def _eval_checks(result) -> None:
     check(ids_agree(idx[:256].cpu(), scores[:256].cpu(), order, np.take_along_axis(host, order, 1)),
           "masked val search: ids differ from the host numpy search")
     log(f"256 users' masked top-{plan.deep_k} ids agree with the host numpy search")
+
+
+def _ib_step_vs_plain(dev, ctx: dict, pool_size: int):
+    """One step of the recommended configuration from the seeded state, the
+    first canonical batch and an injected pool of ``pool_size`` uniform ids
+    (the first one a positive), no dropout, with the kernels and with their
+    plain versions on the card, held within phase 4's tolerances on every
+    sparse table. Returns the kernels' state, the step's lanes by table and
+    its launches."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.train import create_train_state, make_train_step
+
+    cfg, data, nu, ni, b = (ctx[k] for k in ("cfg", "data", "nu", "ni", "batch"))
+    tscfg = ctx["tscfg"]._replace(mixed_negatives=pool_size)
+    u = torch.from_numpy(ctx["users"][:b]).to(dev)
+    p = torch.from_numpy(ctx["items"][:b]).to(dev)
+    pool = torch.randint(0, ni, (pool_size,), generator=torch.Generator(device=dev).manual_seed(5),
+                         device=dev, dtype=torch.int32)
+    pool[: min(pool_size, 1)] = p[0]
+    step = make_train_step(cfg, tscfg)
+    results = []
+    for plain in (False, True):
+        state = create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED, device=dev)
+        kernels.reset_launch_counts()
+        with plain_kernels() if plain else contextlib.nullcontext():
+            state, metrics = step(state, data, u, p, generator=None, negatives=pool)
+        torch.cuda.synchronize()
+        results.append((state, {k: float(v) for k, v in metrics.items()}, kernels.launch_counts()))
+    (sk, mk, ck), (sp, mp, _) = results
+    items = torch.cat([p, pool]).long()
+    lanes = {"user_id": u.long(), "user_aug": u.long(), "item_id": items, "item_aug": items}
+    worst = _check_steps(f"in-batch step (M = {pool_size}), kernels vs plain", sk, mk, sp, mp, lanes)
+    for name in ("user_aug", "item_aug"):
+        check(not sk.tables[name][-1].any(), f"in-batch step: the {name} scratch row was written")
+    want = {"gather_rows": 4, "sparse_adam_rows": 4, "segment_second_moments": 1,
+            "segment_second_moments_bwd": 1, "scatter_set_rows": 0}
+    check(all(ck[k] == n for k, n in want.items()), f"in-batch step launches {ck}, expected {want}")
+    log(f"in-batch step (M = {pool_size}, {items.numel()} item lanes), kernels vs plain on the card: "
+        f"losses {mk} | max abs err {worst}")
+    return sk, lanes, tscfg
+
+
+def _ib_row_kernels(dev, ctx: dict, state, lanes: dict, tscfg) -> dict:
+    """The row kernels on the sparse mimic tables at the recommended step's
+    lanes (``_forward_reads`` and ``_sparse_adam_rows``: bit-identical to
+    their plain versions, timed with a cold L2 beside their bound and
+    library call) and the category moments at its N = B + M item lanes'
+    real category ids (as phase 2)."""
+    import torch
+
+    mimic = {"user_aug": lanes["user_aug"], "item_aug": lanes["item_aug"]}
+    reads = _forward_reads(state, mimic)
+    adam = _sparse_adam_rows(state, mimic, tscfg)
+    ids = ctx["data"].category_ids[lanes["item_aug"]]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((ids.numel(), 128), generator=gen, device=dev) * 0.3
+    fwd, bwd, err, _, _ = _moments(ids, x, tscfg.cal_max_categories, gen,
+                                   "the in-batch step's item lanes")
+    return {"reads": reads, "adam": adam, "moments": {"fwd": fwd, "bwd": bwd, "max_abs_err": err}}
+
+
+def _ib_mesh_steps(dev, ctx: dict, tscfg) -> dict[str, int]:
+    """The recommended configuration's sharded step on a 1x1 DeviceMesh over
+    a one-rank NCCL group: MESH_STEPS steps under each routing from the
+    seeded state, each against the one-device step on the same batches and
+    pools, no dropout, within phase 4's tolerances. Returns the sharded
+    steps' launches."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.parallel import MeshConfig, build_mesh, place_data, place_state
+    from ttamm_torch.parallel.step import make_sharded_train_step
+    from ttamm_torch.train import create_train_state, make_train_step
+
+    cfg, data, nu, ni, b = (ctx[k] for k in ("cfg", "data", "nu", "ni", "batch"))
+    batches = []
+    for s in range(1, MESH_STEPS + 1):
+        u = torch.from_numpy(ctx["users"][s * b : (s + 1) * b]).to(dev)
+        p = torch.from_numpy(ctx["items"][s * b : (s + 1) * b]).to(dev)
+        pool = torch.randint(0, ni, (tscfg.mixed_negatives,), device=dev, dtype=torch.int32,
+                             generator=torch.Generator(device=dev).manual_seed(200 + s))
+        batches.append((u, p, pool))
+
+    def run(step, state, d):
+        out = []
+        for u, p, pool in batches:
+            _, metrics = step(state, d, u, p, generator=None, negatives=pool)
+            out.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        return out
+
+    def fresh():
+        return create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED, device=dev)
+
+    ref = fresh()
+    ref_losses = run(make_train_step(cfg, tscfg), ref, data)
+    lanes = {
+        "user_id": torch.cat([u for u, _, _ in batches]).long(),
+        "item_id": torch.cat([torch.cat([p, pool]) for _, p, pool in batches]).long(),
+    }
+    lanes.update(user_aug=lanes["user_id"], item_aug=lanes["item_id"])
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=300),
+        device_id=torch.device("cuda", torch.cuda.current_device()),
+    )
+    try:
+        mesh = build_mesh(MeshConfig(1, 1), "cuda")
+        mdata = place_data(mesh, data)
+        kernels.reset_launch_counts()
+        for routing in ("allgather", "owner"):
+            state = place_state(mesh, fresh())
+            step = make_sharded_train_step(cfg, tscfg._replace(update_routing=routing), mesh)
+            losses = run(step, state, mdata)
+            for s, (got, want) in enumerate(zip(losses, ref_losses)):
+                check(all(abs(got[k] - want[k]) <= 1e-5 * max(abs(want[k]), 1e-3) for k in want),
+                      f"1x1 in-batch {routing} step {s}: losses {got} vs one device {want}")
+            worst = _check_steps(f"1x1 in-batch {routing}, {MESH_STEPS} steps", state, losses[-1],
+                                 ref, ref_losses[-1], lanes)
+            log(f"1x1 sharded in-batch step ({routing}) vs one device, {MESH_STEPS} steps: max abs "
+                f"err {worst}")
+        counts = kernels.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    steps = 2 * MESH_STEPS
+    for name in ("gather_rows_masked", "sparse_adam_rows"):
+        check(counts[name] == 4 * steps, f"1x1 in-batch steps: {counts[name]} {name} launches")
+    for name in ("gather_rows", "scatter_set_rows", "scatter_set_rows_masked"):
+        check(counts[name] == 0, f"{name} launched in the 1x1 in-batch steps")
+    log(f"launch counts of the 1x1 sharded in-batch steps: {counts}")
+    return counts
+
+
+def _ib_export_search(dev, work: Path, config: dict, dataset, result) -> None:
+    """Export the best checkpoint of the recommended run at the serving
+    dtype its gate chose and search 256 users of it: ids equal to the host
+    numpy search but where scores tie (1e-5; 2^-6 for a bf16 index)."""
+    from ttamm_torch.pipelines.export import export_bundle
+    from ttamm_torch.serve import RetrievalService
+
+    dtype = result.serving_score_dtype
+    config = dict(config, serving=dict(config["serving"], score_dtype=dtype))
+    start = time.perf_counter()
+    out = export_bundle(config, work / "bundle", device=dev, checkpoint=result.best_checkpoint_path,
+                        dataset=dataset)
+    check((out.num_users, out.num_items) == (result.num_users, result.num_items),
+          f"in-batch bundle: {out.num_users} x {out.num_items}")
+    service = RetrievalService.from_artifacts(work / "bundle", device=dev)
+    queries = service.user_embeddings[:256]
+    got_s, got_i = service.index.search(queries, K)
+    ref_s, ref_i = service.index.search(queries, K, backend="numpy")
+    tol = TIE_TOL if dtype == "float32" else BF16_TIE_TOL
+    check(ids_agree(got_i, got_s, ref_i, ref_s, tol), "in-batch bundle: ids differ from the numpy search")
+    log(f"export of {result.best_checkpoint_path.name} ({dtype}) in {time.perf_counter() - start:.2f} s: "
+        f"{out.num_users} users x {out.num_items} items; 256 users' top-{K} ids agree with the "
+        "host numpy search")
+
+
+def phase_in_batch(dev, work: Path, dataset, default_profile: dict, default_result):
+    """Phase 5b: the recommended configuration (configs/in_batch_softmax.yaml,
+    the logQ-corrected in-batch softmax with sparse mimic tables). Returns
+    the kernel parts at its lanes and a summary (the run's launches, which
+    count from zero just before its ``run_training``; launches per step;
+    the profile; the 1x1 mesh steps' launches)."""
+    from ttamm_torch.ops import kernels
+
+    config = _config(work / "data", work / "in_batch", "in_batch_softmax.yaml")
+    ctx = _step_inputs(dev, config, dataset)
+    for pool_size in (IB_POOL, 0):  # the shipped M = 0 last: its lanes feed (b)
+        state, lanes, tscfg = _ib_step_vs_plain(dev, ctx, pool_size)
+    parts = _ib_row_kernels(dev, ctx, state, lanes, tscfg)
+    del state
+    kernels.reset_launch_counts()  # this path's launches start here
+    excluded = collections.Counter()
+    result = phase_train(dev, config, dataset, excluded)
+    counts = {k: v - excluded[k] for k, v in kernels.launch_counts().items()}
+    log(f"launch counts of the recommended configuration's run: {counts}")
+    for name in ("gather_rows", "sparse_adam_rows", "segment_second_moments",
+                 "segment_second_moments_bwd", "small_k_topk", "select_topk_from_groups"):
+        check(counts[name] > 0, f"{name} never launched in the recommended configuration's run")
+    check(counts["scatter_set_rows"] == 0, "scatter_set_rows launched in the recommended run")
+    per_step, profile = _profile_steps(dev, config, dataset, result)
+    for label, r, prof in (("default (phase 5)", default_result, default_profile),
+                           ("in_batch_softmax", result, profile)):
+        log(f"{label}: {r.train_seconds / r.steps * 1e3:.3f} ms/step | {r.examples_per_second:.1f} "
+            f"examples/s | device {prof['device_ms']:.3f} ms/step | {prof['device_ops']:.1f} device "
+            f"ops/step | idle share {prof['idle_share']:.3f} | best val recall@10 "
+            f"{r.best_val_metrics.recall[10]:.5f} (epoch {r.best_epoch})")
+    _ib_export_search(dev, work / "in_batch", config, dataset, result)
+    mesh_counts = _ib_mesh_steps(dev, ctx, tscfg)
+    summary = {
+        "launches": counts, "launches_per_train_step": per_step, "profile": profile,
+        "ms_per_step": result.train_seconds / result.steps * 1e3,
+        "examples_per_second": result.examples_per_second,
+        "best_val_recall_at_10": result.best_val_metrics.recall[10],
+        "mesh_1x1": {"launches": mesh_counts, "steps": 2 * MESH_STEPS},
+    }
+    return parts, summary
 
 
 def _http(port: int, path: str, payload=None):
@@ -1974,15 +2239,29 @@ def main() -> int:
             excluded = collections.Counter()
             with Phase("5 train two epochs with the eval at the canonical scale"):
                 result = phase_train(dev, config, dataset, excluded)
-                per_step = _profile_steps(dev, config, dataset, result)
+                per_step, profile = _profile_steps(dev, config, dataset, result)
                 torch.cuda.empty_cache()
+            path_counts = collections.Counter(kernels.launch_counts())  # phase 5's launches
+            with Phase("5b the recommended configuration: in-batch softmax, sparse mimic tables"):
+                ib_parts, ib_summary = phase_in_batch(dev, work, dataset, profile, result)
+                kernel_rows["gather_rows"]["parts"].update(
+                    {f"in_batch_{k}": v for k, v in ib_parts["reads"].items()})
+                kernel_rows["sparse_adam_rows"]["parts"].update(
+                    {f"in_batch_{k}": v for k, v in ib_parts["adam"].items()})
+                m2_row = kernel_rows["segment_second_moments"]
+                m2_row["max_abs_err"] = max(m2_row["max_abs_err"], ib_parts["moments"]["max_abs_err"])
+                m2_row["parts"].update(fwd_in_batch=ib_parts["moments"]["fwd"],
+                                       bwd_in_batch=ib_parts["moments"]["bwd"])
+                torch.cuda.empty_cache()
+            kernels.reset_launch_counts()  # phases 6-7's launches start here
             with Phase("6 export from the best checkpoint and serve"):
                 phase_serve(dev, work, config, dataset, result.best_checkpoint_path,
                             result.serving_score_dtype)
             with Phase("7 corpus scale"):
                 phase_corpus_scale(dev)
             with Phase("8 launch counts"):
-                counts = {k: v - excluded[k] for k, v in kernels.launch_counts().items()}
+                path_counts.update(kernels.launch_counts())
+                counts = {k: v - excluded[k] for k, v in path_counts.items()}
                 log(f"launch counts (phases 5-7): {counts} | left out (comparisons): {dict(excluded)}")
                 counts.update({k: mesh_counts[k] for k in MESH_KERNELS})
                 for name, n in counts.items():
@@ -2019,6 +2298,7 @@ def main() -> int:
         ],
         "launches_per_train_step": per_step,
         "mesh_1x1": {"launches": mesh_counts, "steps": 2 * MESH_STEPS, **mesh_timing},
+        "in_batch_softmax": ib_summary,
     }
     log(json.dumps(summary))
     log(smi)

@@ -586,12 +586,14 @@ def test_sparse_adam_on_the_card_counts_launches(cuda):
 STEP_KERNELS = ("gather_rows", "sparse_adam_rows", "segment_second_moments", "segment_second_moments_bwd")
 
 
-def _one_step(cuda, plain, seeds=(8, 4), swap=None):
+def _one_step(cuda, plain, seeds=(8, 4), swap=None, in_batch=None):
     """One step of a gated-tower model (D = 128, C = 16) from a seeded state
     (``seeds``: data, state) with injected negatives and no dropout, with the
     kernels or with their plain versions on the card, and any kernel
     replaced by the function ``swap`` maps its name to: (state, metrics,
-    launch counts)."""
+    launch counts). ``in_batch`` (M): the recommended configuration instead,
+    the logQ-corrected in-batch softmax over the batch and an injected pool
+    of M ids (one of them a positive), with sparse mimic tables."""
     from ttamm_torch.models import parse_model_config
     from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state, make_train_step
     from ttamm_torch.train.optim import DenseOptConfig
@@ -602,9 +604,10 @@ def _one_step(cuda, plain, seeds=(8, 4), swap=None):
         "feature_encoder": {"type": "mlp", "hidden_dims": [64], "output_dim": 128},
         "fusion": "gated",
     }
-    cfg = parse_model_config(
-        {"user_encoder": tower, "item_encoder": tower}, user_feature_dim=12, item_feature_dim=9
-    )
+    model = {"user_encoder": tower, "item_encoder": tower}
+    if in_batch is not None:
+        model["adaptive_mimic"] = {"enabled": True, "sparse": True}
+    cfg = parse_model_config(model, user_feature_dim=12, item_feature_dim=9)
     gen = torch.Generator().manual_seed(seeds[0])
     nu, ni, b, neg = 500, 400, 64, 5
     data = BatchData(
@@ -622,6 +625,12 @@ def _one_step(cuda, plain, seeds=(8, 4), swap=None):
     u = torch.randint(0, nu, (b,), generator=gen, dtype=torch.int32).to(cuda)
     p = torch.randint(0, ni, (b,), generator=gen, dtype=torch.int32).to(cuda)
     negs = torch.randint(0, ni, (b, neg), generator=gen, dtype=torch.int32).to(cuda)
+    if in_batch is not None:
+        tscfg = tscfg._replace(loss_type="in_batch_softmax", mixed_negatives=in_batch)
+        p[b // 2] = p[1]  # a duplicate positive
+        negs = torch.randint(0, ni, (in_batch,), generator=gen, dtype=torch.int32).to(cuda)
+        negs[: min(in_batch, 1)] = p[0]  # a pool draw equal to a positive
+        data.item_log_q = torch.log_softmax(torch.randn(ni, generator=gen) * 2, 0).to(cuda)
     step = make_train_step(cfg, tscfg)
     state = create_train_state(cfg, num_users=nu, num_items=ni, seed=seeds[1], device=cuda)
     saved = {n: getattr(kernels, n) for n in STEP_KERNELS}
@@ -656,6 +665,76 @@ def test_train_step_on_the_card_matches_plain(cuda):
         torch.testing.assert_close(sk.tables[name], sp.tables[name], rtol=0, atol=1e-5)
     for (_, a), (_, bb) in zip(sk.dense_targets(), sp.dense_targets()):
         torch.testing.assert_close(a.detach(), bb.detach(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("m", [0, 256])
+def test_in_batch_step_on_the_card_matches_plain(cuda, m):
+    """The recommended configuration's step (in-batch softmax, sparse mimic
+    tables) with the kernels and with their plain versions: the same losses
+    and, within lr / 100, the same tables (the mimic tables' scratch rows
+    untouched) and dense parameters. One read and one fused update of each
+    of the four sparse tables, one moments pass each way, no scatter."""
+    (sk, mk, ck), (sp, mp, cp) = (_one_step(cuda, plain, in_batch=m) for plain in (False, True))
+    assert [ck[n] for n in STEP_KERNELS] == [4, 4, 1, 1]
+    assert ck["scatter_set_rows"] == 0
+    assert all(cp[n] == 0 for n in STEP_KERNELS)
+    for name in mk:
+        assert torch.isfinite(mk[name])
+        torch.testing.assert_close(mk[name], mp[name], rtol=1e-5, atol=1e-7)
+    for name in ("user_id", "item_id", "user_aug", "item_aug"):
+        torch.testing.assert_close(sk.tables[name], sp.tables[name], rtol=0, atol=1e-5)
+        torch.testing.assert_close(sk.opt_sparse[name].v, sp.opt_sparse[name].v, rtol=1e-4, atol=1e-9)
+    for name in ("user_aug", "item_aug"):
+        assert not sk.tables[name][-1].any()
+    for (_, a), (_, bb) in zip(sk.dense_targets(), sp.dense_targets()):
+        torch.testing.assert_close(a.detach(), bb.detach(), rtol=0, atol=1e-5)
+
+
+def test_in_batch_step_on_the_card_is_deterministic(cuda):
+    """Two runs of the recommended configuration's step give the same bits."""
+    (s1, m1, _), (s2, m2, _) = (_one_step(cuda, False, in_batch=256) for _ in range(2))
+    for name in m1:
+        assert torch.equal(m1[name], m2[name]), name
+    for name in ("user_id", "item_id", "user_aug", "item_aug"):
+        for a, bb in ((s1.tables[name], s2.tables[name]),
+                      (s1.opt_sparse[name].m, s2.opt_sparse[name].m)):
+            assert torch.equal(a, bb), name
+    for (key, a), (_, bb) in zip(s1.dense_targets(), s2.dense_targets()):
+        assert torch.equal(a.detach(), bb.detach()), key
+
+
+@pytest.mark.parametrize("m", [0, 256])
+def test_row_kernels_at_the_in_batch_steps_mimic_lanes(cuda, m):
+    """gather_rows and sparse_adam_rows on a sparse mimic table at the
+    recommended step's lanes (B = 2048 user lanes; B + M item lanes, the
+    positives Zipf-skewed, so duplicate-heavy), bit-identical to their
+    plain versions; the scratch row untouched."""
+    from ttamm_torch.ops.sparse_adam import coalesce_row_grads
+
+    gen = torch.Generator().manual_seed(12 + m)
+    b, rows, dim = 2048, 99_880, 128
+    ranks = torch.multinomial(1.0 / torch.arange(1, rows + 1, dtype=torch.float64), b,
+                              replacement=True, generator=gen)
+    lanes = {"user": torch.randint(0, 199_449, (b,), generator=gen),
+             "item": torch.cat([ranks, torch.randint(0, rows, (m,), generator=gen)])}
+    for side, idx in lanes.items():
+        n_rows = 199_449 if side == "user" else rows
+        table = torch.cat([torch.randn((n_rows, dim), generator=gen) * 0.02,
+                           torch.zeros((1, dim))]).to(cuda)
+        idx = idx.to(cuda, torch.int32)
+        assert torch.equal(kernels.gather_rows_cuda(table, idx), kernels.gather_rows_plain(table, idx))
+        grads = (torch.randn((idx.numel(), dim), generator=gen) * 1e-2).to(cuda)
+        target, summed = coalesce_row_grads(idx, grads, scratch_row=-1)
+        m_, v_ = torch.zeros_like(table), torch.zeros_like(table)
+        hyper = dict(step=1, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
+        runs = []
+        for fn in (kernels.sparse_adam_rows_cuda, kernels.sparse_adam_rows_plain):
+            out = [t.clone() for t in (table, m_, v_)]
+            fn(*out, target, summed, **hyper)
+            runs.append(out)
+        for got, want in zip(*runs):
+            assert torch.equal(got, want), side
+        assert not runs[0][0][-1].any()
 
 
 def test_train_step_on_the_card_is_deterministic(cuda):

@@ -20,12 +20,23 @@ mode. The scenarios:
   against JAX ``make_sharded_train_step(use_pallas=True)``: losses rel 1e-4,
   tables, dense parameters and dense moments atol 1e-5, sparse moments atol
   1e-6 (the tolerances of tests/test_parallel.py);
+- the in-batch softmax with sparse mimic tables (``configs/in_batch_softmax.yaml``'s
+  structure) on 2x2 and 1x4 meshes under both routings (the owner run with
+  the clip), two steps of a 7-row batch and a pool of 5 mixed negatives
+  (both split unevenly over the data shards), against the port's
+  one-device step on the whole batch from the same state, pools and no
+  dropout: losses rtol 1e-5 (the category-alignment term among them, which
+  would move if a shard counted the shared pool's rows again), tables,
+  dense parameters and moments atol 1e-5, sparse moments atol 1e-6 (the
+  dense gradients and the candidates' gradients are summed over data in
+  another order), and the mimic tables' scratch rows still zero;
 - the sharded search (1x4, float32 and bfloat16, masked) against JAX
   ``make_sharded_topk``: equal ids except where scores tie within 1e-5
   (float32) or 2^-7 (bf16 rounding in another order), and no pad row;
 - the sharded checkpoint: the ranks write one that JAX
   ``load_sharded_checkpoint`` reads back bit for bit, and read one JAX
-  wrote (from a 2x2 placement) bit for bit.
+  wrote (from a 2x2 placement) bit for bit; so too for a sparse-mimic
+  state.
 """
 
 import json
@@ -86,6 +97,11 @@ TSCFG = dict(num_items=NI, negatives_per_positive=NEG, lambda_mimic_user=0.15,
 OPT = dict(name="adamw", lr=1e-3, weight_decay=0.01)
 ROUTINGS = ("allgather", "owner")
 CLIP = {"allgather": None, "owner": 0.5}  # the owner run also takes the clip, which binds
+# the in-batch softmax with sparse mimic tables
+IB_B, IB_M = 7, 5
+IB_MODEL = dict(MODEL, adaptive_mimic={"enabled": True, "sparse": True})
+IB_TSCFG = dict(TSCFG, loss_type="in_batch_softmax", mixed_negatives=IB_M)
+IB_MESHES = {"2x2": [2, 2], "1x4": [1, 4]}
 # search
 SN, SD, SB, SK, SM = 301, 16, 24, 10, 6
 
@@ -157,6 +173,72 @@ def _jax_steps(jcfg, jstate, jdata, batches, routing):
     return jax_ckpt.state_to_host(state), np.asarray(losses)
 
 
+def _in_batch_setup():
+    """A sparse-mimic state (JAX's init, as flat host arrays), the train
+    split's log q, and IB_B-row batches with their pools of IB_M ids."""
+    jcfg = jax_parse(IB_MODEL, user_feature_dim=FU, item_feature_dim=FI)
+    jstate = jax_state.create_train_state(jax.random.key(2), jcfg, num_users=NU, num_items=NI)
+    rng = np.random.default_rng(4)
+    counts = np.maximum(np.floor(rng.pareto(1.2, NI) * 3), 1.0)
+    log_q = np.log(counts / counts.sum()).astype(np.float32)
+    batches = []
+    for _ in range(STEPS):
+        u = rng.integers(0, NU, IB_B).astype(np.int32)
+        p = rng.integers(0, NI, IB_B).astype(np.int32)
+        p[4] = p[1]  # an accidental hit across the two data shards
+        pool = rng.integers(0, NI, IB_M).astype(np.int32)
+        pool[3] = p[0]  # a pool draw equal to a positive
+        batches.append((u, p, pool))
+    return jax_ckpt.state_to_host(jstate), log_q, batches
+
+
+def _one_device_in_batch(flat, data, batches, routing):
+    """The port's one-device steps on the whole batches: per-step losses
+    (sorted keys) and the final state as flat host arrays."""
+    import torch
+
+    from ttamm_torch.models import parse_model_config
+    from ttamm_torch.models.convert import train_state_from_flat, train_state_to_flat
+    from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state, make_train_step
+    from ttamm_torch.train.optim import DenseOptConfig
+
+    cfg = parse_model_config(IB_MODEL, user_feature_dim=FU, item_feature_dim=FI)
+    state = create_train_state(cfg, num_users=NU, num_items=NI, seed=0, device="cpu")
+    train_state_from_flat(state, flat)
+    tscfg = TrainStepConfig(**dict(IB_TSCFG, gradient_clip_norm=CLIP[routing]),
+                            opt=DenseOptConfig(**OPT))
+    step = make_train_step(cfg, tscfg)
+    pdata = BatchData(*(torch.from_numpy(a) for a in data))
+    losses = []
+    for u, p, pool in batches:
+        state, metrics = step(state, pdata, torch.from_numpy(u), torch.from_numpy(p),
+                              generator=None, negatives=torch.from_numpy(pool))
+        losses.append([float(metrics[k]) for k in sorted(metrics)])
+    return train_state_to_flat(state), np.asarray(losses)
+
+
+def _jax_sharded_checkpoint(directory, jcfg, state_flat):
+    """``(template, trained, jax_dir)``: a JAX template state of ``jcfg``, the
+    flat ``state_flat`` cut back to its shapes, and the directory of the JAX
+    sharded checkpoint of that state saved from a 2x2 placement."""
+    template = jax_state.create_train_state(jax.random.key(9), jcfg, num_users=NU, num_items=NI)
+    shapes = {k: np.shape(a) for k, a in jax_ckpt.state_to_host(template).items()}
+    trained = {  # the trained state cut back from JAX's padding
+        k: np.asarray(a)[: shapes[k][0]] if np.ndim(a) else np.asarray(a)
+        for k, a in state_flat.items()
+    }
+    restored = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(template),
+        [jnp.asarray(trained[k]) for k in jax_ckpt.state_to_host(template)],
+    )
+    placed = place_state(build_mesh(MeshConfig(2, 2)), pad_state_rows(jax.device_get(restored), 2))
+    jax_dir = jax_sharded.save_sharded_checkpoint(
+        directory, placed, experiment_name="jax", epoch=3, metric_name=None,
+        metric_value=None, template="{experiment}_epoch{epoch}",
+    )
+    return template, trained, jax_dir
+
+
 def _search_inputs():
     rng = np.random.default_rng(7)
     items = rng.standard_normal((SN, SD)).astype(np.float32)
@@ -204,6 +286,22 @@ def mesh_run(tmp_path_factory):
                           tscfg=dict(TSCFG, update_routing=routing, gradient_clip_norm=CLIP[routing]),
                           opt=OPT))
 
+    ib_flat, log_q, ib_batches = _in_batch_setup()
+    inputs.update({f"ib_state/{k}": a for k, a in ib_flat.items()})
+    inputs["data/item_log_q"] = log_q
+    for s, (u, p, pool) in enumerate(ib_batches):
+        inputs.update({f"in_batch/u{s}": u, f"in_batch/p{s}": p, f"in_batch/neg{s}": pool})
+    for routing in ROUTINGS:
+        refs[f"in_batch_{routing}"] = _one_device_in_batch(
+            ib_flat, (*feats, pos, cats, log_q), ib_batches, routing)
+        for label, mesh in IB_MESHES.items():
+            tasks.append(dict(
+                model_task, model=IB_MODEL, state="ib_state", kind="train_step",
+                name=f"in_batch_{routing}_{label}", inputs_prefix="in_batch", mesh=mesh,
+                steps=STEPS, log_q=True, opt=OPT,
+                tscfg=dict(IB_TSCFG, update_routing=routing, gradient_clip_norm=CLIP[routing]),
+            ))
+
     items, queries, mask = _search_inputs()
     inputs.update({"search/items": items, "search/queries": queries, "search/mask": mask})
     for score_dtype in ("float32", "bfloat16"):
@@ -212,26 +310,20 @@ def mesh_run(tmp_path_factory):
         tasks.append(dict(kind="search", name=name, mesh=[1, 4], k=SK, masked=True,
                           score_dtype=score_dtype))
 
-    # checkpoints: a trained JAX state saved from a 2x2 placement
-    template = jax_state.create_train_state(jax.random.key(9), jcfg, num_users=NU, num_items=NI)
-    shapes = {k: np.shape(a) for k, a in jax_ckpt.state_to_host(template).items()}
-    trained = {  # the trained state cut back from JAX's padding
-        k: np.asarray(a)[: shapes[k][0]] if np.ndim(a) else np.asarray(a)
-        for k, a in refs["step_allgather"][0].items()
-    }
+    # checkpoints: a trained JAX state saved from a 2x2 placement, for the
+    # default structure and the sparse-mimic one
+    template, trained, jax_dir = _jax_sharded_checkpoint(
+        work / "jax_ckpt", jcfg, refs["step_allgather"][0])
     inputs.update({f"trained/{k}": a for k, a in trained.items()})
-    jmesh = build_mesh(MeshConfig(2, 2))
-    restored = jax.tree_util.tree_unflatten(
-        jax.tree_util.tree_structure(template),
-        [jnp.asarray(trained[k]) for k in jax_ckpt.state_to_host(template)],
-    )
-    placed = place_state(jmesh, pad_state_rows(jax.device_get(restored), 2))
-    jax_dir = jax_sharded.save_sharded_checkpoint(
-        work / "jax_ckpt", placed, experiment_name="jax", epoch=3, metric_name=None,
-        metric_value=None, template="{experiment}_epoch{epoch}",
-    )
     tasks.append(dict(model_task, kind="checkpoint", name="checkpoint", mesh=[2, 2],
                       state="trained", save_dir=str(work / "port_ckpt"), jax_dir=str(jax_dir)))
+    ib_template, ib_trained, ib_jax_dir = _jax_sharded_checkpoint(
+        work / "jax_ib_ckpt", jax_parse(IB_MODEL, user_feature_dim=FU, item_feature_dim=FI),
+        refs["in_batch_allgather"][0])
+    inputs.update({f"ib_trained/{k}": a for k, a in ib_trained.items()})
+    tasks.append(dict(model_task, model=IB_MODEL, kind="checkpoint", name="ib_checkpoint",
+                      mesh=[2, 2], state="ib_trained", save_dir=str(work / "port_ib_ckpt"),
+                      jax_dir=str(ib_jax_dir)))
 
     np.savez(work / "inputs.npz", **inputs)
     spec = work / "spec.json"
@@ -239,7 +331,8 @@ def mesh_run(tmp_path_factory):
                                 "tasks": tasks}))
     launch_ranks(spec)
     outs = {t["name"]: dict(np.load(work / f"{t['name']}.npz")) for t in tasks}
-    return dict(work=work, refs=refs, outs=outs, jcfg=jcfg, template=template, trained=trained)
+    return dict(work=work, refs=refs, outs=outs, jcfg=jcfg, template=template, trained=trained,
+                ib_template=ib_template, ib_trained=ib_trained)
 
 
 @pytest.mark.parametrize("name", sorted(UPDATES))
@@ -292,6 +385,21 @@ def test_sharded_train_step_matches_jax(mesh_run, routing):
         np.testing.assert_allclose(got[key], value, rtol=0, atol=atol, err_msg=key)
 
 
+@pytest.mark.parametrize("mesh", sorted(IB_MESHES))
+@pytest.mark.parametrize("routing", ROUTINGS)
+def test_in_batch_sparse_mimic_step_matches_one_device(mesh_run, routing, mesh):
+    want, want_losses = mesh_run["refs"][f"in_batch_{routing}"]
+    got = mesh_run["outs"][f"in_batch_{routing}_{mesh}"]
+    np.testing.assert_allclose(got["losses"], want_losses, rtol=1e-5, atol=1e-7)
+    assert set(want) <= set(got)
+    for key, value in want.items():
+        atol = 1e-6 if key.startswith("opt_sparse") else 1e-5
+        np.testing.assert_allclose(got[key], value, rtol=0, atol=atol, err_msg=key)
+    for name, rows in (("user_aug", NU), ("item_aug", NI)):
+        assert got[f"tables/{name}"].shape[0] == rows + 1
+        assert not got[f"tables/{name}"][rows].any()  # the scratch row
+
+
 @pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])
 def test_sharded_search_matches_jax(mesh_run, score_dtype):
     got = mesh_run["outs"][f"search_{score_dtype}"]
@@ -331,4 +439,20 @@ def test_port_reads_jax_sharded_checkpoint(mesh_run):
     got = mesh_run["outs"]["checkpoint"]
     assert int(got["epoch"]) == 3
     for key, value in mesh_run["trained"].items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)
+
+
+def test_sparse_mimic_sharded_checkpoints_cross_over(mesh_run):
+    """A sparse-mimic state (each mimic table with its scratch row, its
+    moments under ``opt_sparse``): the ranks' sharded checkpoint read by JAX
+    ``load_sharded_checkpoint`` and JAX's read by the ranks, bit for bit."""
+    trained = mesh_run["ib_trained"]
+    assert trained["tables/user_aug"].shape[0] == NU + 1 and "opt_sparse/item_aug/m" in trained
+    ckpt = mesh_run["work"] / "port_ib_ckpt" / "port_epoch3"
+    restored, meta = jax_sharded.load_sharded_checkpoint(ckpt, mesh_run["ib_template"])
+    assert meta["epoch"] == 3 and meta["num_processes"] == WORLD
+    for key, value in jax_ckpt.state_to_host(restored).items():
+        np.testing.assert_array_equal(np.asarray(value), trained[key], err_msg=key)
+    got = mesh_run["outs"]["ib_checkpoint"]
+    for key, value in trained.items():
         np.testing.assert_array_equal(got[key], value, err_msg=key)

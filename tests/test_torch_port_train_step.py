@@ -205,12 +205,14 @@ def test_unported_options_raise():
     }
     pcfg = port_parse(model_yaml, user_feature_dim=FU, item_feature_dim=FI)
     assert pcfg.mimic_sparse
-    with pytest.raises(NotImplementedError, match="adaptive_mimic.sparse"):
-        create_train_state(pcfg, num_users=NU, num_items=NI, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="in_batch_softmax"):
-        make_train_step(pcfg, TrainStepConfig(num_items=NI, loss_type="in_batch_softmax"))
+    # sparse mimic tables and the in-batch softmax are ported
+    # (tests/test_torch_port_sparse_mimic.py, tests/test_torch_port_in_batch.py)
+    state = create_train_state(pcfg, num_users=NU, num_items=NI, seed=0, device="cpu")
+    assert state.tables["user_aug"].shape == (NU + 1, D)
+    make_train_step(pcfg, TrainStepConfig(num_items=NI, loss_type="in_batch_softmax"))
+    with pytest.raises(ValueError, match="Unsupported training.loss"):
+        make_train_step(pcfg, TrainStepConfig(num_items=NI, loss_type="softmax"))
     for section, key, value in (
-        ("training", "loss", "in_batch_softmax"),
         ("training", "comm_dtype", "bfloat16"),
         ("training", "packed_moments", True),
         ("data", "features_dtype", "bfloat16"),

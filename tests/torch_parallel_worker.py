@@ -125,16 +125,17 @@ def train_step(task, inputs):
     mp = mesh[MODEL_AXIS].size()
     cfg, state = _model(task, inputs)
     data = BatchData(*(_t(inputs, f"data/{k}") for k in (
-        "user_features", "item_features", "positive_rows", "category_ids")))
+        "user_features", "item_features", "positive_rows", "category_ids")),
+        item_log_q=_t(inputs, "data/item_log_q") if task.get("log_q") else None)
     state = place_state(mesh, pad_state_rows(state, mp))
     data = place_data(mesh, pad_batch_data(data, mp))
     tscfg = TrainStepConfig(**dict(task["tscfg"], opt=DenseOptConfig(**task["opt"])))
     step = make_sharded_train_step(cfg, tscfg, mesh)
-    name, losses = task["name"], []
+    prefix, losses = task.get("inputs_prefix", task["name"]), []
     for s in range(task["steps"]):
         state, metrics = step(
-            state, data, _t(inputs, f"{name}/u{s}"), _t(inputs, f"{name}/p{s}"),
-            generator=None, negatives=_t(inputs, f"{name}/neg{s}"),
+            state, data, _t(inputs, f"{prefix}/u{s}"), _t(inputs, f"{prefix}/p{s}"),
+            generator=None, negatives=_t(inputs, f"{prefix}/neg{s}"),
         )
         losses.append([float(metrics[k]) for k in sorted(metrics)])
     return dict(gather_state_flat(state, mesh), losses=np.asarray(losses))

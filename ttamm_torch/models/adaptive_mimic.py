@@ -14,7 +14,9 @@ from torch import nn
 
 class MimicTables(nn.Module):
     """``user_aug`` [num_users, D] and ``item_aug`` [num_items, D] tables,
-    initialised N(0, init_std) when a generator is given."""
+    initialised N(0, init_std) when a generator is given. ``extra_rows``
+    appends zero scratch rows to both (the layout of a table on the
+    sparse-row optimizer, as the JAX ``init_mimic_tables`` builds it)."""
 
     def __init__(
         self,
@@ -23,18 +25,20 @@ class MimicTables(nn.Module):
         num_items: int,
         embedding_dim: int,
         init_std: float = 0.02,
+        extra_rows: int = 0,
         generator: torch.Generator | None = None,
         device: torch.device | str | None = None,
     ) -> None:
         super().__init__()
         if num_users <= 0 or num_items <= 0:
             raise ValueError("num_users and num_items must be positive.")
-        self.user_aug = nn.Embedding(num_users, embedding_dim, device=device)
-        self.item_aug = nn.Embedding(num_items, embedding_dim, device=device)
+        self.user_aug = nn.Embedding(num_users + extra_rows, embedding_dim, device=device)
+        self.item_aug = nn.Embedding(num_items + extra_rows, embedding_dim, device=device)
         if generator is not None:
             with torch.no_grad():
-                self.user_aug.weight.normal_(0.0, init_std, generator=generator)
-                self.item_aug.weight.normal_(0.0, init_std, generator=generator)
+                for table, rows in ((self.user_aug, num_users), (self.item_aug, num_items)):
+                    table.weight[:rows].normal_(0.0, init_std, generator=generator)
+                    table.weight[rows:].zero_()
 
     def table(self, side: str) -> nn.Embedding:
         return self.user_aug if side == "user" else self.item_aug

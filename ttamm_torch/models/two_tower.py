@@ -26,7 +26,7 @@ class ModelConfig:
     mimic_enabled: bool = True
     mimic_init_std: float = 0.02
     # Mimic tables on sparse-row Adam instead of dense AdamW (the JAX
-    # ``adaptive_mimic.sparse``); parsed here, not trained yet by the port.
+    # ``adaptive_mimic.sparse``): each then ends in a zero scratch row.
     mimic_sparse: bool = False
 
     @property
@@ -94,10 +94,11 @@ class TwoTower(nn.Module):
     ``torch.Generator().manual_seed(seed)`` (so one seed gives the same
     weights on every device) and then moved to ``device`` (``None``: the
     CUDA card); without it they are left for a loader
-    (``ttamm_torch.models.convert``) to fill. An ID table on the sparse-row
-    optimizer (``sparse: true``) carries one zero scratch row after its
-    ``num_users`` / ``num_items`` rows, as in the JAX ``init_model``; only
-    that optimizer writes it and nothing reads it.
+    (``ttamm_torch.models.convert``) to fill. A table on the sparse-row
+    optimizer (an ID table with ``sparse: true``, both mimic tables with
+    ``mimic_sparse``) carries one zero scratch row after its ``num_users`` /
+    ``num_items`` rows, as in the JAX ``init_model``; only that optimizer
+    writes it and nothing reads it.
     """
 
     def __init__(
@@ -127,7 +128,7 @@ class TwoTower(nn.Module):
             MimicTables(
                 num_users=num_users, num_items=num_items,
                 embedding_dim=cfg.embedding_dim, init_std=cfg.mimic_init_std,
-                generator=gen,
+                extra_rows=int(cfg.mimic_sparse), generator=gen,
             )
             if cfg.mimic_enabled
             else None

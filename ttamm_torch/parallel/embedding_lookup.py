@@ -6,8 +6,9 @@ every rank of a model group holds alike: the shard reads the rows it owns,
 leaves zeros for the others, and a sum over ``model`` combines the shards'
 parts.
 
-The embedding tables' reads (:func:`sharded_table_rows` for the sparse ID
-tables, :func:`sharded_lookup` for the dense mimic tables) are one masked
+The embedding tables' reads (:func:`sharded_table_rows` for the sparse
+tables: the ID tables and, under ``adaptive_mimic.sparse``, the mimic
+tables; :func:`sharded_lookup` for the dense ones) are one masked
 ``gather_rows`` launch a table: the kernel localises the ids and writes
 the zeros itself. :func:`sharded_rows` serves the feature matrices, the
 padded positives and the category ids (not 2-D float32 rows of a width the

@@ -107,3 +107,27 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_statistic(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     """Differentiable sum of a statistic over ``axis`` (see ``_AllReduceSum``)."""
     return _AllReduceSum.apply(t, mesh, axis)
+
+
+class _AllGatherRowsGrad(torch.autograd.Function):
+    """``all_gather_rows`` as a differentiable read: every rank's loss may
+    read every rank's rows, so the gradient of a row is the sum of what
+    each rank's loss sends it. The backward sums the cotangent over the
+    axis (one all-reduce, which gloo and NCCL both run) and keeps this
+    rank's rows."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis, ctx.rows = mesh, axis, t.shape[0]
+        return all_gather_rows(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        summed = all_reduce(grad.clone(memory_format=torch.contiguous_format), ctx.mesh, ctx.axis)
+        start = axis_index(ctx.mesh, ctx.axis) * ctx.rows
+        return summed[start : start + ctx.rows], None, None
+
+
+def all_gather_rows_grad(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    """Differentiable :func:`all_gather_rows` (see ``_AllGatherRowsGrad``)."""
+    return _AllGatherRowsGrad.apply(t, mesh, axis)

@@ -38,7 +38,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..models.convert import train_state_to_flat
 from ..ops.sparse_adam import SparseAdamState
 from ..train.optim import DenseOptState
-from ..train.state import BatchData, TrainState, dense_table_names
+from ..train.state import BatchData, TrainState, dense_table_names, sparse_table_names
 from .mesh import MODEL_AXIS, all_gather_rows, axis_index, axis_size, round_up
 
 
@@ -50,12 +50,10 @@ def _table_module(model, name: str) -> nn.Embedding:
 
 def logical_rows(model, name: str) -> int:
     """Unpadded rows of table ``name``: the users or items, plus the scratch
-    row of a table on the sparse-row optimizer."""
-    side = name[:4]
-    count = model.num_users if side == "user" else model.num_items
-    if name.endswith("_id"):
-        count += int(model.tower(side).cfg.embedding.sparse)
-    return count
+    row of a table on the sparse-row optimizer (a sparse ID table, or a
+    mimic table under ``adaptive_mimic.sparse``)."""
+    count = model.num_users if name.startswith("user") else model.num_items
+    return count + int(name in sparse_table_names(model.cfg))
 
 
 def row_sharded_tensors(state: TrainState) -> dict[str, tuple[str, torch.Tensor]]:

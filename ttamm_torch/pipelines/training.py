@@ -50,10 +50,17 @@ otherwise the state is gathered and rank 0 writes the flat ``.npz``.
 ``resume_from`` takes either. Only rank 0 logs and writes the serving
 bundle and the ledger.
 
-Not ported yet (ROADMAP Queue 1): the in-batch softmax and its options,
-sparse mimic tables, ``comm_dtype``, ``packed_moments``, bf16 feature
-storage, and of the mesh ``tensor_parallel`` and ``embedding_exchange:
-alltoall``; each raises when a config asks for it. The recommendation
+The retrieval loss is ``training.loss``: ``bce`` (sampled negatives) or
+``in_batch_softmax`` with ``softmax_temperature``, ``logq_correction`` (over
+the train split's log item frequencies, floored at one occurrence, built
+only when the loss reads them) and ``mixed_negatives``; with
+``adaptive_mimic.sparse`` the mimic tables take sparse-row Adam
+(``configs/in_batch_softmax.yaml`` sets both), on one device and on the
+mesh.
+
+Not ported yet (ROADMAP Queue 1): ``comm_dtype``, ``packed_moments``, bf16
+feature storage, and of the mesh ``tensor_parallel`` and
+``embedding_exchange: alltoall``; each raises when a config asks for it. The recommendation
 report, loss plot and embedding diagnostics (``diagnostics.*``,
 ``recommendations.*``) are not written yet and not refused. The TPU knobs
 ``steps_per_call``, ``use_pallas`` and ``mesh.multi_host`` are not read.
@@ -113,7 +120,13 @@ from ..train.sharded_checkpoint import (
 )
 from ..train.optim import parse_dense_opt_config
 from ..train.state import BatchData, TrainState, create_train_state
-from ..train.step import TrainStepConfig, encode_corpus, make_eval_loss_step, make_train_step
+from ..train.step import (
+    LOSSES,
+    TrainStepConfig,
+    encode_corpus,
+    make_eval_loss_step,
+    make_train_step,
+)
 from ..utils import configure_logging, expand_grid, get_logger
 from .export import prepare_data
 
@@ -217,7 +230,6 @@ def _refuse_unported(config: Mapping[str, Any]) -> None:
     data = dict(config.get("data", {}))
     mesh = dict(config.get("mesh", {}) or {})
     refused = {
-        "training.loss": str(training.get("loss", "bce")).lower() != "bce",
         "training.comm_dtype": str(training.get("comm_dtype", "float32")).lower() != "float32",
         "training.packed_moments": bool(training.get("packed_moments", False)),
         "data.features_dtype": str(data.get("features_dtype", "float32")).lower() != "float32",
@@ -363,22 +375,41 @@ def run_single_experiment(
     def on_device(matrix: np.ndarray) -> torch.Tensor | None:
         return torch.from_numpy(np.ascontiguousarray(matrix)).to(dev) if matrix.size else None
 
+    loss_type = str(training_cfg.get("loss", "bce")).lower()
+    if loss_type not in LOSSES:
+        raise ValueError(f"Unsupported training.loss: {loss_type}")
+    if float(training_cfg.get("softmax_temperature", 1.0)) <= 0.0:
+        raise ValueError("training.softmax_temperature must be > 0")
+    logq = bool(training_cfg.get("logq_correction", True))
+    item_log_q = None
+    if loss_type == "in_batch_softmax" and logq:
+        # log train-split item frequency, floored at one occurrence (an item
+        # unseen in training can still be an eval-loss candidate)
+        counts = np.bincount(train_df["item_idx"].to_numpy(), minlength=num_items).astype(np.float64)
+        item_log_q = np.log(np.maximum(counts, 1.0) / max(counts.sum(), 1.0)).astype(np.float32)
     data = BatchData(
         user_features=on_device(dataset.user_feature_matrix.astype(np.float32)),
         item_features=on_device(dataset.item_feature_matrix.astype(np.float32)),
         positive_rows=on_device(positives.rows),
         category_ids=on_device(categories.category_ids) if categories is not None else None,
+        item_log_q=None if item_log_q is None else on_device(item_log_q),
     )
 
     batch_size = int(training_cfg.get("batch_size", 512))
     num_epochs = int(training_cfg.get("num_epochs", 10))
     loss_weights = dict(training_cfg.get("loss_weights", {}))
     clip = training_cfg.get("gradient_clip_norm")
-    if int(training_cfg.get("mixed_negatives", 0)):
-        logger.warning("training.mixed_negatives ignored: only the in_batch_softmax loss uses it.")
+    mixed_negatives = int(training_cfg.get("mixed_negatives", 0))
+    if mixed_negatives and loss_type != "in_batch_softmax":
+        logger.warning(
+            "training.mixed_negatives=%d ignored: only the in_batch_softmax loss consumes a "
+            "mixed-negative pool.", mixed_negatives,
+        )
+        mixed_negatives = 0
     tscfg = TrainStepConfig(
         num_items=num_items,
         negatives_per_positive=int(training_cfg.get("negatives_per_positive", 5)),
+        loss_type=loss_type,
         lambda_mimic_user=float(loss_weights.get("mimic_user", 0.0)),
         lambda_mimic_item=float(loss_weights.get("mimic_item", 0.0)),
         lambda_category_alignment=float(loss_weights.get("category_alignment", 0.0)),
@@ -389,6 +420,9 @@ def run_single_experiment(
             "category_alignment_max_categories",
             min(64, -(-len(categories.category_names) // 8) * 8) if categories else 0,
         )),
+        softmax_temperature=float(training_cfg.get("softmax_temperature", 1.0)),
+        logq_correction=logq,
+        mixed_negatives=mixed_negatives,
         sparse_weight_decay=float(training_cfg.get("sparse_weight_decay", 0.0)),
         update_routing=str(training_cfg.get("update_routing", "allgather")).lower(),
         update_capacity_factor=float(training_cfg.get("update_capacity_factor", 2.0)),

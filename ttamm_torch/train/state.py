@@ -5,9 +5,11 @@ The parameters split the way the JAX package (and the reference) splits
 optimizers:
 
 - ``tables``: the user/item ID tables and the mimic tables. ID tables marked
-  ``sparse: true`` are updated by sparse-row Adam (``opt_sparse``) and carry
-  one zero scratch row after their ``num_users`` / ``num_items`` rows (the
-  JAX layout); every other table is updated by the dense optimizer.
+  ``sparse: true``, and the mimic tables under ``adaptive_mimic.sparse``,
+  are updated by sparse-row Adam (``opt_sparse``, ``sparse_weight_decay``)
+  and carry one zero scratch row after their ``num_users`` / ``num_items``
+  rows (the JAX layout); every other table is updated by the dense
+  optimizer (and its weight decay).
 - the dense parameters (feature MLPs, gates, projections), always on the
   dense optimizer, together with the dense tables (``opt_dense``, one
   moment per tensor in :meth:`TrainState.dense_targets` order).
@@ -89,10 +91,6 @@ def create_train_state(
     """A seeded model in training mode (dropout on, gradients on its dense
     layers; the tables are updated by the optimizers, not by autograd) on
     ``device`` (``None``: the CUDA card), with zero optimizer states."""
-    if cfg.mimic_sparse:
-        raise NotImplementedError(
-            "adaptive_mimic.sparse is not ported yet (ROADMAP Queue 1)"
-        )
     model = TwoTower(cfg, num_users=num_users, num_items=num_items, seed=seed, device=device)
     model.train()
     for _, param in model.dense_parameters():

@@ -3,12 +3,18 @@
 
 One training step, in the JAX step's order:
 
-1. sample the negatives on the device (5 per positive by default);
+1. draw the extra item lanes on the device: under ``loss_type="bce"`` the
+   sampled negatives (5 per positive by default), under
+   ``"in_batch_softmax"`` a pool of ``mixed_negatives`` uniform ids shared
+   by the whole batch (possibly empty);
 2. gather every table's rows as fresh leaf tensors (outside the
    differentiated function, so table gradients arrive batch-row shaped;
-   the sparse ID tables through the ``gather_rows`` kernel);
+   the sparse tables, ID and, under ``adaptive_mimic.sparse``, mimic,
+   through the ``gather_rows`` kernel);
 3. run the towers (dropout from the caller's generator) and the mimic;
-4. BCE over [positives; negatives] + the mimic losses + category alignment;
+4. the retrieval loss (BCE over [positives; negatives], or the in-batch
+   softmax of :func:`in_batch_softmax_loss` over [every positive; the
+   pool]) + the mimic losses + category alignment;
 5. backward;
 6. rebuild each dense table's gradient by a fixed-order row sum;
 7. the optional global-norm clip (sparse row gradients coalesced first);
@@ -24,11 +30,10 @@ updates through :class:`_Mesh` instead of :class:`_OneDevice`.
 The state is updated in place. Parity notes (as in the JAX package):
 training logits are dot products whatever ``model.similarity`` says; mimic
 targets are the base (pre-augmentation) opposite-tower embeddings;
-negatives get mimic augmentation but no mimic loss; category alignment sees
-the augmented positive and negative item embeddings; the eval loss is the
-same stack without dropout and without the auxiliary terms.
-
-Only ``loss: bce`` is ported; the in-batch softmax and its options raise.
+negatives (and the pool) get mimic augmentation but no mimic loss;
+category alignment sees the augmented positive and negative (or pool) item
+embeddings; the eval loss is the same retrieval loss without dropout and
+without the auxiliary terms.
 """
 
 from __future__ import annotations
@@ -48,17 +53,26 @@ from ..ops.sparse_adam import coalesce_row_grads, sparse_adam_update, sum_rows
 from .optim import DenseOptConfig, dense_opt_update, lr_scale
 from .state import BatchData, TrainState, dense_table_names, sparse_table_names
 
+LOSSES = ("bce", "in_batch_softmax")
+
 
 class TrainStepConfig(NamedTuple):
     num_items: int
-    negatives_per_positive: int = 5
-    loss_type: str = "bce"
+    negatives_per_positive: int = 5  # bce only
+    loss_type: str = "bce"  # one of LOSSES
     lambda_mimic_user: float = 0.0
     lambda_mimic_item: float = 0.0
     lambda_category_alignment: float = 0.0
     gradient_clip_norm: float | None = None
     cal_max_categories: int = 64
     sampling_rounds: int = 8
+    # In-batch softmax only: the logits' temperature, the logQ correction
+    # over ``BatchData.item_log_q`` (uncorrected where that is None), and
+    # the number of uniform draws shared by the batch as extra candidates
+    # (the mixed negatives; 0 = in-batch negatives alone).
+    softmax_temperature: float = 1.0
+    logq_correction: bool = True
+    mixed_negatives: int = 0
     # Decoupled weight decay on the sparse tables' touched rows (0 = SparseAdam).
     sparse_weight_decay: float = 0.0
     # Under a mesh: the row-gradient exchange of the sparse tables
@@ -98,13 +112,46 @@ def _negatives(
     ).reshape(-1)
 
 
-def _row_indices(u_idx: torch.Tensor, item_idx_all: torch.Tensor) -> dict[str, torch.Tensor]:
+def _pool(
+    tscfg: TrainStepConfig,
+    device: torch.device,
+    generator: torch.Generator | None,
+    negatives: torch.Tensor | None,
+) -> torch.Tensor:
+    """Int32 ``[M]`` ids of the in-batch loss's shared pool: the injected
+    ones, else ``mixed_negatives`` uniform draws (none at M = 0)."""
+    if negatives is not None:
+        return negatives.reshape(-1).to(torch.int32)
+    if tscfg.mixed_negatives == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=device)
+    if generator is None:
+        raise ValueError("a generator is needed to draw the mixed negatives")
+    return torch.randint(
+        0, tscfg.num_items, (tscfg.mixed_negatives,), generator=generator, device=device,
+        dtype=torch.int32,
+    )
+
+
+class _Batch(NamedTuple):
+    """One step's lanes on this rank: ``size`` the whole batch, this rank's
+    users ``[lo, hi)`` of it (``users``), its item lanes (``items``: [its
+    positives; their negatives], or under the in-batch loss [its positives;
+    its part of the pool]) and, under the in-batch loss only, the
+    candidates' ids (``candidates``: every positive of the batch, then the
+    pool)."""
+
+    size: int
+    lo: int
+    hi: int
+    users: torch.Tensor
+    items: torch.Tensor
+    candidates: torch.Tensor | None = None
+
+
+def _row_indices(bt: _Batch) -> dict[str, torch.Tensor]:
     """Which rows of each table a step reads: users for the user tables,
-    [positives; negatives] for the item tables."""
-    return {
-        "user_id": u_idx, "user_aug": u_idx,
-        "item_id": item_idx_all, "item_aug": item_idx_all,
-    }
+    the item lanes for the item tables."""
+    return {"user_id": bt.users, "user_aug": bt.users, "item_id": bt.items, "item_aug": bt.items}
 
 
 def _forward_embeddings(
@@ -117,9 +164,10 @@ def _forward_embeddings(
     generator: torch.Generator | None,
     lookup=_gather_opt,
 ):
-    """``(user_emb, pos_emb, neg_emb [B, NEG, D], mimic_user_loss,
-    mimic_item_loss)`` from pre-gathered table rows (items ordered
-    [positives; negatives]); dropout only with a ``generator``.
+    """``(user_emb, pos_emb, neg_emb, mimic_user_loss, mimic_item_loss)``
+    from pre-gathered table rows (items ordered [positives; the rest]);
+    ``neg_emb`` is ``[B, NEG, D]`` under the BCE loss and the flat pool
+    ``[M, D]`` under the in-batch loss. Dropout only with a ``generator``.
     ``lookup(features, idx)`` reads feature rows."""
     batch = u_idx.shape[0]
     user_base = model.user_tower.forward_rows(
@@ -139,7 +187,8 @@ def _forward_embeddings(
     else:
         user_emb, pos_emb, neg_emb = user_base, pos_base, neg_base
         mu_loss = mi_loss = zero
-    neg_emb = neg_emb.reshape(batch, tscfg.negatives_per_positive, -1)
+    if tscfg.loss_type == "bce":
+        neg_emb = neg_emb.reshape(batch, tscfg.negatives_per_positive, -1)
     return user_emb, pos_emb, neg_emb, mu_loss, mi_loss
 
 
@@ -151,11 +200,84 @@ def _bce_stack(user_emb, pos_emb, neg_emb) -> torch.Tensor:
     return bce_with_logits(logits, labels)
 
 
-def _check_supported(tscfg: TrainStepConfig) -> None:
-    if tscfg.loss_type != "bce":
-        raise NotImplementedError(
-            f"training.loss={tscfg.loss_type} is not ported yet (bce only; ROADMAP Queue 1)"
-        )
+def in_batch_softmax_loss(
+    user_emb: torch.Tensor,
+    pos_emb: torch.Tensor,
+    pos_idx: torch.Tensor,
+    *,
+    neg_emb: torch.Tensor | None = None,
+    neg_idx: torch.Tensor | None = None,
+    num_items: int = 0,
+    cand_log_q: torch.Tensor | None = None,
+    temperature: float = 1.0,
+    row_offset: int = 0,
+) -> torch.Tensor:
+    """Sampled softmax with in-batch negatives (the JAX
+    ``_in_batch_softmax_loss``).
+
+    Row ``i``'s candidates are every positive of the batch (``pos_emb``
+    ``[B, D]`` at ids ``pos_idx``), then the shared pool of mixed negatives
+    (``neg_emb`` ``[M, D]`` at ``neg_idx``; none at M = 0): logits
+    ``[n, B + M]``, plain dot products (two matmuls, as the JAX step). Its
+    label is its own positive; a candidate with row ``i``'s item anywhere
+    else (an accidental hit: a duplicate positive, a pool draw) is masked
+    with the float32 minimum. Returns minus the mean log-probability of
+    the labels.
+
+    ``user_emb`` ``[n, D]`` are rows ``[row_offset, row_offset + n)`` of
+    the batch: all of it on one device, a data shard's rows on a mesh
+    (whose caller weighs the mean by n / B). ``temperature`` divides the
+    logits. ``cand_log_q`` ``[B + M]``: each candidate's log sampling
+    probability (``BatchData.item_log_q`` at ``[pos_idx; neg_idx]``),
+    subtracted from its logit (the logQ correction); with a pool, the
+    mixture ``log((B q + M / num_items) / (B + M))`` instead.
+    """
+    batch, n = pos_idx.shape[0], user_emb.shape[0]
+    logits = torch.matmul(user_emb, pos_emb.T)
+    cand_idx = pos_idx
+    mixed = neg_emb is not None and neg_emb.shape[0] > 0
+    if mixed:
+        logits = torch.cat([logits, torch.matmul(user_emb, neg_emb.T)], dim=1)
+        cand_idx = torch.cat([pos_idx, neg_idx])
+    if temperature != 1.0:
+        logits = logits / temperature
+    if cand_log_q is not None:
+        if mixed:
+            m = neg_emb.shape[0]
+            cand_log_q = torch.log((batch * torch.exp(cand_log_q) + m / num_items) / (batch + m))
+        logits = logits - cand_log_q[None, :]
+    rows = torch.arange(n, device=logits.device) + row_offset
+    diag = torch.arange(logits.shape[1], device=logits.device)[None, :] == rows[:, None]
+    hit = cand_idx[None, :] == pos_idx[row_offset : row_offset + n, None]
+    logits = logits.masked_fill(hit & ~diag, torch.finfo(logits.dtype).min)
+    log_probs = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.diagonal(log_probs, offset=row_offset))
+
+
+def _retrieval_loss(layout, tscfg: TrainStepConfig, data: BatchData, bt: _Batch,
+                    user_emb, pos_emb, neg_emb) -> torch.Tensor:
+    """This rank's mean retrieval loss: the BCE stack, or the in-batch
+    softmax over the candidates the layout assembles."""
+    if bt.candidates is None:
+        return _bce_stack(user_emb, pos_emb, neg_emb)
+    pos_all, pool_all = layout.candidates(pos_emb, neg_emb, bt)
+    log_q = None
+    if tscfg.logq_correction and data.item_log_q is not None:
+        log_q = layout.lookup(data.item_log_q, bt.candidates)
+    return in_batch_softmax_loss(
+        user_emb, pos_all, bt.candidates[: bt.size], neg_emb=pool_all,
+        neg_idx=bt.candidates[bt.size :], num_items=tscfg.num_items, cand_log_q=log_q,
+        temperature=tscfg.softmax_temperature, row_offset=bt.lo,
+    )
+
+
+def _check_config(tscfg: TrainStepConfig) -> None:
+    if tscfg.loss_type not in LOSSES:
+        raise ValueError(f"Unsupported training.loss: {tscfg.loss_type} (one of {LOSSES})")
+    if tscfg.softmax_temperature <= 0.0:
+        raise ValueError("training.softmax_temperature must be > 0")
+    if tscfg.mixed_negatives < 0:
+        raise ValueError("training.mixed_negatives must be >= 0")
 
 
 TrainStep = Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]
@@ -198,7 +320,8 @@ class _OneDevice:
         return _gather_opt(features, idx)
 
     def table_rows(self, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        """Rows of a sparse ID table at int32 ids, outside autograd: the
+        """Rows of a sparse table (ID, or mimic under
+        ``adaptive_mimic.sparse``) at int32 ids, outside autograd: the
         ``gather_rows`` kernel (the same copy as ``index_select``)."""
         return kernels.gather_rows(table, idx)
 
@@ -224,7 +347,12 @@ class _OneDevice:
     def reduce_table_sq(self, sq: torch.Tensor) -> torch.Tensor:
         return sq
 
-    def lanes(self, side: str, idx: torch.Tensor, grad: torch.Tensor, batch: int) -> _Lanes:
+    def candidates(self, pos_emb: torch.Tensor, pool_emb: torch.Tensor, bt: _Batch):
+        """``(every positive's embedding [B, D], the pool's [M, D])``: the
+        in-batch loss's candidates."""
+        return pos_emb, pool_emb
+
+    def lanes(self, side: str, idx: torch.Tensor, grad: torch.Tensor, bt: _Batch) -> _Lanes:
         return _Lanes(idx, grad)
 
     def sparse_sq(self, table: torch.Tensor, lanes: _Lanes) -> tuple[_Lanes, torch.Tensor]:
@@ -249,21 +377,28 @@ class _Mesh(_OneDevice):
     dense parameters); ``u_idx`` / ``pos_idx`` are the whole batch, the same
     on every rank. Against the one-device step:
 
-    1. the negatives of the whole batch come from ``generator``, which every
-       rank seeds alike (or ``negatives``); this rank then trains on its data
-       shard of the batch (:func:`_data_shard`). A mesh run and a one-device
-       run of one seed draw the same negatives only with dropout off, or
-       with the one-device step's masks from a ``dropout_generator`` of its
-       own (else they come from ``generator`` and shift its stream);
+    1. the negatives of the whole batch (or the in-batch loss's pool) come
+       from ``generator``, which every rank seeds alike (or ``negatives``);
+       this rank then trains on its data shard of the batch and, under the
+       in-batch loss, encodes its data shard of the pool
+       (:func:`_data_shard`). A mesh run and a one-device run of one seed
+       draw the same negatives only with dropout off, or with the
+       one-device step's masks from a ``dropout_generator`` of its own
+       (else they come from ``generator`` and shift its stream);
     2. rows come through the sharded lookups, one masked ``gather_rows`` a
-       table at any number of model shards: the sparse tables' as fresh
-       leaves (``sharded_table_rows``), the dense (mimic) tables' through
-       ``sharded_lookup``, whose backward gives this shard's table gradient
-       summed over data;
+       table at any number of model shards: the sparse tables' (ID, and
+       mimic under ``adaptive_mimic.sparse``) as fresh leaves
+       (``sharded_table_rows``), the dense tables' (the mimic tables by
+       default) through ``sharded_lookup``, whose backward gives this
+       shard's table gradient summed over data;
     3. dropout comes from ``dropout_generator`` (this rank's own; none
        without it); each loss term is weighted by the shard's share of the
        batch, so the sums over data are the global means; the
-       category-alignment statistics are summed over data;
+       category-alignment statistics are summed over data (each pool row
+       counted once, on the rank that encodes it); the in-batch loss reads
+       every positive's and pool row's embedding through an all-gather over
+       data whose backward sums the gradient over data
+       (``all_gather_rows_grad``), so each row keeps one dropout mask;
     4. dense gradients are summed over data (model ranks hold the same batch
        rows, so never over model);
     5. the clip norm is global: the dense tables' shards summed over model,
@@ -318,13 +453,29 @@ class _Mesh(_OneDevice):
     def reduce_table_sq(self, sq):
         return self._pm.all_reduce(sq.reshape(1), self.mesh, self._pm.MODEL_AXIS)[0]
 
-    def lanes(self, side, idx, grad, batch):
+    def candidates(self, pos_emb, pool_emb, bt):
+        pool = bt.candidates.shape[0] - bt.size
+        return self._gathered(pos_emb, bt.size), self._gathered(pool_emb, pool)
+
+    def _gathered(self, rows: torch.Tensor, total: int) -> torch.Tensor:
+        """The ``[total, D]`` rows that the data shards hold in
+        :func:`_data_shard` chunks, this rank's being ``rows``."""
+        if total == 0 or self.dp == 1:
+            return rows
+        chunk = -(-total // self.dp)
+        rows = torch.cat([rows, rows.new_zeros((chunk - rows.shape[0], rows.shape[1]))])
+        full = self._pm.all_gather_rows_grad(rows, self.mesh, self._pm.DATA_AXIS)
+        keep = _shard_rows(total, self.dp)
+        return full if keep is None else full[torch.from_numpy(keep).to(full.device)]
+
+    def lanes(self, side, idx, grad, bt):
         """This rank's lanes padded to one length on every rank, and the
         permutation of the gathered lanes into the global order."""
-        chunk = -(-batch // self.dp)
-        width = chunk * (1 if side == "user" else 1 + self.num_neg)
-        idx, grad = _pad_lanes(idx, grad, width)
-        order = dict(zip(("user", "item"), _lane_orders(batch, self.dp, self.num_neg)))[side]
+        pool = None if bt.candidates is None else bt.candidates.shape[0] - bt.size
+        orders, widths = _lane_orders(bt.size, self.dp, self.num_neg, pool)
+        k = 0 if side == "user" else 1
+        idx, grad = _pad_lanes(idx, grad, widths[k])
+        order = orders[k]
         return _Lanes(idx, grad, None if order is None else torch.from_numpy(order).to(idx.device))
 
     def sparse_sq(self, table, lanes):
@@ -348,25 +499,31 @@ def _layout(tscfg: TrainStepConfig, mesh) -> _OneDevice:
     return _OneDevice() if mesh is None else _Mesh(mesh, tscfg)
 
 
-def _batch_lanes(layout: _OneDevice, tscfg: TrainStepConfig, data, u_idx, pos_idx, generator, negatives):
-    """``(batch, lo, hi, u_local, items_local)``: this rank's users and its
-    [positives; negatives] item ids."""
+def _batch_lanes(layout: _OneDevice, tscfg: TrainStepConfig, data, u_idx, pos_idx, generator,
+                 negatives) -> _Batch:
+    """This rank's users and item lanes of one batch (:class:`_Batch`)."""
     batch = u_idx.shape[0]
     u_idx, pos_idx = u_idx.to(torch.int32), pos_idx.to(torch.int32)
-    neg_flat = _negatives(tscfg, data, u_idx, generator, negatives, layout.lookup)
     lo, hi = layout.shard(batch)
+    if tscfg.loss_type == "in_batch_softmax":
+        pool = _pool(tscfg, u_idx.device, generator, negatives)
+        plo, phi = layout.shard(pool.shape[0])
+        items = torch.cat([pos_idx[lo:hi], pool[plo:phi]])
+        return _Batch(batch, lo, hi, u_idx[lo:hi], items, torch.cat([pos_idx, pool]))
+    neg_flat = _negatives(tscfg, data, u_idx, generator, negatives, layout.lookup)
     num_neg = tscfg.negatives_per_positive
-    item_l = torch.cat([pos_idx[lo:hi], neg_flat[lo * num_neg : hi * num_neg]])
-    return batch, lo, hi, u_idx[lo:hi], item_l
+    items = torch.cat([pos_idx[lo:hi], neg_flat[lo * num_neg : hi * num_neg]])
+    return _Batch(batch, lo, hi, u_idx[lo:hi], items)
 
 
 def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> TrainStep:
     """Build ``train_step(state, data, u_idx, pos_idx, *, generator,
     negatives=None, dropout_generator=None) -> (state, metrics)``.
 
-    ``generator`` (on the data's device) draws the negatives and, on one
-    device, the dropout masks unless ``dropout_generator`` is given;
-    ``negatives`` ``[B, NEG]`` replaces the draw (tests inject the JAX
+    ``generator`` (on the data's device) draws the negatives (the in-batch
+    loss: the pool of mixed negatives) and, on one device, the dropout
+    masks unless ``dropout_generator`` is given; ``negatives`` ``[B, NEG]``
+    (the in-batch loss: ``[M]``) replaces the draw (tests inject the JAX
     draws). The state is updated in place and
     returned; the metrics are 0-d device tensors (``loss`` and the four loss
     terms), read by the caller when it likes, so a step issues no host sync.
@@ -374,7 +531,7 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
     ``mesh``: the step on one rank of a ``(data, model)`` mesh, whose
     differences :class:`_Mesh` lists (dropout from ``dropout_generator``).
     """
-    _check_supported(tscfg)
+    _check_config(tscfg)
     layout = _layout(tscfg, mesh)
     sparse_names = sparse_table_names(cfg)
     dense_tbl_names = dense_table_names(cfg)
@@ -395,10 +552,8 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
 
     def train_step(state, data, u_idx, pos_idx, *, generator, negatives=None, dropout_generator=None):
         model = state.model
-        batch, lo, hi, u_l, item_l = _batch_lanes(
-            layout, tscfg, data, u_idx, pos_idx, generator, negatives
-        )
-        row_idx = _row_indices(u_l, item_l)
+        bt = _batch_lanes(layout, tscfg, data, u_idx, pos_idx, generator, negatives)
+        row_idx = _row_indices(bt)
         tables = state.tables
         inputs, rows = {}, {}
         for n, t in tables.items():
@@ -408,14 +563,15 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
                 inputs[n] = rows[n] = layout.table_rows(t, row_idx[n]).requires_grad_()
 
         user_emb, pos_emb, neg_emb, mu_loss, mi_loss = _forward_embeddings(
-            model, tscfg, data, u_l, item_l, rows,
+            model, tscfg, data, bt.users, bt.items, rows,
             layout.dropout(generator, dropout_generator), layout.lookup,
         )
-        parts = layout.weigh(batch, hi - lo, [_bce_stack(user_emb, pos_emb, neg_emb), mu_loss, mi_loss])
+        retrieval = _retrieval_loss(layout, tscfg, data, bt, user_emb, pos_emb, neg_emb)
+        parts = layout.weigh(bt.size, bt.hi - bt.lo, [retrieval, mu_loss, mi_loss])
         cal_loss = None
         if lam_c > 0 and data.category_ids is not None:
             cal_loss = category_alignment_loss(
-                layout.lookup(data.category_ids, item_l),
+                layout.lookup(data.category_ids, bt.items),
                 torch.cat([pos_emb, neg_emb.reshape(-1, pos_emb.shape[-1])]),
                 max_categories=tscfg.cal_max_categories, mesh=layout.mesh,
             )
@@ -428,7 +584,7 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
         dense_grads = layout.reduce_dense(grads[: len(dense)])
         input_grads = dict(zip(inputs, grads[len(dense) :]))
         table_grads = [layout.table_grad(input_grads[n], row_idx[n], tables[n]) for n in dense_tbl_names]
-        lanes = {n: layout.lanes(n[:4], row_idx[n], input_grads[n], batch) for n in sparse_names}
+        lanes = {n: layout.lanes(n[:4], row_idx[n], input_grads[n], bt) for n in sparse_names}
 
         if tscfg.gradient_clip_norm is not None and tscfg.gradient_clip_norm > 0:
             # Global norm over every gradient, with each sparse table's
@@ -469,28 +625,28 @@ def make_eval_loss_step(
     cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None
 ) -> Callable[..., torch.Tensor]:
     """Build ``eval_loss_step(state, data, u_idx, pos_idx, *, generator,
-    negatives=None) -> loss``: the BCE on [positives; sampled negatives],
-    no dropout, no auxiliary terms (0-d device tensor). ``mesh``: the
-    batch's loss from the data shards' parts (:class:`_Mesh` describes the
-    layout)."""
-    _check_supported(tscfg)
+    negatives=None) -> loss``: the retrieval loss of the train step (the
+    BCE on [positives; sampled negatives], or the in-batch softmax of the
+    batch with its own pool), no dropout, no auxiliary terms (0-d device
+    tensor). ``mesh``: the batch's loss from the data shards' parts
+    (:class:`_Mesh` describes the layout)."""
+    _check_config(tscfg)
     layout = _layout(tscfg, mesh)
     sparse_names = sparse_table_names(cfg)
 
     @torch.no_grad()
     def eval_loss_step(state, data, u_idx, pos_idx, *, generator, negatives=None):
-        batch, lo, hi, u_l, item_l = _batch_lanes(
-            layout, tscfg, data, u_idx, pos_idx, generator, negatives
-        )
-        row_idx = _row_indices(u_l, item_l)
+        bt = _batch_lanes(layout, tscfg, data, u_idx, pos_idx, generator, negatives)
+        row_idx = _row_indices(bt)
         rows = {
             n: (layout.table_rows if n in sparse_names else layout.lookup)(t, row_idx[n])
             for n, t in state.tables.items()
         }
         user_emb, pos_emb, neg_emb, _, _ = _forward_embeddings(
-            state.model, tscfg, data, u_l, item_l, rows, None, layout.lookup
+            state.model, tscfg, data, bt.users, bt.items, rows, None, layout.lookup
         )
-        (loss,) = layout.reduce_losses(layout.weigh(batch, hi - lo, [_bce_stack(user_emb, pos_emb, neg_emb)]))
+        retrieval = _retrieval_loss(layout, tscfg, data, bt, user_emb, pos_emb, neg_emb)
+        (loss,) = layout.reduce_losses(layout.weigh(bt.size, bt.hi - bt.lo, [retrieval]))
         return loss
 
     return eval_loss_step
@@ -547,30 +703,49 @@ def _data_shard(batch: int, dp: int, d: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=64)
-def _lane_orders(batch: int, dp: int, num_neg: int) -> tuple[np.ndarray | None, np.ndarray | None]:
-    """Permutations of the user and item lanes gathered over ``data``
-    (rank-major, each rank's lanes padded to one length) into the step's
+def _lane_orders(batch: int, dp: int, num_neg: int, pool: int | None):
+    """``((user order, item order), (user width, item width))``: the lanes a
+    rank contributes are padded to one width on every rank, and the orders
+    permute the lanes gathered over ``data`` (rank-major) into the step's
     global lane order: users in batch order, items as [every positive;
-    every negative], padding lanes last. None where the gather order is
-    already the global one."""
+    every negative] (``pool`` None: ``num_neg`` a positive, in its shard)
+    or [every positive; the pool] (the in-batch loss: ``pool`` shared draws
+    split over data as the batch is), padding lanes last. An order is None
+    where the gather order is already the global one."""
     chunk = -(-batch // dp)
+    extra = chunk * num_neg if pool is None else -(-pool // dp)
     user, pos, neg, user_pad, item_pad = [], [], [], [], []
     for d in range(dp):
         lo, hi = _data_shard(batch, dp, d)
         n = hi - lo
-        ub, ib = d * chunk, d * chunk * (1 + num_neg)
+        if pool is None:
+            e = n * num_neg
+        else:
+            plo, phi = _data_shard(pool, dp, d)
+            e = phi - plo
+        ub, ib = d * chunk, d * (chunk + extra)
         user.append(np.arange(ub, ub + n))
         user_pad.append(np.arange(ub + n, ub + chunk))
         pos.append(np.arange(ib, ib + n))
-        neg.append(np.arange(ib + n, ib + n * (1 + num_neg)))
-        item_pad.append(np.arange(ib + n * (1 + num_neg), ib + chunk * (1 + num_neg)))
-    user_order = np.concatenate(user + user_pad)
-    item_order = np.concatenate(pos + neg + item_pad)
+        neg.append(np.arange(ib + n, ib + n + e))
+        item_pad.append(np.arange(ib + n + e, ib + chunk + extra))
+    orders = (np.concatenate(user + user_pad), np.concatenate(pos + neg + item_pad))
     identity = lambda order: np.array_equal(order, np.arange(order.size))  # noqa: E731
-    return (
-        None if identity(user_order) else user_order,
-        None if identity(item_order) else item_order,
-    )
+    return tuple(None if identity(o) else o for o in orders), (chunk, chunk + extra)
+
+
+@functools.lru_cache(maxsize=64)
+def _shard_rows(total: int, dp: int) -> np.ndarray | None:
+    """Where the ``total`` rows split in :func:`_data_shard` chunks sit
+    among the chunks all-gathered over ``data`` (each padded to the chunk
+    size); None where the chunks hold no padding."""
+    chunk = -(-total // dp)
+    if chunk * dp == total:
+        return None
+    return np.concatenate([
+        np.arange(d * chunk, d * chunk + hi - lo)
+        for d, (lo, hi) in enumerate(_data_shard(total, dp, d) for d in range(dp))
+    ])
 
 
 def _pad_lanes(idx: torch.Tensor, grads: torch.Tensor, lanes: int):
