@@ -106,10 +106,24 @@ result line):
    user batch, the hit matrices of the first two val batches with the
    kernels and with their plain versions (equal bit for bit), and 256 users'
    masked ids against a host numpy masked search (equal but where scores tie
-   within 1e-5); then steps, ms/step, examples/s, launches per step and a
+   within 1e-5); the checkpoint laps (the trainer's background writer)
+   and the end-of-run wait for it; the reports: the Markdown report (its
+   recall@k line that of the best epoch, one entry per sampled user), the
+   JSON embedding summary and, where matplotlib is installed, the loss
+   PNG (which of the two is printed); the end-of-run block again on the
+   best state, its launches counted apart (small_k_topk and gather_rows
+   must run), each sample user's recommended ids equal to a host numpy
+   search of the same embeddings but where scores tie within 1e-5; then
+   steps, ms/step, examples/s, launches per step and a
    ``torch.profiler`` table of the top device ops with the device's idle
    share over 20 more steps (each step must launch gather_rows and
    sparse_adam_rows twice, once a sparse table, and scatter_set_rows never);
+   last, outside the counts, the checkpoint A/B: one state saved
+   synchronously and through AsyncCheckpointer, the files equal (arrays
+   bit for bit, the meta but its timestamp), then 50 canonical train steps
+   a turn in the turns none, write, write, none, with the host ms/step of
+   each, the checkpoint lap and the writer's remaining time after the
+   steps;
 5b. the recommended configuration, ``configs/in_batch_softmax.yaml`` (the
    logQ-corrected in-batch softmax, sparse-row Adam on the mimic tables):
    (a) one step from the seeded state with an injected pool of 256 mixed
@@ -121,8 +135,8 @@ result line):
    a cold L2 beside their bound (the rows' ``parts`` ``in_batch_*``), and
    segment_second_moments at its N = B item lanes' real category ids
    (``parts`` ``*_in_batch``); (c) two epochs through ``run_training``
-   (its launches counted from zero just before it), checked as phase 5 and
-   profiled over 20 steps (4 gather_rows and 4 sparse_adam_rows a step, no
+   (its launches counted from zero just before it), checked as phase 5
+   (its reports and end-of-run block too) and profiled over 20 steps (4 gather_rows and 4 sparse_adam_rows a step, no
    scatter_set_rows), its ms/step, examples/s, device ms and ops per step
    and idle share printed beside phase 5's; (d) the best checkpoint
    exported and 256 users searched, ids equal to the host numpy search but
@@ -186,6 +200,8 @@ MESH_STEPS = 3  # sharded steps per routing (phases 4b and 5b)
 IB_POOL = 256  # mixed negatives of phase 5b's second one-step comparison
 CORPUS_ROWS, CORPUS_DIM = 2_000_000, 128
 PROFILE_STEPS = 20
+AB_STEPS = 50  # canonical train steps a turn of phase 5's checkpoint A/B
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 L2_FLUSH_BYTES = 256 << 20  # five times the 50 MB L2 of an H100
 
 # Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet, dense).
@@ -501,6 +517,11 @@ def phase_build(dev) -> str:
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(dev)} | nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    import importlib.util
+
+    log("matplotlib: " + ("installed (the trainer writes the loss plot)"
+                          if importlib.util.find_spec("matplotlib") else
+                          "not installed (the trainer writes its reports without the loss plot)"))
     return smi
 
 
@@ -906,6 +927,11 @@ def _config(data_dir: Path, work: Path, name: str = "default.yaml") -> dict:
     config["evaluation"]["faiss"]["index_path"] = str(work / "faiss" / "items.index")
     config["evaluation"]["faiss"]["embedding_path"] = str(work / "faiss" / "item_embeddings.npy")
     config["experiment"]["benchmark_report"] = str(work / "reports" / "benchmark_summary.md")
+    config["diagnostics"].update(
+        report_path=str(work / "reports" / "recommendation_report.md"),
+        loss_plot_path=str(work / "reports" / "loss_curve.png"),
+        embedding_summary_path=str(work / "reports" / "embedding_diagnostics.json"),
+    )
     return config
 
 
@@ -1767,9 +1793,175 @@ def phase_train(dev, config: dict, dataset, excluded: collections.Counter):
     check(result.checkpoint_path is not None and result.checkpoint_path.is_file(), "no last checkpoint written")
     log(f"checkpoints: best {result.best_checkpoint_path.name}, last {result.checkpoint_path.name} "
         f"({result.checkpoint_path.stat().st_size / 1e6:.1f} MB)")
+    log(f"checkpoint laps (host clock): {[round(p['ckpt'], 4) for p in result.phase_seconds]} s; "
+        f"train laps {[round(p['train'], 3) for p in result.phase_seconds]} s; the end-of-run wait "
+        f"for the writer {result.checkpoint_wait_seconds:.4f} s")
     with uncounted(excluded):
         _eval_checks(result)
-    return result
+    block = _report_checks(config, dataset, result, excluded)
+    return result, block
+
+
+def _report_checks(config: dict, dataset, result, excluded: collections.Counter) -> dict[str, int]:
+    """The run's reports: the Markdown report (its recall@k that of the best
+    epoch, one entry a sampled user), the JSON summary and the loss PNG
+    where matplotlib is installed; then the end-of-run block again on the
+    best state (one seeded draw: the same samples and users as the run's),
+    its launches counted apart, and each sample user's recommended ids
+    against a host numpy search of the same embeddings (history dropped),
+    equal but where scores tie within 1e-5. Returns the block's launches."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ttamm_torch.evaluation import encode_user_batch
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.pipelines.training import run_diagnostics
+    from ttamm_torch.train import encode_corpus
+
+    diag_cfg, rec_cfg = config["diagnostics"], config["recommendations"]
+    report, summary = Path(diag_cfg["report_path"]), Path(diag_cfg["embedding_summary_path"])
+    check(report.is_file() and result.embedding_summary_path == summary and summary.is_file(),
+          f"reports not written: {report} {result.embedding_summary_path}")
+    text = report.read_text(encoding="utf-8").splitlines()
+    if result.loss_plot_path is not None:
+        check(result.loss_plot_path.read_bytes()[:8] == PNG_MAGIC, "the loss plot is not a PNG")
+        log(f"loss plot PNG written: {result.loss_plot_path.name} "
+            f"({result.loss_plot_path.stat().st_size} bytes)")
+    else:
+        check("## Loss Curves" not in text, "a loss section without a plot")
+        log("loss plot PNG not written (no matplotlib): the report has no loss section")
+    recall = "- **Recall**: " + ", ".join(
+        f"@{k}={v:.4f}" for k, v in result.best_val_metrics.recall.items())
+    check(recall in text, f"the report's recall is not the best epoch's {recall}")
+    users = [line.split("`")[1] for line in text if line.startswith("- **User** `")]
+    check(len(users) == rec_cfg["sample_users"], f"report users {users}")
+    blob = json.loads(summary.read_text())
+    check(blob["best_epoch"] == result.best_epoch and blob["embedding_stats"]["item_norms"]["count"]
+          == diag_cfg["item_sample_size"], f"embedding summary: {list(blob)}")
+    log(f"reports: {report.name} (recall line = the best epoch's: {recall[2:]}; users {users}), "
+        f"{summary.name}")
+
+    state, data = result.state, result.data
+    model = state.model
+    with uncounted(excluded):
+        items = encode_corpus(model, "item", data.item_features)
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        start = time.perf_counter()
+        diag = run_diagnostics(state, data, dataset, items, diagnostics=diag_cfg,
+                               recommendations=rec_cfg, seed=config["experiment"]["seed"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        after = kernels.launch_counts()
+        block = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        check([e["user_id"] for e in diag.recommendations] == users, "the rerun drew other users")
+        cosine = model.cfg.similarity == "cosine"
+        unit = (F.normalize(items, dim=-1) if cosine else items).cpu().numpy()
+        index_of = dict(zip(dataset.items["parent_asin"], dataset.items["item_idx"]))
+        for entry in diag.recommendations:
+            u = torch.tensor([entry["user_idx"]], dtype=torch.int32, device=items.device)
+            q = encode_user_batch(model, data, u)
+            q = (F.normalize(q, dim=-1) if cosine else q).cpu().numpy()[0]
+            scores = unit @ q
+            scores[sorted(dataset.user_positive_items.get(entry["user_idx"], ()))] = -np.inf
+            want = np.argsort(-scores, kind="stable")[: rec_cfg["top_k"]]
+            got = np.asarray([index_of[r["asin"]] for r in entry["recommendations"]])
+            check(len(got) == len(want) and ids_agree(got, scores[got], want, scores[want]),
+                  f"user {entry['user_id']}: recommended {got}, host numpy search {want}")
+    for name in ("small_k_topk", "gather_rows"):
+        check(block.get(name, 0) > 0, f"the end-of-run block launched no {name}: {block}")
+    log(f"end-of-run block (diagnostics of {diag_cfg['item_sample_size']} items and "
+        f"{diag_cfg['user_sample_size']} users, {len(diag.recommendations)} users' recommendations): "
+        f"{seconds:.3f} s, launches {block}; the recommended ids equal the host numpy search")
+    return block
+
+
+def _checkpoint_ab(dev, config: dict, dataset, result, work: Path) -> dict:
+    """Phase 5's checkpoint A/B on the trained state: (1) one save
+    synchronous and one through AsyncCheckpointer (the trainer's snapshot,
+    a device clone), files equal (arrays bit for bit, meta but its
+    timestamp); (2) AB_STEPS canonical train steps a turn, turns none,
+    write, write, none (a save submitted just before the steps): host
+    ms/step of each, the checkpoint lap (clone + submit) and the wait for
+    the writer after the steps."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ttamm_torch.train import make_train_step
+    from ttamm_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint
+
+    state, data = result.state, result.data
+    names = dict(experiment_name="ab", epoch=1, metric_name="last", metric_value=1.0,
+                 template="{experiment}_last.pt")
+    writer = AsyncCheckpointer()
+
+    def submit(directory: str) -> float:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        writer.submit(copy.deepcopy(state), [dict(directory=work / directory, **names)])
+        torch.cuda.synchronize()  # the lap as the trainer's epoch times it
+        return time.perf_counter() - start
+
+    def waited() -> float:
+        start = time.perf_counter()
+        writer.wait()
+        return time.perf_counter() - start
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    sync_path = save_checkpoint(work / "ab_sync", state, **names)
+    sync_s = time.perf_counter() - start
+    first_lap = submit("ab_async")
+    wait_s = waited()
+    async_path = work / "ab_async" / sync_path.name
+    with np.load(sync_path) as a, np.load(async_path) as b:
+        check(a.files == b.files, "async checkpoint: other leaves")
+        metas = [json.loads(bytes(x["__meta__"]).decode()) for x in (a, b)]
+        for meta in metas:
+            meta.pop("timestamp")
+        check(metas[0] == metas[1], f"async checkpoint meta {metas}")
+        for key in a.files:
+            if key != "__meta__":
+                check(a[key].tobytes() == b[key].tobytes(), f"async checkpoint: {key} differs")
+    size = sync_path.stat().st_size
+    log(f"checkpoint A/B, one state ({size / 1e6:.1f} MB): synchronous save {sync_s:.3f} s | "
+        f"async lap (clone + submit) {first_lap:.4f} s, written {wait_s:.3f} s later | files equal "
+        f"({len(metas[0])} meta keys but the timestamp, every array bit for bit)")
+    sync_path.unlink()
+    async_path.unlink()
+
+    step = make_train_step(state.model.cfg, result.step_config)
+    b = config["training"]["batch_size"]
+    frame = dataset.interactions
+    n = 4 * AB_STEPS + 2
+    pick = np.random.default_rng(13).permutation(len(frame))[: n * b]
+    users = torch.from_numpy(frame["user_idx"].to_numpy(np.int32)[pick]).to(dev)
+    items = torch.from_numpy(frame["item_idx"].to_numpy(np.int32)[pick]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def steps(first: int, count: int) -> float:
+        start = time.perf_counter()
+        for i in range(first, first + count):
+            step(state, data, users[i * b : (i + 1) * b], items[i * b : (i + 1) * b], generator=gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3 / count
+
+    steps(0, 2)
+    turns = []
+    for turn, mode in enumerate(("none", "write", "write", "none")):
+        lap = submit(f"ab_turn{turn}") if mode == "write" else 0.0
+        ms = steps(2 + turn * AB_STEPS, AB_STEPS)
+        tail = waited()
+        turns.append({"mode": mode, "ms_per_step": ms, "ckpt_lap_s": lap, "wait_after_s": tail})
+        log(f"checkpoint A/B turn {turn} ({mode}): {ms:.3f} host ms/step over {AB_STEPS} steps"
+            + (f" | lap {lap:.4f} s | the write ended {tail:.3f} s after the steps" if lap else ""))
+        for path in (work / f"ab_turn{turn}").glob("*.pt"):
+            path.unlink()
+    return {"sync_save_s": sync_s, "async_lap_s": first_lap, "async_written_after_s": wait_s,
+            "file_mb": size / 1e6, "turns": turns}
 
 
 def _eval_checks(result) -> None:
@@ -1989,7 +2181,7 @@ def phase_in_batch(dev, work: Path, dataset, default_profile: dict, default_resu
     del state
     kernels.reset_launch_counts()  # this path's launches start here
     excluded = collections.Counter()
-    result = phase_train(dev, config, dataset, excluded)
+    result, block = phase_train(dev, config, dataset, excluded)
     counts = {k: v - excluded[k] for k, v in kernels.launch_counts().items()}
     log(f"launch counts of the recommended configuration's run: {counts}")
     for name in ("gather_rows", "sparse_adam_rows", "segment_second_moments",
@@ -2011,6 +2203,9 @@ def phase_in_batch(dev, work: Path, dataset, default_profile: dict, default_resu
         "examples_per_second": result.examples_per_second,
         "best_val_recall_at_10": result.best_val_metrics.recall[10],
         "mesh_1x1": {"launches": mesh_counts, "steps": 2 * MESH_STEPS},
+        "end_of_run_launches": block,
+        "checkpoint_laps_s": [p["ckpt"] for p in result.phase_seconds],
+        "checkpoint_wait_s": result.checkpoint_wait_seconds,
     }
     return parts, summary
 
@@ -2238,8 +2433,10 @@ def main() -> int:
             kernels.reset_launch_counts()  # the main path's launches start here
             excluded = collections.Counter()
             with Phase("5 train two epochs with the eval at the canonical scale"):
-                result = phase_train(dev, config, dataset, excluded)
+                result, block = phase_train(dev, config, dataset, excluded)
                 per_step, profile = _profile_steps(dev, config, dataset, result)
+                with uncounted(excluded):
+                    checkpoint_ab = _checkpoint_ab(dev, config, dataset, result, work)
                 torch.cuda.empty_cache()
             path_counts = collections.Counter(kernels.launch_counts())  # phase 5's launches
             with Phase("5b the recommended configuration: in-batch softmax, sparse mimic tables"):
@@ -2297,6 +2494,10 @@ def main() -> int:
             for name, row in ((n, kernel_rows[n]) for n in KERNEL_INFO)
         ],
         "launches_per_train_step": per_step,
+        "end_of_run_launches": block,
+        "checkpoint_laps_s": [p["ckpt"] for p in result.phase_seconds],
+        "checkpoint_wait_s": result.checkpoint_wait_seconds,
+        "checkpoint_ab": checkpoint_ab,
         "mesh_1x1": {"launches": mesh_counts, "steps": 2 * MESH_STEPS, **mesh_timing},
         "in_batch_softmax": ib_summary,
     }

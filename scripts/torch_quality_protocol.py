@@ -8,7 +8,8 @@ port's trainer (``run_training``) with the config's early stopping, on the
 card. Records each epoch's val and test recall@10 and NDCG@10, the peak
 epoch and its values, and the train loop's ms/step and examples/s (host
 clock). Checkpoints are not written (the runs' numbers do not depend on
-them); the eval, the serving gate and the bundle run as configured.
+them); the eval, the serving gate, the bundle and the reports run as
+configured (the bundle and the reports under ``--work``).
 
     python3 scripts/torch_quality_protocol.py                      # configs/in_batch_softmax.yaml, seeds 0 11 23
     python3 scripts/torch_quality_protocol.py --dense-mimic --seeds 0 11 13
@@ -43,6 +44,11 @@ def _run(config: dict, seed: int, corpus: Path, work: Path, epochs: int, device:
     faiss = config["evaluation"]["faiss"]
     faiss.update(index_path=str(work / "faiss" / "items.index"),
                  embedding_path=str(work / "faiss" / "item_embeddings.npy"))
+    config["diagnostics"].update(
+        report_path=str(work / "reports" / "recommendation_report.md"),
+        loss_plot_path=str(work / "reports" / "loss_curve.png"),
+        embedding_summary_path=str(work / "reports" / "embedding_diagnostics.json"),
+    )
     config["logging"]["level"] = "WARNING"
     start = time.perf_counter()
     result = run_training(config, device=device)

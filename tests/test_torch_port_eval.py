@@ -291,6 +291,11 @@ def _slice_config(root):
             },
         },
         "serving": {"score_dtype": "auto", "bf16_recall_gate": 0.002},
+        "diagnostics": {
+            "report_path": str(root / "reports" / "recommendation_report.md"),
+            "loss_plot_path": str(root / "reports" / "loss_curve.png"),
+            "embedding_summary_path": str(root / "reports" / "embedding_diagnostics.json"),
+        },
         "logging": {"level": "WARNING"},
     }
 

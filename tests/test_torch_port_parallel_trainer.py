@@ -59,6 +59,10 @@ def runs(tmp_path_factory):
         "index_path": str(root / "single" / "items.index"),
         "embedding_path": str(root / "single" / "item_embeddings.npy"),
     })
+    single["diagnostics"] = dict(config["diagnostics"], **{
+        key: str(root / "single" / Path(config["diagnostics"][key]).name)
+        for key in ("report_path", "loss_plot_path", "embedding_summary_path")
+    })
     return root, outputs, summary, run_single_experiment(single, device="cpu")
 
 
@@ -97,3 +101,34 @@ def test_the_mesh_runs_bundle_matches_the_one_device_run(runs):
     # rows by ~4e-4 and the user rows by ~5e-5; a row from the wrong shard
     # or place would move by O(1)
     np.testing.assert_allclose(users, np.load(single_dir / "user_embeddings.npy"), rtol=0, atol=1e-3)
+
+
+def test_the_mesh_run_writes_the_reports_of_the_one_device_run(runs):
+    """Rank 0 writes the report, the plot and the embedding summary; the
+    samples (one seeded draw on every rank) and the recommended users are
+    the one-device run's, their statistics within 1e-3 of it."""
+    root, _, _, single = runs
+    mesh_dir = root / "reports"
+    for name in ("recommendation_report.md", "loss_curve.png", "embedding_diagnostics.json"):
+        assert (mesh_dir / name).is_file() and (root / "single" / name).is_file()
+    users = [
+        [line.split("`")[1] for line in (d / "recommendation_report.md").read_text().splitlines()
+         if line.startswith("- **User** `")]
+        for d in (mesh_dir, root / "single")
+    ]
+    assert users[0] == users[1] and len(users[0]) == 2
+    got, want = (json.loads((d / "embedding_diagnostics.json").read_text())
+                 for d in (mesh_dir, root / "single"))
+    assert got["best_epoch"] == want["best_epoch"] == single.best_epoch
+    for group in ("user_norms", "item_norms", "user_alignment"):
+        for key, value in want["embedding_stats"][group].items():
+            if isinstance(value, float):
+                assert abs(got["embedding_stats"][group][key] - value) <= 1e-3, (group, key)
+            else:
+                assert got["embedding_stats"][group][key] == value, (group, key)
+    for side in ("user", "item"):
+        gate = got["embedding_stats"]["fusion_gate"][side]
+        assert gate["rows"] == want["embedding_stats"]["fusion_gate"][side]["rows"] > 0
+        assert abs(gate["mean"] - want["embedding_stats"]["fusion_gate"][side]["mean"]) <= 1e-3
+        for key, value in want["adaptive_mimic"][side].items():
+            assert abs(got["adaptive_mimic"][side][key] - value) <= 1e-3

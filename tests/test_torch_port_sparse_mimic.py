@@ -175,6 +175,11 @@ def _recommended_config(root):
     config["evaluation"]["faiss"].update(index_path=str(root / "faiss" / "items.index"),
                                          embedding_path=str(root / "faiss" / "items.npy"))
     config["evaluation"]["user_batch_size"] = 128
+    config["diagnostics"].update(
+        report_path=str(root / "reports" / "recommendation_report.md"),
+        loss_plot_path=str(root / "reports" / "loss_curve.png"),
+        embedding_summary_path=str(root / "reports" / "embedding_diagnostics.json"),
+    )
     config["logging"]["level"] = "WARNING"
     return config
 

@@ -46,6 +46,11 @@ def _small(name: str, root: Path) -> dict:
         embedding_path=str(root / "faiss" / "item_embeddings.npy"),
     )
     config["experiment"]["benchmark_report"] = str(root / "reports" / "benchmark_summary.md")
+    config["diagnostics"].update(
+        report_path=str(root / "reports" / "recommendation_report.md"),
+        loss_plot_path=str(root / "reports" / "loss_curve.png"),
+        embedding_summary_path=str(root / "reports" / "embedding_diagnostics.json"),
+    )
     config["logging"] = {"level": "WARNING"}
     return config
 

@@ -72,6 +72,13 @@ def _config(root: Path) -> dict:
                 "embedding_path": str(root / "faiss" / "item_embeddings.npy"),
             },
         },
+        "diagnostics": {
+            "item_sample_size": 20, "user_sample_size": 50, "neighbor_k": 5,
+            "report_path": str(root / "reports" / "recommendation_report.md"),
+            "loss_plot_path": str(root / "reports" / "loss_curve.png"),
+            "embedding_summary_path": str(root / "reports" / "embedding_diagnostics.json"),
+        },
+        "recommendations": {"sample_users": 2, "top_k": 5},
         "logging": {"level": "WARNING"},
     }
 

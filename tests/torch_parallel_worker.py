@@ -13,6 +13,7 @@ JAX, nothing of the test modules.
 
 from __future__ import annotations
 
+import copy
 import json
 import sys
 from datetime import timedelta
@@ -45,6 +46,7 @@ from ttamm_torch.parallel.sparse_update import sharded_sparse_adam_update  # noq
 from ttamm_torch.parallel.step import make_sharded_topk, make_sharded_train_step  # noqa: E402
 from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state  # noqa: E402
 from ttamm_torch.train.optim import DenseOptConfig  # noqa: E402
+from ttamm_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint  # noqa: E402
 from ttamm_torch.train.sharded_checkpoint import (  # noqa: E402
     load_sharded_checkpoint,
     save_sharded_checkpoint,
@@ -172,8 +174,33 @@ def checkpoint(task, inputs):
     return dict(gather_state_flat(loaded, mesh), epoch=np.asarray(meta["epoch"]))
 
 
+def async_checkpoint(task, inputs):
+    """The state placed on the mesh, saved as the trainer saves it: the
+    sharded format (each rank its pieces) and the flat one (gathered, rank
+    0 writes), each synchronously and through AsyncCheckpointer, into
+    ``save_dir``/{sync,async}_{sharded,flat}."""
+    mesh = _mesh(task)
+    _, state = _model(task, inputs)
+    placed = place_state(mesh, pad_state_rows(state, mesh[MODEL_AXIS].size()))
+    names = dict(experiment_name="port", epoch=2, metric_name="last", metric_value=2.0,
+                 template="{experiment}_last.pt")
+    out = Path(task["save_dir"])
+    save_sharded_checkpoint(out / "sync_sharded", placed, mesh=mesh, **names)
+    flat = gather_state_flat(placed, mesh)
+    if dist.get_rank() == 0:
+        save_checkpoint(out / "sync_flat", flat, **names)
+    sharded, single = AsyncCheckpointer(sharded=True, mesh=mesh), AsyncCheckpointer()
+    sharded.submit(copy.deepcopy(placed), [dict(directory=out / "async_sharded", **names)])
+    flat = gather_state_flat(placed, mesh)  # the collective on the main thread
+    if dist.get_rank() == 0:
+        single.submit(flat, [dict(directory=out / "async_flat", **names)])
+    sharded.wait()
+    single.wait()
+    return {}
+
+
 TASKS = {"sparse_update": sparse_update, "train_step": train_step, "search": search,
-         "checkpoint": checkpoint}
+         "checkpoint": checkpoint, "async_checkpoint": async_checkpoint}
 
 
 def main() -> int:

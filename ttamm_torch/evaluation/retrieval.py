@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from ..data import pack_positives, positives_from_frame
 from ..device import resolve_device
 from ..models.two_tower import TwoTower
+from ..ops import kernels
 from ..ops.topk import FUSED_MASK_WIDTH_MAX, NEG_INF, mips_topk
 from ..train.state import BatchData
 from ..train.step import encode_corpus
@@ -78,27 +79,46 @@ def model_mesh(mesh):
 
 
 @torch.no_grad()
+def side_rows(
+    model: TwoTower, data: BatchData, side: str, idx: torch.Tensor, mesh=None
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
+    """``(ID rows, feature rows, mimic rows)`` of the ``side`` rows at int32
+    ids ``idx`` (None for absent features or mimic tables). The tables are
+    read by ``gather_rows``; under ``mesh`` (row-sharded tables, see the
+    module docstring) by its zero-filling masked form, summed over
+    ``model``."""
+    tower = model.tower(side)
+    features = data.user_features if side == "user" else data.item_features
+    aug = None if model.mimic is None else model.mimic.table(side).weight
+    if mesh is None:
+        feats = None if features is None else torch.index_select(features, 0, idx)
+        rows = [None if t is None else kernels.gather_rows(t, idx)
+                for t in (tower.id_embedding.weight, aug)]
+    else:
+        from ..parallel.embedding_lookup import sharded_rows, sharded_table_rows
+
+        feats = sharded_rows(features, idx, mesh)
+        rows = [None if t is None else sharded_table_rows(t, idx, mesh)
+                for t in (tower.id_embedding.weight, aug)]
+    return rows[0], feats, rows[1]
+
+
+@torch.no_grad()
+def encode_rows(
+    model: TwoTower, data: BatchData, side: str, idx: torch.Tensor, mesh=None
+) -> torch.Tensor:
+    """Tower + mimic augmentation of the ``side`` rows at int32 ids ``idx``,
+    without dropout (rows read by :func:`side_rows`)."""
+    id_rows, feats, aug = side_rows(model, data, side, idx, mesh)
+    emb = model.tower(side).forward_rows(id_rows, feats)
+    return emb if aug is None else emb + aug
+
+
 def encode_user_batch(
     model: TwoTower, data: BatchData, user_idx: torch.Tensor, mesh=None
 ) -> torch.Tensor:
-    """Tower + mimic augmentation of a batch of users, without dropout
-    (``mesh``: from row-sharded tables, see the module docstring)."""
-    if mesh is None:
-        feats = (
-            None if data.user_features is None
-            else torch.index_select(data.user_features, 0, user_idx)
-        )
-        return model.encode_tower("user", user_idx, feats, augment_with_mimic=True)
-    from ..parallel.embedding_lookup import sharded_rows
-
-    tower = model.user_tower
-    emb = tower.forward_rows(
-        sharded_rows(tower.id_embedding.weight, user_idx, mesh),
-        sharded_rows(data.user_features, user_idx, mesh),
-    )
-    if model.mimic is not None:
-        emb = emb + sharded_rows(model.mimic.user_aug.weight, user_idx, mesh)
-    return emb
+    """:func:`encode_rows` of a batch of users."""
+    return encode_rows(model, data, "user", user_idx, mesh)
 
 
 def _corpus(

@@ -23,7 +23,7 @@ that is never read) on both sides, so every table is copied whole.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import TYPE_CHECKING, Any, Mapping
+from typing import TYPE_CHECKING, Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -143,23 +143,33 @@ def _to_host(key: str, tensor: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(arr.T) if key.endswith("/w") else arr
 
 
-def train_state_to_flat(state: "TrainState") -> dict[str, np.ndarray]:
+def train_state_to_flat(
+    state: "TrainState",
+    pull: Callable[[dict[str, torch.Tensor]], Mapping[str, torch.Tensor]] | None = None,
+) -> dict[str, np.ndarray]:
     """A port ``TrainState`` as the flat ``/``-keyed numpy leaves of the
-    JAX ``TrainState`` (``ttamm_tpu.train.checkpoint.state_to_host``)."""
-    flat = {f"tables/{n}": _to_host(n, t) for n, t in state.tables.items()}
+    JAX ``TrainState`` (``ttamm_tpu.train.checkpoint.state_to_host``).
+    ``pull`` takes every tensor leaf by key and returns them on the host at
+    once (a background writer's copy into pinned buffers); by default each
+    is copied by itself."""
+    leaves: dict[str, torch.Tensor | np.ndarray] = {
+        f"tables/{n}": t for n, t in state.tables.items()
+    }
     for key, param in state.model.dense_parameters():
-        flat[f"dense/{key}"] = _to_host(key, param)
+        leaves[f"dense/{key}"] = param
     keys = [k for k, _ in state.dense_targets()]
     for key, m, v in zip(keys, state.opt_dense.m, state.opt_dense.v):
-        flat[f"opt_dense/m/{key}"] = _to_host(key, m)
-        flat[f"opt_dense/v/{key}"] = _to_host(key, v)
-    flat["opt_dense/step"] = np.asarray(state.opt_dense.step, np.int32)
+        leaves[f"opt_dense/m/{key}"] = m
+        leaves[f"opt_dense/v/{key}"] = v
+    leaves["opt_dense/step"] = np.asarray(state.opt_dense.step, np.int32)
     for name, sparse in state.opt_sparse.items():
-        flat[f"opt_sparse/{name}/m"] = _to_host(name, sparse.m)
-        flat[f"opt_sparse/{name}/v"] = _to_host(name, sparse.v)
-        flat[f"opt_sparse/{name}/step"] = np.asarray(sparse.step, np.int32)
-    flat["step"] = np.asarray(state.step, np.int32)
-    return flat
+        leaves[f"opt_sparse/{name}/m"] = sparse.m
+        leaves[f"opt_sparse/{name}/v"] = sparse.v
+        leaves[f"opt_sparse/{name}/step"] = np.asarray(sparse.step, np.int32)
+    leaves["step"] = np.asarray(state.step, np.int32)
+    tensors = {k: t.detach() for k, t in leaves.items() if isinstance(t, torch.Tensor)}
+    host = tensors if pull is None else pull(tensors)
+    return {k: _to_host(k, host[k]) if k in host else v for k, v in leaves.items()}
 
 
 @torch.no_grad()

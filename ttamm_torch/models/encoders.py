@@ -335,3 +335,19 @@ class Tower(nn.Module):
         self, indices: torch.Tensor, features: torch.Tensor | None = None
     ) -> torch.Tensor:
         return self.forward_rows(self.id_embedding(indices), features)
+
+
+@torch.no_grad()
+def tower_gate_values(
+    tower: Tower, id_rows: torch.Tensor, features: torch.Tensor | None
+) -> torch.Tensor | None:
+    """The σ-gate's values ``[N, D]`` on gathered ID rows and their feature
+    rows, without dropout (the JAX ``tower_gate_values``); None when the
+    tower does not blend by a gate (fusion other than ``gated``, or no
+    features)."""
+    cfg = tower.cfg
+    if cfg.fusion != "gated" or cfg.feature_encoder is None or features is None:
+        return None
+    id_rows = clamp_max_norm(id_rows, cfg.embedding.max_norm)
+    feat = tower.feature_repr(features.to(id_rows.dtype))
+    return tower.gate_values(id_rows, feat)

@@ -16,13 +16,31 @@ test eval, the improvement bookkeeping of ``training.early_stopping`` (or
 of the val loss when no metric is monitored), a copy of the best state, and
 the checkpoints by ``training.checkpointing``: the best one under
 ``filename_template``, one per epoch unless ``save_best_only``, and
-``{experiment}_last.pt``. Early stopping ends the loop; the best state is
-restored at the end. Last, ``serving.score_dtype: auto`` re-runs the final
+``{experiment}_last.pt``; with ``checkpointing.async_save`` (the default,
+as in the JAX package) a background writer (``AsyncCheckpointer``) pulls a
+device clone of the state and writes the files while the next epoch trains,
+and the run waits for it before it goes on. Early stopping ends the loop;
+the best state is restored at the end. Then the end-of-run diagnostics of
+the JAX trainer, from samples drawn by one ``random.Random(seed)`` (the
+same on every rank): ``diagnostics.item_sample_size`` items and
+``user_sample_size`` users encoded with the mimic augmentation, their
+embedding norms, item-neighbour category overlap, user / feature
+alignment, fusion-gate and mimic-row statistics, and the feature
+correlations of the item sample; and ``recommendations.sample_users``
+users' top ``recommendations.top_k`` items over the final corpus, their
+history filtered out. Last, ``serving.score_dtype: auto`` re-runs the final
 val eval in bf16 and takes bf16 only if no recall@k drops by more than
-``bf16_recall_gate``, and the item index (TTFLAT1) and embeddings are
-written to ``evaluation.faiss.index_path`` / ``embedding_path``, with the
-best state's ``user_embeddings.npy`` and ``vocab.json`` beside the index:
-that directory is a serving bundle (``RetrievalService.from_artifacts``).
+``bf16_recall_gate``, the item index (TTFLAT1) and embeddings are written
+to ``evaluation.faiss.index_path`` / ``embedding_path``, with the best
+state's ``user_embeddings.npy`` and ``vocab.json`` beside the index (that
+directory is a serving bundle, ``RetrievalService.from_artifacts``), and
+the loss plot, the Markdown report (with the sample recommendations) and
+the JSON embedding summary go to ``diagnostics.loss_plot_path``,
+``report_path`` and ``embedding_summary_path``. Without matplotlib the
+plot is left out with a warning and the report is written without it.
+
+``data.use_cache`` keeps the prepared dataset in ``data.cache_dir``
+(``ttamm_torch.data.cache``) and reads it on the next run.
 
 ``run_training`` is the entry point: one run, or one per point of the
 Cartesian ``experiment.grid`` (named ``{experiment.name}_sweepNN``), then
@@ -30,8 +48,7 @@ the sweep ledger at ``experiment.benchmark_report`` when the config names
 one (``ttamm_torch.reporting.write_benchmark_report``).
 
 With ``evaluation.faiss.enabled: false`` the eval takes the sampled path
-(``candidate_samples`` random candidates per user). Checkpoints are written
-synchronously, so ``checkpointing.async_save`` is not read;
+(``candidate_samples`` random candidates per user).
 ``evaluation.faiss.batch_size`` (the chunk of the JAX package's ``chunked``
 search, which is not ported) has no effect.
 
@@ -46,9 +63,12 @@ dropout from one seeded per rank) and runs the same eval (the sharded
 search when mp > 1). ``training.update_routing`` / ``update_capacity_factor``
 choose the sparse tables' exchange. ``checkpointing.sharded`` (``auto``: more
 than one process) writes per-rank shard directories in the JAX format;
-otherwise the state is gathered and rank 0 writes the flat ``.npz``.
-``resume_from`` takes either. Only rank 0 logs and writes the serving
-bundle and the ledger.
+otherwise the state is gathered and rank 0 writes the flat ``.npz`` (the
+gather stays on the main thread; only the write goes to the background).
+``resume_from`` takes either. Every rank takes part in the end-of-run
+sample encodes (the sharded row reads); only rank 0 logs and writes the
+serving bundle, the reports and the ledger. Under ``data.use_cache`` rank 0
+writes the cache and the others read it after a barrier.
 
 The retrieval loss is ``training.loss``: ``bce`` (sampled negatives) or
 ``in_batch_softmax`` with ``softmax_temperature``, ``logq_correction`` (over
@@ -60,16 +80,16 @@ mesh.
 
 Not ported yet (ROADMAP Queue 1): ``comm_dtype``, ``packed_moments``, bf16
 feature storage, and of the mesh ``tensor_parallel`` and
-``embedding_exchange: alltoall``; each raises when a config asks for it. The recommendation
-report, loss plot and embedding diagnostics (``diagnostics.*``,
-``recommendations.*``) are not written yet and not refused. The TPU knobs
-``steps_per_call``, ``use_pallas`` and ``mesh.multi_host`` are not read.
+``embedding_exchange: alltoall``; each raises when a config asks for it. The TPU knobs
+``steps_per_call``, ``use_pallas`` and ``mesh.multi_host``, and the JAX
+profiler's ``diagnostics.profile_dir``, are not read.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import random
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -78,26 +98,40 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+import pandas as pd
+import torch.nn.functional as F
+
 from ..data import (
     TrainingDataset,
     build_item_categories,
     interaction_arrays,
     pack_positives,
+    parse_category_tokens,
     positives_from_frame,
     split_train_validation_test,
 )
+from ..data.cache import cache_path, dataset_cache_key, load_training_dataset, save_training_dataset
 from ..device import resolve_device
 from ..evaluation import (
     EvalPlan,
     RankingMetrics,
+    analyze_item_neighbors,
     build_eval_plan,
+    compute_feature_correlations,
+    compute_mimic_statistics,
     compute_ranking_metrics,
+    encode_user_batch,
     evaluate_retrieval,
     evaluate_retrieval_metrics,
+    summarize_embedding_norms,
+    summarize_gate_values,
+    summarize_user_alignment,
 )
-from ..evaluation.retrieval import full_corpus, model_mesh
+from ..evaluation.retrieval import full_corpus, model_mesh, side_rows
 from ..models.convert import train_state_to_flat
+from ..models.encoders import tower_gate_values
 from ..models.two_tower import parse_model_config
+from ..ops.topk import mips_topk
 from ..parallel import (
     build_mesh,
     gather_state_flat,
@@ -109,9 +143,19 @@ from ..parallel import (
     place_data,
     place_state,
 )
-from ..reporting import write_benchmark_report
+from ..reporting import (
+    save_loss_curves,
+    write_benchmark_report,
+    write_embedding_summary,
+    write_recommendation_report,
+)
 from ..serve.flat_index import build_flat_index
-from ..train.checkpoint import checkpoint_filename, load_checkpoint, save_checkpoint
+from ..train.checkpoint import (
+    AsyncCheckpointer,
+    checkpoint_path,
+    load_checkpoint,
+    save_checkpoint,
+)
 from ..train.sharded_checkpoint import (
     MANIFEST,
     load_sharded_checkpoint,
@@ -207,6 +251,9 @@ class TrainingResult:
     best_checkpoint_path: Path | None = None
     best_val_metrics: RankingMetrics | None = None
     serving_score_dtype: str | None = None  # of the written index; None: not written
+    checkpoint_wait_seconds: float = 0.0  # host clock, the end-of-run wait for the writer
+    loss_plot_path: Path | None = None  # None: not written (no losses, or no matplotlib)
+    embedding_summary_path: Path | None = None
     # what the run trained with (the best state), for callers that go on using it
     state: TrainState | None = None
     data: BatchData | None = None
@@ -303,8 +350,6 @@ def run_single_experiment(
     experiment_name = str((config.get("experiment") or {}).get("name", "experiment"))
     data_cfg = dict(config.get("data", {}))
     training_cfg = dict(config.get("training", {}))
-    if data_cfg.get("use_cache"):
-        logger.warning("data.use_cache: the port has no dataset cache; preparing the data")
 
     eval_cfg = dict(config.get("evaluation", {}))
     metrics_k = eval_cfg.get("metrics_k", [10])
@@ -316,6 +361,12 @@ def run_single_experiment(
     embedding_path = Path(mips_cfg.get("embedding_path", "artifacts/faiss/item_embeddings.npy"))
     eval_user_batch = int(eval_cfg.get("user_batch_size", 1024))
     requested_dtype, gate_eps = _serving_dtype_request(config)
+    diag_cfg = dict(config.get("diagnostics", {}) or {})
+    report_path = Path(diag_cfg.get("report_path", "artifacts/reports/recommendation_report.md"))
+    loss_plot_target = Path(diag_cfg.get("loss_plot_path", "artifacts/reports/loss_curve.png"))
+    embedding_summary_path = Path(
+        diag_cfg.get("embedding_summary_path", "artifacts/reports/embedding_diagnostics.json")
+    )
 
     monitor_cfg = dict(training_cfg.get("early_stopping", {}))
     monitor_metric = monitor_cfg.get("metric") if monitor_cfg.get("enabled", False) else None
@@ -338,8 +389,9 @@ def run_single_experiment(
     ))
     save_best_only = bool(checkpoint_cfg.get("save_best_only", True))
     keep_last = bool(checkpoint_cfg.get("keep_last", True))
+    async_save = bool(checkpoint_cfg.get("async_save", True))
 
-    dataset = dataset if dataset is not None else prepare_data(config)
+    dataset = dataset if dataset is not None else _prepare_data(config, mesh is not None)
     num_users = len(dataset.user_mapping)
     num_items = len(dataset.item_mapping)
     train_df, val_df, test_df = split_train_validation_test(
@@ -457,6 +509,12 @@ def run_single_experiment(
     sharded_raw = checkpoint_cfg.get("sharded", "auto")
     world = mesh_cfg.num_devices if mesh is not None else 1
     sharded_ckpt = world > 1 if sharded_raw == "auto" else bool(sharded_raw)
+    # the flat format on a mesh is written by rank 0 alone
+    writes_checkpoints = sharded_ckpt or is_primary_host()
+    checkpointer = (
+        AsyncCheckpointer(sharded=sharded_ckpt, mesh=mesh)
+        if checkpoint_enabled and async_save else None
+    )
     search_mesh = model_mesh(mesh)
 
     # The eval plans, built once from one packed train-positives matrix.
@@ -610,29 +668,43 @@ def run_single_experiment(
             result.best_val_metrics = val_metrics or last_val_metrics
 
         if checkpoint_enabled:
-            jobs: list[tuple[str, str, float, str]] = []  # role, metric, value, template
+            jobs: list[tuple[str, dict[str, Any]]] = []  # role, save_checkpoint's arguments
+
+            def job(role: str, metric_name: str, value: float, template: str) -> None:
+                jobs.append((role, dict(
+                    directory=checkpoint_dir, experiment_name=experiment_name, epoch=epoch,
+                    metric_name=metric_name, metric_value=value, template=template,
+                )))
+
             if improved:
                 value = monitor_value if monitor_value is not None else best_metric_value
-                jobs.append(("best", str(monitor_metric or "loss"), value, checkpoint_template))
+                job("best", str(monitor_metric or "loss"), value, checkpoint_template)
             if not save_best_only:
-                jobs.append(("epoch", "epoch", float(epoch), checkpoint_template))
+                job("epoch", "epoch", float(epoch), checkpoint_template)
             if keep_last:
-                jobs.append(("last", "last", float(epoch), "{experiment}_last.pt"))
-            host = _checkpoint_host(state, mesh, sharded_ckpt) if jobs else None  # one pull
-            for role, metric_name, value, template in jobs:
-                names = dict(
-                    experiment_name=experiment_name, epoch=epoch, metric_name=metric_name,
-                    metric_value=value, template=template,
-                )
-                if sharded_ckpt:
-                    path = save_sharded_checkpoint(checkpoint_dir, mesh=mesh, host_pieces=host, **names)
-                elif is_primary_host():
-                    path = save_checkpoint(checkpoint_dir, host, **names)
+                job("last", "last", float(epoch), "{experiment}_last.pt")
+            specs = [spec for _, spec in jobs]
+            if not jobs:
+                paths = []
+            elif checkpointer is not None:
+                if mesh is not None and not sharded_ckpt:
+                    snapshot = gather_state_flat(state, mesh)  # collectives: the main thread
+                else:  # a device clone nothing writes; an improved epoch's best copy is one
+                    snapshot = best_state if improved else copy.deepcopy(state)
+                if writes_checkpoints:
+                    paths = checkpointer.submit(snapshot, specs)
                 else:
-                    path = checkpoint_dir / checkpoint_filename(
-                        template, experiment_name=experiment_name, metric_name=metric_name,
-                        metric_value=value, epoch=epoch,
-                    )
+                    paths = [checkpoint_path(**spec) for spec in specs]
+            else:
+                host = _checkpoint_host(state, mesh, sharded_ckpt)  # one pull
+                if sharded_ckpt:
+                    paths = [save_sharded_checkpoint(mesh=mesh, host_pieces=host, **spec)
+                             for spec in specs]
+                elif writes_checkpoints:
+                    paths = [save_checkpoint(state=host, **spec) for spec in specs]
+                else:
+                    paths = [checkpoint_path(**spec) for spec in specs]
+            for (role, _), path in zip(jobs, paths):
                 if role == "best":
                     result.best_checkpoint_path = path
                 elif role == "last":
@@ -647,6 +719,11 @@ def run_single_experiment(
             )
             break
 
+    if checkpointer is not None:  # every file on disk before anyone can load one
+        tick = time.perf_counter()
+        checkpointer.wait()
+        result.checkpoint_wait_seconds = time.perf_counter() - tick
+        logger.info("Checkpoint writer drained in %.3f s", result.checkpoint_wait_seconds)
     if best_state is not None:
         state = best_state
     elif result.checkpoint_path is not None and result.best_checkpoint_path is None:
@@ -661,10 +738,22 @@ def run_single_experiment(
         best_metric_value = result.train_loss[-1]
     result.best_metric = best_metric_value
 
+    local_items = _encode_side(state, data, "item", search_mesh)  # the final corpus
+    diagnostics = run_diagnostics(
+        state, data, dataset, full_corpus(state.model, local_items, search_mesh),
+        diagnostics=diag_cfg, recommendations=dict(config.get("recommendations", {}) or {}),
+        seed=seed, mesh=search_mesh,
+    )
     if mips_enabled:
         _write_retrieval_artifacts(
             result, dataset, metrics_k, requested_dtype, gate_eps, index_path, embedding_path,
-            search_mesh,
+            search_mesh, local_items,
+        )
+    if is_primary_host():
+        _write_reports(
+            result, diagnostics, metrics_k, str(monitor_metric) if monitor_metric else "val_loss",
+            report_path=report_path, loss_plot_target=loss_plot_target,
+            embedding_summary_path=embedding_summary_path,
         )
     result.runtime_seconds = time.time() - start_time
     return result
@@ -727,6 +816,40 @@ def _encode_side(state: TrainState, data: BatchData, side: str, search_mesh) -> 
     return encode_corpus(state.model, side, features, num_rows=rows)
 
 
+def _prepare_data(config: Mapping[str, Any], distributed: bool) -> TrainingDataset:
+    """``prepare_data``, through the dataset cache under ``data.use_cache``
+    (the JAX trainer's): a cached dataset is read, else prepared and cached.
+    In a distributed run rank 0 reads or writes the cache and the others
+    read it after a barrier."""
+    data_cfg = dict(config.get("data", {}))
+    key = None
+    if data_cfg.get("use_cache"):
+        key = dataset_cache_key(
+            Path(data_cfg.get("root", "data")),
+            books_file=data_cfg.get("books_file"),
+            users_file=data_cfg.get("users_file"),
+            books_limit=data_cfg.get("books_limit"),
+            interactions_limit=data_cfg.get("interactions_limit"),
+            min_user_interactions=int(data_cfg.get("min_user_interactions", 0)),
+            min_item_interactions=int(data_cfg.get("min_item_interactions", 0)),
+            feature_config=data_cfg.get("feature_params", {}),
+        )
+    if key is None:
+        return prepare_data(config)
+    path = cache_path(data_cfg.get("cache_dir", "artifacts/cache"), key)
+    dataset = None
+    if is_primary_host():
+        dataset = load_training_dataset(path)
+        if dataset is None:
+            dataset = prepare_data(config)
+            save_training_dataset(dataset, path)
+    if distributed:
+        torch.distributed.barrier()  # rank 0's cache file is complete
+        if dataset is None:
+            dataset = load_training_dataset(path) or prepare_data(config)
+    return dataset
+
+
 def _checkpoint_host(state: TrainState, mesh, sharded: bool):
     """The host arrays of one epoch's checkpoints, pulled once: this rank's
     pieces for a sharded checkpoint, else the whole flat state (gathered
@@ -744,16 +867,17 @@ def _write_retrieval_artifacts(
     gate_eps: float,
     index_path: Path,
     embedding_path: Path,
-    search_mesh=None,
+    search_mesh,
+    item_embeddings: torch.Tensor,
 ) -> None:
     """The serving-precision gate, then the serving bundle of the (best)
     state, written by rank 0: the item index and embeddings, and beside the
     index ``user_embeddings.npy`` and ``vocab.json`` (the layout of
-    ``export_bundle`` and of the JAX trainer). bf16 serving ships under
-    ``auto`` only when the final val eval re-scored in bf16 loses at most
-    ``gate_eps`` of any recall@k."""
+    ``export_bundle`` and of the JAX trainer). ``item_embeddings`` is the
+    state's encoded corpus (under ``search_mesh`` this shard's rows). bf16
+    serving ships under ``auto`` only when the final val eval re-scored in
+    bf16 loses at most ``gate_eps`` of any recall@k."""
     model, data, val_plan = result.state.model, result.data, result.val_plan
-    item_embeddings = _encode_side(result.state, data, "item", search_mesh)
     dtype = "float32"
     if requested_dtype != "auto":
         dtype = requested_dtype
@@ -800,3 +924,222 @@ def _write_retrieval_artifacts(
         encoding="utf-8",
     )
     logger.info("Saved the serving bundle to %s (item embeddings %s)", serve_dir, embedding_path)
+
+
+def _build_user_profile(
+    items_lookup: pd.DataFrame, interactions: pd.DataFrame, user_idx: int
+) -> dict[str, set[str]]:
+    """The categories and authors of one user's interactions (the JAX
+    ``_build_user_profile``)."""
+    categories: set[str] = set()
+    authors: set[str] = set()
+    for item_idx in interactions.loc[interactions["user_idx"] == user_idx, "item_idx"]:
+        if item_idx not in items_lookup.index:
+            continue
+        row = items_lookup.loc[item_idx]
+        categories.update(parse_category_tokens(row.get("categories")))
+        author = row.get("author")
+        if isinstance(author, str) and author:
+            authors.add(author.strip())
+    return {"categories": categories, "authors": authors}
+
+
+def _log_recommendations(
+    model,
+    data: BatchData,
+    dataset: TrainingDataset,
+    item_embeddings: torch.Tensor,
+    *,
+    sample_users: int,
+    top_k: int,
+    rng: random.Random,
+    mesh=None,
+) -> list[dict[str, Any]]:
+    """Sample recommendations (the JAX ``_log_recommendations``): for
+    ``sample_users`` users drawn by ``rng``, an exact float32 search of the
+    whole corpus ``item_embeddings`` (``mips_topk`` at ``top_k`` plus the
+    longest history deep), each user's history dropped, the first ``top_k``
+    joined with the items' metadata and matched against the history's
+    categories and authors. Under ``mesh`` every rank encodes the users
+    (sharded row reads) and searches."""
+    num_users, num_items = len(dataset.user_mapping), len(dataset.item_mapping)
+    if sample_users <= 0 or num_users == 0 or num_items == 0:
+        return []
+    chosen_users = rng.sample(list(range(num_users)), k=min(sample_users, num_users))
+    items_df = dataset.items.set_index("item_idx")
+    users_df = dataset.users.set_index("user_idx")
+    cosine = model.cfg.similarity == "cosine"
+    if cosine:
+        item_embeddings = F.normalize(item_embeddings, dim=-1)
+    u_idx = torch.tensor(chosen_users, dtype=torch.int32, device=item_embeddings.device)
+    queries = encode_user_batch(model, data, u_idx, mesh)
+    if cosine:
+        queries = F.normalize(queries, dim=-1)
+    max_hist = max((len(dataset.user_positive_items.get(u, ())) for u in chosen_users), default=0)
+    _, idx = mips_topk(queries, item_embeddings, k=min(top_k + max_hist, num_items))
+    idx_np = idx.cpu().numpy()
+
+    results: list[dict[str, Any]] = []
+    for row, user_idx in enumerate(chosen_users):
+        positives = dataset.user_positive_items.get(int(user_idx), set())
+        recommended = [int(i) for i in idx_np[row] if int(i) not in positives][:top_k]
+        display_user = users_df.loc[user_idx]["userId"]
+        profile = _build_user_profile(items_df, dataset.interactions, int(user_idx))
+        recommendations = []
+        category_matches = author_matches = 0
+        for item_idx in recommended:
+            if item_idx not in items_df.index:
+                continue
+            item_row = items_df.loc[item_idx]
+            categories = set(parse_category_tokens(item_row.get("categories")))
+            author = item_row.get("author") if isinstance(item_row.get("author"), str) else ""
+            category_matches += bool(categories & profile["categories"])
+            author_matches += bool(author and author in profile["authors"])
+            recommendations.append({
+                "asin": item_row.get("parent_asin", ""),
+                "title": item_row.get("title", "<unknown>"),
+                "author": author,
+                "categories": sorted(categories)[:5],
+            })
+        total = max(len(recommendations), 1)
+        logger.info("User %s | Top %d recommendations", display_user, len(recommendations))
+        results.append({
+            "user_id": display_user,
+            "user_idx": int(user_idx),
+            "recommendations": recommendations,
+            "category_match": category_matches / total,
+            "author_match": author_matches / total,
+            "history_categories": profile["categories"],
+            "history_authors": profile["authors"],
+        })
+    return results
+
+
+@dataclass
+class RunDiagnostics:
+    """What the end-of-run reports hold besides the metrics and losses."""
+
+    embedding_stats: dict[str, Any]
+    mimic_stats: dict[str, dict[str, float]]
+    feature_correlations: list[dict[str, float]]
+    recommendations: list[dict[str, Any]]
+
+
+@torch.no_grad()
+def run_diagnostics(
+    state: TrainState,
+    data: BatchData,
+    dataset: TrainingDataset,
+    item_embeddings: torch.Tensor,
+    *,
+    diagnostics: Mapping[str, Any],
+    recommendations: Mapping[str, Any],
+    seed: int,
+    mesh=None,
+) -> RunDiagnostics:
+    """The JAX trainer's end-of-run diagnostics and sample recommendations
+    on ``state``: from one ``random.Random(seed)``, ``item_sample_size``
+    items, ``user_sample_size`` users, then the recommended users (the JAX
+    trainer's draws from its seeded global ``random``, in its order). The
+    samples are encoded with the mimic augmentation, their ID, feature and
+    mimic rows read once (:func:`side_rows`, the sharded reads under
+    ``mesh``, where every rank takes part) and pulled to the host, then
+    summarised by the numpy functions of ``ttamm_torch.evaluation``.
+    ``item_embeddings`` is the whole final corpus, ``[num_items, D]``."""
+    model = state.model
+    num_users, num_items = len(dataset.user_mapping), len(dataset.item_mapping)
+    rng = random.Random(seed)
+    item_size = int(diagnostics.get("item_sample_size", 500))
+    user_size = int(diagnostics.get("user_sample_size", 5000))
+    samples = {
+        side: np.asarray(rng.sample(range(n), k=min(size, n)), np.int32)
+        if n > 0 and size > 0 else np.empty(0, np.int32)
+        for side, n, size in (("item", num_items, item_size), ("user", num_users, user_size))
+    }
+    dev = item_embeddings.device
+    dim = model.cfg.embedding_dim
+    emb, gates, aug = {}, {}, {}
+    for side in ("user", "item"):
+        idx = samples[side]
+        emb[side], gates[side] = np.zeros((0, dim), np.float32), None
+        aug[side] = np.zeros((0, dim), np.float32)
+        if not idx.size:
+            continue
+        id_rows, feats, aug_rows = side_rows(model, data, side, torch.from_numpy(idx).to(dev), mesh)
+        tower = model.tower(side)
+        out = tower.forward_rows(id_rows, feats)
+        emb[side] = (out if aug_rows is None else out + aug_rows).cpu().numpy()
+        if aug_rows is not None:
+            aug[side] = aug_rows.cpu().numpy()
+        gate = tower_gate_values(tower, id_rows, feats)
+        gates[side] = None if gate is None else gate.cpu().numpy()
+
+    items_df = dataset.items.set_index("item_idx")
+    item_frame = items_df.loc[samples["item"]].reset_index(drop=True)
+    embedding_stats = {
+        "user_norms": summarize_embedding_norms(emb["user"], label="user"),
+        "item_norms": summarize_embedding_norms(emb["item"], label="item"),
+        "item_neighbor_overlap": analyze_item_neighbors(
+            emb["item"], item_frame, rng=rng, k=int(diagnostics.get("neighbor_k", 10)),
+            sample_size=item_frame.shape[0],
+        ),
+        "user_alignment": summarize_user_alignment(
+            emb["user"],
+            dataset.user_feature_matrix[samples["user"]]
+            if dataset.user_feature_matrix.size
+            else np.zeros((len(samples["user"]), 0), np.float32),
+        ),
+        "fusion_gate": {side: summarize_gate_values(gates[side]) for side in ("user", "item")},
+    }
+    mimic_stats = compute_mimic_statistics(aug if model.mimic is not None else None)
+    feature_correlations: list[dict[str, float]] = []
+    item_features = dataset.item_feature_matrix[samples["item"]]
+    if item_features.size > 0:
+        names = dataset.feature_metadata.feature_names()
+        feature_correlations = compute_feature_correlations(
+            item_features, np.linalg.norm(emb["item"], axis=1), names[: item_features.shape[1]],
+            top_k=int(diagnostics.get("feature_corr_top_k", 15)),
+        )
+    samples_out = _log_recommendations(
+        model, data, dataset, item_embeddings,
+        sample_users=int(recommendations.get("sample_users", 3)),
+        top_k=int(recommendations.get("top_k", 5)), rng=rng, mesh=mesh,
+    )
+    return RunDiagnostics(embedding_stats, mimic_stats, feature_correlations, samples_out)
+
+
+def _write_reports(
+    result: TrainingResult,
+    diagnostics: RunDiagnostics,
+    metrics_k: list[int],
+    monitor_metric: str,
+    *,
+    report_path: Path,
+    loss_plot_target: Path,
+    embedding_summary_path: Path,
+) -> None:
+    """The loss plot, the Markdown report and the JSON embedding summary of
+    the JAX trainer (rank 0). Without matplotlib the plot is left out, with
+    a warning, and the report is written without it."""
+    series = {"Train": result.train_loss, "Validation": result.val_loss, "Test": result.test_loss}
+    if any(len(v) for v in series.values()):
+        try:
+            result.loss_plot_path = save_loss_curves(series, output_path=loss_plot_target)
+        except ValueError:
+            result.loss_plot_path = None
+        except ImportError as exc:
+            logger.warning("Loss plot not written: %s is not installed", exc.name or exc)
+    metrics = result.best_val_metrics or compute_ranking_metrics({}, {}, metrics_k)
+    write_recommendation_report(
+        report_path, metrics_summary=metrics, embedding_stats=diagnostics.embedding_stats,
+        recommendations=diagnostics.recommendations, loss_plot_path=result.loss_plot_path,
+        history=result, monitor_metric=monitor_metric, best_epoch=result.best_epoch,
+        feature_correlations=diagnostics.feature_correlations,
+    )
+    write_embedding_summary(
+        embedding_summary_path, embedding_stats=diagnostics.embedding_stats,
+        mimic_stats=diagnostics.mimic_stats, feature_correlations=diagnostics.feature_correlations,
+        monitor_metric=monitor_metric, best_epoch=result.best_epoch,
+    )
+    result.embedding_summary_path = embedding_summary_path
+    logger.info("Wrote the report %s and the embedding summary %s", report_path, embedding_summary_path)

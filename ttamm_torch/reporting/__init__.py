@@ -1,7 +1,13 @@
-"""Report writers of the port (``ttamm_tpu/reporting/``): so far the sweep
-ledger; the recommendation report, loss plot and embedding summary are
-ROADMAP Queue 1 item 1."""
+"""Report writers of the port (``ttamm_tpu/reporting/``): the sweep ledger,
+the recommendation report, the embedding summary and the loss plot, in the
+JAX package's formats."""
 
-from .reports import write_benchmark_report
+from .plots import save_loss_curves
+from .reports import write_benchmark_report, write_embedding_summary, write_recommendation_report
 
-__all__ = ["write_benchmark_report"]
+__all__ = [
+    "save_loss_curves",
+    "write_benchmark_report",
+    "write_embedding_summary",
+    "write_recommendation_report",
+]

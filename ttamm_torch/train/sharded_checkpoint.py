@@ -29,7 +29,7 @@ import numpy as np
 import torch.distributed as dist
 
 from ..models.convert import train_state_from_flat, train_state_to_flat
-from .checkpoint import checkpoint_filename
+from .checkpoint import checkpoint_path, write_npz
 from .state import TrainState
 
 Bounds = tuple[tuple[int, int], ...]
@@ -68,15 +68,16 @@ def _regions(state: TrainState, mesh) -> dict[str, tuple[int, int, int] | None]:
     return out
 
 
-def state_to_host_shards(state: TrainState, mesh=None) -> dict[str, np.ndarray]:
+def state_to_host_shards(state: TrainState, mesh=None, pull=None) -> dict[str, np.ndarray]:
     """This rank's pieces, pulled to the host once (pass them to several
-    :func:`save_sharded_checkpoint` calls of one epoch)."""
+    :func:`save_sharded_checkpoint` calls of one epoch); ``pull`` as in
+    ``train_state_to_flat``."""
     from ..parallel.mesh import DATA_AXIS, axis_index
 
     data_index = 0 if mesh is None else axis_index(mesh, DATA_AXIS)
     regions = _regions(state, mesh)
     pieces: dict[str, np.ndarray] = {}
-    for key, arr in train_state_to_flat(state).items():
+    for key, arr in train_state_to_flat(state, pull).items():
         region = regions.get(key)
         if region is not None:
             if data_index:
@@ -107,9 +108,9 @@ def save_sharded_checkpoint(
     shard files of an earlier save by more processes). Returns the
     directory. No barrier is taken: a reader in the same run waits for
     every rank first."""
-    path = Path(directory) / checkpoint_filename(
-        template, experiment_name=experiment_name, metric_name=metric_name,
-        metric_value=metric_value, epoch=epoch,
+    path = checkpoint_path(
+        directory, experiment_name=experiment_name, metric_name=metric_name,
+        metric_value=metric_value, epoch=epoch, template=template,
     )
     path.mkdir(parents=True, exist_ok=True)
     rank, world = _rank(), _world()
@@ -119,7 +120,7 @@ def save_sharded_checkpoint(
                 stale.unlink()
     pieces = host_pieces if host_pieces is not None else state_to_host_shards(state, mesh)
     with open(path / f"shards_p{rank:05d}.npz", "wb") as handle:
-        np.savez(handle, **pieces)
+        write_npz(handle, pieces)
     if rank == 0:
         meta = {
             "epoch": epoch,
