@@ -5,7 +5,9 @@ For each corpus seed: the canonical corpus from the port's generator at the
 ``scripts/make_corpus.py`` parameters (``ttamm_torch.data.CANONICAL_CORPUS``
 with that seed), then up to ``--epochs`` epochs of a config through the
 port's trainer (``run_training``) with the config's early stopping, on the
-card. Records each epoch's val and test recall@10 and NDCG@10, the peak
+card (the config's mesh set to 1x1: ``configs/pod_2x4.yaml``'s 2x4 runs
+on one card as its header says, its bf16 gradient wire and bf16 features
+as shipped). Records each epoch's val and test recall@10 and NDCG@10, the peak
 epoch and its values, and the train loop's ms/step and examples/s (host
 clock). Checkpoints are not written (the runs' numbers do not depend on
 them); the eval, the serving gate, the bundle and the reports run as
@@ -14,6 +16,7 @@ configured (the bundle and the reports under ``--work``).
     python3 scripts/torch_quality_protocol.py                      # configs/in_batch_softmax.yaml, seeds 0 11 23
     python3 scripts/torch_quality_protocol.py --dense-mimic --seeds 0 11 13
     python3 scripts/torch_quality_protocol.py --config configs/default.yaml
+    python3 scripts/torch_quality_protocol.py --config configs/pod_2x4.yaml
 
 Prints one JSON line per seed and, last, the summary (mean and spread of the
 peak recall@10 and NDCG@10); writes both to ``<out>/quality_<name>.json``.
@@ -40,6 +43,7 @@ def _run(config: dict, seed: int, corpus: Path, work: Path, epochs: int, device:
     config["data"]["root"] = str(corpus)
     config["training"]["num_epochs"] = epochs
     config["training"]["checkpointing"]["enabled"] = False
+    config["mesh"] = {"data_parallel": 1, "model_parallel": 1}  # one card
     config["experiment"]["benchmark_report"] = None
     faiss = config["evaluation"]["faiss"]
     faiss.update(index_path=str(work / "faiss" / "items.index"),

@@ -586,14 +586,15 @@ def test_sparse_adam_on_the_card_counts_launches(cuda):
 STEP_KERNELS = ("gather_rows", "sparse_adam_rows", "segment_second_moments", "segment_second_moments_bwd")
 
 
-def _one_step(cuda, plain, seeds=(8, 4), swap=None, in_batch=None):
+def _one_step(cuda, plain, seeds=(8, 4), swap=None, in_batch=None, wire=False):
     """One step of a gated-tower model (D = 128, C = 16) from a seeded state
     (``seeds``: data, state) with injected negatives and no dropout, with the
     kernels or with their plain versions on the card, and any kernel
     replaced by the function ``swap`` maps its name to: (state, metrics,
     launch counts). ``in_batch`` (M): the recommended configuration instead,
     the logQ-corrected in-batch softmax over the batch and an injected pool
-    of M ids (one of them a positive), with sparse mimic tables."""
+    of M ids (one of them a positive), with sparse mimic tables. ``wire``:
+    configs/pod_2x4.yaml's bf16 gradient wire and bf16 feature matrices."""
     from ttamm_torch.models import parse_model_config
     from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state, make_train_step
     from ttamm_torch.train.optim import DenseOptConfig
@@ -631,6 +632,10 @@ def _one_step(cuda, plain, seeds=(8, 4), swap=None, in_batch=None):
         negs = torch.randint(0, ni, (in_batch,), generator=gen, dtype=torch.int32).to(cuda)
         negs[: min(in_batch, 1)] = p[0]  # a pool draw equal to a positive
         data.item_log_q = torch.log_softmax(torch.randn(ni, generator=gen) * 2, 0).to(cuda)
+    if wire:
+        tscfg = tscfg._replace(comm_dtype="bfloat16")
+        data.user_features = data.user_features.to(torch.bfloat16)
+        data.item_features = data.item_features.to(torch.bfloat16)
     step = make_train_step(cfg, tscfg)
     state = create_train_state(cfg, num_users=nu, num_items=ni, seed=seeds[1], device=cuda)
     saved = {n: getattr(kernels, n) for n in STEP_KERNELS}
@@ -688,6 +693,56 @@ def test_in_batch_step_on_the_card_matches_plain(cuda, m):
         assert not sk.tables[name][-1].any()
     for (_, a), (_, bb) in zip(sk.dense_targets(), sp.dense_targets()):
         torch.testing.assert_close(a.detach(), bb.detach(), rtol=0, atol=1e-5)
+
+
+def test_pod_step_on_the_card_matches_plain(cuda):
+    """configs/pod_2x4.yaml's step (in-batch softmax, sparse mimic tables,
+    the bf16 gradient wire, bf16 features) with the kernels and with their
+    plain versions: the same launches as the recommended step, the same
+    losses, and tables within lr / 100 but for elements a bf16 rounding
+    flip moved (the two runs sum a lane's float32 gradient in another
+    order, so a lane near a rounding boundary may round the other way: at
+    most 1e-4 of a table's elements, each within 2.5 lr); the rounding
+    happened (the float32 wire's tables differ)."""
+    (sk, mk, ck), (sp, mp, cp) = (_one_step(cuda, plain, in_batch=0, wire=True)
+                                  for plain in (False, True))
+    exact, _, _ = _one_step(cuda, False, in_batch=0)
+    assert [ck[n] for n in STEP_KERNELS] == [4, 4, 1, 1]
+    assert ck["scatter_set_rows"] == 0 and all(cp[n] == 0 for n in STEP_KERNELS)
+    for name in mk:
+        torch.testing.assert_close(mk[name], mp[name], rtol=1e-5, atol=1e-7)
+    for name in ("user_id", "item_id", "user_aug", "item_aug"):
+        err = (sk.tables[name] - sp.tables[name]).abs()
+        assert int((err > 1e-5).sum()) <= 1e-4 * err.numel() and float(err.max()) <= 2.5e-3, name
+        assert not torch.equal(sk.tables[name], exact.tables[name]), name
+    for (_, a), (_, bb) in zip(sk.dense_targets(), sp.dense_targets()):
+        torch.testing.assert_close(a.detach(), bb.detach(), rtol=0, atol=1e-5)
+
+
+def test_exchange_owner_read_on_the_card(cuda):
+    """The all-to-all exchange's owner-local read (``parallel/exchange.py``):
+    one gather_rows launch at the received ids, shard-localised and clipped
+    (slots past a bucket's count carry id 0), bit-identical to indexing the
+    shard with the clipped ids."""
+    from ttamm_torch.parallel.exchange import _owner_rows, route_by_owner
+
+    gen = torch.Generator().manual_seed(21)
+    rows, shards, me = 25_000, 4, 2
+    local = torch.randn((rows, 128), generator=gen).to(cuda)
+    got = torch.randint(me * rows, (me + 1) * rows, (6144,), generator=gen)
+    got[::7] = 0  # empty slots of the dense layout
+    got[5::11] = got[3]  # duplicates
+    got = got.to(cuda, torch.int32)
+    kernels.reset_launch_counts()
+    out = _owner_rows(local, got, me)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gather_rows"] == 1
+    lane = torch.clamp(got.long() - me * rows, 0, rows - 1)
+    assert torch.equal(out, local[lane])
+    plan = route_by_owner(got, rows, shards, capacity=got.numel())
+    host = route_by_owner(got.cpu(), rows, shards, capacity=got.numel())
+    for a, b in zip(plan, host):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_in_batch_step_on_the_card_is_deterministic(cuda):

@@ -212,12 +212,11 @@ def test_unported_options_raise():
     make_train_step(pcfg, TrainStepConfig(num_items=NI, loss_type="in_batch_softmax"))
     with pytest.raises(ValueError, match="Unsupported training.loss"):
         make_train_step(pcfg, TrainStepConfig(num_items=NI, loss_type="softmax"))
+    # the wire options are ported (tests/test_torch_port_comm_bf16.py,
+    # tests/test_torch_port_exchange.py); what is left still raises
     for section, key, value in (
-        ("training", "comm_dtype", "bfloat16"),
         ("training", "packed_moments", True),
-        ("data", "features_dtype", "bfloat16"),
         ("mesh", "tensor_parallel", True),
-        ("mesh", "embedding_exchange", "alltoall"),
     ):
         with pytest.raises(NotImplementedError, match="not ported"):
             run_single_experiment({section: {key: value}}, device="cpu")

@@ -41,9 +41,13 @@ from ttamm_torch.parallel import (  # noqa: E402
     place_data,
     place_state,
 )
+from ttamm_torch.parallel import exchange  # noqa: E402
+from ttamm_torch.parallel import sparse_update as sparse_update_module  # noqa: E402
+from ttamm_torch.parallel.embedding_lookup import sharded_rows  # noqa: E402
 from ttamm_torch.parallel.mesh import all_gather_rows, axis_index  # noqa: E402
 from ttamm_torch.parallel.sparse_update import sharded_sparse_adam_update  # noqa: E402
 from ttamm_torch.parallel.step import make_sharded_topk, make_sharded_train_step  # noqa: E402
+from ttamm_torch.pipelines.training import dropout_generator  # noqa: E402
 from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state  # noqa: E402
 from ttamm_torch.train.optim import DenseOptConfig  # noqa: E402
 from ttamm_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint  # noqa: E402
@@ -72,12 +76,15 @@ def _slice(mesh, t):
 def sparse_update(task, inputs):
     """The update of one table shard; besides the shards, every rank's
     ``sparse_adam_rows`` lanes (``lanes`` [world, L] shard-local, ``bases``
-    [world] the shards' first global rows, ``calls`` the launches a rank)."""
+    [world] the shards' first global rows, ``calls`` the launches a rank).
+    ``task["wire"]``: the dtype the row gradients arrive in (bfloat16 under
+    ``comm_dtype``; the inputs hold values it represents exactly)."""
     mesh = _mesh(task)
     name = task["name"]
     table, m, v = (_slice(mesh, _t(inputs, f"{name}/{k}")) for k in ("table", "m", "v"))
     state = SparseAdamState(m=m, v=v, step=task["step"])
     idx, grads = _t(inputs, f"{name}/idx"), _t(inputs, f"{name}/grads")
+    grads = grads.to(getattr(torch, task.get("wire", "float32")))
     dp = mesh[DATA_AXIS].size()
     chunk = idx.shape[0] // dp
     lo = axis_index(mesh, DATA_AXIS) * chunk
@@ -123,24 +130,92 @@ def _model(task, inputs):
 
 
 def train_step(task, inputs):
+    """``task["steps"]`` sharded steps; with ``task["spy"]``, also the dtype
+    of every floating tensor the sparse update all-gathers over ``data``
+    (``gather_dtypes``, one string a call)."""
     mesh = _mesh(task)
     mp = mesh[MODEL_AXIS].size()
     cfg, state = _model(task, inputs)
-    data = BatchData(*(_t(inputs, f"data/{k}") for k in (
-        "user_features", "item_features", "positive_rows", "category_ids")),
+    features = getattr(torch, task.get("features_dtype", "float32"))
+    data = BatchData(
+        _t(inputs, "data/user_features").to(features), _t(inputs, "data/item_features").to(features),
+        *(_t(inputs, f"data/{k}") for k in ("positive_rows", "category_ids")),
         item_log_q=_t(inputs, "data/item_log_q") if task.get("log_q") else None)
     state = place_state(mesh, pad_state_rows(state, mp))
     data = place_data(mesh, pad_batch_data(data, mp))
     tscfg = TrainStepConfig(**dict(task["tscfg"], opt=DenseOptConfig(**task["opt"])))
     step = make_sharded_train_step(cfg, tscfg, mesh)
-    prefix, losses = task.get("inputs_prefix", task["name"]), []
-    for s in range(task["steps"]):
-        state, metrics = step(
-            state, data, _t(inputs, f"{prefix}/u{s}"), _t(inputs, f"{prefix}/p{s}"),
-            generator=None, negatives=_t(inputs, f"{prefix}/neg{s}"),
-        )
-        losses.append([float(metrics[k]) for k in sorted(metrics)])
-    return dict(gather_state_flat(state, mesh), losses=np.asarray(losses))
+    prefix, losses, dtypes = task.get("inputs_prefix", task["name"]), [], []
+    gather = sparse_update_module.all_gather_rows
+
+    def spy(t, mesh_, axis):
+        if axis == DATA_AXIS and t.is_floating_point():
+            dtypes.append(str(t.dtype).removeprefix("torch."))
+        return gather(t, mesh_, axis)
+
+    if task.get("spy"):
+        sparse_update_module.all_gather_rows = spy
+    # with task["dropout"], the trainer's dropout stream of this rank
+    drop = dropout_generator(3, mesh, torch.device("cpu")) if task.get("dropout") else None
+    if drop is not None:
+        state.model.train()
+    try:
+        for s in range(task["steps"]):
+            state, metrics = step(
+                state, data, _t(inputs, f"{prefix}/u{s}"), _t(inputs, f"{prefix}/p{s}"),
+                generator=None, negatives=_t(inputs, f"{prefix}/neg{s}"), dropout_generator=drop,
+            )
+            losses.append([float(metrics[k]) for k in sorted(metrics)])
+    finally:
+        sparse_update_module.all_gather_rows = gather
+    # every rank's dense parameters, to hold them equal
+    dense = torch.cat([p.detach().reshape(-1) for _, p in state.model.dense_parameters()])
+    ranks = [torch.empty_like(dense) for _ in range(dist.get_world_size())]
+    dist.all_gather(ranks, dense)
+    return dict(gather_state_flat(state, mesh), losses=np.asarray(losses),
+                gather_dtypes=np.asarray(dtypes, dtype=str), rank_dense=torch.stack(ranks).numpy())
+
+
+def _data_part(mesh, t):
+    """This data shard's equal part of ``t``'s rows."""
+    rows = t.shape[0] // mesh[DATA_AXIS].size()
+    start = axis_index(mesh, DATA_AXIS) * rows
+    return t[start : start + rows]
+
+
+def exchange_lookup(task, inputs):
+    """The exchange's rows of ``exchange/table`` at ``exchange/ids`` (each
+    data shard its equal part of them) by both variants, gathered to the
+    whole batch, and the table gradient of ``sum(rows * exchange/cot)``
+    (dense variant), gathered over ``model``."""
+    mesh = _mesh(task)
+    table = _t(inputs, "exchange/table")
+    local = _slice(mesh, table)
+    ids = _data_part(mesh, _t(inputs, task["ids"]))
+    out = {}
+    for variant in exchange.VARIANTS:
+        rows = exchange.exchange_rows(local, ids, mesh, variant=variant)
+        out[variant] = all_gather_rows(rows, mesh, DATA_AXIS).numpy()
+    leaf = local.clone().requires_grad_()
+    rows = exchange.exchange_lookup(leaf, ids, mesh)
+    torch.sum(rows * _data_part(mesh, _t(inputs, "exchange/cot"))).backward()
+    out["grad"] = all_gather_rows(leaf.grad, mesh, MODEL_AXIS).numpy()
+    return out
+
+
+def feature_rows(task, inputs):
+    """bf16 feature rows through ``sharded_rows`` against ``index_select`` of
+    the whole bf16 matrix, both as int16 bit patterns."""
+    mesh = _mesh(task)
+    mp = mesh[MODEL_AXIS].size()
+    full = _t(inputs, "data/user_features").to(torch.bfloat16)
+    full[3] = -0.0  # an owner's -0.0 comes back +0.0 from the sum over model
+    padded = pad_batch_data(BatchData(full, full, None, None), mp).user_features
+    ids = _t(inputs, "exchange/ids") % full.shape[0]
+    ids[0] = 3
+    got = sharded_rows(_slice(mesh, padded), ids, mesh)
+    return {"got": got.view(torch.int16).numpy(),
+            "want": torch.index_select(full, 0, ids.long()).view(torch.int16).numpy()}
 
 
 def search(task, inputs):
@@ -200,7 +275,8 @@ def async_checkpoint(task, inputs):
 
 
 TASKS = {"sparse_update": sparse_update, "train_step": train_step, "search": search,
-         "checkpoint": checkpoint, "async_checkpoint": async_checkpoint}
+         "checkpoint": checkpoint, "async_checkpoint": async_checkpoint,
+         "exchange_lookup": exchange_lookup, "feature_rows": feature_rows}
 
 
 def main() -> int:

@@ -1,9 +1,9 @@
 """The multi-device layer on ``torch.distributed`` (port of
 ``ttamm_tpu/parallel/``): one process per device, a ``(data, model)``
-``DeviceMesh``, row-sharded tables with shard-local sparse-row Adam, and the
-sharded eval search. Not ported: tensor parallelism, the all-to-all
-embedding exchange (``mesh.embedding_exchange: alltoall``) and the HLO wire
-model (``hlo_inspect.py``)."""
+``DeviceMesh``, row-sharded tables with shard-local sparse-row Adam, the all-to-all
+embedding exchange (``mesh.embedding_exchange: alltoall``,
+``exchange.py``) and the sharded eval search. Not ported: tensor
+parallelism and the HLO wire model (``hlo_inspect.py``)."""
 
 from .launch import is_primary_host, maybe_initialize_distributed
 from .mesh import DATA_AXIS, MODEL_AXIS, MeshConfig, build_mesh, parse_mesh_config, round_up

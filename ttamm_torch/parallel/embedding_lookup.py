@@ -18,9 +18,14 @@ PyTorch ops.
 :func:`sharded_table_rows` reads outside autograd: the sparse tables' rows
 become fresh leaves whose gradients go to the sharded sparse-row update.
 :func:`sharded_lookup` is differentiable in the table shard: its backward
-sums the gradients of the lanes this shard owns into its rows, in the fixed
-order of ``sum_rows``, then over ``data`` (the dense optimizer's table
-gradient). With one model shard no sum over ``model`` runs.
+rounds each lane's gradient to the wire dtype (``comm_dtype``), sums the
+lanes this shard owns into its rows, in the fixed order of ``sum_rows``,
+then over ``data`` (the dense optimizer's table gradient). With one model
+shard no sum over ``model`` runs.
+
+Feature rows stored in bfloat16 (``data.features_dtype``) are summed over
+``model`` in bfloat16: exact, since each lane has one owner and zeros
+elsewhere (an owner's -0.0 comes back as +0.0).
 """
 
 from __future__ import annotations
@@ -74,23 +79,27 @@ def sharded_table_rows(local: torch.Tensor, idx: torch.Tensor, mesh: DeviceMesh)
 
 class _ShardedLookup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, idx, mesh):
+    def forward(ctx, local, idx, mesh, wire_dtype):
         ctx.save_for_backward(idx)
-        ctx.mesh, ctx.rows = mesh, local.shape[0]
+        ctx.mesh, ctx.rows, ctx.wire = mesh, local.shape[0], wire_dtype
         return _lookup(local, idx, mesh)
 
     @staticmethod
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
         owned, lane = _owned(ctx.rows, idx, ctx.mesh)
+        if ctx.wire is not None:
+            grad = grad.to(ctx.wire).to(grad.dtype)
         # lanes another shard owns add their (zeroed) rows to a dropped row
         target = torch.where(owned, lane, ctx.rows)
         g = sum_rows(target, torch.where(owned[:, None], grad, 0.0), ctx.rows + 1)[: ctx.rows]
-        return all_reduce(g.contiguous(), ctx.mesh, DATA_AXIS), None, None
+        return all_reduce(g.contiguous(), ctx.mesh, DATA_AXIS), None, None, None
 
 
-def sharded_lookup(local: torch.Tensor, idx: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+def sharded_lookup(local: torch.Tensor, idx: torch.Tensor, mesh: DeviceMesh,
+                   wire_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Differentiable rows ``[N, D]`` of a row-sharded table at global ids
     ``idx``; the gradient reaching ``local`` is this shard's table gradient,
-    summed over the data shards."""
-    return _ShardedLookup.apply(local, idx, mesh)
+    summed over the data shards, each lane's gradient first rounded to
+    ``wire_dtype`` (None: as it is)."""
+    return _ShardedLookup.apply(local, idx, mesh, wire_dtype)

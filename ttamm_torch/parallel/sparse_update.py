@@ -43,6 +43,15 @@ lanes; use it only where the capacity has been audited.
 
 Every data replica of a table shard applies the same update, so replicas
 stay bit-identical without a reduction.
+
+Row gradients in a narrower wire dtype (``comm_dtype: bfloat16``) cross
+every all-gather over ``data`` in that dtype and are widened to the
+table's dtype right after; the arithmetic stays in the table's dtype.
+Under the owner routing the lanes are widened and coalesced first, and
+the buffer's coalesced totals are rounded to the wire dtype once more
+before their all-gather; an overflowing step re-exchanges the unsummed
+wire-dtype lanes. So at the wire dtype owner and allgather round in
+different places and differ by more than the two-phase sums.
 """
 
 from __future__ import annotations
@@ -145,14 +154,15 @@ def _coalesce_sorted(idx: torch.Tensor, grads: torch.Tensor, *, head_init: int):
 
 def gather_lanes(
     mesh: DeviceMesh, indices: torch.Tensor, row_grads: torch.Tensor,
-    gather_order: torch.Tensor | None = None,
+    gather_order: torch.Tensor | None = None, dtype: torch.dtype = torch.float32,
 ) -> SortedLanes:
-    """The lanes of every data shard, all-gathered over ``data``, put in the
-    one-device order (``gather_order``, see
-    :func:`sharded_sparse_adam_update`) and sorted: what the allgather
-    routing and the global-norm clip both start from."""
+    """The lanes of every data shard, all-gathered over ``data`` in
+    ``row_grads``' dtype and widened to ``dtype``, put in the one-device
+    order (``gather_order``, see :func:`sharded_sparse_adam_update`) and
+    sorted: what the allgather routing and the global-norm clip both start
+    from."""
     idx_all = all_gather_rows(indices.to(torch.int64), mesh, DATA_AXIS)
-    g_all = all_gather_rows(row_grads, mesh, DATA_AXIS)
+    g_all = all_gather_rows(row_grads, mesh, DATA_AXIS).to(dtype)
     if gather_order is not None:
         idx_all, g_all = idx_all[gather_order], g_all[gather_order]
     return sort_lanes(idx_all, g_all, head_init=-2)
@@ -202,7 +212,8 @@ def sharded_sparse_adam_update(
     ``table`` / ``state.m`` / ``state.v`` shards.
 
     ``indices`` int ``[n / dp]`` (global row ids; -1 marks a padding lane)
-    and ``row_grads`` ``[n / dp, D]`` are this rank's data shard; every rank
+    and ``row_grads`` ``[n / dp, D]`` are this rank's data shard, in the
+    wire dtype (the table's, or bfloat16 under ``comm_dtype``); every rank
     passes the same count. ``gather_order``: an optional permutation of the
     ``n`` lanes gathered over ``data`` (rank-major) into the order the
     coalesce sums them in. ``gathered``: :func:`gather_lanes` of these
@@ -216,11 +227,12 @@ def sharded_sparse_adam_update(
     base = row_offset(mesh, rows)
     dp, mp = axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS)
     idx = indices.to(torch.int64)
-    grads = row_grads.to(table.dtype)
     hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
 
     def allgather_update() -> None:
-        lanes = gathered if gathered is not None else gather_lanes(mesh, idx, grads, gather_order)
+        # the unsummed lanes cross the wire in their own dtype
+        lanes = gathered if gathered is not None else gather_lanes(
+            mesh, idx, row_grads, gather_order, table.dtype)
         _apply(table, state, _localize(lanes.idx, base, rows, lanes.is_head), lanes.totals(),
                **hyper)
 
@@ -230,6 +242,7 @@ def sharded_sparse_adam_update(
 
     n = idx.shape[0] * dp
     cap = owner_capacity(n, dp, mp, capacity_factor)
+    grads = row_grads.to(table.dtype)  # coalesced in the table's dtype
     sorted_idx, g_coal, is_head, _ = _coalesce_sorted(idx, grads, head_init=-2)
     local = sorted_idx - base
     owned = is_head & (local >= 0) & (local < rows)
@@ -252,7 +265,8 @@ def sharded_sparse_adam_update(
         0, tgt, torch.where(owned[:, None], g_coal, 0.0)
     )[:cap]
     idx_all = all_gather_rows(idx_c, mesh, DATA_AXIS)
-    g_all = all_gather_rows(g_c, mesh, DATA_AXIS)
+    # the coalesced totals rounded to the wire dtype again
+    g_all = all_gather_rows(g_c.to(row_grads.dtype), mesh, DATA_AXIS).to(table.dtype)
     if dp == 1:
         # one data shard: the buffer holds distinct sorted rows already, its
         # sentinel tail last

@@ -1,8 +1,10 @@
 """Build the serving bundle with the port.
 
 config -> data (``ttamm_torch.data``, host-side) -> model (seeded init, or a
-checkpoint of the port's trainer or of the JAX package, through
-``ttamm_torch.models.convert``) ->
+checkpoint of the port's trainer or of the JAX package: a flat ``.npz``
+through ``ttamm_torch.models.convert``, or a sharded checkpoint directory,
+every rank's pieces assembled in this one process by
+``load_sharded_checkpoint``) ->
 ``encode_corpus`` for items and users on the device -> ``items.index`` +
 ``item_embeddings.npy`` + ``user_embeddings.npy`` + ``vocab.json``: the
 layout the JAX training pipeline writes (``ttamm_tpu/pipelines/training.py``,
@@ -11,7 +13,9 @@ serving-bundle export), read by either package's ``RetrievalService``.
     python -m ttamm_torch.pipelines.export --config configs/default.yaml --out DIR \
         [--checkpoint artifacts/checkpoints/baseline_two_tower_last.pt]
 
-It runs on the CUDA card unless ``--device cpu`` asks for the CPU.
+It runs on the CUDA card unless ``--device cpu`` asks for the CPU. The
+features go to the towers in float32 whatever ``data.features_dtype`` says,
+as the JAX package's export does.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from ..device import resolve_device
 from ..models.convert import from_jax_checkpoint
 from ..models.two_tower import TwoTower, parse_model_config
 from ..serve.flat_index import build_flat_index
+from ..train.sharded_checkpoint import MANIFEST, load_sharded_checkpoint
+from ..train.state import create_train_state
 from ..train.step import encode_corpus
 from ..utils import get_logger, load_config
 
@@ -77,6 +83,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _sharded_model(path: Path, cfg, num_users: int, num_items: int,
+                   device: torch.device) -> TwoTower:
+    """The model of a sharded checkpoint directory (any number of shard
+    files, the port's or the JAX package's), assembled on one device."""
+    if not (path / MANIFEST).is_file():
+        raise FileNotFoundError(f"{path} is a directory without {MANIFEST}: not a sharded checkpoint")
+    template = create_train_state(cfg, num_users=num_users, num_items=num_items, seed=0,
+                                  device=device)
+    state, _ = load_sharded_checkpoint(path, template)
+    return state.model.eval()
+
+
 def export_bundle(
     config: Mapping[str, Any],
     out_dir: Path | str,
@@ -89,8 +107,8 @@ def export_bundle(
 
     Runs on ``device`` (``None``: the CUDA card). The model is the
     checkpoint at ``checkpoint`` (the port's trainer and the JAX package
-    write the same format) when given, otherwise a seeded init from
-    ``experiment.seed``. The index scores in
+    write the same formats: a flat ``.npz`` or a sharded directory) when
+    given, otherwise a seeded init from ``experiment.seed``. The index scores in
     ``serving.score_dtype``. 'auto' exports float32 and says so: the bf16
     recall gate runs in the trainer, on its final val eval
     (``TrainingResult.serving_score_dtype``, and the dtype in the header of
@@ -110,11 +128,9 @@ def export_bundle(
     )
     if checkpoint is not None:
         if Path(checkpoint).is_dir():
-            raise NotImplementedError(
-                "export from a sharded checkpoint directory is not ported yet (ROADMAP Queue 1); "
-                "train with checkpointing.sharded: false for a flat .npz"
-            )
-        model = from_jax_checkpoint(checkpoint, model_cfg, device=dev)
+            model = _sharded_model(Path(checkpoint), model_cfg, num_users, num_items, dev)
+        else:
+            model = from_jax_checkpoint(checkpoint, model_cfg, device=dev)
         if (model.num_users, model.num_items) != (num_users, num_items):
             raise ValueError(
                 f"checkpoint has {model.num_users} users x {model.num_items} items, "
@@ -184,7 +200,8 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument(
         "--checkpoint", type=Path, default=None,
-        help="training checkpoint .npz (the port's or the JAX package's)",
+        help="training checkpoint: a flat .npz or a sharded directory (the port's or the "
+             "JAX package's)",
     )
     args = parser.parse_args(argv)
 

@@ -59,13 +59,17 @@ builds the same data and seeded state, keeps its part
 (``parallel.sharding``: row-sharded tables, moments and dataset arrays,
 replicated dense parameters), walks the same global batches through the
 sharded step (negatives from a generator seeded alike on every rank,
-dropout from one seeded per rank) and runs the same eval (the sharded
-search when mp > 1). ``training.update_routing`` / ``update_capacity_factor``
-choose the sparse tables' exchange. ``checkpointing.sharded`` (``auto``: more
-than one process) writes per-rank shard directories in the JAX format;
-otherwise the state is gathered and rank 0 writes the flat ``.npz`` (the
-gather stays on the main thread; only the write goes to the background).
-``resume_from`` takes either. Every rank takes part in the end-of-run
+dropout from one seeded per data shard, so the model ranks of a data shard
+draw the same masks) and runs the same eval (the sharded search when mp >
+1). ``training.update_routing`` / ``update_capacity_factor`` choose the
+sparse tables' exchange of row gradients, ``mesh.embedding_exchange``
+(``gspmd`` | ``alltoall``) how the tables' rows are read
+(``parallel/exchange.py``). ``checkpointing.sharded`` (``auto``: more than
+one process, where the JAX package says more than one host) writes
+per-rank shard directories in the JAX format; otherwise the state is
+gathered and rank 0 writes the flat ``.npz`` (the gather stays on the main
+thread; only the write goes to the background). ``resume_from`` and the
+export CLI take either. Every rank takes part in the end-of-run
 sample encodes (the sharded row reads); only rank 0 logs and writes the
 serving bundle, the reports and the ledger. Under ``data.use_cache`` rank 0
 writes the cache and the others read it after a barrier.
@@ -78,9 +82,18 @@ only when the loss reads them) and ``mixed_negatives``; with
 (``configs/in_batch_softmax.yaml`` sets both), on one device and on the
 mesh.
 
-Not ported yet (ROADMAP Queue 1): ``comm_dtype``, ``packed_moments``, bf16
-feature storage, and of the mesh ``tensor_parallel`` and
-``embedding_exchange: alltoall``; each raises when a config asks for it. The TPU knobs
+``training.comm_dtype: bfloat16`` rounds every table-row gradient once at
+the wire (``train/step.py``), on one device too; ``data.features_dtype:
+bfloat16`` stores the user and item feature matrices on the device in
+bf16, rounded once from the host float32 matrices (the dataset and its
+cache stay float32), widened in the towers. The end-of-run diagnostics
+read the sample embeddings through the device (bf16) features and the
+feature correlations and user alignment from the host float32 matrices,
+as the JAX trainer does. ``configs/pod_2x4.yaml`` sets all three wire
+options.
+
+Not ported yet (ROADMAP Queue 1): ``packed_moments`` and the mesh's
+``tensor_parallel``; each raises when a config asks for it. The TPU knobs
 ``steps_per_call``, ``use_pallas`` and ``mesh.multi_host``, and the JAX
 profiler's ``diagnostics.profile_dir``, are not read.
 """
@@ -133,6 +146,7 @@ from ..models.encoders import tower_gate_values
 from ..models.two_tower import parse_model_config
 from ..ops.topk import mips_topk
 from ..parallel import (
+    DATA_AXIS,
     build_mesh,
     gather_state_flat,
     is_primary_host,
@@ -274,14 +288,10 @@ def _sync(device: torch.device) -> None:
 def _refuse_unported(config: Mapping[str, Any]) -> None:
     """Raise on each option of the JAX pipeline this port does not run yet."""
     training = dict(config.get("training", {}))
-    data = dict(config.get("data", {}))
     mesh = dict(config.get("mesh", {}) or {})
     refused = {
-        "training.comm_dtype": str(training.get("comm_dtype", "float32")).lower() != "float32",
         "training.packed_moments": bool(training.get("packed_moments", False)),
-        "data.features_dtype": str(data.get("features_dtype", "float32")).lower() != "float32",
         "mesh.tensor_parallel": bool(mesh.get("tensor_parallel", False)),
-        "mesh.embedding_exchange": str(mesh.get("embedding_exchange", "gspmd")).lower() != "gspmd",
     }
     for name, asked in refused.items():
         if asked:
@@ -306,6 +316,24 @@ def _dataset_loss(
         sizes.append(min(batch_size, len(users) - start))
     values = torch.stack(losses).cpu().numpy()
     return float(np.dot(values, sizes) / sum(sizes))
+
+
+def dropout_generator(seed: int, mesh, device: torch.device) -> torch.Generator:
+    """The dropout masks' generator of this rank of a mesh run: one stream a
+    data shard, shared by its model ranks, which compute the same batch
+    rows (so the replicated dense parameters stay equal on every rank)."""
+    return torch.Generator(device=device).manual_seed(
+        seed * 1000003 + 5_000_011 + mesh.get_local_rank(DATA_AXIS)
+    )
+
+
+def features_dtype(data_cfg: Mapping[str, Any]) -> torch.dtype:
+    """``data.features_dtype`` (float32 | bfloat16): the device dtype of the
+    feature matrices."""
+    name = str(data_cfg.get("features_dtype", "float32")).lower()
+    if name not in {"float32", "bfloat16"}:
+        raise ValueError(f"Unsupported data.features_dtype: {name}")
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
 def _serving_dtype_request(config: Mapping[str, Any]) -> tuple[str, float]:
@@ -338,6 +366,7 @@ def run_single_experiment(
     config = dict(config)
     configure_logging(str((config.get("logging") or {}).get("level", "INFO")))
     _refuse_unported(config)
+    feat_dtype = features_dtype(dict(config.get("data", {})))
     dev = resolve_device(device)
     mesh_cfg = parse_mesh_config(config.get("mesh", {}) or {})
     mesh = None
@@ -424,8 +453,10 @@ def run_single_experiment(
         cap=int(positives_cap) if positives_cap else None,
     )
 
-    def on_device(matrix: np.ndarray) -> torch.Tensor | None:
-        return torch.from_numpy(np.ascontiguousarray(matrix)).to(dev) if matrix.size else None
+    def on_device(matrix: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor | None:
+        if not matrix.size:
+            return None
+        return torch.from_numpy(np.ascontiguousarray(matrix)).to(dev).to(dtype)
 
     loss_type = str(training_cfg.get("loss", "bce")).lower()
     if loss_type not in LOSSES:
@@ -440,8 +471,8 @@ def run_single_experiment(
         counts = np.bincount(train_df["item_idx"].to_numpy(), minlength=num_items).astype(np.float64)
         item_log_q = np.log(np.maximum(counts, 1.0) / max(counts.sum(), 1.0)).astype(np.float32)
     data = BatchData(
-        user_features=on_device(dataset.user_feature_matrix.astype(np.float32)),
-        item_features=on_device(dataset.item_feature_matrix.astype(np.float32)),
+        user_features=on_device(dataset.user_feature_matrix.astype(np.float32), feat_dtype),
+        item_features=on_device(dataset.item_feature_matrix.astype(np.float32), feat_dtype),
         positive_rows=on_device(positives.rows),
         category_ids=on_device(categories.category_ids) if categories is not None else None,
         item_log_q=None if item_log_q is None else on_device(item_log_q),
@@ -478,6 +509,8 @@ def run_single_experiment(
         sparse_weight_decay=float(training_cfg.get("sparse_weight_decay", 0.0)),
         update_routing=str(training_cfg.get("update_routing", "allgather")).lower(),
         update_capacity_factor=float(training_cfg.get("update_capacity_factor", 2.0)),
+        comm_dtype=str(training_cfg.get("comm_dtype", "float32")).lower(),
+        embedding_exchange=str((config.get("mesh") or {}).get("embedding_exchange", "gspmd")).lower(),
         opt=parse_dense_opt_config(
             training_cfg,
             total_steps=max(1, -(-len(train_df) // batch_size)) * num_epochs,
@@ -498,8 +531,9 @@ def run_single_experiment(
         state = place_state(mesh, pad_state_rows(state, mp))
         data = place_data(mesh, pad_batch_data(data, mp))
         logger.info(
-            "Mesh | data_parallel=%d model_parallel=%d processes=%d routing=%s",
-            mesh_cfg.data_parallel, mp, mesh_cfg.num_devices, tscfg.update_routing,
+            "Mesh | data_parallel=%d model_parallel=%d processes=%d routing=%s exchange=%s "
+            "comm_dtype=%s", mesh_cfg.data_parallel, mp, mesh_cfg.num_devices,
+            tscfg.update_routing, tscfg.embedding_exchange, tscfg.comm_dtype,
         )
     if resume is not None and (resume / MANIFEST).is_file():
         state, meta = load_sharded_checkpoint(resume, state, mesh)
@@ -555,14 +589,11 @@ def run_single_experiment(
         )
         return compute_ranking_metrics(predictions, ground_truth, metrics_k, include_per_user=False)
 
-    # negatives: one stream, the same on every rank; dropout: each rank its own
+    # negatives: one stream, the same on every rank
     generator = torch.Generator(device=dev).manual_seed(seed)
     step_kwargs = {}
     if mesh is not None:
-        rank = torch.distributed.get_rank()
-        step_kwargs["dropout_generator"] = torch.Generator(device=dev).manual_seed(
-            seed * 1000003 + 5_000_011 + rank
-        )
+        step_kwargs["dropout_generator"] = dropout_generator(seed, mesh, dev)
     examples = 0
     best_metric_value: float | None = None
     best_state: TrainState | None = None

@@ -10,17 +10,29 @@ One training step, in the JAX step's order:
 2. gather every table's rows as fresh leaf tensors (outside the
    differentiated function, so table gradients arrive batch-row shaped;
    the sparse tables, ID and, under ``adaptive_mimic.sparse``, mimic,
-   through the ``gather_rows`` kernel);
+   through the ``gather_rows`` kernel); feature rows stored in bfloat16
+   (``data.features_dtype``) are widened in the towers;
 3. run the towers (dropout from the caller's generator) and the mimic;
 4. the retrieval loss (BCE over [positives; negatives], or the in-batch
    softmax of :func:`in_batch_softmax_loss` over [every positive; the
    pool]) + the mimic losses + category alignment;
 5. backward;
-6. rebuild each dense table's gradient by a fixed-order row sum;
-7. the optional global-norm clip (sparse row gradients coalesced first);
+6. rebuild each dense table's gradient by a fixed-order row sum (each row
+   gradient rounded to ``comm_dtype`` first);
+7. the optional global-norm clip (sparse row gradients coalesced first,
+   from their unrounded float32 lanes);
 8. the dense optimizer over the dense parameters and dense tables;
-9. sparse-row Adam on the sparse tables (one ``sparse_adam_rows`` kernel a
-   table after the coalesce).
+9. sparse-row Adam on the sparse tables (their lanes rounded to
+   ``comm_dtype`` after the clip's scale, widened again before the
+   coalesce; one ``sparse_adam_rows`` kernel a table).
+
+``comm_dtype="bfloat16"`` (the JAX ``comm_cast``) rounds every table-row
+gradient once where it would cross the mesh, and on one device too, so its
+effect on quality shows on one card; all optimizer math stays float32 after
+the widen. The rounding point differs by table kind, as in the JAX step: a
+dense table's lanes before the clip's norm, a sparse table's after the
+clip's scale (and under the owner routing each coalesced total once more,
+``parallel/sparse_update.py``).
 
 With ``mesh`` (a ``DeviceMesh`` with dims ``("data", "model")``, one process
 per device) the step runs on this rank's parts of a state and data placed by
@@ -54,6 +66,8 @@ from .optim import DenseOptConfig, dense_opt_update, lr_scale
 from .state import BatchData, TrainState, dense_table_names, sparse_table_names
 
 LOSSES = ("bce", "in_batch_softmax")
+COMM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+EXCHANGES = ("gspmd", "alltoall")
 
 
 class TrainStepConfig(NamedTuple):
@@ -80,6 +94,13 @@ class TrainStepConfig(NamedTuple):
     # and the owner routing's buffer size relative to a balanced share.
     update_routing: str = "allgather"
     update_capacity_factor: float = 2.0
+    # The wire dtype of the table-row gradients (one of COMM_DTYPES):
+    # 'bfloat16' rounds each one once, on one device as on a mesh.
+    comm_dtype: str = "float32"
+    # Under a mesh: how the tables' rows are read (one of EXCHANGES):
+    # 'gspmd', one masked gather_rows a table summed over model; 'alltoall',
+    # the bucketed exchange of parallel/exchange.py. Unread on one device.
+    embedding_exchange: str = "gspmd"
     opt: DenseOptConfig = DenseOptConfig()
 
 
@@ -278,6 +299,10 @@ def _check_config(tscfg: TrainStepConfig) -> None:
         raise ValueError("training.softmax_temperature must be > 0")
     if tscfg.mixed_negatives < 0:
         raise ValueError("training.mixed_negatives must be >= 0")
+    if tscfg.comm_dtype not in COMM_DTYPES:
+        raise ValueError(f"Unknown comm_dtype: {tscfg.comm_dtype}")
+    if tscfg.embedding_exchange not in EXCHANGES:
+        raise ValueError(f"Unknown embedding_exchange: {tscfg.embedding_exchange}")
 
 
 TrainStep = Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]
@@ -300,6 +325,14 @@ class _Lanes(NamedTuple):
         gathered = None if self.gathered is None else self.gathered.scaled(scale)
         return self._replace(grad=self.grad * scale, gathered=gathered)
 
+    def on_wire(self, dtype: torch.dtype) -> "_Lanes":
+        """The gradients rounded to the wire dtype. The clip's lanes,
+        gathered in float32 for its norm, are dropped then: the update
+        gathers the rounded ones."""
+        if dtype == self.grad.dtype:
+            return self
+        return self._replace(grad=self.grad.to(dtype), gathered=None)
+
 
 class _OneDevice:
     """Where the step reads rows, reduces and updates the sparse tables on
@@ -307,6 +340,9 @@ class _OneDevice:
     sharded reads and adds the collectives; the step body is shared."""
 
     mesh = None
+
+    def __init__(self, tscfg: TrainStepConfig):
+        self.wire = COMM_DTYPES[tscfg.comm_dtype]
 
     def shard(self, batch: int) -> tuple[int, int]:
         """Lanes ``[lo, hi)`` of the batch that this rank trains on."""
@@ -332,8 +368,9 @@ class _OneDevice:
         return rows, rows
 
     def table_grad(self, grad: torch.Tensor, idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-        """The table-shaped gradient from ``grad_input``'s (duplicates summed)."""
-        return sum_rows(idx, grad, table.shape[0])
+        """The table-shaped gradient from ``grad_input``'s, each row
+        gradient rounded to the wire dtype (duplicates summed after)."""
+        return sum_rows(idx, grad.to(self.wire).to(grad.dtype), table.shape[0])
 
     def weigh(self, batch: int, n_local: int, terms: list[torch.Tensor]) -> list[torch.Tensor]:
         return terms
@@ -390,7 +427,10 @@ class _Mesh(_OneDevice):
        mimic under ``adaptive_mimic.sparse``) as fresh leaves
        (``sharded_table_rows``), the dense tables' (the mimic tables by
        default) through ``sharded_lookup``, whose backward gives this
-       shard's table gradient summed over data;
+       shard's table gradient summed over data; under
+       ``embedding_exchange="alltoall"`` every table's rows come through the
+       all-to-all exchange instead (``parallel/exchange.py``: the same rows
+       and, for the dense tables, the same gradient bits);
     3. dropout comes from ``dropout_generator`` (this rank's own; none
        without it); each loss term is weighted by the shard's share of the
        batch, so the sums over data are the global means; the
@@ -406,14 +446,18 @@ class _Mesh(_OneDevice):
        lanes gathered over data and sorted once (``gather_lanes``);
     6. ``sharded_sparse_adam_update`` (``update_routing``) updates the sparse
        tables, with the lanes in the one-device order (the clip's gathered
-       lanes, scaled, where it ran): one ``sparse_adam_rows`` a table.
+       lanes, scaled, where it ran and ``comm_dtype`` is float32; else the
+       rounded lanes, gathered again in the wire dtype): one
+       ``sparse_adam_rows`` a table.
     """
 
     def __init__(self, mesh, tscfg: TrainStepConfig):
-        from ..parallel import embedding_lookup, sparse_update
+        from ..parallel import embedding_lookup, exchange, sparse_update
         from ..parallel import mesh as pmesh
 
+        super().__init__(tscfg)
         self.mesh, self._lookup, self._update, self._pm = mesh, embedding_lookup, sparse_update, pmesh
+        self._exchange = exchange if tscfg.embedding_exchange == "alltoall" else None
         self.dp = pmesh.axis_size(mesh, pmesh.DATA_AXIS)
         self.d = pmesh.axis_index(mesh, pmesh.DATA_AXIS)
         self.num_neg = tscfg.negatives_per_positive
@@ -428,11 +472,15 @@ class _Mesh(_OneDevice):
         return self._lookup.sharded_rows(features, idx, self.mesh)
 
     def table_rows(self, table, idx):
+        if self._exchange is not None:
+            return self._exchange.exchange_rows(table, idx, self.mesh)
         return self._lookup.sharded_table_rows(table, idx, self.mesh)
 
     def dense_table_rows(self, table, idx):
         leaf = table.detach().requires_grad_()
-        return leaf, self._lookup.sharded_lookup(leaf, idx, self.mesh)
+        if self._exchange is not None:
+            return leaf, self._exchange.exchange_lookup(leaf, idx, self.mesh, wire_dtype=self.wire)
+        return leaf, self._lookup.sharded_lookup(leaf, idx, self.mesh, self.wire)
 
     def table_grad(self, grad, idx, table):
         return grad
@@ -496,7 +544,7 @@ class _Mesh(_OneDevice):
 
 
 def _layout(tscfg: TrainStepConfig, mesh) -> _OneDevice:
-    return _OneDevice() if mesh is None else _Mesh(mesh, tscfg)
+    return _OneDevice(tscfg) if mesh is None else _Mesh(mesh, tscfg)
 
 
 def _batch_lanes(layout: _OneDevice, tscfg: TrainStepConfig, data, u_idx, pos_idx, generator,
@@ -599,6 +647,7 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
             dense_grads = [g * scale for g in dense_grads]
             table_grads = [g * scale for g in table_grads]
             lanes = {n: ln.scaled(scale) for n, ln in lanes.items()}
+        lanes = {n: ln.on_wire(layout.wire) for n, ln in lanes.items()}
 
         dense_opt_update(
             [t for _, t in state.dense_targets()], dense_grads + table_grads, state.opt_dense, opt,
