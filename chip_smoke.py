@@ -22,9 +22,10 @@ result line):
    shapes and time kernel, plain version and the nearest library call
    (device time from ``torch.profiler``; the row kernels are timed in
    phase 4):
-   small_k_topk bit-identical at its four search widths (782, 2560, 3072
-   and 15,625; each timed against torch.topk, the widest the headline row,
-   the others its ``parts``), gather_rows and scatter_set_rows
+   small_k_topk bit-identical at its six search widths (782, 2560, 3072,
+   the chunked search's 40-wide merge, 15,625, and the chunked search's
+   262,144-wide chunk; each timed against torch.topk, 15,625 the headline
+   row, the others its ``parts``; up to 16K wide over 200 calls), gather_rows and scatter_set_rows
    bit-identical (the
    scatter away from its scratch row, with duplicate-heavy indices and the
    scratch row), sparse_adam_rows at duplicate-heavy lanes coalesced with
@@ -95,6 +96,14 @@ result line):
    row code (``parent_mesh_path``), bit for bit; then the device ms and
    device ops and the host ms per step of the one-device step, of both
    routings and of both through the parent's row code;
+4c. ``training.packed_moments: true`` (checkpoints hold each sparse
+   table's Adam moments as one [rows, 2D] leaf ``mv``; in memory they stay
+   two tensors): one step from phase 4's seeded state, batch and negatives,
+   equal bit for bit to phase 4's step (losses, every table, dense
+   parameter and moment; its launches, counted from zero just before it:
+   sparse_adam_rows and gather_rows once a sparse table); its flat and
+   sharded checkpoints hold ``mv`` = [m | v] and no ``m`` / ``v``, and
+   restore bit for bit into a packed and a separate state;
 5. train two epochs of ``configs/default.yaml`` on the card with the
    retrieval eval after each, through ``run_training`` (the main path's
    launches are counted from here; its sweep ledger must hold the one
@@ -163,6 +172,13 @@ result line):
    best checkpoint directory, its bundle equal bit for bit to the export of
    a flat checkpoint of the same state, 256 users searched (ids equal to
    the host numpy search but where scores tie);
+5d. ``model.precision: bfloat16`` in ``configs/default.yaml`` (the towers'
+   matmuls on bf16 operands with float32 sums, the backward rounded as the
+   JAX ``_dot``'s): one step from the seeded state, kernels vs plain
+   versions within phase 4's tolerances but for bf16 rounding flips (as
+   5c); one epoch through ``run_training`` (launches counted from zero just
+   before it), its val recall@10 and ms/step printed beside phase 5's first
+   epoch, then 20 profiled steps;
 6. export the serving bundle from the best checkpoint at the score dtype
    the trainer's precision gate chose, and serve it behind the HTTP front
    end (``/healthz``, GET user, POST user, POST embedding); ids must equal
@@ -180,7 +196,17 @@ result line):
    ids must equal the plain-version masked fused ids and hold no blocked id;
    then the bf16 group_exact / fused device-ms sweep at 500k, 1M and 2M
    items (logged, not acted on);
-8. the launch counts of phases 5-7 (phase 5b's and 5c's are their own, in
+7b. the chunked search past the float32 slab ceiling: a seeded 10M x 128
+   float32 cosine index, B = 1024, k = 20 through ``FlatIndex.search``
+   (``auto`` must scan in chunks of ``chunk_items(1024)`` = 262,144, the
+   widest whose float32 scores fit the 1 GiB budget) and a masked search (M = 32, half
+   each query's own top ids), their launches counted from zero just before
+   them (small_k_topk twice a chunk, nothing else); the ids and scores equal
+   the scan with small_k_topk's plain version, 32 queries' ids equal a host
+   numpy search (ties within 1e-5 aside), no blocked id returned, and at 2M
+   items an explicit chunked search equals group_exact's ids; then device
+   ms, host ms and the launches a search;
+8. the launch counts of phases 5-7b (phase 5b's and 5c's are their own, in
    the summary's ``in_batch_softmax`` and ``pod_2x4``) and, for gather_rows_masked, of phase
    4b's sharded steps (every kernel must have run), leaving out the
    launches made to compare or time a kernel against its plain version;
@@ -222,6 +248,7 @@ VIRTUAL_SHARDS = 4  # model shards of the masked kernels' layouts (phase 4b)
 MESH_STEPS = 3  # sharded steps per routing (phases 4b and 5b)
 IB_POOL = 256  # mixed negatives of phase 5b's second one-step comparison
 CORPUS_ROWS, CORPUS_DIM = 2_000_000, 128
+CHUNKED_ROWS = 10_000_000  # past the float32 slab ceiling (8,388,608 items): the chunked search
 PROFILE_STEPS = 20
 AB_STEPS = 50  # canonical train steps a turn of phase 5's checkpoint A/B
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -654,19 +681,25 @@ def _select_kernel(dev) -> dict[str, dict]:
 def _search_kernels(dev) -> dict[str, dict]:
     import torch
 
-    from ttamm_torch.ops import kernels
+    from ttamm_torch.ops import kernels, topk
     from ttamm_torch.ops.topk import SAFETY_GROUPS
 
     rows: dict[str, dict] = {}
     # small_k_topk at the path's widths: 100k-item group pick (782) and final
-    # top-k (20 groups x 128), the fused candidates ((20+4) x 128), and the
-    # 2M-item group pick (15,625), the headline row. Bit-identical values and
-    # ids; each width timed against its plain version and torch.topk (time
-    # only: its tie order differs), its bound one read of the rows and one
-    # write of k values and ids.
+    # top-k (20 groups x 128), the fused candidates ((20+4) x 128), the
+    # chunked search's merge with the running top-k (2 x 20), the 2M-item
+    # group pick (15,625), the headline row, and a chunk of the chunked
+    # search (chunk_items(1024)). Bit-identical values and ids; each width
+    # timed against its plain version and torch.topk (time only: its tie
+    # order differs) over 200 calls up to 16K wide (a 5 us kernel is timed
+    # steadily only over many launches; scripts/topk_merge_timing.py gives
+    # the spread), its bound one read of the rows and one write of k values
+    # and ids.
     parts = []
-    for width, k in ((782, 20), (2560, 20), (3072, 20), (15625, 24)):
+    chunk = topk.chunk_items(BATCH)
+    for width, k in ((782, 20), (2560, 20), (3072, 20), (2 * K, K), (chunk, K), (15625, 24)):
         x = _topk_rows(width, width, dev)
+        iters = 200 if width <= 16384 else 10
         kv, ki = kernels.small_k_topk_cuda(x, k)
         pv, pi = kernels.small_k_topk_plain(x, k)
         torch.cuda.synchronize()
@@ -676,13 +709,14 @@ def _search_kernels(dev) -> dict[str, dict]:
             shape=f"[{BATCH}, {width}] k={k}",
             # equal values (-inf included) differ by 0, not by inf - inf = nan
             max_abs_err=float(torch.where(kv == pv, 0.0, (kv - pv).abs()).max()),
-            ms=device_ms(lambda: kernels.small_k_topk_cuda(x, k)),
-            plain_ms=device_ms(lambda: kernels.small_k_topk_plain(x, k)),
-            library_ms=device_ms(lambda: torch.topk(x, k, dim=1)),
+            ms=device_ms(lambda: kernels.small_k_topk_cuda(x, k), iters=iters),
+            plain_ms=device_ms(lambda: kernels.small_k_topk_plain(x, k), iters=min(iters, 50)),
+            library_ms=device_ms(lambda: torch.topk(x, k, dim=1), iters=iters),
             nbytes=x.numel() * 4 + BATCH * k * 8,
         )
         _log_row("small_k_topk", part)
         parts.append(part)
+        del x
     rows["small_k_topk"] = dict(
         parts[-1], max_abs_err=max(p["max_abs_err"] for p in parts), parts=parts[:-1]
     )
@@ -1109,7 +1143,7 @@ def phase_step_vs_plain(dev, config: dict, dataset) -> tuple[dict[str, dict], di
     worst = _check_steps("one step, kernels vs plain", sk, mk, sp, mp,
                          {"user_id": u.long(), "item_id": item_idx})
     log(f"one step, kernels vs plain on the card: losses {mk} | max abs err {worst}")
-    context = dict(ctx, item_idx=item_idx, state=sk)
+    context = dict(ctx, item_idx=item_idx, state=sk, inputs=(u, p, neg), metrics=mk)
     rows = _row_kernels(sk.tables["item_id"], item_idx, ni)
     rows["gather_rows"]["parts"] = _forward_reads(sk, {"user_id": u, "item_id": item_idx})
     adam = _sparse_adam_rows(sk, {"item_id": item_idx, "user_id": u.long()}, tscfg)
@@ -1572,11 +1606,8 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
     (losses, every table, moment and dense parameter); then each step's
     device ms and device ops (profiler) and host ms (clock) beside the
     single-device step's and the parent path's."""
-    import datetime
-    import socket
 
     import torch
-    import torch.distributed as dist
 
     from ttamm_torch.ops import kernels
     from ttamm_torch.ops.sampling import sample_negative_items
@@ -1610,15 +1641,7 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
         torch.cuda.synchronize()
         return out
 
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group(
-        "nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
-        timeout=datetime.timedelta(seconds=300),
-        device_id=torch.device("cuda", torch.cuda.current_device()),
-    )
-    try:
+    with one_rank_nccl():
         mesh = build_mesh(MeshConfig(1, 1), "cuda")
         mdata = place_data(mesh, data)
         steps = {r: make_sharded_train_step(cfg, tscfg._replace(update_routing=r), mesh)
@@ -1702,8 +1725,6 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
         log(f"owner routing: {OWNER_STATS['checks']} overflow checks (one host sync each), "
             f"{OWNER_STATS['overflows']} overflows")
         timing["owner_stats"] = dict(OWNER_STATS)
-    finally:
-        dist.destroy_process_group()
     return counts, timing
 
 
@@ -1733,6 +1754,111 @@ def phase_mesh(dev, ctx) -> tuple[dict[str, dict], dict[str, int], dict[str, int
     log(f"launch counts of the 1x1 sharded steps: {counts}")
     timing["sparse_adam_rows"] = adam_parts
     return rows, compared, counts, timing
+
+
+@contextlib.contextmanager
+def one_rank_nccl():
+    """A one-rank NCCL process group on this card, destroyed on exit."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=300),
+        device_id=torch.device("cuda", torch.cuda.current_device()),
+    )
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_state(label: str, got, want) -> int:
+    """``got`` equal to ``want`` bit for bit: every table, dense parameter,
+    dense moment and sparse moment. Returns the number of tensors compared."""
+    import torch
+
+    pairs = [(f"{n} table", got.tables[n], want.tables[n]) for n in want.tables]
+    pairs += [(k, a.detach(), bb.detach()) for (k, a), (_, bb) in
+              zip(got.dense_targets(), want.dense_targets())]
+    pairs += [(f"dense m {i}", a, bb) for i, (a, bb) in enumerate(zip(got.opt_dense.m, want.opt_dense.m))]
+    pairs += [(f"dense v {i}", a, bb) for i, (a, bb) in enumerate(zip(got.opt_dense.v, want.opt_dense.v))]
+    for n, s in want.opt_sparse.items():
+        pairs += [(f"{n} m", got.opt_sparse[n].m, s.m), (f"{n} v", got.opt_sparse[n].v, s.v)]
+        check(got.opt_sparse[n].step == s.step, f"{label} {n}: sparse step {got.opt_sparse[n].step} != {s.step}")
+    for name, a, bb in pairs:
+        check(torch.equal(a, bb), f"{label} {name}: not bit for bit")
+    return len(pairs)
+
+
+def phase_packed(dev, ctx, work: Path) -> dict:
+    """Phase 4c: ``training.packed_moments: true``, which sets the
+    checkpoints' moment leaves (the JAX packed layout: one ``[rows, 2D]``
+    ``mv`` = [m | v] a sparse table); in memory the moments stay two
+    tensors. One step of ``configs/default.yaml`` from phase 4's seeded
+    state, batch and negatives with the option set, equal bit for bit to
+    phase 4's step (the launches of this step, counted from zero just before
+    it, are this path's: sparse_adam_rows and gather_rows once a sparse
+    table); then its flat and sharded checkpoints hold ``mv`` and no ``m``
+    or ``v``, with ``mv`` = [m | v] of the state, and restore bit for bit
+    into a packed and a separate state. Returns a summary."""
+    import numpy as np
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.train import create_train_state, make_train_step
+    from ttamm_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from ttamm_torch.train.sharded_checkpoint import load_sharded_checkpoint, save_sharded_checkpoint
+    from ttamm_torch.train.state import sparse_table_names
+
+    cfg, tscfg, data, nu, ni = (ctx[k] for k in ("cfg", "tscfg", "data", "nu", "ni"))
+    tables = sparse_table_names(cfg)
+
+    def fresh(packed):
+        return create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED, device=dev,
+                                  packed_moments=packed)
+
+    u, p, neg = ctx["inputs"]
+    state = fresh(True)
+    kernels.reset_launch_counts()  # this path's launches: the packed step
+    state, metrics = make_train_step(cfg, tscfg)(state, data, u, p, generator=None, negatives=neg)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check(launches["sparse_adam_rows"] == len(tables) and launches["gather_rows"] == len(tables)
+          and launches["scatter_set_rows"] == 0, f"packed step launches: {launches}")
+    metrics = {k: float(v) for k, v in metrics.items()}
+    check(metrics == ctx["metrics"], f"packed step losses {metrics} != separate {ctx['metrics']}")
+    compared = _same_state("one packed step", state, ctx["state"])
+    log(f"one step with training.packed_moments: losses and {compared} state tensors bit-identical "
+        f"to phase 4's step | launches {launches}")
+
+    names = dict(experiment_name="packed", epoch=1, metric_name=None, metric_value=None)
+    flat_path = save_checkpoint(work / "packed_flat", state, **names)
+    with np.load(flat_path) as blob:
+        for n in tables:
+            check(f"opt_sparse/{n}/m" not in blob.files and f"opt_sparse/{n}/v" not in blob.files,
+                  f"packed checkpoint holds opt_sparse/{n}/m or v")
+            s = state.opt_sparse[n]
+            check(np.array_equal(blob[f"opt_sparse/{n}/mv"], torch.cat([s.m, s.v], 1).cpu().numpy()),
+                  f"packed checkpoint: opt_sparse/{n}/mv != [m | v]")
+    sharded_path = save_sharded_checkpoint(work / "packed_sharded", state, **names)
+    restored = 0
+    for path, load in ((flat_path, load_checkpoint), (sharded_path, load_sharded_checkpoint)):
+        for packed in (True, False):
+            back, _ = load(path, fresh(packed))
+            restored += _same_state(f"{path.name} into packed={packed}", back, state)
+    log(f"flat and sharded checkpoints of the packed state: mv = [m | v] of each of {len(tables)} "
+        f"sparse tables, no m / v leaves; restored into packed and separate states, {restored} "
+        "tensors bit-identical")
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tensors_compared": compared, "tensors_restored": restored}
 
 
 def _profile_steps(dev, config: dict, dataset, result) -> tuple[dict, dict]:
@@ -2131,11 +2257,8 @@ def _ib_mesh_steps(dev, ctx: dict, tscfg) -> dict[str, int]:
     seeded state, each against the one-device step on the same batches and
     pools, no dropout, within phase 4's tolerances. Returns the sharded
     steps' launches."""
-    import datetime
-    import socket
 
     import torch
-    import torch.distributed as dist
 
     from ttamm_torch.ops import kernels
     from ttamm_torch.parallel import MeshConfig, build_mesh, place_data, place_state
@@ -2169,15 +2292,7 @@ def _ib_mesh_steps(dev, ctx: dict, tscfg) -> dict[str, int]:
         "item_id": torch.cat([torch.cat([p, pool]) for _, p, pool in batches]).long(),
     }
     lanes.update(user_aug=lanes["user_id"], item_aug=lanes["item_id"])
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group(
-        "nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
-        timeout=datetime.timedelta(seconds=300),
-        device_id=torch.device("cuda", torch.cuda.current_device()),
-    )
-    try:
+    with one_rank_nccl():
         mesh = build_mesh(MeshConfig(1, 1), "cuda")
         mdata = place_data(mesh, data)
         kernels.reset_launch_counts()
@@ -2193,8 +2308,6 @@ def _ib_mesh_steps(dev, ctx: dict, tscfg) -> dict[str, int]:
             log(f"1x1 sharded in-batch step ({routing}) vs one device, {MESH_STEPS} steps: max abs "
                 f"err {worst}")
         counts = kernels.launch_counts()
-    finally:
-        dist.destroy_process_group()
     steps = 2 * MESH_STEPS
     for name in ("gather_rows_masked", "sparse_adam_rows"):
         check(counts[name] == 4 * steps, f"1x1 in-batch steps: {counts[name]} {name} launches")
@@ -2288,11 +2401,8 @@ def _pod_mesh_steps(dev, ctx: dict, tscfg) -> dict:
     for bit, one gather_rows a table a step at the exchange. Then device
     ms, device ops and host ms a step of each beside the one-device step.
     Returns the launches, the gathers' dtypes and the timing."""
-    import datetime
-    import socket
 
     import torch
-    import torch.distributed as dist
 
     from ttamm_torch.ops import kernels
     from ttamm_torch.parallel import MeshConfig, build_mesh, place_data, place_state
@@ -2328,17 +2438,9 @@ def _pod_mesh_steps(dev, ctx: dict, tscfg) -> dict:
     lanes = {"user_id": torch.cat([u for u, _, _ in batches[:MESH_STEPS]]).long(),
              "item_id": torch.cat([p for _, p, _ in batches[:MESH_STEPS]]).long()}
     lanes.update(user_aug=lanes["user_id"], item_aug=lanes["item_id"])
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group(
-        "nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
-        timeout=datetime.timedelta(seconds=300),
-        device_id=torch.device("cuda", torch.cuda.current_device()),
-    )
     gather = sparse_update.all_gather_rows
     out = {"launches": {}, "gather_dtypes": {}, "timing": {}}
-    try:
+    with one_rank_nccl():
         mesh = build_mesh(MeshConfig(1, 1), "cuda")
         mdata = place_data(mesh, data)
         runs = {}
@@ -2429,8 +2531,6 @@ def _pod_mesh_steps(dev, ctx: dict, tscfg) -> dict:
                                     "host_ms": (time.perf_counter() - start) / 3 * 1e3}
             log(f"pod step {label}: device {dev_ms:.3f} ms, {ops:.1f} device ops | host clock "
                 f"{out['timing'][label]['host_ms']:.3f} ms")
-    finally:
-        dist.destroy_process_group()
     return out
 
 
@@ -2545,6 +2645,98 @@ def phase_pod(dev, work: Path, dataset, ib_summary: dict, ib_result) -> dict:
         "checkpoint_laps_s": [p["ckpt"] for p in result.phase_seconds],
         "checkpoint_wait_s": result.checkpoint_wait_seconds,
         **exported,
+    }
+
+
+def _epoch_ms_per_step(result, epoch: int = 0) -> float:
+    """ms a step of one epoch's train lap (host clock)."""
+    return result.phase_seconds[epoch]["train"] / (result.steps / len(result.phase_seconds)) * 1e3
+
+
+def phase_precision(dev, work: Path, dataset, default_result) -> dict:
+    """Phase 5d: ``model.precision: bfloat16`` in ``configs/default.yaml``
+    (every tower matmul on bf16 operands with float32 sums, its backward
+    rounded as the JAX ``_dot``'s). (a) One step from the seeded state with
+    injected negatives and no dropout, kernels vs plain versions within
+    phase 4's tolerances but for elements a bf16 rounding flip moved (as
+    phase 5c: at most FLIP_SHARE of a table's touched ones, each within
+    2.5 lr); (b) one epoch through ``run_training`` with the eval (its
+    launches counted from zero just before it; gather_rows,
+    sparse_adam_rows, the moments, small_k_topk and the select kernel must
+    run), its losses finite and falling, its val recall@10 above 20x chance,
+    printed with its ms/step beside phase 5's first epoch; then 20 profiled
+    steps (device ms, ops, idle share)."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.ops.sampling import sample_negative_items
+    from ttamm_torch.pipelines.training import run_training
+    from ttamm_torch.train import create_train_state, make_train_step
+
+    config = _config(work / "data", work / "precision")
+    config["model"]["precision"] = "bfloat16"
+    config["training"]["num_epochs"] = 1
+    ctx = _step_inputs(dev, config, dataset)
+    cfg, tscfg, data, nu, ni, b = (ctx[k] for k in ("cfg", "tscfg", "data", "nu", "ni", "batch"))
+    check(cfg.user_tower.compute_dtype == cfg.item_tower.compute_dtype == "bfloat16",
+          "model.precision did not reach the towers")
+    u = torch.from_numpy(ctx["users"][:b]).to(dev)
+    p = torch.from_numpy(ctx["items"][:b]).to(dev)
+    neg = sample_negative_items(
+        data.positive_rows[u.long()], num_items=ni, num_negatives=tscfg.negatives_per_positive,
+        generator=torch.Generator(device=dev).manual_seed(3),
+    )
+    step = make_train_step(cfg, tscfg)
+    results = []
+    for plain in (False, True):
+        state = create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED, device=dev)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            state, metrics = step(state, data, u, p, generator=None, negatives=neg)
+        torch.cuda.synchronize()
+        results.append((state, {k: float(v) for k, v in metrics.items()}))
+    (sk, mk), (sp, mp) = results
+    worst = _check_steps("bf16 precision step, kernels vs plain", sk, mk, sp, mp,
+                         {"user_id": u.long(), "item_id": torch.cat([p, neg.reshape(-1)]).long()},
+                         steps=1)
+    check(all(t.dtype == torch.float32 for _, t in sk.dense_targets()), "bf16 precision: weights not f32")
+    log(f"one bf16-precision step, kernels vs plain on the card: losses {mk} | max abs err {worst}")
+    del results, sk, sp, ctx
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()  # this path's launches: the epoch's run
+    start = time.perf_counter()
+    result = run_training(config, device=dev, dataset=dataset)
+    seconds = time.perf_counter() - start
+    counts = kernels.launch_counts()
+    log(f"launch counts of the bf16-precision run: {counts}")
+    for name in ("gather_rows", "sparse_adam_rows", "segment_second_moments",
+                 "segment_second_moments_bwd", "small_k_topk", "select_topk_from_groups"):
+        check(counts[name] > 0, f"{name} never launched in the bf16-precision run")
+    check(counts["scatter_set_rows"] == 0, "scatter_set_rows launched in the bf16-precision run")
+    losses = [result.first_step_loss, *result.train_loss, *result.val_loss, *result.test_loss]
+    check(all(math.isfinite(v) for v in losses), "bf16 precision: non-finite loss")
+    check(result.train_loss[-1] < result.first_step_loss, "bf16 precision: the epoch's loss did not fall")
+    val = result.val_metrics[0]
+    check(val.recall[5] <= val.recall[10] <= val.recall[20], "bf16 precision: recall not monotone in k")
+    check(val.recall[10] > 20 * 10 / result.num_items, "bf16 precision: val recall@10 not above 20x chance")
+    check(_written(result.best_checkpoint_path) and Path(config["evaluation"]["faiss"]["index_path"]).is_file(),
+          "bf16 precision: no checkpoint or serving index written")
+    per_step, profile = _profile_steps(dev, config, dataset, result)
+    first = default_result.val_metrics[0]
+    for label, r, m in (("float32 (phase 5, epoch 1)", default_result, first),
+                        ("bfloat16 (epoch 1)", result, val)):
+        log(f"{label}: val recall@10 {m.recall[10]:.5f} ndcg@10 {m.ndcg[10]:.5f} | "
+            f"{_epoch_ms_per_step(r):.3f} ms/step (host clock)")
+    log(f"bf16 precision: {seconds:.2f} s for the run | device {profile['device_ms']:.3f} ms/step | "
+        f"{profile['device_ops']:.1f} device ops/step | idle share {profile['idle_share']:.3f} | "
+        f"serving score dtype {result.serving_score_dtype}")
+    return {
+        "launches": counts, "launches_per_train_step": per_step, "profile": profile,
+        "step_max_abs_err": worst,
+        "ms_per_step": _epoch_ms_per_step(result),
+        "float32_epoch1_ms_per_step": _epoch_ms_per_step(default_result),
+        "val_recall_at_10": val.recall[10],
+        "float32_epoch1_val_recall_at_10": first.recall[10],
     }
 
 
@@ -2723,6 +2915,110 @@ def phase_corpus_scale(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_chunked(dev) -> dict:
+    """Phase 7b: the chunked search past the float32 slab ceiling. A seeded
+    10,000,000 x 128 float32 cosine index (unit rows drawn on the card);
+    B = 1024 queries at k = 20 through ``FlatIndex.search`` (``auto``, which
+    must scan in chunks of ``chunk_items(1024)``), then a masked search (M = 32, half of each
+    row the query's own top ids): the launches of these two searches,
+    counted from zero just before them, are this path's (small_k_topk twice
+    a chunk: the chunk's top k and the merge, nothing else). Then, outside
+    the counts: the ids and scores equal the chunk scan with small_k_topk's
+    plain version (ties included); 32 queries' ids equal a host numpy search
+    but where scores tie within 1e-5; no blocked id comes back; at 2M items
+    an explicit chunked search equals group_exact's ids (ties within 1e-5
+    aside); then device ms and host ms a search."""
+    import numpy as np
+    import torch
+
+    from ttamm_torch.ops import kernels, topk
+    from ttamm_torch.serve import FlatIndex
+
+    chunk = topk.chunk_items(BATCH)
+    n = CHUNKED_ROWS
+    check(64 * n * 4 > topk.SCORES_BYTES_CEILING, "the corpus is within the slab ceiling")
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    rows = torch.nn.functional.normalize(torch.randn((n, CORPUS_DIM), generator=gen, device=dev), dim=1)
+    queries = torch.randn((BATCH, CORPUS_DIM), generator=gen, device=dev).cpu().numpy()
+    start = time.perf_counter()
+    index = FlatIndex(rows.cpu().numpy(), normalized=True, score_dtype="float32", device=dev)
+    del rows
+    log(f"index: {len(index)} x {index.dim} float32 on {index.device} "
+        f"({index.corpus.numel() * 4 / 1e9:.2f} GB on the card, built in {time.perf_counter() - start:.2f} s)")
+    unit = queries / np.maximum(np.linalg.norm(queries, axis=1, keepdims=True), 1e-12)
+    q = torch.from_numpy(unit).to(dev)
+    rng = np.random.default_rng(33)
+
+    scans, scan = [], topk._chunked_topk
+    topk._chunked_topk = (
+        lambda *a, **kw: scans.append(kw.get("chunk_size") or topk.chunk_items(a[0].shape[0]))
+        or scan(*a, **kw)
+    )
+    try:
+        kernels.reset_launch_counts()  # this path's launches: the two searches
+        got_s, got_i = index.search(queries, K)
+        mask = rng.integers(0, n, (BATCH, 32)).astype(np.int32)
+        mask[:, :16] = got_i[:, :16]
+        mask_t = torch.from_numpy(mask).to(dev)
+        masked_s, masked_i = topk.mips_topk(q, index.corpus, k=K, num_valid_rows=n, mask_rows=mask_t)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        topk._chunked_topk = scan
+    chunks = -(-n // chunk)
+    check(scans == [chunk, chunk], f"auto took {scans} chunk scans, not the chunked search twice")
+    check(counts["small_k_topk"] == 4 * chunks
+          and all(v == 0 for k, v in counts.items() if k != "small_k_topk"),
+          f"launches of two chunked searches: {counts}")
+    log(f"auto routed both searches to chunked: {chunks} chunks of {chunk} items a search, small_k_topk "
+        f"{counts['small_k_topk'] // 2} launches a search (a chunk's top k and its merge)")
+
+    plain_s, plain_i = topk._chunked_topk(q, index.corpus, K, n, plain=True)
+    check(np.array_equal(got_i, plain_i.cpu().numpy()) and np.array_equal(got_s, plain_s.cpu().numpy()),
+          "chunked ids or scores differ from the scan with small_k_topk's plain version")
+    log("chunked ids and scores equal the scan with small_k_topk's plain version (ties included)")
+    host = index.embeddings
+    ref_scores = unit[:32] @ host.T
+    ref_i = np.argpartition(-ref_scores, K, axis=1)[:, :K]
+    ref_s = np.take_along_axis(ref_scores, ref_i, axis=1)
+    order = np.argsort(-ref_s, axis=1, kind="stable")
+    ref_i, ref_s = np.take_along_axis(ref_i, order, 1), np.take_along_axis(ref_s, order, 1)
+    del ref_scores
+    check(ids_agree(got_i[:32], got_s[:32], ref_i, ref_s), "chunked ids differ from the host numpy search")
+    log("32 queries' ids agree with a host numpy search (ties within 1e-5 aside)")
+    masked_i = masked_i.cpu().numpy()
+    check(not (masked_i[:, :, None] == mask[:, None, :]).any(), "the masked chunked search returned a blocked id")
+    check(bool((masked_s > topk.NEG_INF).all()), "the masked chunked search ran short of items")
+    log("masked chunked search (M = 32, half each query's own top ids): no blocked id returned")
+    two_m = index.corpus[:CORPUS_ROWS]
+    ge_s, ge_i = topk.mips_topk(q, two_m, k=K, algorithm="group_exact")
+    ch_s, ch_i = topk.mips_topk(q, two_m, k=K, algorithm="chunked")
+    check(ids_agree(ch_i.cpu().numpy(), ch_s.cpu().numpy(), ge_i.cpu().numpy(), ge_s.cpu().numpy()),
+          "chunked ids at 2M items differ from group_exact's")
+    log(f"explicit chunked at {CORPUS_ROWS} items: ids agree with group_exact (ties within 1e-5 aside)")
+
+    dev_ms = device_ms(lambda: topk.mips_topk(q, index.corpus, k=K, num_valid_rows=n), iters=3,
+                       warmup=1)
+    dev_ms_2m = {alg: device_ms(lambda alg=alg: topk.mips_topk(q, two_m, k=K, algorithm=alg), iters=3,
+                                warmup=1) for alg in ("chunked", "group_exact")}
+    times = []
+    for _ in range(3):
+        start = time.perf_counter()
+        index.search(queries, K)
+        times.append(time.perf_counter() - start)
+    host_ms = sorted(times)[1] * 1e3
+    log(f"chunked search of {n} items (B={BATCH}, k={K}): device {dev_ms:.3f} ms | host clock "
+        f"{host_ms:.3f} ms ({BATCH / host_ms * 1e3:.1f} queries/s) | {counts['small_k_topk'] // 2} "
+        f"small_k_topk launches a search")
+    log(f"at {CORPUS_ROWS} items: chunked {dev_ms_2m['chunked']:.3f} ms | group_exact "
+        f"{dev_ms_2m['group_exact']:.3f} ms on the device")
+    del index, q, mask_t, two_m
+    torch.cuda.empty_cache()
+    return {"launches": counts, "chunk_items": chunk, "chunks_per_search": chunks,
+            "small_k_topk_launches_per_search": counts["small_k_topk"] // 2,
+            "device_ms": dev_ms, "host_ms": host_ms, "device_ms_2m": dev_ms_2m}
+
+
 def main() -> int:
     if not (REPO / "ttamm_torch" / "csrc").is_dir():
         print("chip_smoke: ttamm_torch/ not found beside this script; run it from a checkout",
@@ -2766,6 +3062,9 @@ def main() -> int:
                 rows, compared, mesh_counts, mesh_timing = phase_mesh(dev, step_ctx)
                 kernel_rows.update(rows)
                 kernel_rows["sparse_adam_rows"]["parts"].update(mesh_timing.pop("sparse_adam_rows"))
+                torch.cuda.empty_cache()
+            with Phase("4c packed sparse-Adam moments"):
+                packed_summary = phase_packed(dev, step_ctx, work)
                 del step_ctx
                 torch.cuda.empty_cache()
             kernels.reset_launch_counts()  # the main path's launches start here
@@ -2794,16 +3093,22 @@ def main() -> int:
                 pod_summary = phase_pod(dev, work, dataset, ib_summary, ib_result)
                 del ib_result
                 torch.cuda.empty_cache()
+            with Phase("5d model.precision: bfloat16"):
+                precision_summary = phase_precision(dev, work, dataset, result)
+                torch.cuda.empty_cache()
             kernels.reset_launch_counts()  # phases 6-7's launches start here
             with Phase("6 export from the best checkpoint and serve"):
                 phase_serve(dev, work, config, dataset, result.best_checkpoint_path,
                             result.serving_score_dtype)
             with Phase("7 corpus scale"):
                 phase_corpus_scale(dev)
+            path_counts.update(kernels.launch_counts())  # phases 6-7's launches
+            with Phase("7b the chunked search past the slab ceiling"):
+                chunked_summary = phase_chunked(dev)
+                path_counts.update(chunked_summary["launches"])
             with Phase("8 launch counts"):
-                path_counts.update(kernels.launch_counts())
                 counts = {k: v - excluded[k] for k, v in path_counts.items()}
-                log(f"launch counts (phases 5-7): {counts} | left out (comparisons): {dict(excluded)}")
+                log(f"launch counts (phases 5-7b): {counts} | left out (comparisons): {dict(excluded)}")
                 counts.update({k: mesh_counts[k] for k in MESH_KERNELS})
                 for name, n in counts.items():
                     if name in COMPARED_ONLY:
@@ -2845,6 +3150,9 @@ def main() -> int:
         "mesh_1x1": {"launches": mesh_counts, "steps": 2 * MESH_STEPS, **mesh_timing},
         "in_batch_softmax": ib_summary,
         "pod_2x4": pod_summary,
+        "packed_moments": packed_summary,
+        "precision_bf16": precision_summary,
+        "chunked_10m": chunked_summary,
     }
     log(json.dumps(summary))
     log(smi)

@@ -555,6 +555,52 @@ def test_sparse_adam_rows_kernel_bit_identical(cuda, dim, layout):
                 assert torch.equal(got[~live], before[~live])
 
 
+@pytest.mark.parametrize("shape", [(2048, 105, 256), (12288, 256, 128), (7, 33, 5)])
+def test_bf16_dot_gemm_on_the_card(cuda, shape):
+    """model.precision: bfloat16's matmul on the card (one bf16 GEMM with
+    float32 output) against the widened float32 product it stands for, and
+    its gradients against the same on the CPU: float32 sums of exact bf16
+    products in another order (rtol 1e-5, atol 1e-5 x the row's scale); the
+    gradients round to bf16, so at most one bf16 ulp apart (rtol 2^-7)."""
+    from ttamm_torch.models.encoders import bf16_dot
+
+    n, k, out = shape
+    gen = torch.Generator().manual_seed(n + k)
+    x = torch.randn((n, k), generator=gen)
+    w = torch.randn((out, k), generator=gen) / k**0.5
+    g = torch.randn((n, out), generator=gen)
+    grads = []
+    for dev in ("cpu", cuda):
+        xd, wd = x.to(dev).clone().requires_grad_(), w.to(dev).clone().requires_grad_()
+        y = bf16_dot(xd, wd)
+        y.backward(g.to(dev))
+        grads.append((y.detach().cpu(), xd.grad.cpu(), wd.grad.cpu()))
+    (y0, dx0, dw0), (y1, dx1, dw1) = grads
+    assert y1.dtype == torch.float32
+    torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-5 * float(y0.abs().max()))
+    for got, want in ((dx1, dx0), (dw1, dw0)):
+        assert torch.equal(got, got.to(torch.bfloat16).float())  # bf16-representable
+        torch.testing.assert_close(got, want, rtol=2**-7, atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_chunked_search_on_the_card_matches_plain(cuda, masked):
+    """The chunked search (ragged last chunk, k wider than one chunk's share
+    of the corpus' rows) gives the ids and scores of the same scan with
+    small_k_topk's plain version, two small_k_topk launches a chunk."""
+    from ttamm_torch.ops import topk
+
+    gen = torch.Generator().manual_seed(12)
+    items = torch.randn((5000, 64), generator=gen).to(cuda)
+    q = torch.randn((300, 64), generator=gen).to(cuda)
+    mask = torch.randint(0, 5010, (300, 32), generator=gen, dtype=torch.int32).to(cuda) if masked else None
+    kernels.reset_launch_counts()
+    got = mips_topk(q, items, k=20, algorithm="chunked", chunk_size=768, mask_rows=mask)
+    assert kernels.launch_counts()["small_k_topk"] == 2 * 7
+    want = topk._chunked_topk(q, items, 20, 5000, mask_rows=mask, chunk_size=768, plain=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_sparse_adam_on_the_card_counts_launches(cuda):
     """One sparse_adam_rows launch a table update and no row-kernel launch;
     the kernel path and the plain path agree bit for bit over every row, the

@@ -173,11 +173,28 @@ def test_seeded_init_follows_jax_distributions():
     assert float(fc1.bias.abs().max()) <= 1.0 / (2 * DIM) ** 0.5
 
 
-def test_bfloat16_precision_not_ported():
+def test_bfloat16_precision_encode_matches_jax():
+    """``model.precision: bfloat16`` was refused here until it was ported
+    (tests/test_torch_port_precision.py holds it to JAX in full). Now a bf16
+    model builds with float32 weights, and its encode matches the JAX
+    package's bf16 encode (atol 1e-5: bf16 operands, f32 sums in another
+    order)."""
     yaml = dict(_model_yaml("gated", None), precision="bfloat16")
     pcfg = port_parse(yaml, user_feature_dim=FU, item_feature_dim=FI)
-    with pytest.raises(NotImplementedError, match="precision"):
-        TwoTower(pcfg, num_users=5, num_items=5, seed=0, device="cpu")
+    assert all(p.dtype == torch.float32 for p in
+               TwoTower(pcfg, num_users=5, num_items=5, seed=0, device="cpu").parameters())
+    jcfg = parse_model_config(yaml, user_feature_dim=FU, item_feature_dim=FI)
+    state = create_train_state(jax.random.key(7), jcfg, num_users=NUM_USERS, num_items=NUM_ITEMS)
+    tables, dense = jax.device_get((state.tables, state.dense))
+    model = from_jax_params(pcfg, tables, dense, device="cpu")
+    rng = np.random.default_rng(2)
+    idx = rng.integers(0, NUM_USERS, 33).astype(np.int32)
+    f = rng.normal(0, 1, (33, FU)).astype(np.float32)
+    want = encode_tower(state.tables, state.dense, jcfg, "user", jnp.asarray(idx), jnp.asarray(f),
+                        augment_with_mimic=True)
+    got = model.encode_tower("user", torch.from_numpy(idx).long(), torch.from_numpy(f),
+                             augment_with_mimic=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("fn", ["gate_values", "apply_gate"])

@@ -223,8 +223,10 @@ def test_export_cli_reads_the_mesh_runs_directory(mesh_run, tmp_path):
     _assert_same_bundle(tmp_path / "dir", tmp_path / "flat")
 
 
-def test_only_tensor_parallel_and_packed_moments_are_refused():
-    for section, key, value in (("training", "packed_moments", True),
-                                ("mesh", "tensor_parallel", True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            run_single_experiment({section: {key: value}}, device="cpu")
+def test_only_tensor_parallel_is_refused():
+    from ttamm_torch.pipelines.training import _refuse_unported
+
+    # packed moments are ported (tests/test_torch_port_packed_moments.py)
+    _refuse_unported({"training": {"packed_moments": True}})
+    with pytest.raises(NotImplementedError, match="mesh.tensor_parallel is not ported"):
+        run_single_experiment({"mesh": {"tensor_parallel": True}}, device="cpu")

@@ -106,7 +106,8 @@ def test_query_blocking_matches_one_block():
 
 def test_auto_routing(monkeypatch):
     """float32 takes group_exact (full f32); bf16 takes fused from the
-    crossover; a float32 search past the slab ceiling is not ported."""
+    crossover; a float32 search past the slab ceiling takes chunked and
+    returns the JAX package's chunked answer."""
     from ttamm_torch.ops import topk
 
     q, items = _normal(5, 600, 16, 4)
@@ -121,8 +122,8 @@ def test_auto_routing(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(got, fused))
 
     monkeypatch.setattr(topk, "SCORES_BYTES_CEILING", 64 * 4 * 599)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        mips_topk(qt, it, k=5)
+    want = jax_mips_topk(jnp.asarray(q), jnp.asarray(items), k=5, algorithm="chunked")
+    _check(mips_topk(qt, it, k=5), want)
 
 
 @pytest.mark.parametrize("algorithm", ["auto", "fused"])
@@ -159,12 +160,15 @@ def test_fused_routes_within_the_kernels_limits(monkeypatch, dim, algorithm):
         want = jax_mips_topk(q16, it16, k=5, algorithm="group_exact", score_dtype="bfloat16")
     _check(got, want)
 
-    # past the slab ceiling a refused fused search has nowhere to go
+    # past the slab ceiling a refused fused search scans in chunks, as the
+    # JAX package's bf16 chunked search does
     monkeypatch.setattr(topk, "SCORES_BYTES_CEILING", 64 * 4 * (n - 1))
+    ran.clear()
+    got = mips_topk(torch.from_numpy(q), torch.from_numpy(items), k=5, algorithm=algorithm,
+                    score_dtype="bfloat16")
     if fits:
-        mips_topk(torch.from_numpy(q), torch.from_numpy(items), k=5, algorithm=algorithm,
-                  score_dtype="bfloat16")
+        assert ran == ["_fused_groupmax_topk"]
     else:
-        with pytest.raises(NotImplementedError, match="chunked"):
-            mips_topk(torch.from_numpy(q), torch.from_numpy(items), k=5, algorithm=algorithm,
-                      score_dtype="bfloat16")
+        assert ran == []  # neither slab nor fused: the chunk scan
+        want = jax_mips_topk(q16, it16, k=5, algorithm="chunked", score_dtype="bfloat16")
+    _check(got, want)

@@ -212,14 +212,19 @@ def test_unported_options_raise():
     make_train_step(pcfg, TrainStepConfig(num_items=NI, loss_type="in_batch_softmax"))
     with pytest.raises(ValueError, match="Unsupported training.loss"):
         make_train_step(pcfg, TrainStepConfig(num_items=NI, loss_type="softmax"))
-    # the wire options are ported (tests/test_torch_port_comm_bf16.py,
-    # tests/test_torch_port_exchange.py); what is left still raises
-    for section, key, value in (
-        ("training", "packed_moments", True),
-        ("mesh", "tensor_parallel", True),
-    ):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            run_single_experiment({section: {key: value}}, device="cpu")
+    # the wire options (tests/test_torch_port_comm_bf16.py,
+    # tests/test_torch_port_exchange.py), packed moments
+    # (tests/test_torch_port_packed_moments.py) and model.precision: bfloat16
+    # (tests/test_torch_port_precision.py) are ported; tensor parallelism
+    # still raises
+    packed = create_train_state(pcfg, num_users=NU, num_items=NI, seed=0, device="cpu",
+                                packed_moments=True)
+    assert packed.packed_moments and packed.opt_sparse["user_id"].m.shape == (NU + 1, D)
+    bf16 = port_parse(dict(model_yaml, precision="bfloat16"), user_feature_dim=FU,
+                      item_feature_dim=FI)
+    create_train_state(bf16, num_users=NU, num_items=NI, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        run_single_experiment({"mesh": {"tensor_parallel": True}}, device="cpu")
     # the mesh itself is ported: it needs its processes (torchrun)
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         run_single_experiment({"mesh": {"data_parallel": 2}}, device="cpu")

@@ -27,7 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from ttamm_torch.models import parse_model_config  # noqa: E402
 from ttamm_torch.models.convert import train_state_from_flat  # noqa: E402
-from ttamm_torch.ops import kernels  # noqa: E402
+from ttamm_torch.ops import kernels, topk  # noqa: E402
 from ttamm_torch.ops.sparse_adam import SparseAdamState  # noqa: E402
 from ttamm_torch.parallel import (  # noqa: E402
     DATA_AXIS,
@@ -117,12 +117,15 @@ def sparse_update(task, inputs):
 
 
 def _model(task, inputs):
+    """The config and the state ``task["state"]`` of the inputs, its sparse
+    moments in the layout ``task["packed_moments"]`` asks for."""
     cfg = parse_model_config(
         task["model"], user_feature_dim=task["feature_dims"][0],
         item_feature_dim=task["feature_dims"][1],
     )
     state = create_train_state(
-        cfg, num_users=task["num_users"], num_items=task["num_items"], seed=0, device="cpu"
+        cfg, num_users=task["num_users"], num_items=task["num_items"], seed=0, device="cpu",
+        packed_moments=task.get("packed_moments", False),
     )
     prefix = task["state"] + "/"
     flat = {k[len(prefix):]: inputs[k] for k in inputs.files if k.startswith(prefix)}
@@ -219,17 +222,38 @@ def feature_rows(task, inputs):
 
 
 def search(task, inputs):
+    """The sharded search; with ``task["ceiling_items"]`` the slab ceiling
+    lowered to that many items and the score budget to ``chunk_size``
+    float32 columns of the queries, and the chunk scans of every rank
+    counted (``chunked``, one a rank) with the chunk each took."""
     mesh = _mesh(task)
     mp = mesh[MODEL_AXIS].size()
-    items = _t(inputs, "search/items")
+    prefix = task.get("inputs_prefix", "search")
+    items = _t(inputs, f"{prefix}/items")
     n = items.shape[0]
     padded = torch.cat([items, items.new_zeros(padded_rows(n, mp) - n, items.shape[1])])
-    search = make_sharded_topk(mesh, k=task["k"], num_valid_rows=n, score_dtype=task["score_dtype"])
-    scores, ids = search(
-        _t(inputs, "search/queries"), _slice(mesh, padded),
-        mask_rows=_t(inputs, "search/mask") if task["masked"] else None,
-    )
-    return {"scores": scores.numpy(), "ids": ids.numpy()}
+    queries = _t(inputs, f"{prefix}/queries")
+    chunked, scan = [], topk._chunked_topk
+    if "ceiling_items" in task:
+        topk.SCORES_BYTES_CEILING = 64 * 4 * task["ceiling_items"]
+        topk.SCORES_BYTES_BUDGET = 4 * queries.shape[0] * task["chunk_size"]
+        topk._chunked_topk = (
+            lambda *a, **k: chunked.append(topk.chunk_items(a[0].shape[0])) or scan(*a, **k)
+        )
+    try:
+        search = make_sharded_topk(mesh, k=task["k"], num_valid_rows=n,
+                                   score_dtype=task["score_dtype"])
+        scores, ids = search(
+            queries, _slice(mesh, padded),
+            mask_rows=_t(inputs, f"{prefix}/mask") if task["masked"] else None,
+        )
+    finally:
+        topk._chunked_topk = scan
+    mine = torch.tensor([len(chunked)])
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    return {"scores": scores.numpy(), "ids": ids.numpy(), "chunked": torch.cat(every).numpy(),
+            "chunk_sizes": np.asarray(sorted(set(chunked)))}
 
 
 def checkpoint(task, inputs):
@@ -238,7 +262,7 @@ def checkpoint(task, inputs):
     _, state = _model(task, inputs)
     fresh = place_state(mesh, pad_state_rows(create_train_state(
         state.model.cfg, num_users=state.model.num_users, num_items=state.model.num_items,
-        seed=5, device="cpu",
+        seed=5, device="cpu", packed_moments=task.get("load_packed", False),
     ), mp))
     placed = place_state(mesh, pad_state_rows(state, mp))
     save_sharded_checkpoint(

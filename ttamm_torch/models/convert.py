@@ -169,18 +169,50 @@ def train_state_to_flat(
     leaves["step"] = np.asarray(state.step, np.int32)
     tensors = {k: t.detach() for k, t in leaves.items() if isinstance(t, torch.Tensor)}
     host = tensors if pull is None else pull(tensors)
-    return {k: _to_host(k, host[k]) if k in host else v for k, v in leaves.items()}
+    flat = {k: _to_host(k, host[k]) if k in host else v for k, v in leaves.items()}
+    return pack_moment_leaves(flat) if state.packed_moments else flat
+
+
+def pack_moment_leaves(flat: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """``flat`` with each sparse table's ``opt_sparse/<name>/m`` and ``v``
+    replaced by one ``opt_sparse/<name>/mv`` = ``[m | v]`` along the
+    columns: the leaf of the JAX ``SparseAdamStatePacked``
+    (``training.packed_moments``)."""
+    out = {}
+    for key, value in flat.items():
+        prefix, _, leaf = key.rpartition("/")
+        if prefix.startswith("opt_sparse/") and leaf == "m":
+            out[f"{prefix}/mv"] = np.concatenate([value, flat[f"{prefix}/v"]], axis=1)
+        elif not (prefix.startswith("opt_sparse/") and leaf == "v"):
+            out[key] = value
+    return out
+
+
+def moment_layout_leaf(key: str, flat: Mapping[str, np.ndarray]) -> np.ndarray | None:
+    """A sparse-Adam moment leaf ``<prefix>/m`` / ``<prefix>/v`` cut from
+    the left / right half of a packed ``<prefix>/mv`` (the JAX
+    ``_convert_moment_layout``); None when ``flat`` has no such leaf. A
+    relayout only, so a packed checkpoint restores bit for bit."""
+    prefix, _, leaf = key.rpartition("/")
+    if leaf in ("m", "v") and f"{prefix}/mv" in flat:
+        mv = flat[f"{prefix}/mv"]
+        half = mv.shape[1] // 2
+        return mv[:, :half] if leaf == "m" else mv[:, half:]
+    return None
 
 
 @torch.no_grad()
 def train_state_from_flat(state: "TrainState", flat: Mapping[str, np.ndarray]) -> "TrainState":
     """Fill the port ``TrainState`` ``state`` (built for the same config and
     sizes, e.g. by ``create_train_state``) in place from flat JAX keys; a
-    missing key or a shape mismatch raises. Returns ``state``."""
+    missing key or a shape mismatch raises. The sparse-Adam moments are
+    read from either layout, separate ``m`` / ``v`` or packed ``mv``
+    (:func:`moment_layout_leaf`). Returns ``state``."""
     def put(key: str, tensor: torch.Tensor) -> None:
-        if key not in flat:
+        arr = flat[key] if key in flat else moment_layout_leaf(key, flat)
+        if arr is None:
             raise ValueError(f"training state is missing '{key}'")
-        arr = np.array(flat[key], np.float32)  # a writable copy
+        arr = np.array(arr, np.float32)  # a writable copy
         if key.endswith("/w"):
             arr = arr.T
         if arr.shape != tuple(tensor.shape):

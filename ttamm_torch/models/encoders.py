@@ -8,7 +8,15 @@ blend; ``adaptive_mimic`` is the deprecated alias for gated). Feature
 encoders: identity / linear / MLP, with ``feature_encoder.dropout`` after
 each hidden activation in training mode, drawn from an explicit
 ``torch.Generator`` (the JAX masks cannot be reproduced; tests run with
-dropout off). ``model.precision: bfloat16`` is not ported yet.
+dropout off).
+
+``model.precision: bfloat16`` (``compute_dtype``) runs every matmul of the
+tower (the feature MLP, the gate's two layers, the concat projection) as
+the JAX ``_dot``: bf16 operands, float32 sums and output, the bias added in
+float32 after it (:func:`bf16_dot`). Its backward rounds as ``jax.grad`` of
+``_dot`` does: each gradient is the float32 product of the float32
+cotangent with the other operand's bf16 value, rounded to bf16 and widened.
+The weights stay float32, as in the JAX package.
 
 Initialisation follows the JAX distributions (normal / uniform / xavier
 tables, xavier-uniform weights with ±1/sqrt(fan_in) uniform biases), drawn
@@ -210,6 +218,55 @@ def clamp_max_norm(rows: torch.Tensor, max_norm: float | None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# bf16 matmuls (model.precision: bfloat16)
+# ---------------------------------------------------------------------------
+
+
+class _Bf16Dot(torch.autograd.Function):
+    """``x @ weight.T`` with bf16 operands and float32 sums (the JAX
+    ``_dot(x, w)`` at bfloat16, ``w = weight.T``).
+
+    Forward: on the card one bf16 GEMM with float32 output
+    (``torch.mm(..., out_dtype=torch.float32)``); on the CPU, which has no
+    such GEMM, the float32 product of the operands rounded to bf16 and
+    widened. A product of two bf16 values is exact in float32, so both
+    equal the JAX ``_dot`` up to the order of the sums. On an H100 (700 W)
+    at the default config's shapes the bf16 GEMM takes 0.0027-0.0132 ms a
+    call against 0.0106-0.0367 for the widened form, 3.298 against 3.443
+    device ms a train step (``scripts/bf16_dot_forms.py``). Backward, as
+    the JAX transpose of ``dot_general(bf16, bf16, preferred f32)``
+    followed by the ``astype`` that fed it: ``dx = f32(bf16(g @
+    bf16(weight)))`` and ``dweight = f32(bf16(gᵀ @ bf16(x)))``, float32
+    products (the cotangent is float32).
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        x16, w16 = x.to(torch.bfloat16), weight.to(torch.bfloat16)
+        ctx.save_for_backward(x16, w16)
+        if x16.device.type == "cuda":
+            return torch.mm(x16, w16.T, out_dtype=torch.float32)
+        return x16.float() @ w16.float().T
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x16, w16 = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (grad @ w16.float()).to(torch.bfloat16).float()
+        if ctx.needs_input_grad[1]:
+            dw = (grad.T @ x16.float()).to(torch.bfloat16).float()
+        return dx, dw
+
+
+def bf16_dot(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x @ weight.T`` for rows ``x`` ``[N, in]`` and an ``nn.Linear``
+    weight ``[out, in]``, on bf16 operands with float32 sums and output (see
+    :class:`_Bf16Dot`)."""
+    return _Bf16Dot.apply(x, weight)
+
+
+# ---------------------------------------------------------------------------
 # Tower
 # ---------------------------------------------------------------------------
 
@@ -234,10 +291,8 @@ class Tower(nn.Module):
         extra_rows: int = 0,
     ) -> None:
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"model.precision={cfg.compute_dtype} is not ported yet (float32 only)"
-            )
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"Unsupported compute_dtype: {cfg.compute_dtype}")
         self.cfg = cfg
         self.num_embeddings = int(num_embeddings)
         dim = cfg.embedding.dim
@@ -280,6 +335,12 @@ class Tower(nn.Module):
         extra = [self.gate_fc1, self.gate_fc2, self.projection]
         return [*self.feature_layers, *(m for m in extra if m is not None)]
 
+    def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """One layer, in ``compute_dtype`` (the JAX ``_dot(x, w) + b``)."""
+        if self.cfg.compute_dtype == "bfloat16":
+            return bf16_dot(x, layer.weight) + layer.bias
+        return layer(x)
+
     def feature_repr(
         self, features: torch.Tensor, generator: torch.Generator | None = None
     ) -> torch.Tensor:
@@ -291,7 +352,7 @@ class Tower(nn.Module):
         x = features
         last = len(self.feature_layers) - 1
         for i, layer in enumerate(self.feature_layers):
-            x = layer(x)
+            x = self._dense(layer, x)
             if i < last:
                 x = act(x)
                 if drop:
@@ -303,8 +364,8 @@ class Tower(nn.Module):
 
     def gate_values(self, id_repr: torch.Tensor, feat_repr: torch.Tensor) -> torch.Tensor:
         """σ(MLP([id; feat])): 1.0 blends all-ID, 0.0 all-feature."""
-        h = F.relu(self.gate_fc1(torch.cat([id_repr, feat_repr], dim=-1)))
-        return torch.sigmoid(self.gate_fc2(h))
+        h = F.relu(self._dense(self.gate_fc1, torch.cat([id_repr, feat_repr], dim=-1)))
+        return torch.sigmoid(self._dense(self.gate_fc2, h))
 
     def apply_gate(self, id_repr: torch.Tensor, feat_repr: torch.Tensor) -> torch.Tensor:
         """σ-gate blend ``g * id + (1 - g) * feat``."""
@@ -328,7 +389,7 @@ class Tower(nn.Module):
         if cfg.fusion == "sum":
             return id_rows + feat
         if cfg.fusion == "concat":
-            return self.projection(torch.cat([id_rows, feat], dim=-1))
+            return self._dense(self.projection, torch.cat([id_rows, feat], dim=-1))
         return self.apply_gate(id_rows, feat)
 
     def forward(

@@ -1,7 +1,7 @@
 """Exact brute-force MIPS top-k over the item corpus (FAISS ``IndexFlatIP``
 replacement), the port of ``ttamm_tpu/ops/topk.py``.
 
-Two algorithms, both exact with respect to the scores they compute:
+Three algorithms, each exact with respect to the scores it computes:
 
 - ``group_exact``: one ``[qb, D] x [D, N]`` score slab per query block
   (``torch.matmul``), per-128-item group maxima, the top-k groups by maximum
@@ -11,6 +11,17 @@ Two algorithms, both exact with respect to the scores they compute:
   float32 slab with ``k <= 32`` the selection and the final top-k are one
   kernel, ``select_topk_from_groups``; otherwise the groups' rows are
   gathered and go through ``small_k_topk``.
+- ``chunked``: the corpus in chunks of items (the last one narrower;
+  nothing is copied), each chunk's ``[B, chunk]`` scores (``torch.matmul``;
+  bf16 scores rounded to bf16, then widened), its top k by
+  ``small_k_topk``, merged into the running top k by ``small_k_topk`` over
+  ``[running, local]``. A chunk is as wide as ``SCORES_BYTES_BUDGET``
+  allows for ``B`` float32 rows (:func:`chunk_items`), for corpora where
+  even a 64-query slab exceeds the slab ceiling. Ties go to the lowest item
+  id, as in the JAX package's scan (the running set holds the lower ids and
+  comes first), so the answer does not depend on the chunk: the JAX
+  package's chunk setting (``evaluation.faiss.batch_size``) has no
+  counterpart.
 - ``fused``: no slab. ``groupmax_matmul`` writes only the group maxima,
   ``rescore_groups`` re-scores the selected groups, and the final top-k
   runs over those candidates. Both kernels round their operands to bf16
@@ -21,22 +32,25 @@ The group top-k goes through the ``small_k_topk`` kernel.
 ``mask_rows`` (int32 ``[B, M]``, padded with ids >= N) excludes items per
 query, as the retrieval eval excludes each user's train positives:
 ``group_exact`` writes ``finfo(slab dtype).min`` at the blocked columns of
-the slab before the group maxima; ``fused`` selects ``M`` more groups and
-masks blocked candidates after the rescore.
+the slab before the group maxima, ``chunked`` the float32 minimum at the
+blocked columns of each widened chunk (both by a scatter of the blocked
+ids); ``fused`` selects ``M`` more groups and masks blocked candidates
+after the rescore.
 
 Routing (``algorithm="auto"``): float32 searches take ``group_exact`` at
-every size up to the slab ceiling, because on the card it is full float32
-while the fused kernels round to bf16. bfloat16 searches take ``fused``
-from ``BF16_FUSED_MIN_ITEMS`` items and masks at most
-``FUSED_MASK_WIDTH_MAX`` wide, and ``group_exact`` otherwise. (So the JAX
-eval's switch of a float32 fused search to a bf16-stored corpus, a TPU
-bandwidth trick, has no counterpart: float32 never routes to ``fused``.)
-``fused``, chosen or asked for, becomes ``group_exact`` where
-``groupmax_matmul`` would refuse the shape (``kernels.groupmax_matmul_fits``:
-D > 640, or rows beyond its TMA coordinates), as the JAX package reroutes a
-fused search its kernels cannot take; on every device alike. Where the slab
-algorithm was not asked for and exceeds the slab ceiling, the search raises
-(the JAX package's ``chunked`` is not ported).
+every size up to the slab ceiling and ``chunked`` beyond it, because on the
+card ``group_exact`` is full float32 while the fused kernels round to bf16.
+bfloat16 searches take ``fused`` from ``BF16_FUSED_MIN_ITEMS`` items and
+masks at most ``FUSED_MASK_WIDTH_MAX`` wide (and past the slab ceiling at
+any mask width), and ``group_exact`` otherwise. (So the JAX eval's switch
+of a float32 fused search to a bf16-stored corpus, a TPU bandwidth trick,
+has no counterpart: float32 never routes to ``fused``.) ``fused``, chosen
+or asked for, is rerouted where ``groupmax_matmul`` would refuse the shape
+(``kernels.groupmax_matmul_fits``: D > 640, or rows beyond its TMA
+coordinates), as the JAX package reroutes a fused search its kernels cannot
+take, on every device alike: to ``group_exact`` within the slab ceiling,
+to ``chunked`` past it. An explicit ``group_exact`` or ``chunked`` runs as
+asked at any size.
 """
 
 from __future__ import annotations
@@ -48,11 +62,12 @@ from . import kernels
 NEG_INF = torch.finfo(torch.float32).min
 GROUP = kernels.GROUP
 
-# Query blocks of group_exact are sized so one score slab stays within this.
+# Query blocks of group_exact, and the chunks of 'chunked', are sized so one
+# float32 score slab stays within this.
 SCORES_BYTES_BUDGET = 1 << 30
 # Slab ceiling of the auto chooser: group_exact stays eligible until even a
-# 64-query float32 slab would exceed it (~8M items). Beyond it the JAX
-# package scans the corpus in chunks ('chunked'), which is not ported.
+# 64-query float32 slab would exceed it (8,388,608 items). Beyond it the
+# corpus is scanned in chunks ('chunked'), as in the JAX package.
 SCORES_BYTES_CEILING = 2 << 30
 # bfloat16 searches of at least this many items route to 'fused'. The
 # current kernels' sweep (chip_smoke.py phases 6-7, NVIDIA H100 80GB HBM3 at
@@ -100,6 +115,7 @@ def mips_topk(
     mask_rows: torch.Tensor | None = None,
     algorithm: str = "auto",
     score_dtype: str = "float32",
+    chunk_size: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k inner-product search.
 
@@ -111,14 +127,17 @@ def mips_topk(
     (padded with ids >= N; ids outside the corpus are ignored). A blocked
     item scores the finite minimum of the slab dtype, so it comes back only
     when fewer than k items are left; the eval drops such entries by score.
-    ``algorithm``: 'auto' | 'group_exact' | 'fused' (see the module
-    docstring). ``score_dtype``: 'float32' (exact, FAISS parity) or
+    ``algorithm``: 'auto' | 'group_exact' | 'chunked' | 'fused' (see the
+    module docstring). ``score_dtype``: 'float32' (exact, FAISS parity) or
     'bfloat16' (queries and items cast to bf16; normalise cosine queries
     before, as ``FlatIndex.search`` does, so the norms stay f32-accurate).
+    ``chunk_size``: items a step of ``chunked`` scores (``None``:
+    :func:`chunk_items`); the answer is the same at any chunk.
 
     Returns (scores f32 [B, k], indices int64 [B, k]), descending per row,
-    ties to the lower item id within a group and to the higher-ranked group
-    across groups, as in the JAX package.
+    ties as in the JAX package: ``group_exact`` and ``fused`` to the lower
+    item id within a group and to the higher-ranked group across groups,
+    ``chunked`` to the lower item id.
     """
     num_items = item_embeddings.shape[0] if num_valid_rows is None else num_valid_rows
     if not 0 < num_items <= item_embeddings.shape[0]:
@@ -127,7 +146,7 @@ def mips_topk(
         )
     if score_dtype not in {"float32", "bfloat16"}:
         raise ValueError(f"Unknown mips_topk score_dtype: {score_dtype}")
-    if algorithm not in {"auto", "group_exact", "fused"}:
+    if algorithm not in {"auto", "group_exact", "chunked", "fused"}:
         raise ValueError(f"Unknown mips_topk algorithm: {algorithm}")
     if mask_rows is not None and (
         mask_rows.dim() != 2 or mask_rows.shape[0] != queries.shape[0]
@@ -156,13 +175,15 @@ def mips_topk(
     ):
         algorithm = "group_exact"  # a shape the fused kernels refuse
     if algorithm == "group_exact" != requested and not fits:
-        raise NotImplementedError(
-            f"{score_dtype} search over {num_items} items exceeds the slab "
-            "ceiling; the chunked algorithm is not ported"
-        )
+        algorithm = "chunked"  # past the slab ceiling
     if algorithm == "fused":
         return _fused_groupmax_topk(
             queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows
+        )
+    if algorithm == "chunked":
+        return _chunked_topk(
+            queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows,
+            chunk_size=chunk_size,
         )
     return _group_exact_topk(queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows)
 
@@ -226,15 +247,72 @@ def _fused_groupmax_topk(
     return cv, torch.gather(cand_ids, 1, ci)
 
 
-def _mask_scatter(scores: torch.Tensor, mask_rows: torch.Tensor) -> torch.Tensor:
+def _mask_scatter(
+    scores: torch.Tensor, mask_rows: torch.Tensor, first: int = 0
+) -> torch.Tensor:
     """Write the finite minimum of the slab dtype at each row's blocked
-    columns, in place (``ttamm_tpu/ops/topk.py _mask_scatter``; ids outside
-    the slab are dropped). A min-scatter, so a dropped id can aim at column
-    0 with +inf and change nothing, with no host sync and no race."""
-    cols = mask_rows.long()
+    columns, in place (``ttamm_tpu/ops/topk.py _mask_scatter``): column
+    ``j`` holds item ``first + j``, and ids outside the slab are dropped. A
+    min-scatter, so a dropped id can aim at column 0 with +inf and change
+    nothing, with no host sync and no race."""
+    cols = mask_rows.long() - first
     inside = (cols >= 0) & (cols < scores.shape[1])
     src = torch.where(inside, torch.finfo(scores.dtype).min, torch.inf).to(scores.dtype)
     return scores.scatter_reduce_(1, torch.where(inside, cols, 0), src, reduce="amin")
+
+
+def chunk_items(batch: int) -> int:
+    """Items a chunk of the ``chunked`` scan scores for ``batch`` queries:
+    the widest whose float32 scores fit ``SCORES_BYTES_BUDGET`` (262,144 at
+    1,024 queries)."""
+    return max(1, SCORES_BYTES_BUDGET // (4 * max(batch, 1)))
+
+
+def _chunked_topk(
+    queries: torch.Tensor,
+    item_embeddings: torch.Tensor,
+    k_eff: int,
+    num_items: int,
+    *,
+    mask_rows: torch.Tensor | None = None,
+    chunk_size: int | None = None,
+    plain: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunk scan with a running top-k (the JAX ``mips_topk`` scan body).
+
+    Per chunk of ``min(chunk_size, num_items)`` items (``chunk_size``
+    ``None``: :func:`chunk_items` of the batch): the ``[B, chunk]``
+    scores in the slab dtype, widened to f32; the blocked ids scattered to
+    ``NEG_INF`` (the JAX package compares every chunk id with every blocked
+    id, which sets the same entries); the chunk's top ``min(k_eff, chunk)``;
+    then the top ``k_eff`` of ``[running, local]``. The running set starts
+    as ``k_eff`` entries of ``NEG_INF`` at id 0 and always comes first, so
+    ties go to the lower id, as in JAX. The JAX package zero-pads the corpus
+    to whole chunks and scores the pad ids ``NEG_INF``; here the last chunk
+    is narrower instead. The answer is the same: a local entry at
+    ``NEG_INF`` can never displace one of the ``k_eff`` running entries.
+    ``plain`` runs ``small_k_topk``'s plain version (to check the kernel on
+    the card).
+    """
+    batch = queries.shape[0]
+    if chunk_size is None:
+        chunk_size = chunk_items(batch)
+    if chunk_size <= 0:
+        raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    chunk = min(chunk_size, num_items)
+    run_scores = torch.full((batch, k_eff), NEG_INF, dtype=torch.float32, device=queries.device)
+    run_idx = torch.zeros((batch, k_eff), dtype=torch.int64, device=queries.device)
+    for start in range(0, num_items, chunk):
+        block = item_embeddings[start : min(start + chunk, num_items)]
+        scores = (queries @ block.T).float()  # bf16 scores rounded, then widened
+        if mask_rows is not None:
+            _mask_scatter(scores, mask_rows, start)
+        local_scores, local_pos = _row_topk(scores, min(k_eff, block.shape[0]), plain=plain)
+        merged_scores = torch.cat([run_scores, local_scores], dim=1)
+        merged_idx = torch.cat([run_idx, local_pos + start], dim=1)
+        run_scores, pos = _row_topk(merged_scores, k_eff, plain=plain)
+        run_idx = torch.gather(merged_idx, 1, pos)
+    return run_scores, run_idx
 
 
 def _group_exact_topk(

@@ -28,6 +28,7 @@ back.
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -35,7 +36,7 @@ import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..models.convert import train_state_to_flat
+from ..models.convert import pack_moment_leaves, train_state_to_flat
 from ..ops.sparse_adam import SparseAdamState
 from ..train.optim import DenseOptState
 from ..train.state import BatchData, TrainState, dense_table_names, sparse_table_names
@@ -93,6 +94,7 @@ def _map_rows(state: TrainState, fn: Callable[[str, torch.Tensor], torch.Tensor]
             for n, s in state.opt_sparse.items()
         },
         step=state.step,
+        packed_moments=state.packed_moments,
     )
 
 
@@ -180,8 +182,8 @@ def gather_state_flat(state: TrainState, mesh: DeviceMesh) -> dict[str, np.ndarr
     """The whole unpadded state as the flat checkpoint arrays of
     ``train_state_to_flat``, on every rank (row-sharded tensors gathered
     over ``model`` and cut back to their logical rows)."""
-    flat = train_state_to_flat(state)
+    flat = train_state_to_flat(dataclasses.replace(state, packed_moments=False))
     for key, (name, t) in row_sharded_tensors(state).items():
         full = all_gather_rows(t, mesh, MODEL_AXIS)[: logical_rows(state.model, name)]
         flat[key] = full.cpu().numpy()
-    return flat
+    return pack_moment_leaves(flat) if state.packed_moments else flat

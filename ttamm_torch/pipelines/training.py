@@ -50,7 +50,8 @@ one (``ttamm_torch.reporting.write_benchmark_report``).
 With ``evaluation.faiss.enabled: false`` the eval takes the sampled path
 (``candidate_samples`` random candidates per user).
 ``evaluation.faiss.batch_size`` (the chunk of the JAX package's ``chunked``
-search, which is not ported) has no effect.
+search) is not read: the port sizes a chunk from its score budget, and the
+answer does not depend on the chunk (``ttamm_torch/ops/topk.py``).
 
 The mesh: ``mesh: {data_parallel: dp, model_parallel: mp}`` with dp x mp > 1
 runs under ``torchrun --nproc_per_node dp*mp -m ttamm_torch.train``, one
@@ -92,8 +93,16 @@ feature correlations and user alignment from the host float32 matrices,
 as the JAX trainer does. ``configs/pod_2x4.yaml`` sets all three wire
 options.
 
-Not ported yet (ROADMAP Queue 1): ``packed_moments`` and the mesh's
-``tensor_parallel``; each raises when a config asks for it. The TPU knobs
+``training.packed_moments`` writes each sparse table's Adam moments to its
+checkpoints as one ``[rows, 2D]`` leaf ``mv``, the JAX packed layout (a TPU
+layout: in memory the moments stay two tensors, so the steps are the
+separate layout's); checkpoints of either layout resume into either, on one
+device and on the mesh.
+``model.precision: bfloat16`` runs the towers' matmuls on bf16 operands
+with float32 sums (``ttamm_torch/models/encoders.py``).
+
+Not ported yet (ROADMAP Queue 1): the mesh's ``tensor_parallel``, which
+raises when a config asks for it. The TPU knobs
 ``steps_per_call``, ``use_pallas`` and ``mesh.multi_host``, and the JAX
 profiler's ``diagnostics.profile_dir``, are not read.
 """
@@ -287,15 +296,9 @@ def _sync(device: torch.device) -> None:
 
 def _refuse_unported(config: Mapping[str, Any]) -> None:
     """Raise on each option of the JAX pipeline this port does not run yet."""
-    training = dict(config.get("training", {}))
     mesh = dict(config.get("mesh", {}) or {})
-    refused = {
-        "training.packed_moments": bool(training.get("packed_moments", False)),
-        "mesh.tensor_parallel": bool(mesh.get("tensor_parallel", False)),
-    }
-    for name, asked in refused.items():
-        if asked:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP Queue 1)")
+    if bool(mesh.get("tensor_parallel", False)):
+        raise NotImplementedError("mesh.tensor_parallel is not ported yet (ROADMAP Queue 1)")
 
 
 def _dataset_loss(
@@ -517,7 +520,8 @@ def run_single_experiment(
         ),
     )
     state = create_train_state(
-        model_cfg, num_users=num_users, num_items=num_items, seed=seed, device=dev
+        model_cfg, num_users=num_users, num_items=num_items, seed=seed, device=dev,
+        packed_moments=bool(training_cfg.get("packed_moments", False)),
     )
     train_step = make_train_step(model_cfg, tscfg, mesh=mesh)
     eval_step = make_eval_loss_step(model_cfg, tscfg, mesh=mesh)

@@ -16,7 +16,9 @@ lazily afterwards, so concurrent searches from the threaded HTTP server
 only read shared state.
 
 Backends: 'device' (and 'auto', its alias) runs ``mips_topk`` on the index's
-device; 'numpy' is the blocked host search, the exact reference.
+device, by its ``auto`` routing unless the caller names an algorithm (a
+float32 corpus past the slab ceiling scans in chunks); 'numpy' is the
+blocked host search, the exact reference.
 """
 
 from __future__ import annotations
@@ -84,8 +86,10 @@ class FlatIndex:
         """Top-k by inner product: (scores f32 [B, k], indices int64 [B, k]).
 
         backend: 'device' (and 'auto', its alias) runs ``mips_topk`` with
-        ``algorithm`` on the index's device; 'numpy' is the blocked host
-        search in float32.
+        ``algorithm`` ('auto' | 'group_exact' | 'chunked' | 'fused') on the
+        index's device; 'numpy' is the blocked host search in float32. A
+        float32 index past the slab ceiling (8,388,608 items) searches by
+        ``chunked`` under 'auto', as the JAX ``FlatIndex`` does.
         """
         queries = np.ascontiguousarray(queries, dtype=np.float32)
         if queries.ndim == 1:

@@ -4,8 +4,9 @@
 
 One ``.npz`` holds every leaf of the JAX ``TrainState`` under its pytree-path
 key (``tables/user_id``, ``dense/.../w``, ``opt_dense/m/...``,
-``opt_sparse/user_id/m``, ``step``; see ``ttamm_torch.models.convert``)
-plus a JSON ``__meta__`` entry (epoch, metric, timestamp). So
+``opt_sparse/user_id/m``, or ``opt_sparse/user_id/mv`` for packed moments,
+``step``; see ``ttamm_torch.models.convert``) plus a JSON ``__meta__`` entry
+(epoch, metric, timestamp). Either moment layout loads into either. So
 ``ttamm_tpu.train.checkpoint.load_checkpoint`` restores a port checkpoint,
 this module restores a JAX one, and ``python -m
 ttamm_torch.pipelines.export --checkpoint`` reads both. The per-process

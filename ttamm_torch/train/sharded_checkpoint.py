@@ -12,7 +12,8 @@ A piece key is ``<leaf key>::<bounds>``, with the flat keys of
 ranks of data shard 0 (its rows of the padded layout), everything else by
 rank 0. So ``ttamm_tpu.train.sharded_checkpoint.load_sharded_checkpoint``
 reads a port directory, and :func:`load_sharded_checkpoint` a JAX one,
-whatever mesh either was saved under: a rank assembles its region from the
+whatever mesh and sparse-Adam moment layout (separate ``m`` / ``v`` or
+packed ``mv``) either was saved under: a rank assembles its region from the
 pieces that overlap it, cut to the table's logical rows (pad rows stay
 zero). Every rank must see every shard file (a shared file system), unless
 the mesh is unchanged.
@@ -20,6 +21,7 @@ the mesh is unchanged.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -65,6 +67,8 @@ def _regions(state: TrainState, mesh) -> dict[str, tuple[int, int, int] | None]:
         rows = t.shape[0]
         start = 0 if mesh is None else row_offset(mesh, rows)
         out[key] = (start, rows, logical_rows(state.model, name))
+    if state.packed_moments:  # the mv leaf holds the rows of m and v
+        out.update({f"opt_sparse/{n}/mv": out[f"opt_sparse/{n}/m"] for n in state.opt_sparse})
     return out
 
 
@@ -150,6 +154,23 @@ def _piece_index(path: Path, num_processes: int | None):
     return blobs, by_leaf
 
 
+def _moment_layout_pieces(key: str, shape: tuple[int, ...], by_leaf) -> list:
+    """The pieces of a sparse-Adam ``m`` / ``v`` leaf cut from the left /
+    right half of packed ``mv`` pieces (the JAX loader's
+    ``_convert_moment_layout``). The layouts differ by a column offset
+    only, which composes with row sharding."""
+    prefix, _, leaf = key.rpartition("/")
+    out = []
+    if leaf in ("m", "v") and len(shape) == 2:
+        lo = 0 if leaf == "m" else shape[1]
+        for ((r0, r1), (c0, c1)), get in by_leaf.get(f"{prefix}/mv", []):
+            a, b = max(c0, lo), min(c1, lo + shape[1])
+            if a < b:
+                cut = lambda g=get, x=a - c0, y=b - c0: g()[:, x:y]  # noqa: E731
+                out.append((((r0, r1), (a - lo, b - lo)), cut))
+    return out
+
+
 def _assemble(pieces: list[tuple[Bounds, Callable[[], np.ndarray]]], want: Bounds,
               out: np.ndarray, key: str) -> None:
     """Fill ``out`` (the region ``want``, or its leading part) from the
@@ -179,11 +200,12 @@ def load_sharded_checkpoint(
     path = Path(path)
     meta = json.loads((path / MANIFEST).read_text())
     blobs, by_leaf = _piece_index(path, meta.get("num_processes"))
-    regions = _regions(template_state, mesh)
+    separate = dataclasses.replace(template_state, packed_moments=False)
+    regions = _regions(separate, mesh)
     flat: dict[str, np.ndarray] = {}
     try:
-        for key, arr in train_state_to_flat(template_state).items():
-            pieces = by_leaf.get(key)
+        for key, arr in train_state_to_flat(separate).items():
+            pieces = by_leaf.get(key) or _moment_layout_pieces(key, arr.shape, by_leaf)
             if not pieces:
                 raise ValueError(f"Checkpoint {path} has no pieces for '{key}'")
             if arr.ndim == 0:

@@ -54,6 +54,9 @@ class TrainState:
     opt_dense: DenseOptState  # over dense_targets()
     opt_sparse: dict[str, SparseAdamState]
     step: int = 0
+    # training.packed_moments: checkpoints hold each sparse table's moments
+    # as one [rows, 2D] leaf ``mv`` = [m | v] (the JAX packed layout)
+    packed_moments: bool = False
 
     @property
     def tables(self) -> dict[str, torch.Tensor]:
@@ -87,15 +90,21 @@ def create_train_state(
     num_items: int,
     seed: int,
     device: torch.device | str | None = None,
+    packed_moments: bool = False,
 ) -> TrainState:
     """A seeded model in training mode (dropout on, gradients on its dense
     layers; the tables are updated by the optimizers, not by autograd) on
-    ``device`` (``None``: the CUDA card), with zero optimizer states."""
+    ``device`` (``None``: the CUDA card), with zero optimizer states.
+    ``packed_moments`` (``training.packed_moments``) writes each sparse
+    table's moments to checkpoints as one ``[rows, 2D]`` leaf, as the JAX
+    packed layout does; in memory they stay two ``[rows, D]`` tensors, so
+    the steps are those of the separate layout."""
     model = TwoTower(cfg, num_users=num_users, num_items=num_items, seed=seed, device=device)
     model.train()
     for _, param in model.dense_parameters():
         param.requires_grad_(True)
-    state = TrainState(model=model, opt_dense=DenseOptState(m=[], v=[]), opt_sparse={})
+    state = TrainState(model=model, opt_dense=DenseOptState(m=[], v=[]), opt_sparse={},
+                       packed_moments=packed_moments)
     state.opt_dense = init_dense_opt([t for _, t in state.dense_targets()])
     tables = state.tables
     state.opt_sparse = {n: init_sparse_adam(tables[n]) for n in sparse_table_names(cfg)}
