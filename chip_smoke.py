@@ -104,6 +104,19 @@ result line):
    sparse_adam_rows and gather_rows once a sparse table); its flat and
    sharded checkpoints hold ``mv`` = [m | v] and no ``m`` / ``v``, and
    restore bit for bit into a packed and a separate state;
+4d. ``mesh.tensor_parallel`` on a 1x1 NCCL mesh (every all-reduce of the
+   split tower layers has one rank) at ``configs/default.yaml``'s widths
+   (float32 and ``model.precision: bfloat16``) and
+   ``configs/in_batch_softmax.yaml``'s: (a) three TP steps from the seeded
+   state against the same steps without TP, both routings, the default
+   lookup and the all-to-all exchange, bit for bit (or, where a float32
+   row layer's ``mm`` + sum + bias add rounds otherwise than ``addmm``,
+   within phase 4's tolerances, each difference printed); (b) the TP
+   steps' launches: gather_rows_masked, sparse_adam_rows (and gather_rows
+   at the exchange) and the moments kernels, no scatter; (c) device ms,
+   device ops, host ms and idle share of a TP and a non-TP step in turns;
+   (d) a TP sharded directory read back bit for bit into a TP and a non-TP
+   placement, and the export CLI from it = the non-TP directory's export;
 5. train two epochs of ``configs/default.yaml`` on the card with the
    retrieval eval after each, through ``run_training`` (the main path's
    launches are counted from here; its sweep ledger must hold the one
@@ -1861,6 +1874,259 @@ def phase_packed(dev, ctx, work: Path) -> dict:
     return {"launches": launches, "tensors_compared": compared, "tensors_restored": restored}
 
 
+TP_ROUTES = [(r, x) for r in ("allgather", "owner") for x in ("gspmd", "alltoall")]
+
+
+def _state_diffs(got, want) -> dict[str, float]:
+    """Max abs difference of every tensor of two states that differ (every
+    table, dense parameter, dense moment and sparse moment); empty when they
+    are equal bit for bit."""
+    import torch
+
+    pairs = [(f"{n} table", got.tables[n], want.tables[n]) for n in want.tables]
+    pairs += [(k, a.detach(), bb.detach()) for (k, a), (_, bb) in
+              zip(got.dense_targets(), want.dense_targets())]
+    pairs += [(f"dense m {i}", a, bb) for i, (a, bb) in enumerate(zip(got.opt_dense.m, want.opt_dense.m))]
+    pairs += [(f"dense v {i}", a, bb) for i, (a, bb) in enumerate(zip(got.opt_dense.v, want.opt_dense.v))]
+    for n, st in want.opt_sparse.items():
+        pairs += [(f"{n} m", got.opt_sparse[n].m, st.m), (f"{n} v", got.opt_sparse[n].v, st.v)]
+    return {name: float((a.double() - bb.double()).abs().max()) for name, a, bb in pairs
+            if not torch.equal(a, bb)}
+
+
+def _tp_case(dev, mesh, label: str, cfg, tscfg, data, batches, nu: int, ni: int, lanes: dict):
+    """One model config's TP steps against the same steps without TP on the
+    1x1 mesh, for each routing and lookup (``TP_ROUTES``): MESH_STEPS steps
+    from one seeded state each. Bit for bit, or, where the row layers'
+    ``mm`` + sum + bias rounds otherwise than ``addmm``'s fused bias,
+    within phase 4's tolerances (each difference printed). Returns the
+    summary, the TP steps' launches, and the last route's TP state."""
+    import collections
+
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.parallel import place_data, place_state
+    from ttamm_torch.parallel.step import make_sharded_train_step
+    from ttamm_torch.train import create_train_state
+
+    mdata = place_data(mesh, data)
+    counts, summary, tp_state = collections.Counter(), {}, None
+    for routing, exchange in TP_ROUTES:
+        step_cfg = tscfg._replace(update_routing=routing, embedding_exchange=exchange)
+        runs = {}
+        for tp in (True, False):
+            state = place_state(mesh, create_train_state(cfg, num_users=nu, num_items=ni,
+                                                         seed=STEP_SEED, device=dev),
+                                tensor_parallel=tp)
+            step = make_sharded_train_step(cfg, step_cfg, mesh)
+            kernels.reset_launch_counts()
+            losses = []
+            for u, p, neg in batches[:MESH_STEPS]:
+                _, metrics = step(state, mdata, u, p, generator=None, negatives=neg)
+                losses.append({k: float(v) for k, v in metrics.items()})
+            torch.cuda.synchronize()
+            if tp:
+                counts.update(kernels.launch_counts())
+            runs[tp] = (state, losses)
+        (got, got_losses), (want, want_losses) = runs[True], runs[False]
+        name = f"{label} {routing} {exchange}"
+        diffs = _state_diffs(got, want)
+        if not diffs and got_losses == want_losses:
+            summary[f"{routing}_{exchange}"] = "bit for bit"
+            log(f"1x1 TP {name}, {MESH_STEPS} steps: losses and every state tensor bit-identical "
+                "to the non-TP steps")
+        else:
+            for s, (g, w) in enumerate(zip(got_losses, want_losses)):
+                check(all(abs(g[k] - w[k]) <= 1e-5 * max(abs(w[k]), 1e-3) for k in w),
+                      f"1x1 TP {name} step {s}: losses {g} vs non-TP {w}")
+            worst = _check_steps(f"1x1 TP {name}", got, got_losses[-1], want, want_losses[-1], lanes)
+            summary[f"{routing}_{exchange}"] = {"differs": diffs, "worst": worst}
+            log(f"1x1 TP {name}, {MESH_STEPS} steps: {len(diffs)} state tensors differ from the "
+                f"non-TP steps (max abs {max(diffs.values(), default=0.0):.3e}), within phase 4's "
+                f"tolerances: {worst}")
+        tp_state = got
+        del runs, want
+    return summary, counts, tp_state
+
+
+def _tp_timing(dev, mesh, cases: dict) -> dict:
+    """Device ms, device ops, host ms and idle share of one 1x1 step with and
+    without TP, in turns (plain, TP, TP, plain), for each ``cases`` entry
+    ``label -> (cfg, tscfg, data, batches, nu, ni)``."""
+    import torch
+
+    from ttamm_torch.parallel import place_data, place_state
+    from ttamm_torch.parallel.step import make_sharded_train_step
+    from ttamm_torch.train import create_train_state
+
+    out = {}
+    for label, (cfg, tscfg, data, batches, nu, ni) in cases.items():
+        mdata = place_data(mesh, data)
+        for turn, tp in enumerate((False, True, True, False)):
+            state = place_state(mesh, create_train_state(cfg, num_users=nu, num_items=ni,
+                                                         seed=STEP_SEED, device=dev),
+                                tensor_parallel=tp)
+            step = make_sharded_train_step(cfg, tscfg, mesh)
+            it = iter(batches[MESH_STEPS:])
+
+            def one(state=state, step=step, it=it):
+                u, p, neg = next(it)
+                step(state, mdata, u, p, generator=None, negatives=neg)
+
+            events = _profiled(one, lambda: [one() for _ in range(4)])
+            dev_ms = _per_call_us(events, 4) / 1e3
+            check(dev_ms > 0, f"TP step {label}: the profiler saw no device work")
+            ops = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.key.startswith("ProfilerStep")) / 4
+            u, p, neg = batches[-1]
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(3):
+                step(state, mdata, u, p, generator=None, negatives=neg)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - start) / 3 * 1e3
+            key = f"{label} {'tp' if tp else 'plain'} turn {turn + 1}"
+            out[key] = {"device_ms": dev_ms, "device_ops": ops, "host_ms": host_ms,
+                        "idle_share": 1.0 - dev_ms / host_ms}
+            log(f"step {key}: device {dev_ms:.3f} ms, {ops:.1f} device ops | host clock "
+                f"{host_ms:.3f} ms | idle share {out[key]['idle_share']:.3f}")
+            del state
+    return out
+
+
+def _tp_checkpoint(dev, mesh, work: Path, cfg, nu: int, ni: int, tp_state) -> tuple[Path, Path, int]:
+    """Phase 4d (d), on the mesh: ``tp_state``'s sharded directory read back
+    bit for bit into a TP and a non-TP placement; the non-TP one saved as a
+    directory of its own. Returns both directories and the tensors
+    compared."""
+    from ttamm_torch.parallel import place_state
+    from ttamm_torch.train import create_train_state
+    from ttamm_torch.train.sharded_checkpoint import load_sharded_checkpoint, save_sharded_checkpoint
+
+    names = dict(experiment_name="tp", epoch=1, metric_name=None, metric_value=None,
+                 template="{experiment}_epoch{epoch}")
+    tp_dir = save_sharded_checkpoint(work / "tp_sharded", tp_state, mesh=mesh, **names)
+    compared, plain = 0, None
+    for tp in (True, False):
+        fresh = place_state(mesh, create_train_state(cfg, num_users=nu, num_items=ni, seed=1,
+                                                     device=dev), tensor_parallel=tp)
+        back, _ = load_sharded_checkpoint(tp_dir, fresh, mesh)
+        check(back.tensor_parallel == tp, "the loaded state lost its placement")
+        compared += _same_state(f"TP directory into tensor_parallel={tp}", back, tp_state)
+        plain = back
+    plain_dir = save_sharded_checkpoint(work / "tp_plain_sharded", plain, mesh=mesh, **names)
+    return tp_dir, plain_dir, compared
+
+
+def phase_tensor_parallel(dev, work: Path, ctx: dict, config: dict, dataset) -> dict:
+    """Phase 4d: ``mesh.tensor_parallel`` on a 1x1 NCCL mesh (one card, so
+    every all-reduce of the split layers has one rank), at the widths of
+    ``configs/default.yaml`` (float32 and ``model.precision: bfloat16``) and
+    ``configs/in_batch_softmax.yaml``: (a) the TP steps against the same
+    steps without TP, both routings, the default lookup and the all-to-all
+    exchange (``_tp_case``); (b) the TP steps' launches: the masked gather,
+    the fused row update and the moments kernels, never the scatter;
+    (c) device ms, device ops, host ms and idle share of a TP and a non-TP
+    step in turns (``_tp_timing``); (d) a TP sharded directory read back bit
+    for bit into a TP and a non-TP placement (``_tp_checkpoint``), and the
+    export CLI from it = the export of the non-TP directory of the same
+    state, bit for bit. Returns the summary phase 8 prints."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from ttamm_torch.models.two_tower import parse_model_config
+    from ttamm_torch.ops.sampling import sample_negative_items
+    from ttamm_torch.parallel import MeshConfig, build_mesh
+    from ttamm_torch.pipelines import export
+
+    nu, ni, b = ctx["nu"], ctx["ni"], ctx["batch"]
+    ib = _step_inputs(dev, _config(work / "data", work / "tp_in_batch", "in_batch_softmax.yaml"),
+                      dataset)
+    dims = dict(user_feature_dim=dataset.user_feature_matrix.shape[1],
+                item_feature_dim=dataset.item_feature_matrix.shape[1])
+    bf16_cfg = parse_model_config(dict(config["model"], precision="bfloat16"), **dims)
+
+    def batches_of(c, with_negatives: bool):
+        out = []
+        for s in range(MESH_STEPS + 8):  # the compared steps, then the timed ones
+            u = torch.from_numpy(c["users"][s * b : (s + 1) * b]).to(dev)
+            p = torch.from_numpy(c["items"][s * b : (s + 1) * b]).to(dev)
+            neg = None
+            if with_negatives:
+                neg = sample_negative_items(
+                    c["data"].positive_rows[u.long()], num_items=ni,
+                    num_negatives=c["tscfg"].negatives_per_positive,
+                    generator=torch.Generator(device=dev).manual_seed(300 + s))
+            out.append((u, p, neg))
+        return out
+
+    def lanes_of(batches, in_batch: bool):
+        steps = batches[:MESH_STEPS]
+        items = [p if neg is None else torch.cat([p, neg.reshape(-1)]) for _, p, neg in steps]
+        lanes = {"user_id": torch.cat([u for u, _, _ in steps]).long(),
+                 "item_id": torch.cat(items).long()}
+        if in_batch:
+            lanes.update(user_aug=lanes["user_id"], item_aug=lanes["item_id"])
+        return lanes
+
+    default_batches, ib_batches = batches_of(ctx, True), batches_of(ib, False)
+    cases = {
+        "default float32": (ctx["cfg"], ctx["tscfg"], ctx["data"], default_batches, False),
+        "default bfloat16": (bf16_cfg, ctx["tscfg"], ctx["data"], default_batches, False),
+        "in_batch_softmax float32": (ib["cfg"], ib["tscfg"], ib["data"], ib_batches, True),
+    }
+    summary, counts = {}, None
+    with one_rank_nccl():
+        mesh = build_mesh(MeshConfig(1, 1), "cuda")
+        tp_state = None
+        for label, (cfg, tscfg, data, batches, in_batch) in cases.items():
+            summary[label], case_counts, state = _tp_case(
+                dev, mesh, label, cfg, tscfg, data, batches, nu, ni, lanes_of(batches, in_batch))
+            counts = case_counts if counts is None else counts + case_counts
+            if label == "default float32":
+                tp_state = state
+        launches = dict(counts)
+        for name in ("gather_rows_masked", "sparse_adam_rows", "segment_second_moments",
+                     "segment_second_moments_bwd", "gather_rows"):
+            check(launches.get(name, 0) > 0, f"{name} never launched in the 1x1 TP steps")
+        for name in ("scatter_set_rows", "scatter_set_rows_masked"):
+            check(launches.get(name, 0) == 0, f"{name} launched in the 1x1 TP steps")
+        log(f"launch counts of the 1x1 TP steps ({len(cases) * len(TP_ROUTES) * MESH_STEPS} steps; "
+            f"gather_rows at the all-to-all exchange): {launches}")
+        timing = _tp_timing(dev, mesh, {
+            "default float32 allgather": (ctx["cfg"], ctx["tscfg"], ctx["data"], default_batches,
+                                          nu, ni),
+            "in_batch_softmax float32 allgather": (ib["cfg"], ib["tscfg"], ib["data"], ib_batches,
+                                                   nu, ni),
+        })
+        tp_dir, plain_dir, restored = _tp_checkpoint(dev, mesh, work, ctx["cfg"], nu, ni, tp_state)
+        del tp_state
+    log(f"TP sharded directory {tp_dir.name}: {restored} tensors restored bit for bit into a TP and "
+        "a non-TP placement")
+    cfg_path = work / "tp_export.yaml"
+    cfg_path.write_text(yaml.safe_dump(config))
+    start = time.perf_counter()
+    export.main(["--config", str(cfg_path), "--out", str(work / "tp_bundle"), "--device", str(dev),
+                 "--checkpoint", str(tp_dir)])
+    cli_s = time.perf_counter() - start
+    export.export_bundle(config, work / "tp_plain_bundle", device=dev, checkpoint=plain_dir,
+                         dataset=dataset)
+    for name in ("items.index", "vocab.json"):
+        check((work / "tp_bundle" / name).read_bytes() == (work / "tp_plain_bundle" / name).read_bytes(),
+              f"TP export: {name} differs from the non-TP directory's export")
+    for name in ("item_embeddings.npy", "user_embeddings.npy"):
+        check(np.array_equal(np.load(work / "tp_bundle" / name), np.load(work / "tp_plain_bundle" / name)),
+              f"TP export: {name} differs from the non-TP directory's export")
+    log(f"export CLI from the TP directory in {cli_s:.2f} s (its data prep included): the bundle of "
+        "the non-TP directory of the same state, bit for bit")
+    del ib
+    torch.cuda.empty_cache()
+    return {"steps": summary, "launches": launches, "timing": timing,
+            "tensors_restored": restored, "export_cli_s": cli_s}
+
+
 def _profile_steps(dev, config: dict, dataset, result) -> tuple[dict, dict]:
     """Profile PROFILE_STEPS more steps of the trained state: top device
     ops, device idle share and launches per step (each sparse table: one
@@ -2038,7 +2304,7 @@ def _report_checks(config: dict, dataset, result, excluded: collections.Counter)
         torch.cuda.synchronize()
         before = kernels.launch_counts()
         start = time.perf_counter()
-        diag = run_diagnostics(state, data, dataset, items, diagnostics=diag_cfg,
+        diag = run_diagnostics(model, data, dataset, items, diagnostics=diag_cfg,
                                recommendations=rec_cfg, seed=config["experiment"]["seed"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
@@ -3065,6 +3331,9 @@ def main() -> int:
                 torch.cuda.empty_cache()
             with Phase("4c packed sparse-Adam moments"):
                 packed_summary = phase_packed(dev, step_ctx, work)
+                torch.cuda.empty_cache()
+            with Phase("4d tensor parallel at 1x1"):
+                tp_summary = phase_tensor_parallel(dev, work, step_ctx, config, dataset)
                 del step_ctx
                 torch.cuda.empty_cache()
             kernels.reset_launch_counts()  # the main path's launches start here
@@ -3151,6 +3420,7 @@ def main() -> int:
         "in_batch_softmax": ib_summary,
         "pod_2x4": pod_summary,
         "packed_moments": packed_summary,
+        "tensor_parallel_1x1": tp_summary,
         "precision_bf16": precision_summary,
         "chunked_10m": chunked_summary,
     }

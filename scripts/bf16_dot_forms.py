@@ -75,7 +75,7 @@ def main() -> int:
 
     shapes = []
     call = encoders.bf16_dot
-    encoders.bf16_dot = lambda x, w: shapes.append((tuple(x.shape), tuple(w.shape))) or call(x, w)
+    encoders.bf16_dot = lambda x, w, *rest: shapes.append((tuple(x.shape), tuple(w.shape))) or call(x, w, *rest)
     try:
         step(state, data, users[:b], items[:b], generator=gen)
     finally:
@@ -98,9 +98,10 @@ def main() -> int:
         per_shape.append(row)
 
     def forward_with(fn):
-        def forward(ctx_, x, weight):
+        def forward(ctx_, x, weight, reduce_dx=None):
             x16, w16 = x.to(torch.bfloat16), weight.to(torch.bfloat16)
             ctx_.save_for_backward(x16, w16)
+            ctx_.reduce_dx = reduce_dx
             return fn(x16, w16)
         return staticmethod(forward)
 

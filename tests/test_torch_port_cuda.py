@@ -561,7 +561,8 @@ def test_bf16_dot_gemm_on_the_card(cuda, shape):
     float32 output) against the widened float32 product it stands for, and
     its gradients against the same on the CPU: float32 sums of exact bf16
     products in another order (rtol 1e-5, atol 1e-5 x the row's scale); the
-    gradients round to bf16, so at most one bf16 ulp apart (rtol 2^-7)."""
+    gradients round to bf16 (the weight's where the train step rounds it),
+    so at most one bf16 ulp apart (rtol 2^-7)."""
     from ttamm_torch.models.encoders import bf16_dot
 
     n, k, out = shape
@@ -578,7 +579,7 @@ def test_bf16_dot_gemm_on_the_card(cuda, shape):
     (y0, dx0, dw0), (y1, dx1, dw1) = grads
     assert y1.dtype == torch.float32
     torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-5 * float(y0.abs().max()))
-    for got, want in ((dx1, dx0), (dw1, dw0)):
+    for got, want in ((dx1, dx0), (dw1.bfloat16().float(), dw0.bfloat16().float())):
         assert torch.equal(got, got.to(torch.bfloat16).float())  # bf16-representable
         torch.testing.assert_close(got, want, rtol=2**-7, atol=1e-6 * float(want.abs().max()))
 

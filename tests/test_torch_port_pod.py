@@ -14,7 +14,8 @@ the export CLI from sharded checkpoint directories.
   and an export from that directory.
 - A JAX-written sharded directory (saved from a 2x2 placement) and the JAX
   flat checkpoint of the same state export to the same bundle bit for bit.
-- Only ``mesh.tensor_parallel`` and ``training.packed_moments`` still raise.
+- ``mesh.tensor_parallel: true`` at 1x1 trains as the run without it (no
+  option is refused any more).
 """
 
 import copy
@@ -223,10 +224,23 @@ def test_export_cli_reads_the_mesh_runs_directory(mesh_run, tmp_path):
     _assert_same_bundle(tmp_path / "dir", tmp_path / "flat")
 
 
-def test_only_tensor_parallel_is_refused():
-    from ttamm_torch.pipelines.training import _refuse_unported
+def test_tensor_parallel_at_one_device_trains_as_without_it(corpus):
+    """``mesh.tensor_parallel: true`` at 1x1 (one process) builds no mesh and
+    changes nothing, as in the JAX trainer: the same losses and state bit
+    for bit as the run without it, and nothing of a shipped config is
+    refused (the trainer has no refusal left)."""
+    import ttamm_torch.pipelines.training as port_training
 
-    # packed moments are ported (tests/test_torch_port_packed_moments.py)
-    _refuse_unported({"training": {"packed_moments": True}})
-    with pytest.raises(NotImplementedError, match="mesh.tensor_parallel is not ported"):
-        run_single_experiment({"mesh": {"tensor_parallel": True}}, device="cpu")
+    assert not hasattr(port_training, "_refuse_unported")
+    states = {}
+    for tp in (False, True):
+        config = pod_config(corpus, f"tp_{tp}")
+        config["mesh"] = {"data_parallel": 1, "model_parallel": 1, "tensor_parallel": tp}
+        config["training"].update(num_epochs=1)
+        config["training"]["checkpointing"]["enabled"] = False
+        result = run_single_experiment(config, device="cpu", max_steps=3)
+        assert not result.state.tensor_parallel
+        states[tp] = (result.train_loss, train_state_to_flat(result.state))
+    assert states[True][0] == states[False][0]
+    for key, value in states[True][1].items():
+        np.testing.assert_array_equal(value, states[False][1][key], err_msg=key)

@@ -303,7 +303,7 @@ def test_trainer_writes_the_four_artifacts_in_the_jax_format(trained, tmp_path):
     # the same diagnostics again (one seeded draw) through the JAX writers
     state, data = result.state, result.data
     diag = port_training.run_diagnostics(
-        state, data, port_training._prepare_data(config, False),
+        state.model, data, port_training._prepare_data(config, False),
         encode_corpus(state.model, "item", data.item_features),
         diagnostics=config["diagnostics"], recommendations=config["recommendations"],
         seed=config["experiment"]["seed"],

@@ -17,14 +17,19 @@ turns gradient differences into parameter differences of at most ~1e-5
 (lr = 1e-3).
 """
 
+from datetime import timedelta
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
+from torch_ranks import free_port
 from ttamm_torch.models import parse_model_config as port_parse
 from ttamm_torch.models.convert import train_state_from_flat, train_state_to_flat
+from ttamm_torch.parallel import MeshConfig, build_mesh, gather_state_flat, place_data, place_state
 from ttamm_torch.pipelines.training import run_single_experiment
 from ttamm_torch.train import (
     BatchData,
@@ -198,7 +203,7 @@ def test_jax_checkpoint_read_by_port(tmp_path):
     assert state.model.user_tower.num_embeddings == NU
 
 
-def test_unported_options_raise():
+def test_options_are_ported_and_tensor_parallel_on_one_rank_is_the_plain_step():
     model_yaml = {
         "user_encoder": _tower(), "item_encoder": _tower(),
         "adaptive_mimic": {"enabled": True, "sparse": True},
@@ -215,16 +220,40 @@ def test_unported_options_raise():
     # the wire options (tests/test_torch_port_comm_bf16.py,
     # tests/test_torch_port_exchange.py), packed moments
     # (tests/test_torch_port_packed_moments.py) and model.precision: bfloat16
-    # (tests/test_torch_port_precision.py) are ported; tensor parallelism
-    # still raises
+    # (tests/test_torch_port_precision.py) are ported, and so is tensor
+    # parallelism (tests/test_torch_port_tensor_parallel.py)
     packed = create_train_state(pcfg, num_users=NU, num_items=NI, seed=0, device="cpu",
                                 packed_moments=True)
     assert packed.packed_moments and packed.opt_sparse["user_id"].m.shape == (NU + 1, D)
     bf16 = port_parse(dict(model_yaml, precision="bfloat16"), user_feature_dim=FU,
                       item_feature_dim=FI)
     create_train_state(bf16, num_users=NU, num_items=NI, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run_single_experiment({"mesh": {"tensor_parallel": True}}, device="cpu")
+    # the JAX package builds no mesh at one device, so the flag changes
+    # nothing there; on a one-rank mesh (1x1) a tensor-parallel placement
+    # steps as the non-TP placement, bit for bit, with one step for both
+    # (each all-reduce over model has one rank), the clip on
+    _, (pcfg, pt, pstate, pdata), pos, rng = _setup("dense_item_table_clip")
+    flat = train_state_to_flat(pstate)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, timeout=timedelta(seconds=60))
+    try:
+        mesh = build_mesh(MeshConfig(1, 1), "cpu")
+        step, data = make_train_step(pcfg, pt, mesh=mesh), place_data(mesh, pdata)
+        states = {tp: place_state(mesh, train_state_from_flat(create_train_state(
+            pcfg, num_users=NU, num_items=NI, seed=0, device="cpu"), flat), tensor_parallel=tp)
+            for tp in (True, False)}
+        assert states[True].tensor_parallel and not states[False].tensor_parallel
+        for s in range(2):
+            u, p, neg = _batch(rng, pos, jax.random.fold_in(jax.random.key(5), s))
+            losses = {tp: {k: float(v) for k, v in step(
+                state, data, torch.from_numpy(u), torch.from_numpy(p), generator=None,
+                negatives=torch.from_numpy(neg))[1].items()} for tp, state in states.items()}
+            assert losses[True] == losses[False]
+        want = gather_state_flat(states[False], mesh)
+        for key, value in gather_state_flat(states[True], mesh).items():
+            np.testing.assert_array_equal(value, want[key], err_msg=key)
+    finally:
+        dist.destroy_process_group()
     # the mesh itself is ported: it needs its processes (torchrun)
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         run_single_experiment({"mesh": {"data_parallel": 2}}, device="cpu")

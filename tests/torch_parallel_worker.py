@@ -13,6 +13,7 @@ JAX, nothing of the test modules.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import sys
@@ -47,7 +48,7 @@ from ttamm_torch.parallel.embedding_lookup import sharded_rows  # noqa: E402
 from ttamm_torch.parallel.mesh import all_gather_rows, axis_index  # noqa: E402
 from ttamm_torch.parallel.sparse_update import sharded_sparse_adam_update  # noqa: E402
 from ttamm_torch.parallel.step import make_sharded_topk, make_sharded_train_step  # noqa: E402
-from ttamm_torch.pipelines.training import dropout_generator  # noqa: E402
+from ttamm_torch.pipelines.training import dropout_generator, run_single_experiment  # noqa: E402
 from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state  # noqa: E402
 from ttamm_torch.train.optim import DenseOptConfig  # noqa: E402
 from ttamm_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint  # noqa: E402
@@ -132,23 +133,72 @@ def _model(task, inputs):
     return cfg, train_state_from_flat(state, flat)
 
 
+@contextlib.contextmanager
+def _collective_spy(mesh, records: list):
+    """Record ``(op, axis, shape, dtype)`` of every collective issued while
+    it is active (the axis from the group's ranks)."""
+    groups = {tuple(dist.get_process_group_ranks(mesh.get_group(a))): a for a in (DATA_AXIS, MODEL_AXIS)}
+    names = ("all_reduce", "all_gather_into_tensor", "all_gather", "all_to_all_single")
+    originals = {n: getattr(dist, n) for n in names}
+
+    def wrap(name, fn):
+        def spy(first, *args, group=None, **kwargs):
+            t = first if name == "all_reduce" else args[0]  # the input
+            axis = groups.get(tuple(dist.get_process_group_ranks(group)), "world") if group else "world"
+            records.append((name, axis, "x".join(map(str, t.shape)), str(t.dtype).removeprefix("torch.")))
+            return fn(first, *args, group=group, **kwargs)
+        return spy
+
+    for n, fn in originals.items():
+        setattr(dist, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in originals.items():
+            setattr(dist, n, fn)
+
+
+@contextlib.contextmanager
+def _draw_spy(draws: list):
+    """Record every ``torch.rand`` tensor drawn while it is active (the
+    dropout masks' uniforms: the steps are given their negatives)."""
+    rand = torch.rand
+
+    def spy(*args, **kwargs):
+        out = rand(*args, **kwargs)
+        draws.append(out.clone())
+        return out
+
+    torch.rand = spy
+    try:
+        yield
+    finally:
+        torch.rand = rand
+
+
 def train_step(task, inputs):
-    """``task["steps"]`` sharded steps; with ``task["spy"]``, also the dtype
-    of every floating tensor the sparse update all-gathers over ``data``
-    (``gather_dtypes``, one string a call)."""
+    """``task["steps"]`` sharded steps, with ``task["tensor_parallel"]`` on a
+    tensor-parallel placement; with ``task["spy"]``, also the dtype of every
+    floating tensor the sparse update all-gathers over ``data``
+    (``gather_dtypes``, one string a call); with ``task["collectives"]``
+    every collective of the first step (``collectives`` [n, 4]: op, axis,
+    shape, dtype); with ``task["dropout"]`` the masks' uniforms each rank
+    drew (``draws`` [world, n], ``draw_shapes``)."""
     mesh = _mesh(task)
     mp = mesh[MODEL_AXIS].size()
+    tp = task.get("tensor_parallel", False)
     cfg, state = _model(task, inputs)
     features = getattr(torch, task.get("features_dtype", "float32"))
     data = BatchData(
         _t(inputs, "data/user_features").to(features), _t(inputs, "data/item_features").to(features),
         *(_t(inputs, f"data/{k}") for k in ("positive_rows", "category_ids")),
         item_log_q=_t(inputs, "data/item_log_q") if task.get("log_q") else None)
-    state = place_state(mesh, pad_state_rows(state, mp))
+    state = place_state(mesh, pad_state_rows(state, mp), tensor_parallel=tp)
     data = place_data(mesh, pad_batch_data(data, mp))
     tscfg = TrainStepConfig(**dict(task["tscfg"], opt=DenseOptConfig(**task["opt"])))
     step = make_sharded_train_step(cfg, tscfg, mesh)
     prefix, losses, dtypes = task.get("inputs_prefix", task["name"]), [], []
+    collectives, draws = [], []
     gather = sparse_update_module.all_gather_rows
 
     def spy(t, mesh_, axis):
@@ -164,19 +214,34 @@ def train_step(task, inputs):
         state.model.train()
     try:
         for s in range(task["steps"]):
-            state, metrics = step(
-                state, data, _t(inputs, f"{prefix}/u{s}"), _t(inputs, f"{prefix}/p{s}"),
-                generator=None, negatives=_t(inputs, f"{prefix}/neg{s}"), dropout_generator=drop,
-            )
+            spies = contextlib.ExitStack()
+            if task.get("collectives") and s == 0:
+                spies.enter_context(_collective_spy(mesh, collectives))
+            if drop is not None:
+                spies.enter_context(_draw_spy(draws))
+            with spies:
+                state, metrics = step(
+                    state, data, _t(inputs, f"{prefix}/u{s}"), _t(inputs, f"{prefix}/p{s}"),
+                    generator=None, negatives=_t(inputs, f"{prefix}/neg{s}"), dropout_generator=drop,
+                )
             losses.append([float(metrics[k]) for k in sorted(metrics)])
     finally:
         sparse_update_module.all_gather_rows = gather
-    # every rank's dense parameters, to hold them equal
+    # every rank's dense parameters (its slices under tensor parallelism),
+    # to hold them equal
     dense = torch.cat([p.detach().reshape(-1) for _, p in state.model.dense_parameters()])
     ranks = [torch.empty_like(dense) for _ in range(dist.get_world_size())]
     dist.all_gather(ranks, dense)
-    return dict(gather_state_flat(state, mesh), losses=np.asarray(losses),
-                gather_dtypes=np.asarray(dtypes, dtype=str), rank_dense=torch.stack(ranks).numpy())
+    out = dict(gather_state_flat(state, mesh), losses=np.asarray(losses),
+               gather_dtypes=np.asarray(dtypes, dtype=str), rank_dense=torch.stack(ranks).numpy(),
+               collectives=np.asarray(collectives, dtype=str).reshape(-1, 4))
+    if draws:
+        mine = torch.cat([d.reshape(-1) for d in draws])
+        every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+        dist.all_gather(every, mine)
+        out.update(draws=torch.stack(every).numpy(),
+                   draw_shapes=np.asarray([list(d.shape) for d in draws]))
+    return out
 
 
 def _data_part(mesh, t):
@@ -257,20 +322,49 @@ def search(task, inputs):
 
 
 def checkpoint(task, inputs):
+    """The state placed (``task["tensor_parallel"]``: with tensor
+    parallelism) and saved as a sharded directory, and (``task["flat"]``)
+    gathered and saved flat by rank 0; then JAX's directory read into a
+    fresh placement (``task["load_tensor_parallel"]``, default as saved)
+    and, with ``task["reload"]``, the ranks' own directory into the other
+    placement (``reloaded/`` keys)."""
     mesh = _mesh(task)
     mp = mesh[MODEL_AXIS].size()
     _, state = _model(task, inputs)
-    fresh = place_state(mesh, pad_state_rows(create_train_state(
-        state.model.cfg, num_users=state.model.num_users, num_items=state.model.num_items,
-        seed=5, device="cpu", packed_moments=task.get("load_packed", False),
-    ), mp))
-    placed = place_state(mesh, pad_state_rows(state, mp))
-    save_sharded_checkpoint(
-        task["save_dir"], placed, experiment_name="port", epoch=3, metric_name="recall@10",
-        metric_value=0.25, template="{experiment}_epoch{epoch}", mesh=mesh,
-    )
-    loaded, meta = load_sharded_checkpoint(task["jax_dir"], fresh, mesh)
-    return dict(gather_state_flat(loaded, mesh), epoch=np.asarray(meta["epoch"]))
+    tp = task.get("tensor_parallel", False)
+
+    def fresh(tensor_parallel):
+        return place_state(mesh, pad_state_rows(create_train_state(
+            state.model.cfg, num_users=state.model.num_users, num_items=state.model.num_items,
+            seed=5, device="cpu", packed_moments=task.get("load_packed", False),
+        ), mp), tensor_parallel=tensor_parallel)
+
+    placed = place_state(mesh, pad_state_rows(state, mp), tensor_parallel=tp)
+    names = dict(experiment_name="port", epoch=3, metric_name="recall@10", metric_value=0.25,
+                 template="{experiment}_epoch{epoch}")
+    saved = save_sharded_checkpoint(task["save_dir"], placed, mesh=mesh, **names)
+    if task.get("flat"):
+        flat = gather_state_flat(placed, mesh)
+        if dist.get_rank() == 0:
+            save_checkpoint(Path(task["save_dir"]) / "flat", flat, **names)
+    loaded, meta = load_sharded_checkpoint(
+        task["jax_dir"], fresh(task.get("load_tensor_parallel", tp)), mesh)
+    out = dict(gather_state_flat(loaded, mesh), epoch=np.asarray(meta["epoch"]))
+    if task.get("reload"):
+        dist.barrier()  # every rank's shard file written
+        back, _ = load_sharded_checkpoint(saved, fresh(not tp), mesh)
+        out.update({f"reloaded/{k}": v for k, v in gather_state_flat(back, mesh).items()})
+    return out
+
+
+def train_run(task, inputs):
+    """``run_single_experiment`` of ``task["config"]`` on the CPU mesh (the
+    process group is this worker's); the losses and the checkpoint paths."""
+    result = run_single_experiment(task["config"], device="cpu")
+    return {"train_loss": np.asarray(result.train_loss), "val_loss": np.asarray(result.val_loss),
+            "best_checkpoint": np.asarray(str(result.best_checkpoint_path)),
+            "last_checkpoint": np.asarray(str(result.checkpoint_path)),
+            "tensor_parallel": np.asarray(result.state.tensor_parallel)}
 
 
 def async_checkpoint(task, inputs):
@@ -300,7 +394,7 @@ def async_checkpoint(task, inputs):
 
 TASKS = {"sparse_update": sparse_update, "train_step": train_step, "search": search,
          "checkpoint": checkpoint, "async_checkpoint": async_checkpoint,
-         "exchange_lookup": exchange_lookup, "feature_rows": feature_rows}
+         "exchange_lookup": exchange_lookup, "feature_rows": feature_rows, "train_run": train_run}
 
 
 def main() -> int:

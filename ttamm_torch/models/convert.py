@@ -138,7 +138,9 @@ def from_jax_checkpoint(
 # ---------------------------------------------------------------------------
 
 
-def _to_host(key: str, tensor: torch.Tensor) -> np.ndarray:
+def host_leaf(key: str, tensor: torch.Tensor) -> np.ndarray:
+    """A tensor as the numpy leaf ``key`` of a JAX state (a ``.../w``
+    transposed to JAX's ``[in, out]``)."""
     arr = tensor.detach().cpu().numpy()
     return np.ascontiguousarray(arr.T) if key.endswith("/w") else arr
 
@@ -169,7 +171,7 @@ def train_state_to_flat(
     leaves["step"] = np.asarray(state.step, np.int32)
     tensors = {k: t.detach() for k, t in leaves.items() if isinstance(t, torch.Tensor)}
     host = tensors if pull is None else pull(tensors)
-    flat = {k: _to_host(k, host[k]) if k in host else v for k, v in leaves.items()}
+    flat = {k: host_leaf(k, host[k]) if k in host else v for k, v in leaves.items()}
     return pack_moment_leaves(flat) if state.packed_moments else flat
 
 

@@ -15,8 +15,30 @@ tower (the feature MLP, the gate's two layers, the concat projection) as
 the JAX ``_dot``: bf16 operands, float32 sums and output, the bias added in
 float32 after it (:func:`bf16_dot`). Its backward rounds as ``jax.grad`` of
 ``_dot`` does: each gradient is the float32 product of the float32
-cotangent with the other operand's bf16 value, rounded to bf16 and widened.
-The weights stay float32, as in the JAX package.
+cotangent with the other operand's bf16 value, rounded to bf16 and widened;
+the weight's gradient is left in float32 here and rounded by the train step
+after its sum over the data shards, where the JAX mesh step's compiled HLO
+rounds it (on one device the same bits). The weights stay float32, as in
+the JAX package.
+
+Tensor parallelism (``mesh.tensor_parallel``): with a :class:`TPContext`
+the forward runs each linear layer of the feature MLP and the σ-gate in the
+Megatron role the context gives it (:meth:`Tower.tp_roles`, from
+:func:`tp_layer_roles`, a copy of the JAX function, which
+``ttamm_torch.parallel.sharding`` reads too): a ``col`` layer holds rows
+``[out/s]`` of ``weight`` and of ``bias`` and gives this rank's columns of
+the output; its input passes the context's ``copy_in`` (Megatron's f: the
+identity forward, a sum over ``model`` backward), so the input's gradient
+is whole on every rank. A ``row`` layer holds columns ``[in/s]`` of
+``weight``, multiplies this rank's columns of the input, sums the products
+over ``model`` (``reduce_out``, g: the identity backward) and adds the
+whole ``bias`` once, after the sum. A ``rep`` layer (and the concat
+projection) is whole. Dropout after a ``col`` layer draws the whole
+``[n, out]`` mask from the generator and keeps this rank's columns, so the
+masks and the generator's stream are those of the forward without the
+context. Under bfloat16 a ``col`` layer sums the input's float32 gradient
+over ``model`` before its bf16 rounding, where the JAX TP step's compiled
+HLO puts that sum.
 
 Initialisation follows the JAX distributions (normal / uniform / xavier
 tables, xavier-uniform weights with ±1/sqrt(fan_in) uniform biases), drawn
@@ -29,7 +51,7 @@ from __future__ import annotations
 import math
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +64,47 @@ _ACTIVATIONS = {
     "tanh": torch.tanh,
     "selu": F.selu,
 }
+
+
+class TPContext(NamedTuple):
+    """Tensor parallelism of the dense tower layers over the ``model`` axis
+    (the JAX ``TPContext``, whose collectives GSPMD inserted; here each is
+    explicit). ``size`` / ``index``: the axis's extent and this rank's place
+    on it. ``copy_in``: Megatron's f (identity forward, sum over the axis
+    backward), a column-parallel layer's input. ``reduce_out``: g (sum over
+    the axis forward, identity backward), a row-parallel layer's partial
+    products. ``all_reduce``: the in-place sum over the axis, outside
+    autograd (the bf16 column layer's input gradient). ``roles``: one
+    tower's layer roles (:meth:`Tower.tp_roles`)."""
+
+    size: int
+    index: int
+    copy_in: Callable[[torch.Tensor], torch.Tensor]
+    reduce_out: Callable[[torch.Tensor], torch.Tensor]
+    all_reduce: Callable[[torch.Tensor], torch.Tensor]
+    roles: Mapping[str, str]
+
+
+def tp_layer_roles(shapes: list[tuple[int, int]], size: int) -> list[str]:
+    """Megatron role per linear layer of a stack, from each layer's
+    ``(in, out)``: ``col`` / ``row`` / ``rep`` (a copy of the JAX
+    ``tp_layer_roles``). A row layer always follows a col layer (its
+    contraction dim is the col layer's sharded output); a layer whose
+    output does not divide ``size`` at a col position, or the last layer
+    of the stack, is replicated and the alternation restarts: a stack never
+    ends column-parallel, since the tower output must be whole."""
+    roles: list[str] = []
+    after_col = False
+    for i, (_, dout) in enumerate(shapes):
+        if after_col:
+            roles.append("row")
+            after_col = False
+        elif dout % size == 0 and i < len(shapes) - 1:
+            roles.append("col")
+            after_col = True
+        else:
+            roles.append("rep")
+    return roles
 
 
 @dataclass(frozen=True)
@@ -224,7 +287,9 @@ def clamp_max_norm(rows: torch.Tensor, max_norm: float | None) -> torch.Tensor:
 
 class _Bf16Dot(torch.autograd.Function):
     """``x @ weight.T`` with bf16 operands and float32 sums (the JAX
-    ``_dot(x, w)`` at bfloat16, ``w = weight.T``).
+    ``_dot(x, w)`` at bfloat16, ``w = weight.T``). ``reduce_dx`` (a column
+    layer under tensor parallelism) sums the input's float32 gradient over
+    the model axis before its bf16 rounding.
 
     Forward: on the card one bf16 GEMM with float32 output
     (``torch.mm(..., out_dtype=torch.float32)``); on the CPU, which has no
@@ -236,14 +301,16 @@ class _Bf16Dot(torch.autograd.Function):
     device ms a train step (``scripts/bf16_dot_forms.py``). Backward, as
     the JAX transpose of ``dot_general(bf16, bf16, preferred f32)``
     followed by the ``astype`` that fed it: ``dx = f32(bf16(g @
-    bf16(weight)))`` and ``dweight = f32(bf16(gᵀ @ bf16(x)))``, float32
-    products (the cotangent is float32).
+    bf16(weight)))``, and ``dweight = gᵀ @ bf16(x)`` left in float32 for
+    the train step, which sums it over the data shards and then rounds it
+    to bf16 as JAX does; float32 products (the cotangent is float32).
     """
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, reduce_dx=None) -> torch.Tensor:
         x16, w16 = x.to(torch.bfloat16), weight.to(torch.bfloat16)
         ctx.save_for_backward(x16, w16)
+        ctx.reduce_dx = reduce_dx
         if x16.device.type == "cuda":
             return torch.mm(x16, w16.T, out_dtype=torch.float32)
         return x16.float() @ w16.float().T
@@ -253,17 +320,20 @@ class _Bf16Dot(torch.autograd.Function):
         x16, w16 = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = (grad @ w16.float()).to(torch.bfloat16).float()
+            dx = grad @ w16.float()
+            if ctx.reduce_dx is not None:
+                dx = ctx.reduce_dx(dx)
+            dx = dx.to(torch.bfloat16).float()
         if ctx.needs_input_grad[1]:
-            dw = (grad.T @ x16.float()).to(torch.bfloat16).float()
-        return dx, dw
+            dw = grad.T @ x16.float()
+        return dx, dw, None
 
 
-def bf16_dot(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def bf16_dot(x: torch.Tensor, weight: torch.Tensor, reduce_dx=None) -> torch.Tensor:
     """``x @ weight.T`` for rows ``x`` ``[N, in]`` and an ``nn.Linear``
     weight ``[out, in]``, on bf16 operands with float32 sums and output (see
     :class:`_Bf16Dot`)."""
-    return _Bf16Dot.apply(x, weight)
+    return _Bf16Dot.apply(x, weight, reduce_dx)
 
 
 # ---------------------------------------------------------------------------
@@ -328,21 +398,55 @@ class Tower(nn.Module):
         init_embedding_(table[: self.num_embeddings], self.cfg.embedding, generator)
         with torch.no_grad():
             table[self.num_embeddings :] = 0.0
-        for layer in self._linears():
+        for _, layer in self.named_linears():
             init_linear_(layer, generator)
 
-    def _linears(self) -> list[nn.Linear]:
-        extra = [self.gate_fc1, self.gate_fc2, self.projection]
-        return [*self.feature_layers, *(m for m in extra if m is not None)]
+    def named_linears(self) -> list[tuple[str, nn.Linear]]:
+        """Every linear layer with its JAX pytree path in the tower's dense
+        parameters (``feature_encoder/layers/<i>``, ``gate/fc1``, ...)."""
+        out = [(f"feature_encoder/layers/{i}", layer) for i, layer in enumerate(self.feature_layers)]
+        extra = (("gate/fc1", self.gate_fc1), ("gate/fc2", self.gate_fc2),
+                 ("projection", self.projection))
+        return out + [(name, layer) for name, layer in extra if layer is not None]
 
-    def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        """One layer, in ``compute_dtype`` (the JAX ``_dot(x, w) + b``)."""
-        if self.cfg.compute_dtype == "bfloat16":
-            return bf16_dot(x, layer.weight) + layer.bias
-        return layer(x)
+    def tp_roles(self, size: int) -> dict[str, str]:
+        """Each linear layer's tensor-parallel role at a model axis of
+        ``size`` (:func:`tp_layer_roles` over the feature MLP, then over the
+        gate's two layers; the projection stays whole), by
+        :meth:`named_linears` path. The roles come from the layers' whole
+        widths (``in_features`` / ``out_features``), which a rank's slices
+        keep."""
+        roles = {}
+        if len(self.feature_layers):
+            shapes = [(layer.in_features, layer.out_features) for layer in self.feature_layers]
+            roles.update({f"feature_encoder/layers/{i}": role
+                          for i, role in enumerate(tp_layer_roles(shapes, size))})
+        if self.gate_fc1 is not None:
+            gate = [(layer.in_features, layer.out_features) for layer in (self.gate_fc1, self.gate_fc2)]
+            roles["gate/fc1"], roles["gate/fc2"] = tp_layer_roles(gate, size)
+        if self.projection is not None:
+            roles["projection"] = "rep"
+        return roles
+
+    def _dense(self, name: str, layer: nn.Linear, x: torch.Tensor,
+               tp: TPContext | None = None) -> torch.Tensor:
+        """The layer ``name`` (:meth:`named_linears`), in ``compute_dtype``
+        (the JAX ``_dot(x, w) + b``), in its tensor-parallel role under
+        ``tp`` (see the module docstring)."""
+        bf16 = self.cfg.compute_dtype == "bfloat16"
+        role = "rep" if tp is None else tp.roles[name]
+        if role == "rep":
+            return bf16_dot(x, layer.weight) + layer.bias if bf16 else layer(x)
+        if role == "col":
+            if bf16:
+                return bf16_dot(x, layer.weight, tp.all_reduce) + layer.bias
+            return F.linear(tp.copy_in(x), layer.weight, layer.bias)
+        partial = bf16_dot(x, layer.weight) if bf16 else F.linear(x, layer.weight)
+        return tp.reduce_out(partial) + layer.bias
 
     def feature_repr(
-        self, features: torch.Tensor, generator: torch.Generator | None = None
+        self, features: torch.Tensor, generator: torch.Generator | None = None,
+        tp: TPContext | None = None,
     ) -> torch.Tensor:
         """The feature MLP; in training mode, with a ``generator``, inverted
         dropout after each hidden activation (the JAX ``_apply_mlp``)."""
@@ -352,24 +456,29 @@ class Tower(nn.Module):
         x = features
         last = len(self.feature_layers) - 1
         for i, layer in enumerate(self.feature_layers):
-            x = self._dense(layer, x)
+            name = f"feature_encoder/layers/{i}"
+            x = self._dense(name, layer, x, tp)
             if i < last:
                 x = act(x)
                 if drop:
                     keep = torch.rand(
-                        x.shape, generator=generator, device=x.device
+                        (x.shape[0], layer.out_features), generator=generator, device=x.device
                     ) < (1.0 - fe.dropout)
+                    if tp is not None and tp.roles[name] == "col":  # this rank's columns
+                        keep = keep[:, tp.index * x.shape[1] : (tp.index + 1) * x.shape[1]]
                     x = torch.where(keep, x / (1.0 - fe.dropout), 0.0)
         return x
 
-    def gate_values(self, id_repr: torch.Tensor, feat_repr: torch.Tensor) -> torch.Tensor:
+    def gate_values(self, id_repr: torch.Tensor, feat_repr: torch.Tensor,
+                    tp: TPContext | None = None) -> torch.Tensor:
         """σ(MLP([id; feat])): 1.0 blends all-ID, 0.0 all-feature."""
-        h = F.relu(self._dense(self.gate_fc1, torch.cat([id_repr, feat_repr], dim=-1)))
-        return torch.sigmoid(self._dense(self.gate_fc2, h))
+        h = self._dense("gate/fc1", self.gate_fc1, torch.cat([id_repr, feat_repr], dim=-1), tp)
+        return torch.sigmoid(self._dense("gate/fc2", self.gate_fc2, F.relu(h), tp))
 
-    def apply_gate(self, id_repr: torch.Tensor, feat_repr: torch.Tensor) -> torch.Tensor:
+    def apply_gate(self, id_repr: torch.Tensor, feat_repr: torch.Tensor,
+                   tp: TPContext | None = None) -> torch.Tensor:
         """σ-gate blend ``g * id + (1 - g) * feat``."""
-        gate = self.gate_values(id_repr, feat_repr)
+        gate = self.gate_values(id_repr, feat_repr, tp)
         return gate * id_repr + (1.0 - gate) * feat_repr
 
     def forward_rows(
@@ -378,19 +487,21 @@ class Tower(nn.Module):
         features: torch.Tensor | None = None,
         *,
         generator: torch.Generator | None = None,
+        tp: TPContext | None = None,
     ) -> torch.Tensor:
         """Tower output from gathered ID rows; ``generator`` draws the
-        dropout masks in training mode."""
+        dropout masks in training mode; ``tp``: this rank's slices of the
+        layers under tensor parallelism."""
         cfg = self.cfg
         id_rows = clamp_max_norm(id_rows, cfg.embedding.max_norm)
         if cfg.fusion == "identity" or cfg.feature_encoder is None or features is None:
             return id_rows
-        feat = self.feature_repr(features.to(id_rows.dtype), generator)
+        feat = self.feature_repr(features.to(id_rows.dtype), generator, tp)
         if cfg.fusion == "sum":
             return id_rows + feat
         if cfg.fusion == "concat":
-            return self._dense(self.projection, torch.cat([id_rows, feat], dim=-1))
-        return self.apply_gate(id_rows, feat)
+            return self._dense("projection", self.projection, torch.cat([id_rows, feat], dim=-1), tp)
+        return self.apply_gate(id_rows, feat, tp)
 
     def forward(
         self, indices: torch.Tensor, features: torch.Tensor | None = None

@@ -153,25 +153,17 @@ class TwoTower(nn.Module):
         ``dense/`` (a ``.../w`` is the transpose of the ``nn.Linear``
         weight)."""
         out: list[tuple[str, nn.Parameter]] = []
-        for side in ("user", "item"):
-            tower = self.tower(side)
-            layers = [
-                (f"feature_encoder/layers/{i}", layer)
-                for i, layer in enumerate(tower.feature_layers)
-            ]
-            layers += [
-                (name, layer)
-                for name, layer in (
-                    ("gate/fc1", tower.gate_fc1),
-                    ("gate/fc2", tower.gate_fc2),
-                    ("projection", tower.projection),
-                )
-                if layer is not None
-            ]
-            for name, layer in layers:
-                out.append((f"{side}_tower/{name}/w", layer.weight))
-                out.append((f"{side}_tower/{name}/b", layer.bias))
+        for key, layer in self.dense_layers():
+            out.append((f"{key}/w", layer.weight))
+            out.append((f"{key}/b", layer.bias))
         return out
+
+    def dense_layers(self) -> list[tuple[str, nn.Linear]]:
+        """The linear layers of both towers with their JAX pytree paths
+        under ``dense/`` (``user_tower/gate/fc1``, ...), in
+        :meth:`dense_parameters` order."""
+        return [(f"{side}_tower/{name}", layer) for side in ("user", "item")
+                for name, layer in self.tower(side).named_linears()]
 
     def tower(self, side: str) -> Tower:
         if side not in {"user", "item"}:

@@ -2,12 +2,15 @@
 ``ttamm_tpu/parallel/``): one process per device, a ``(data, model)``
 ``DeviceMesh``, row-sharded tables with shard-local sparse-row Adam, the all-to-all
 embedding exchange (``mesh.embedding_exchange: alltoall``,
-``exchange.py``) and the sharded eval search. Not ported: tensor
-parallelism and the HLO wire model (``hlo_inspect.py``)."""
+``exchange.py``), tensor parallelism of the dense tower layers
+(``mesh.tensor_parallel``: Megatron column / row slices over ``model``,
+``sharding.py``, ``mesh.copy_to_axis``) and the sharded eval search. Not
+ported: the HLO wire model (``hlo_inspect.py``)."""
 
 from .launch import is_primary_host, maybe_initialize_distributed
 from .mesh import DATA_AXIS, MODEL_AXIS, MeshConfig, build_mesh, parse_mesh_config, round_up
 from .sharding import (
+    encode_model,
     gather_state_flat,
     logical_rows,
     pad_batch_data,
@@ -22,6 +25,7 @@ __all__ = [
     "MODEL_AXIS",
     "MeshConfig",
     "build_mesh",
+    "encode_model",
     "gather_state_flat",
     "is_primary_host",
     "logical_rows",

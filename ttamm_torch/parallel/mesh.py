@@ -5,7 +5,10 @@ The scale-out model of the JAX package: a 2-D logical mesh
 - ``data`` axis: the batch (data parallelism); dense parameters replicated,
   their gradients summed over ``data``;
 - ``model`` axis: embedding-table rows; the ID tables, the mimic tables, the
-  feature matrices and every optimizer moment of a table are row-sharded.
+  feature matrices and every optimizer moment of a table are row-sharded;
+  under ``mesh.tensor_parallel`` also the dense tower layers and their
+  moments, in Megatron column / row slices (:func:`copy_to_axis` and
+  :func:`all_reduce_statistic` are their f and g).
 
 torch runs one process per device, so the mesh is a ``DeviceMesh`` over the
 default process group with dims ``("data", "model")``: rank = data index x
@@ -131,3 +134,25 @@ class _AllGatherRowsGrad(torch.autograd.Function):
 def all_gather_rows_grad(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     """Differentiable :func:`all_gather_rows` (see ``_AllGatherRowsGrad``)."""
     return _AllGatherRowsGrad.apply(t, mesh, axis)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    """Megatron's f: the identity forward (every rank of the axis holds the
+    same input) whose backward sums the cotangent over the axis, since each
+    rank's consumer of the input (a column slice of a layer) sends back
+    only its part of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(memory_format=torch.contiguous_format), ctx.mesh, ctx.axis), None, None
+
+
+def copy_to_axis(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    """Megatron's f over ``axis`` (see ``_CopyToAxis``); its counterpart g is
+    :func:`all_reduce_statistic`."""
+    return _CopyToAxis.apply(t, mesh, axis)

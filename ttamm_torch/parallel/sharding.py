@@ -4,9 +4,16 @@
 Row tables (the user/item ID tables and the mimic tables) and their
 optimizer moments are row-sharded over ``model``, and so are the dataset
 arrays indexed by user or item (feature matrices, padded positives,
-category ids, log q). The dense parameters and their moments are replicated.
+category ids, log q). The dense parameters and their moments are replicated,
+or, with ``tensor_parallel=True`` (``mesh.tensor_parallel``), split over
+``model`` by each linear layer's Megatron role (``Tower.tp_roles``, the JAX
+``tp_dense_shardings``): a ``col`` layer keeps rows ``[out/s]`` of its
+``nn.Linear`` ``weight`` and of its ``bias`` (the JAX ``w[:, c0:c1]`` and
+``b[c0:c1]``), a ``row`` layer columns ``[in/s]`` of ``weight`` (JAX
+``w[r0:r1, :]``) and its whole ``bias``, a ``rep`` layer (the concat
+projection too) all of it; the AdamW moments of each leaf as the leaf.
 torch has no sharded tensor here: :func:`place_state` and
-:func:`place_data` keep this rank's contiguous row slice of every sharded
+:func:`place_data` keep this rank's contiguous slice of every sharded
 array and a whole copy of the rest.
 
 Divisibility: a sharded array is first padded with zero rows (or
@@ -36,7 +43,8 @@ import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..models.convert import pack_moment_leaves, train_state_to_flat
+from ..models.convert import host_leaf, pack_moment_leaves, train_state_to_flat
+from ..models.two_tower import TwoTower
 from ..ops.sparse_adam import SparseAdamState
 from ..train.optim import DenseOptState
 from ..train.state import BatchData, TrainState, dense_table_names, sparse_table_names
@@ -95,6 +103,7 @@ def _map_rows(state: TrainState, fn: Callable[[str, torch.Tensor], torch.Tensor]
         },
         step=state.step,
         packed_moments=state.packed_moments,
+        tensor_parallel=state.tensor_parallel,
     )
 
 
@@ -155,10 +164,77 @@ def _local_slice(mesh: DeviceMesh, t: torch.Tensor | None) -> torch.Tensor | Non
     return t[start : start + rows].clone()
 
 
-def place_state(mesh: DeviceMesh, state: TrainState) -> TrainState:
+def tp_leaf_dims(model: TwoTower, size: int) -> dict[str, int]:
+    """The dense parameters that tensor parallelism splits over a model axis
+    of ``size``, by their ``dense_parameters`` key, with the dim of the
+    ``nn.Linear`` tensor it splits: a ``col`` layer's ``w`` and ``b`` along
+    0, a ``row`` layer's ``w`` along 1."""
+    out = {}
+    for side in ("user", "item"):
+        for name, role in model.tower(side).tp_roles(size).items():
+            key = f"{side}_tower/{name}"
+            if role == "col":
+                out[f"{key}/w"] = out[f"{key}/b"] = 0
+            elif role == "row":
+                out[f"{key}/w"] = 1
+    return out
+
+
+def tp_sharded_tensors(state: TrainState, mesh: DeviceMesh) -> dict[str, tuple[int, torch.Tensor]]:
+    """Every tensor a tensor-parallel state holds a slice of, by its flat
+    checkpoint key (the parameter and its two AdamW moments), with the dim
+    of the ``nn.Linear`` tensor it is sliced along; empty unless
+    ``state.tensor_parallel``."""
+    if not state.tensor_parallel:
+        return {}
+    dims = tp_leaf_dims(state.model, axis_size(mesh, MODEL_AXIS))
+    out = {}
+    for i, (key, param) in enumerate(state.model.dense_parameters()):
+        if key in dims:
+            out[f"dense/{key}"] = (dims[key], param)
+            out[f"opt_dense/m/dense/{key}"] = (dims[key], state.opt_dense.m[i])
+            out[f"opt_dense/v/dense/{key}"] = (dims[key], state.opt_dense.v[i])
+    return out
+
+
+def _set_dense(model: TwoTower, key: str, tensor: torch.Tensor, requires_grad: bool) -> None:
+    """Replace the dense parameter ``key`` (``dense_parameters``' naming) of
+    ``model`` by ``tensor``."""
+    name, _, leaf = key.rpartition("/")
+    layer = dict(model.dense_layers())[name]
+    setattr(layer, "weight" if leaf == "w" else "bias",
+            nn.Parameter(tensor, requires_grad=requires_grad))
+
+
+@torch.no_grad()
+def _split_dense(state: TrainState, mesh: DeviceMesh) -> None:
+    """Keep this rank's tensor-parallel slice of each split dense parameter
+    and of its moments (in place)."""
+    size, index = axis_size(mesh, MODEL_AXIS), axis_index(mesh, MODEL_AXIS)
+
+    def cut(t: torch.Tensor, dim: int) -> torch.Tensor:
+        part = t.shape[dim] // size
+        return t.narrow(dim, index * part, part).clone()
+
+    dims = tp_leaf_dims(state.model, size)
+    for i, (key, param) in enumerate(state.model.dense_parameters()):
+        if key not in dims:
+            continue
+        _set_dense(state.model, key, cut(param.detach(), dims[key]), param.requires_grad)
+        state.opt_dense.m[i] = cut(state.opt_dense.m[i], dims[key])
+        state.opt_dense.v[i] = cut(state.opt_dense.v[i], dims[key])
+    state.tensor_parallel = True
+
+
+def place_state(mesh: DeviceMesh, state: TrainState, *, tensor_parallel: bool = False) -> TrainState:
     """This rank's part of a padded state: its row slice of every table and
-    moment, a whole copy of the dense parameters and their moments."""
-    return _map_rows(state, lambda _, t: _local_slice(mesh, t))
+    moment, and of the dense parameters and their moments a whole copy, or
+    with ``tensor_parallel`` this rank's slices of the split layers (see
+    the module docstring)."""
+    placed = _map_rows(state, lambda _, t: _local_slice(mesh, t))
+    if tensor_parallel:
+        _split_dense(placed, mesh)
+    return placed
 
 
 def place_data(mesh: DeviceMesh, data: BatchData) -> BatchData:
@@ -178,12 +254,42 @@ def row_offset(mesh: DeviceMesh, local_rows: int) -> int:
     return axis_index(mesh, MODEL_AXIS) * local_rows
 
 
+def _gather_dim(t: torch.Tensor, mesh: DeviceMesh, dim: int) -> torch.Tensor:
+    """Every model rank's slice of a tensor joined along ``dim`` (0 or 1)."""
+    if dim == 0:
+        return all_gather_rows(t, mesh, MODEL_AXIS)
+    return all_gather_rows(t.T, mesh, MODEL_AXIS).T
+
+
 def gather_state_flat(state: TrainState, mesh: DeviceMesh) -> dict[str, np.ndarray]:
     """The whole unpadded state as the flat checkpoint arrays of
     ``train_state_to_flat``, on every rank (row-sharded tensors gathered
-    over ``model`` and cut back to their logical rows)."""
+    over ``model`` and cut back to their logical rows, tensor-parallel
+    slices gathered over ``model``)."""
     flat = train_state_to_flat(dataclasses.replace(state, packed_moments=False))
     for key, (name, t) in row_sharded_tensors(state).items():
         full = all_gather_rows(t, mesh, MODEL_AXIS)[: logical_rows(state.model, name)]
         flat[key] = full.cpu().numpy()
+    for key, (dim, t) in tp_sharded_tensors(state, mesh).items():
+        flat[key] = host_leaf(key, _gather_dim(t.detach(), mesh, dim))
     return pack_moment_leaves(flat) if state.packed_moments else flat
+
+
+@torch.no_grad()
+def encode_model(state: TrainState, mesh: DeviceMesh | None) -> TwoTower:
+    """The model every encode path reads (the eval's corpus and user
+    encodes, the end-of-run diagnostics and recommendations, the serving
+    bundle and its gate): ``state.model``, or for a tensor-parallel state a
+    copy whose split layers are whole again, gathered over ``model`` (the
+    tables stay this rank's, shared with the state). The encodes of a
+    model-sharded mesh read other rows on each model rank, so they cannot
+    run the tensor-parallel forward, whose ranks must hold the same rows."""
+    if not state.tensor_parallel:
+        return state.model
+    model = state.model
+    memo = {id(t): t for t in model.tables().values()}
+    whole = copy.deepcopy(model, memo)
+    params = dict(model.dense_parameters())
+    for key, dim in tp_leaf_dims(model, axis_size(mesh, MODEL_AXIS)).items():
+        _set_dense(whole, key, _gather_dim(params[key].detach(), mesh, dim), False)
+    return whole.eval()

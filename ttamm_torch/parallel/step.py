@@ -30,7 +30,8 @@ from .mesh import MODEL_AXIS, all_gather_rows, axis_index, axis_size
 
 def make_sharded_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, mesh: DeviceMesh):
     """The training step on this rank's part of a placed state
-    (``make_train_step(cfg, tscfg, mesh=mesh)``)."""
+    (``make_train_step(cfg, tscfg, mesh=mesh)``; tensor-parallel where the
+    state was placed so)."""
     return make_train_step(cfg, tscfg, mesh=mesh)
 
 

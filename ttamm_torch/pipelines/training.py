@@ -65,7 +65,13 @@ draw the same masks) and runs the same eval (the sharded search when mp >
 1). ``training.update_routing`` / ``update_capacity_factor`` choose the
 sparse tables' exchange of row gradients, ``mesh.embedding_exchange``
 (``gspmd`` | ``alltoall``) how the tables' rows are read
-(``parallel/exchange.py``). ``checkpointing.sharded`` (``auto``: more than
+(``parallel/exchange.py``). ``mesh.tensor_parallel: true`` also splits the dense
+tower layers (the feature MLPs and the σ-gates) and their AdamW moments
+over ``model`` in Megatron column / row slices (``parallel/sharding.py``,
+``models/encoders.py``), as the JAX trainer does on a mesh; on one device
+the flag has no effect, as there. The eval's and the end-of-run encodes
+read a model whose split layers are gathered whole once per epoch and once
+at the end (``encode_model``). ``checkpointing.sharded`` (``auto``: more than
 one process, where the JAX package says more than one host) writes
 per-rank shard directories in the JAX format; otherwise the state is
 gathered and rank 0 writes the flat ``.npz`` (the gather stays on the main
@@ -101,9 +107,7 @@ device and on the mesh.
 ``model.precision: bfloat16`` runs the towers' matmuls on bf16 operands
 with float32 sums (``ttamm_torch/models/encoders.py``).
 
-Not ported yet (ROADMAP Queue 1): the mesh's ``tensor_parallel``, which
-raises when a config asks for it. The TPU knobs
-``steps_per_call``, ``use_pallas`` and ``mesh.multi_host``, and the JAX
+The TPU knobs ``steps_per_call``, ``use_pallas`` and ``mesh.multi_host``, and the JAX
 profiler's ``diagnostics.profile_dir``, are not read.
 """
 
@@ -152,11 +156,12 @@ from ..evaluation import (
 from ..evaluation.retrieval import full_corpus, model_mesh, side_rows
 from ..models.convert import train_state_to_flat
 from ..models.encoders import tower_gate_values
-from ..models.two_tower import parse_model_config
+from ..models.two_tower import TwoTower, parse_model_config
 from ..ops.topk import mips_topk
 from ..parallel import (
     DATA_AXIS,
     build_mesh,
+    encode_model,
     gather_state_flat,
     is_primary_host,
     maybe_initialize_distributed,
@@ -294,13 +299,6 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _refuse_unported(config: Mapping[str, Any]) -> None:
-    """Raise on each option of the JAX pipeline this port does not run yet."""
-    mesh = dict(config.get("mesh", {}) or {})
-    if bool(mesh.get("tensor_parallel", False)):
-        raise NotImplementedError("mesh.tensor_parallel is not ported yet (ROADMAP Queue 1)")
-
-
 def _dataset_loss(
     eval_step, state, data, users: np.ndarray, items: np.ndarray, batch_size: int,
     generator: torch.Generator, device: torch.device,
@@ -368,10 +366,10 @@ def run_single_experiment(
     start_time = time.time()
     config = dict(config)
     configure_logging(str((config.get("logging") or {}).get("level", "INFO")))
-    _refuse_unported(config)
     feat_dtype = features_dtype(dict(config.get("data", {})))
     dev = resolve_device(device)
     mesh_cfg = parse_mesh_config(config.get("mesh", {}) or {})
+    tensor_parallel = bool((config.get("mesh") or {}).get("tensor_parallel", False))
     mesh = None
     if mesh_cfg.num_devices > 1:
         dev = maybe_initialize_distributed(dev)
@@ -532,11 +530,11 @@ def run_single_experiment(
         state, meta = load_checkpoint(resume, state)
     if mesh is not None:
         mp = mesh_cfg.model_parallel
-        state = place_state(mesh, pad_state_rows(state, mp))
+        state = place_state(mesh, pad_state_rows(state, mp), tensor_parallel=tensor_parallel)
         data = place_data(mesh, pad_batch_data(data, mp))
         logger.info(
-            "Mesh | data_parallel=%d model_parallel=%d processes=%d routing=%s exchange=%s "
-            "comm_dtype=%s", mesh_cfg.data_parallel, mp, mesh_cfg.num_devices,
+            "Mesh | data_parallel=%d model_parallel=%d processes=%d tp=%s routing=%s exchange=%s "
+            "comm_dtype=%s", mesh_cfg.data_parallel, mp, mesh_cfg.num_devices, tensor_parallel,
             tscfg.update_routing, tscfg.embedding_exchange, tscfg.comm_dtype,
         )
     if resume is not None and (resume / MANIFEST).is_file():
@@ -579,14 +577,14 @@ def run_single_experiment(
     val_users, val_items = split_arrays(val_df)
     test_users, test_items = split_arrays(test_df)
 
-    def retrieval_metrics(plan, frame, item_embeddings, rng_seed: int) -> RankingMetrics:
+    def retrieval_metrics(model, plan, frame, item_embeddings, rng_seed: int) -> RankingMetrics:
         if plan is not None:
             return evaluate_retrieval_metrics(
-                state.model, data, plan=plan, k_values=metrics_k, item_embeddings=item_embeddings,
+                model, data, plan=plan, k_values=metrics_k, item_embeddings=item_embeddings,
                 mesh=search_mesh,
             )
         predictions, ground_truth = evaluate_retrieval(
-            state.model, data, val_interactions=frame, train_positive_map=train_positive_map,
+            model, data, val_interactions=frame, train_positive_map=train_positive_map,
             num_items=num_items, k_values=metrics_k, use_mips=mips_enabled,
             candidate_samples=candidate_samples, rng=np.random.default_rng(rng_seed),
             user_batch_size=eval_user_batch, item_embeddings=item_embeddings, mesh=search_mesh,
@@ -646,9 +644,10 @@ def run_single_experiment(
             tick = now
 
         # One encode of the item corpus serves both evals.
+        eval_model = encode_model(state, mesh)
         item_embeddings = None
         if len(val_users) or len(test_users):
-            item_embeddings = _encode_side(state, data, "item", search_mesh)
+            item_embeddings = _encode_side(eval_model, data, "item", search_mesh)
         val_loss_value = float("nan")
         val_metrics = test_metrics = None
         monitor_value: float | None = None
@@ -658,7 +657,8 @@ def run_single_experiment(
                 eval_step, state, data, val_users, val_items, batch_size, val_gen, dev
             )
             lap("val_loss")
-            val_metrics = retrieval_metrics(val_plan, val_df, item_embeddings, seed * 997 + epoch)
+            val_metrics = retrieval_metrics(eval_model, val_plan, val_df, item_embeddings,
+                                            seed * 997 + epoch)
             lap("val_eval")
             last_val_metrics = val_metrics
             for k in metrics_k:
@@ -678,7 +678,8 @@ def run_single_experiment(
                 eval_step, state, data, test_users, test_items, batch_size, test_gen, dev
             )
             lap("test_loss")
-            test_metrics = retrieval_metrics(test_plan, test_df, item_embeddings, seed * 199 + epoch)
+            test_metrics = retrieval_metrics(eval_model, test_plan, test_df, item_embeddings,
+                                             seed * 199 + epoch)
             lap("test_eval")
         result.test_loss.append(test_loss_value)
         result.test_metrics.append(test_metrics)
@@ -773,15 +774,16 @@ def run_single_experiment(
         best_metric_value = result.train_loss[-1]
     result.best_metric = best_metric_value
 
-    local_items = _encode_side(state, data, "item", search_mesh)  # the final corpus
+    final_model = encode_model(state, mesh)
+    local_items = _encode_side(final_model, data, "item", search_mesh)  # the final corpus
     diagnostics = run_diagnostics(
-        state, data, dataset, full_corpus(state.model, local_items, search_mesh),
+        final_model, data, dataset, full_corpus(final_model, local_items, search_mesh),
         diagnostics=diag_cfg, recommendations=dict(config.get("recommendations", {}) or {}),
         seed=seed, mesh=search_mesh,
     )
     if mips_enabled:
         _write_retrieval_artifacts(
-            result, dataset, metrics_k, requested_dtype, gate_eps, index_path, embedding_path,
+            result, final_model, dataset, metrics_k, requested_dtype, gate_eps, index_path, embedding_path,
             search_mesh, local_items,
         )
     if is_primary_host():
@@ -844,11 +846,12 @@ def run_training(
     return results[0] if len(results) == 1 else results
 
 
-def _encode_side(state: TrainState, data: BatchData, side: str, search_mesh) -> torch.Tensor:
-    """Every user or item, encoded (under a model-sharded mesh: this shard's rows)."""
-    rows = None if search_mesh is None else state.model.tower(side).id_embedding.weight.shape[0]
+def _encode_side(model, data: BatchData, side: str, search_mesh) -> torch.Tensor:
+    """Every user or item, encoded by ``model`` (``encode_model``'s; under a
+    model-sharded mesh: this shard's rows)."""
+    rows = None if search_mesh is None else model.tower(side).id_embedding.weight.shape[0]
     features = data.item_features if side == "item" else data.user_features
-    return encode_corpus(state.model, side, features, num_rows=rows)
+    return encode_corpus(model, side, features, num_rows=rows)
 
 
 def _prepare_data(config: Mapping[str, Any], distributed: bool) -> TrainingDataset:
@@ -896,6 +899,7 @@ def _checkpoint_host(state: TrainState, mesh, sharded: bool):
 
 def _write_retrieval_artifacts(
     result: TrainingResult,
+    model,
     dataset: TrainingDataset,
     metrics_k: list[int],
     requested_dtype: str,
@@ -908,11 +912,11 @@ def _write_retrieval_artifacts(
     """The serving-precision gate, then the serving bundle of the (best)
     state, written by rank 0: the item index and embeddings, and beside the
     index ``user_embeddings.npy`` and ``vocab.json`` (the layout of
-    ``export_bundle`` and of the JAX trainer). ``item_embeddings`` is the
-    state's encoded corpus (under ``search_mesh`` this shard's rows). bf16
+    ``export_bundle`` and of the JAX trainer). ``model`` is the state's
+    (``encode_model``'s), ``item_embeddings`` its encoded corpus (under ``search_mesh`` this shard's rows). bf16
     serving ships under ``auto`` only when the final val eval re-scored in
     bf16 loses at most ``gate_eps`` of any recall@k."""
-    model, data, val_plan = result.state.model, result.data, result.val_plan
+    data, val_plan = result.data, result.val_plan
     dtype = "float32"
     if requested_dtype != "auto":
         dtype = requested_dtype
@@ -936,7 +940,7 @@ def _write_retrieval_artifacts(
         )
     item_embeddings = full_corpus(model, item_embeddings, search_mesh)
     user_embeddings = full_corpus(
-        model, _encode_side(result.state, data, "user", search_mesh), search_mesh, side="user"
+        model, _encode_side(model, data, "user", search_mesh), search_mesh, side="user"
     )
     result.serving_score_dtype = dtype
     if not is_primary_host():
@@ -1062,7 +1066,7 @@ class RunDiagnostics:
 
 @torch.no_grad()
 def run_diagnostics(
-    state: TrainState,
+    model: TwoTower,
     data: BatchData,
     dataset: TrainingDataset,
     item_embeddings: torch.Tensor,
@@ -1073,7 +1077,7 @@ def run_diagnostics(
     mesh=None,
 ) -> RunDiagnostics:
     """The JAX trainer's end-of-run diagnostics and sample recommendations
-    on ``state``: from one ``random.Random(seed)``, ``item_sample_size``
+    of ``model`` (a state's, through ``encode_model``): from one ``random.Random(seed)``, ``item_sample_size``
     items, ``user_sample_size`` users, then the recommended users (the JAX
     trainer's draws from its seeded global ``random``, in its order). The
     samples are encoded with the mimic augmentation, their ID, feature and
@@ -1081,7 +1085,6 @@ def run_diagnostics(
     ``mesh``, where every rank takes part) and pulled to the host, then
     summarised by the numpy functions of ``ttamm_torch.evaluation``.
     ``item_embeddings`` is the whole final corpus, ``[num_items, D]``."""
-    model = state.model
     num_users, num_items = len(dataset.user_mapping), len(dataset.item_mapping)
     rng = random.Random(seed)
     item_size = int(diagnostics.get("item_sample_size", 500))

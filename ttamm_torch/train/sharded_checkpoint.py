@@ -8,14 +8,18 @@ package's directory format (port of ``ttamm_tpu/train/sharded_checkpoint.py``).
 
 A piece key is ``<leaf key>::<bounds>``, with the flat keys of
 ``train_state_to_flat`` and bounds ``"r0:r1;c0:c1"`` in global coordinates
-(empty for scalars). Each piece is written once: a row-sharded tensor by the
-ranks of data shard 0 (its rows of the padded layout), everything else by
+of the JAX leaf (empty for scalars). Each piece is written once: a
+row-sharded tensor by the ranks of data shard 0 (its rows of the padded
+layout), a tensor-parallel slice of a dense leaf or its moment
+(``mesh.tensor_parallel``) by the same ranks, in JAX's ``[in, out]``
+orientation (``"0:in;c0:c1"`` for a column layer's ``w``, ``"c0:c1"`` for
+its ``b``, ``"r0:r1;0:out"`` for a row layer's ``w``), everything else by
 rank 0. So ``ttamm_tpu.train.sharded_checkpoint.load_sharded_checkpoint``
 reads a port directory, and :func:`load_sharded_checkpoint` a JAX one,
-whatever mesh and sparse-Adam moment layout (separate ``m`` / ``v`` or
-packed ``mv``) either was saved under: a rank assembles its region from the
-pieces that overlap it, cut to the table's logical rows (pad rows stay
-zero). Every rank must see every shard file (a shared file system), unless
+whatever mesh, tensor parallelism and sparse-Adam moment layout (separate
+``m`` / ``v`` or packed ``mv``) either was saved under: a rank assembles
+its block from the pieces that overlap it, a table's cut to its logical
+rows (pad rows stay zero). Every rank must see every shard file (a shared file system), unless
 the mesh is unchanged.
 """
 
@@ -25,7 +29,7 @@ import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch.distributed as dist
@@ -57,16 +61,41 @@ def _world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def _regions(state: TrainState, mesh) -> dict[str, tuple[int, int, int] | None]:
-    """``key -> (first global row, local rows, logical rows)`` for each
-    row-sharded tensor, None for the rest."""
-    from ..parallel.sharding import logical_rows, row_offset, row_sharded_tensors
+class _Region(NamedTuple):
+    """Where a sharded leaf's local array sits in the global (JAX) leaf: a
+    block ``[start, start + local)`` along ``axis``, whole along the other
+    dims; ``logical``: the rows past which a row-sharded table is padding
+    (None for a tensor-parallel slice)."""
 
-    out: dict[str, tuple[int, int, int] | None] = {}
+    axis: int
+    start: int
+    logical: int | None
+
+    def bounds(self, shape: tuple[int, ...], cut: bool = False) -> Bounds:
+        """The block in global coordinates; with ``cut``, a table's block
+        cut back to its logical rows."""
+        out = [(0, n) for n in shape]
+        stop = self.start + shape[self.axis]
+        if cut and self.logical is not None:
+            stop = min(stop, self.logical)
+        out[self.axis] = (self.start, stop)
+        return tuple(out)
+
+
+def _regions(state: TrainState, mesh) -> dict[str, _Region]:
+    """A :class:`_Region` for each sharded leaf of this rank: the row-sharded
+    tensors and the tensor-parallel slices."""
+    from ..parallel.mesh import MODEL_AXIS, axis_index
+    from ..parallel.sharding import logical_rows, row_offset, row_sharded_tensors, tp_sharded_tensors
+
+    out: dict[str, _Region] = {}
     for key, (name, t) in row_sharded_tensors(state).items():
-        rows = t.shape[0]
-        start = 0 if mesh is None else row_offset(mesh, rows)
-        out[key] = (start, rows, logical_rows(state.model, name))
+        start = 0 if mesh is None else row_offset(mesh, t.shape[0])
+        out[key] = _Region(0, start, logical_rows(state.model, name))
+    if state.tensor_parallel:
+        for key, (dim, t) in tp_sharded_tensors(state, mesh).items():
+            axis = 1 - dim if key.endswith("/w") else dim  # JAX's w is [in, out]
+            out[key] = _Region(axis, axis_index(mesh, MODEL_AXIS) * t.shape[dim], None)
     if state.packed_moments:  # the mv leaf holds the rows of m and v
         out.update({f"opt_sparse/{n}/mv": out[f"opt_sparse/{n}/m"] for n in state.opt_sparse})
     return out
@@ -85,9 +114,8 @@ def state_to_host_shards(state: TrainState, mesh=None, pull=None) -> dict[str, n
         region = regions.get(key)
         if region is not None:
             if data_index:
-                continue  # another data shard holds the same rows
-            start, rows, _ = region
-            bounds = ((start, start + rows),) + tuple((0, d) for d in arr.shape[1:])
+                continue  # another data shard holds the same block
+            bounds = region.bounds(arr.shape)
         elif _rank():
             continue  # replicated: rank 0 writes it
         else:
@@ -213,14 +241,9 @@ def load_sharded_checkpoint(
                 continue
             out = np.zeros(arr.shape, arr.dtype)
             region = regions.get(key)
-            if region is None:
-                _assemble(pieces, tuple((0, d) for d in arr.shape), out, key)
-            else:
-                start, rows, logical = region
-                stop = min(start + rows, logical)
-                if stop > start:
-                    want = ((start, stop),) + tuple((0, d) for d in arr.shape[1:])
-                    _assemble(pieces, want, out[: stop - start], key)
+            want = tuple((0, d) for d in arr.shape) if region is None else region.bounds(arr.shape, cut=True)
+            if all(b > a for a, b in want):
+                _assemble(pieces, want, out[tuple(slice(0, b - a) for a, b in want)], key)
             flat[key] = out
     finally:
         for blob in blobs:

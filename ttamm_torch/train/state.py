@@ -57,6 +57,9 @@ class TrainState:
     # training.packed_moments: checkpoints hold each sparse table's moments
     # as one [rows, 2D] leaf ``mv`` = [m | v] (the JAX packed layout)
     packed_moments: bool = False
+    # mesh.tensor_parallel: the dense tower layers and their moments hold
+    # this rank's Megatron slices over ``model`` (parallel/sharding.py)
+    tensor_parallel: bool = False
 
     @property
     def tables(self) -> dict[str, torch.Tensor]:

@@ -37,7 +37,12 @@ clip's scale (and under the owner routing each coalesced total once more,
 With ``mesh`` (a ``DeviceMesh`` with dims ``("data", "model")``, one process
 per device) the step runs on this rank's parts of a state and data placed by
 ``ttamm_torch.parallel.sharding``: the same body reads, reduces and
-updates through :class:`_Mesh` instead of :class:`_OneDevice`.
+updates through :class:`_Mesh` instead of :class:`_OneDevice`. On a
+state placed with ``place_state(tensor_parallel=True)``
+(``mesh.tensor_parallel``, which the state records) the towers run their
+split layers through the mesh's tensor-parallel contexts
+(``models/encoders.py``); on one device there is no such placement, as in
+the JAX package, which builds no mesh there.
 
 The state is updated in place. Parity notes (as in the JAX package):
 training logits are dot products whatever ``model.similarity`` says; mimic
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 
 from ..models.adaptive_mimic import mimic_forward
+from ..models.encoders import TPContext
 from ..models.two_tower import ModelConfig, TwoTower
 from ..ops import kernels
 from ..ops.losses import bce_with_logits, category_alignment_loss
@@ -184,18 +190,23 @@ def _forward_embeddings(
     rows: dict[str, torch.Tensor],
     generator: torch.Generator | None,
     lookup=_gather_opt,
+    tp: dict[str, TPContext] | None = None,
 ):
     """``(user_emb, pos_emb, neg_emb, mimic_user_loss, mimic_item_loss)``
     from pre-gathered table rows (items ordered [positives; the rest]);
     ``neg_emb`` is ``[B, NEG, D]`` under the BCE loss and the flat pool
     ``[M, D]`` under the in-batch loss. Dropout only with a ``generator``.
-    ``lookup(features, idx)`` reads feature rows."""
+    ``lookup(features, idx)`` reads feature rows; ``tp``: each tower's
+    tensor-parallel context, by side."""
     batch = u_idx.shape[0]
+    tp = tp or {}
     user_base = model.user_tower.forward_rows(
-        rows["user_id"], lookup(data.user_features, u_idx), generator=generator
+        rows["user_id"], lookup(data.user_features, u_idx), generator=generator,
+        tp=tp.get("user"),
     )
     item_base_all = model.item_tower.forward_rows(
-        rows["item_id"], lookup(data.item_features, item_idx_all), generator=generator
+        rows["item_id"], lookup(data.item_features, item_idx_all), generator=generator,
+        tp=tp.get("item"),
     )
     pos_base, neg_base = item_base_all[:batch], item_base_all[batch:]
     zero = user_base.new_zeros(())
@@ -384,6 +395,16 @@ class _OneDevice:
     def reduce_table_sq(self, sq: torch.Tensor) -> torch.Tensor:
         return sq
 
+    def tp(self, state: TrainState) -> dict[str, TPContext] | None:
+        """The towers' tensor-parallel contexts for ``state``, by side; None
+        without tensor parallelism (always so on one device)."""
+        return None
+
+    def dense_sq(self, grads: list[torch.Tensor], tp) -> list[torch.Tensor]:
+        """Each dense gradient's squared norm (the clip's), in
+        ``dense_parameters`` order; ``tp`` as :meth:`tp` gave it."""
+        return [torch.sum(torch.square(g)) for g in grads]
+
     def candidates(self, pos_emb: torch.Tensor, pool_emb: torch.Tensor, bt: _Batch):
         """``(every positive's embedding [B, D], the pool's [M, D])``: the
         in-batch loss's candidates."""
@@ -440,8 +461,13 @@ class _Mesh(_OneDevice):
        data whose backward sums the gradient over data
        (``all_gather_rows_grad``), so each row keeps one dropout mask;
     4. dense gradients are summed over data (model ranks hold the same batch
-       rows, so never over model);
+       rows, so never over model); on a tensor-parallel state a split
+       layer's gradient is this rank's slice, so the sum over data carries
+       ``1/s`` of it, and the towers' own collectives are the batch-sized
+       sums over model of ``models/encoders.py`` (f and g);
     5. the clip norm is global: the dense tables' shards summed over model,
+       each split dense parameter's slices summed over model (each whole
+       one counted once),
        each sparse table's duplicate rows summed over the whole batch, its
        lanes gathered over data and sorted once (``gather_lanes``);
     6. ``sharded_sparse_adam_update`` (``update_routing``) updates the sparse
@@ -452,11 +478,13 @@ class _Mesh(_OneDevice):
     """
 
     def __init__(self, mesh, tscfg: TrainStepConfig):
-        from ..parallel import embedding_lookup, exchange, sparse_update
+        from ..parallel import embedding_lookup, exchange, sharding, sparse_update
         from ..parallel import mesh as pmesh
 
         super().__init__(tscfg)
         self.mesh, self._lookup, self._update, self._pm = mesh, embedding_lookup, sparse_update, pmesh
+        self._sharding = sharding
+        self._tp = self._split_at = None  # built on the first tensor-parallel state
         self._exchange = exchange if tscfg.embedding_exchange == "alltoall" else None
         self.dp = pmesh.axis_size(mesh, pmesh.DATA_AXIS)
         self.d = pmesh.axis_index(mesh, pmesh.DATA_AXIS)
@@ -500,6 +528,41 @@ class _Mesh(_OneDevice):
 
     def reduce_table_sq(self, sq):
         return self._pm.all_reduce(sq.reshape(1), self.mesh, self._pm.MODEL_AXIS)[0]
+
+    def tp(self, state):
+        if not state.tensor_parallel:
+            return None
+        if self._tp is None:
+            self._tp, self._split_at = self._tp_contexts(state.model)
+        return self._tp
+
+    def _tp_contexts(self, model: TwoTower):
+        """Each tower's context over ``model`` (f, g and its layers' roles)
+        and the positions of the split leaves in ``dense_parameters``. The
+        roles follow the config's widths, so one build serves every state
+        of the step."""
+        pm, mesh, axis = self._pm, self.mesh, self._pm.MODEL_AXIS
+        size = pm.axis_size(mesh, axis)
+        base = TPContext(
+            size=size, index=pm.axis_index(mesh, axis),
+            copy_in=lambda t: pm.copy_to_axis(t, mesh, axis),
+            reduce_out=lambda t: pm.all_reduce_statistic(t, mesh, axis),
+            all_reduce=lambda t: pm.all_reduce(t, mesh, axis), roles={},
+        )
+        contexts = {side: base._replace(roles=model.tower(side).tp_roles(size))
+                    for side in ("user", "item")}
+        split = self._sharding.tp_leaf_dims(model, size)
+        return contexts, [i for i, (key, _) in enumerate(model.dense_parameters()) if key in split]
+
+    def dense_sq(self, grads, tp):
+        sq = super().dense_sq(grads, tp)
+        if tp is not None and self._split_at:
+            # one sum over model of every split parameter's slice norm
+            at = self._split_at
+            summed = self._pm.all_reduce(torch.stack([sq[i] for i in at]), self.mesh, self._pm.MODEL_AXIS)
+            for i, value in zip(at, summed.unbind()):
+                sq[i] = value
+        return sq
 
     def candidates(self, pos_emb, pool_emb, bt):
         pool = bt.candidates.shape[0] - bt.size
@@ -577,7 +640,9 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
     terms), read by the caller when it likes, so a step issues no host sync.
 
     ``mesh``: the step on one rank of a ``(data, model)`` mesh, whose
-    differences :class:`_Mesh` lists (dropout from ``dropout_generator``).
+    differences :class:`_Mesh` lists (dropout from ``dropout_generator``),
+    with the dense tower layers split over ``model`` where the state was
+    placed so (``TrainState.tensor_parallel``).
     """
     _check_config(tscfg)
     layout = _layout(tscfg, mesh)
@@ -587,6 +652,10 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
     lam_u = tscfg.lambda_mimic_user if cfg.mimic_enabled else 0.0
     lam_i = tscfg.lambda_mimic_item if cfg.mimic_enabled else 0.0
     lam_c = tscfg.lambda_category_alignment
+    # model.precision: bfloat16: the towers leave each weight gradient of a
+    # bf16 matmul in float32 (models/encoders.py _Bf16Dot); it is rounded
+    # after the sum over data, where the JAX mesh step rounds it
+    bf16 = cfg.user_tower.compute_dtype == "bfloat16"
 
     def combine(retrieval, mu, mi, cal):
         total = retrieval
@@ -599,7 +668,7 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
         return total
 
     def train_step(state, data, u_idx, pos_idx, *, generator, negatives=None, dropout_generator=None):
-        model = state.model
+        model, tp = state.model, layout.tp(state)
         bt = _batch_lanes(layout, tscfg, data, u_idx, pos_idx, generator, negatives)
         row_idx = _row_indices(bt)
         tables = state.tables
@@ -612,7 +681,7 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
 
         user_emb, pos_emb, neg_emb, mu_loss, mi_loss = _forward_embeddings(
             model, tscfg, data, bt.users, bt.items, rows,
-            layout.dropout(generator, dropout_generator), layout.lookup,
+            layout.dropout(generator, dropout_generator), layout.lookup, tp,
         )
         retrieval = _retrieval_loss(layout, tscfg, data, bt, user_emb, pos_emb, neg_emb)
         parts = layout.weigh(bt.size, bt.hi - bt.lo, [retrieval, mu_loss, mi_loss])
@@ -630,6 +699,9 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
         grads = torch.autograd.grad(objective, wrt, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, grads)]
         dense_grads = layout.reduce_dense(grads[: len(dense)])
+        if bf16:
+            dense_grads = [g.to(torch.bfloat16).float() if k.endswith("/w") else g
+                           for (k, _), g in zip(model.dense_parameters(), dense_grads)]
         input_grads = dict(zip(inputs, grads[len(dense) :]))
         table_grads = [layout.table_grad(input_grads[n], row_idx[n], tables[n]) for n in dense_tbl_names]
         lanes = {n: layout.lanes(n[:4], row_idx[n], input_grads[n], bt) for n in sparse_names}
@@ -637,7 +709,7 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
         if tscfg.gradient_clip_norm is not None and tscfg.gradient_clip_norm > 0:
             # Global norm over every gradient, with each sparse table's
             # duplicate rows summed first (the true gradient's norm).
-            sq = sum(torch.sum(torch.square(g)) for g in dense_grads)
+            sq = sum(layout.dense_sq(dense_grads, tp))
             if table_grads:
                 sq = sq + layout.reduce_table_sq(sum(torch.sum(torch.square(g)) for g in table_grads))
             for n in sparse_names:
@@ -678,7 +750,8 @@ def make_eval_loss_step(
     BCE on [positives; sampled negatives], or the in-batch softmax of the
     batch with its own pool), no dropout, no auxiliary terms (0-d device
     tensor). ``mesh``: the batch's loss from the data shards' parts
-    (:class:`_Mesh` describes the layout)."""
+    (:class:`_Mesh` describes the layout; a tensor-parallel state as in the
+    train step)."""
     _check_config(tscfg)
     layout = _layout(tscfg, mesh)
     sparse_names = sparse_table_names(cfg)
@@ -692,7 +765,8 @@ def make_eval_loss_step(
             for n, t in state.tables.items()
         }
         user_emb, pos_emb, neg_emb, _, _ = _forward_embeddings(
-            state.model, tscfg, data, bt.users, bt.items, rows, None, layout.lookup
+            state.model, tscfg, data, bt.users, bt.items, rows, None, layout.lookup,
+            layout.tp(state),
         )
         retrieval = _retrieval_loss(layout, tscfg, data, bt, user_emb, pos_emb, neg_emb)
         (loss,) = layout.reduce_losses(layout.weigh(bt.size, bt.hi - bt.lo, [retrieval]))
