@@ -201,6 +201,20 @@ result line):
    directory, whose vocab must equal the export's and whose user
    embeddings must be within 1e-5 of the export's (the same encode of the
    same best state);
+6b. the port's command lines and host backends, each CLI in a process of
+   its own, side by side: (a) ``python -m ttamm_torch.pipelines.preprocess``
+   on phase 3's CSVs and config, whose seven arrays must equal phase 3's
+   dataset and whose vocabularies its index maps; (b) ``python -m
+   ttamm_torch.serve.query`` on phase 6's ``items.index`` for its first
+   1,024 users at k = 20 under ``--backend device``, ``native`` and
+   ``numpy``, ids agreeing but for ties (phase 6's tolerance); (c) ``python
+   -m ttamm_torch.serve`` under ``--backend native`` and ``device`` for 8
+   users, the same asins but for ties; (d) meanwhile, in this process,
+   ``run_training`` with ``diagnostics.profile_dir`` for 20 steps: one
+   trace, naming ``sparse_adam_rows_kernel``, ``m2_chunk_kernel`` and
+   ``gather_rows_kernel``. Then each backend's ``FlatIndex.search`` host ms
+   at 1,024 queries, alone, and the host CPU. Its launches are counted from
+   zero and must include the search, row and moments kernels;
 7. corpus scale: a 2M x 128 index of seeded random rows searched through
    ``auto``, ``group_exact`` and ``fused`` at B=1024, k=20; fused ids must
    equal the plain-version fused ids (ties within 1e-5 aside); then one
@@ -219,7 +233,7 @@ result line):
    numpy search (ties within 1e-5 aside), no blocked id returned, and at 2M
    items an explicit chunked search equals group_exact's ids; then device
    ms, host ms and the launches a search;
-8. the launch counts of phases 5-7b (phase 5b's and 5c's are their own, in
+8. the launch counts of phases 5-7b, 6b's included (phase 5b's and 5c's are their own, in
    the summary's ``in_batch_softmax`` and ``pod_2x4``) and, for gather_rows_masked, of phase
    4b's sharded steps (every kernel must have run), leaving out the
    launches made to compare or time a kernel against its plain version;
@@ -237,6 +251,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -3120,6 +3135,200 @@ def phase_serve(dev, work: Path, config: dict, dataset, checkpoint: Path, score_
     torch.cuda.empty_cache()
 
 
+def _cli_start(*args: str) -> tuple[subprocess.Popen, float]:
+    """``python -m <args>`` from the checkout, started (with its start
+    time)."""
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def _cli_wait(started: tuple[subprocess.Popen, float], label: str) -> str:
+    """The stdout of a started CLI once it has exited 0; its seconds logged."""
+    proc, start = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    check(proc.returncode == 0, f"{label} exited {proc.returncode}:\n{err[-4000:]}")
+    log(f"{label}: exited 0 after {time.perf_counter() - start:.2f} s")
+    return out
+
+
+def _preprocess_config(work: Path, config: dict) -> Path:
+    """Phase 3's config with ``data.cache_dir`` under ``work``."""
+    import yaml
+
+    cfg = json.loads(json.dumps(config))
+    cfg["data"]["cache_dir"] = str(work / "cli" / "cache")
+    path = work / "cli" / "config.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def _check_preprocess(work: Path, out: str, dataset) -> None:
+    """6b (a): the preprocess CLI's arrays and vocabularies are phase 3's
+    dataset."""
+    import numpy as np
+
+    from ttamm_torch.data import build_item_categories, pack_positives
+
+    log("preprocess CLI: " + " | ".join(out.splitlines()))
+    nu, ni = len(dataset.user_mapping), len(dataset.item_mapping)
+    packed = pack_positives(dataset.user_positive_items, num_users=nu, num_items=ni)
+    want = {
+        "item_features": dataset.item_feature_matrix,
+        "user_features": dataset.user_feature_matrix,
+        "positive_rows": packed.rows,
+        "positive_counts": packed.counts,
+        "user_idx": dataset.interactions["user_idx"].to_numpy(np.int32),
+        "item_idx": dataset.interactions["item_idx"].to_numpy(np.int32),
+        "category_ids": build_item_categories(dataset.items, num_items=ni).category_ids,
+    }
+    with np.load(work / "cli" / "cache" / "training_arrays.npz") as got:
+        check(sorted(got.files) == sorted(want), f"training_arrays.npz holds {sorted(got.files)}")
+        for key, value in want.items():
+            check(got[key].dtype == value.dtype and np.array_equal(got[key], value),
+                  f"preprocess CLI: {key} differs from phase 3's dataset")
+    vocab = json.loads((work / "cli" / "cache" / "vocab.json").read_text())
+    check(vocab["user_ids"] == list(dataset.user_mapping.index_to_id)
+          and vocab["item_ids"] == list(dataset.item_mapping.index_to_id),
+          "preprocess CLI: vocab.json's ids differ from phase 3's index maps")
+    log(f"preprocess CLI: the 7 arrays equal phase 3's dataset ({nu} users, {ni} items), "
+        "vocab ids equal its index maps")
+
+
+def _true_scores(index, queries, ids):
+    """The float32 scores of ``ids`` for each normalised query row."""
+    import numpy as np
+
+    q = queries / np.maximum(np.linalg.norm(queries, axis=1, keepdims=True), 1e-12)
+    return np.einsum("bd,bkd->bk", q, index.embeddings[ids])
+
+
+def _query_ids(text: str):
+    import numpy as np
+
+    return np.asarray([[int(p.split(":")[0]) for p in line.split(": ", 1)[1].split(", ")]
+                       for line in text.strip().splitlines()])
+
+
+def _profile_run(dev, work: Path, config: dict, dataset) -> dict:
+    """6b (d): ``run_training`` with ``diagnostics.profile_dir`` over
+    PROFILE_STEPS steps: one trace, which names the row and moments
+    kernels by their CUDA names."""
+    from ttamm_torch.pipelines.training import run_training
+
+    cfg = json.loads(json.dumps(config))
+    run_dir = work / "profile_run"
+    cfg["training"]["num_epochs"] = 1
+    cfg["training"]["checkpointing"]["enabled"] = False
+    cfg["experiment"]["benchmark_report"] = None
+    cfg["evaluation"]["faiss"].update(index_path=str(run_dir / "faiss" / "items.index"),
+                                      embedding_path=str(run_dir / "faiss" / "item_embeddings.npy"))
+    for key in ("report_path", "loss_plot_path", "embedding_summary_path"):
+        cfg["diagnostics"][key] = str(run_dir / "reports" / Path(cfg["diagnostics"][key]).name)
+    cfg["diagnostics"]["profile_dir"] = str(work / "profile")
+    start = time.perf_counter()
+    result = run_training(cfg, device=dev, max_steps=PROFILE_STEPS, dataset=dataset)
+    traces = sorted((work / "profile").glob("*.json"))
+    check(result.steps == PROFILE_STEPS and len(traces) == 1, f"profile_dir holds {traces}")
+    names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    found = {k: sorted(n for n in names if k in n)[:1]
+             for k in ("sparse_adam_rows_kernel", "m2_chunk_kernel", "gather_rows_kernel")}
+    log(f"profile trace {traces[0].name}: {traces[0].stat().st_size / 1e6:.1f} MB, "
+        f"{len(names)} names, {time.perf_counter() - start:.2f} s with the run | kernels {found}")
+    check(all(found.values()), f"the trace does not name {[k for k, v in found.items() if not v]}")
+    return found
+
+
+def phase_cli(dev, work: Path, config: dict, dataset) -> dict:
+    """Phase 6b: the port's command lines and host backends on phase 6's
+    bundle and phase 3's corpus. The CLIs run side by side, each in a
+    process of its own, while this process runs (d); the host backends are
+    timed after, alone. Returns the summary (host ms of each backend, the
+    trace's kernels) and this phase's launches."""
+    import numpy as np
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.serve import RetrievalService
+
+    bundle = work / "bundle"
+    service = RetrievalService.from_artifacts(bundle, device=dev)
+    index = service.index
+    score_dtype = index.score_dtype
+    tol = TIE_TOL if score_dtype == "float32" else BF16_TIE_TOL
+    queries = service.user_embeddings[:BATCH]
+    users = service.user_ids[:8]
+    (work / "cli").mkdir(parents=True, exist_ok=True)
+    np.save(work / "cli" / "queries.npy", queries)
+    # (a) preprocess on phase 3's CSVs and config; (b) the query CLI on the
+    # bundle's index and its first 1,024 users; (c) the serve CLI for 8 users
+    procs = {"preprocess CLI": _cli_start(
+        "ttamm_torch.pipelines.preprocess", "--config", str(_preprocess_config(work, config)))}
+    for backend in ("numpy", "native", "device"):
+        procs[f"query CLI --backend {backend}"] = _cli_start(
+            "ttamm_torch.serve.query", "--index", str(bundle / "items.index"), "--queries",
+            str(work / "cli" / "queries.npy"), "--k", str(K), "--backend", backend)
+    for backend in ("native", "device"):
+        args = ["ttamm_torch.serve", "--artifacts", str(bundle), "--k", str(K), "--backend", backend]
+        for uid in users:
+            args += ["--user-id", uid]
+        procs[f"serve CLI --backend {backend}"] = _cli_start(*args)
+    try:
+        found = _profile_run(dev, work, config, dataset)  # (d), meanwhile
+    except BaseException:
+        for proc, _ in procs.values():  # (d) failed: stop the CLIs, keep its error
+            proc.kill()
+            proc.communicate()
+        raise
+    outs = {label: _cli_wait(proc, label) for label, proc in procs.items()}
+
+    _check_preprocess(work, outs["preprocess CLI"], dataset)
+    ref = _query_ids(outs["query CLI --backend numpy"])
+    check(ref.shape == (BATCH, K), f"query CLI printed {ref.shape} ids")
+    for backend in ("native", "device"):
+        ids = _query_ids(outs[f"query CLI --backend {backend}"])
+        check(ids.shape == ref.shape and ids_agree(
+            ids, _true_scores(index, queries, ids), ref, _true_scores(index, queries, ref),
+            TIE_TOL if backend == "native" else tol),
+            f"query CLI --backend {backend}: ids differ from --backend numpy beyond ties")
+        log(f"query CLI --backend {backend}: ids agree with --backend numpy ({score_dtype} index)")
+    lines = {b: outs[f"serve CLI --backend {b}"].strip().splitlines() for b in ("native", "device")}
+    check(all(len(v) == len(users) for v in lines.values()), f"serve CLI printed {lines}")
+    item_pos = {asin: i for i, asin in enumerate(service.item_ids)}
+    for got, want in zip(lines["device"], lines["native"]):
+        (uid, g), (_, w) = got.split("\t"), want.split("\t")
+        ids = np.asarray([[item_pos[p.rsplit(":", 1)[0]] for p in g.split(", ")]])
+        ref_ids = np.asarray([[item_pos[p.rsplit(":", 1)[0]] for p in w.split(", ")]])
+        q = service.user_embeddings[service.user_to_idx[uid]][None, :]
+        check(ids_agree(ids, _true_scores(index, q, ids), ref_ids, _true_scores(index, q, ref_ids), tol),
+              f"serve CLI: user {uid}'s asins differ between --backend device and native")
+    log(f"serve CLI: {len(users)} users, the same asins under --backend device and native (ties aside)")
+
+    host_ms = {}
+    for backend, iters in (("device", 15), ("native", 5), ("numpy", 3)):
+        qps = host_qps(lambda: index.search(queries, K, backend=backend), BATCH, iters=iters)
+        host_ms[backend] = BATCH / qps * 1e3
+        log(f"FlatIndex.search --backend {backend}: {host_ms[backend]:.3f} host ms for {BATCH} "
+            f"queries ({qps:.1f} queries/s), {len(index)} items, {score_dtype}")
+    del service, index
+    torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    for name in ("small_k_topk", "select_topk_from_groups", "gather_rows", "sparse_adam_rows",
+                 "segment_second_moments"):
+        check(launches[name] > 0, f"{name} not launched in phase 6b")
+    lscpu = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    cpu = ", ".join(line.split(":", 1)[1].strip() for line in lscpu.splitlines()
+                    if line.startswith(("Vendor ID", "Model name", "CPU family", "Model:")))
+    log(f"host CPU (lscpu: vendor, model name, family, model): {cpu}; {os.cpu_count()} cores")
+    return {"host_ms_1024_queries": host_ms, "score_dtype": score_dtype, "trace_kernels": found,
+            "host_cpu": cpu, "launches": launches}
+
+
 def phase_corpus_scale(dev) -> None:
     import numpy as np
     import torch
@@ -3365,13 +3574,20 @@ def main() -> int:
             with Phase("5d model.precision: bfloat16"):
                 precision_summary = phase_precision(dev, work, dataset, result)
                 torch.cuda.empty_cache()
-            kernels.reset_launch_counts()  # phases 6-7's launches start here
+            kernels.reset_launch_counts()  # phase 6's launches start here
             with Phase("6 export from the best checkpoint and serve"):
                 phase_serve(dev, work, config, dataset, result.best_checkpoint_path,
                             result.serving_score_dtype)
+            path_counts.update(kernels.launch_counts())  # phase 6's launches
+            kernels.reset_launch_counts()  # phase 6b's start here
+            with Phase("6b the port's CLIs and host backends"):
+                cli_summary = phase_cli(dev, work, config, dataset)
+                path_counts.update(cli_summary.pop("launches"))
+                torch.cuda.empty_cache()
+            kernels.reset_launch_counts()  # phase 7's start here
             with Phase("7 corpus scale"):
                 phase_corpus_scale(dev)
-            path_counts.update(kernels.launch_counts())  # phases 6-7's launches
+            path_counts.update(kernels.launch_counts())  # phase 7's launches
             with Phase("7b the chunked search past the slab ceiling"):
                 chunked_summary = phase_chunked(dev)
                 path_counts.update(chunked_summary["launches"])
@@ -3423,6 +3639,7 @@ def main() -> int:
         "tensor_parallel_1x1": tp_summary,
         "precision_bf16": precision_summary,
         "chunked_10m": chunked_summary,
+        "cli_6b": cli_summary,
     }
     log(json.dumps(summary))
     log(smi)

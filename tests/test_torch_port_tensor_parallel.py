@@ -52,9 +52,15 @@ fallback). The scenarios:
   measured at most 6.6e-6; 2e-3 with bf16 operands or wire, measured at
   most 6.8e-4 with TP and 5.0e-4 without), so a split leaf's gradient at a
   wrong scale fails;
-- dropout on (2x2 and 1x4): the TP step draws the non-TP mesh step's
-  masks (the uniforms themselves compared, every draw whole-width), and
-  the two steps agree at the tolerances above; after the steps every
+- the first step's dense gradients (after the clip, before Adam), read
+  from each dense leaf's first moment ``m_1 = (1 - b1) g``, where no eps
+  has amplified a sum-order difference yet: each element within
+  ``GRAD_RTOL`` of its leaf's largest (1e-4 in float32, measured at most
+  2.2e-5; 2^-7, one bf16 ulp, with bf16 operands, measured 3.6e-4);
+- dropout on (2x2 and 1x4), on two draws of batches: the TP step draws
+  the non-TP mesh step's masks (the uniforms themselves compared, every
+  draw whole-width), and the two steps agree at the tolerances above and
+  in their first-step gradients; after the steps every
   replicated leaf and row-layer bias is bit-equal on every rank, and each
   split leaf on the data ranks of its model index;
 - a spy on every collective of a TP step: each all-reduce over ``model``
@@ -152,6 +158,12 @@ ROUTINGS = ("allgather", "owner")
 FLIP_SHARE, FLIP_BOUND = 5e-3, 1e-5  # the bf16 wire's sparse moments (see above)
 RELU_FLIP_BOUND = 1e-4  # bf16 precision's tables and dense leaves (see above)
 TOLERANCES = dict(loss=1e-4, dense=2e-5, sparse_moments=1e-6)
+# the first step's dense gradients (after the clip, before Adam), each
+# element within this share of its leaf's largest |g|: float32 sums in
+# another order (measured at most 2.2e-5, on the dense item mimic table at
+# 1x4), and with bf16 operands a rounding flip of one bf16 ulp (2^-7 of the
+# element at most; measured 3.6e-4)
+GRAD_RTOL = {"bce": 1e-4, "dropout": 1e-4, "pod": 1e-4, "bf16": 2.0**-7}
 # a dense m leaf's error relative to its norm, by structure: float32, and
 # with bf16 operands or wire (a gradient element rounded to the other bf16
 # neighbour); measured at most 6.6e-6 and 6.8e-4 (see above)
@@ -220,8 +232,9 @@ def _batches(rng, data, structure):
 
 def _jax_tp_steps(structure, mesh_shape, flat, data, batches, tensor_parallel=True):
     """JAX's TP steps (``tensor_parallel=False``: its steps without TP) on
-    its virtual mesh: the final state (flat host arrays) and the losses
-    (sorted keys) of each step."""
+    its virtual mesh: the final state (flat host arrays), the losses
+    (sorted keys) of each step and the dense first moments after the first
+    step (``step1/opt_dense/m/...``)."""
     jcfg = jax_parse(MODELS[structure], user_feature_dim=FU, item_feature_dim=FI)
     template = jax_state.create_train_state(jax.random.key(0), jcfg, num_users=NU, num_items=NI)
     state = _jax_restore(template, flat)
@@ -240,11 +253,14 @@ def _jax_tp_steps(structure, mesh_shape, flat, data, batches, tensor_parallel=Tr
     pdata = place_data(mesh, pad_batch_data(jdata, mp))
     step = make_sharded_train_step(jcfg, tscfg, mesh, state, pdata,
                                    tensor_parallel=tensor_parallel)
-    losses = []
+    losses, first = [], {}
     for u, p, _, key in batches:
         state, metrics = step(state, pdata, jnp.asarray(u), jnp.asarray(p), key)
         losses.append([float(metrics[k]) for k in sorted(metrics)])
-    return jax_ckpt.state_to_host(state), np.asarray(losses)
+        if not first:
+            first = {f"step1/{k}": np.asarray(v) for k, v in jax_ckpt.state_to_host(state).items()
+                     if k.startswith("opt_dense/m/")}
+    return jax_ckpt.state_to_host(state), np.asarray(losses), first
 
 
 def _jax_restore(template, flat):
@@ -317,9 +333,10 @@ def tp_run(tmp_path_factory):
         for routing in ROUTINGS:
             tasks.append(step_task(
                 f"{case}_{routing}", structure, mesh, inputs_prefix=case,
-                tscfg=dict(TSCFG[structure], update_routing=routing),
+                tscfg=dict(TSCFG[structure], update_routing=routing), first_moments=True,
                 collectives=case == "bce_2x2" and routing == "allgather"))
-    for label, mesh in DROPOUT_MESHES.items():
+
+    def dropout_tasks(label, mesh):
         batches = _batches(rng, data, "dropout")
         for s, (u, p, neg, _) in enumerate(batches):
             inputs.update({f"dropout_{label}/u{s}": u, f"dropout_{label}/p{s}": p,
@@ -328,7 +345,10 @@ def tp_run(tmp_path_factory):
             tasks.append(step_task(
                 f"dropout_{label}_{'tp' if tp else 'plain'}", "dropout", mesh,
                 inputs_prefix=f"dropout_{label}", tscfg=TSCFG["dropout"], dropout=True,
-                tensor_parallel=tp))
+                tensor_parallel=tp, first_moments=True))
+
+    for label, mesh in DROPOUT_MESHES.items():
+        dropout_tasks(label, mesh)
 
     # the bf16 mesh step without TP (its batches drawn after the others')
     for case, (structure, mesh) in PLAIN_CASES.items():
@@ -341,6 +361,9 @@ def tp_run(tmp_path_factory):
             tasks.append(step_task(f"{case}_{routing}", structure, mesh, tensor_parallel=False,
                                    inputs_prefix=case,
                                    tscfg=dict(TSCFG[structure], update_routing=routing)))
+    # the dropout case again on a second draw of batches (drawn last)
+    for label, mesh in DROPOUT_MESHES.items():
+        dropout_tasks(f"{label}_draw2", mesh)
 
     # checkpoints: the trained 2x2 state, JAX's TP directory of it, and a
     # one-device port directory of it
@@ -426,11 +449,34 @@ def _assert_state_close(got, want, label, structure, wire=False):
 @pytest.mark.parametrize("routing", ROUTINGS)
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_tp_step_matches_jax_tp_step(tp_run, case, routing):
-    want, want_losses = tp_run["refs"][case]
+    want, want_losses, _ = tp_run["refs"][case]
     got = tp_run["outs"][f"{case}_{routing}"]
     np.testing.assert_allclose(got["losses"], want_losses, rtol=TOLERANCES["loss"], atol=1e-7)
     structure = CASES[case][0]
     _assert_state_close(got, want, f"{case} {routing}", structure, wire=structure == "pod")
+
+
+def _assert_grads_close(got, want, label, structure):
+    """The first step's dense gradients (after the clip, before Adam) of
+    ``got`` within ``GRAD_RTOL[structure]`` of ``want``'s, relative to each
+    leaf's largest: read from the first moments, ``m_1 = (1 - b1) g``, where
+    no eps has amplified a sum-order difference yet."""
+    keys = [k for k in want if k.startswith("step1/")]
+    assert keys
+    for key in keys:
+        value = np.asarray(want[key], np.float64)
+        if value.ndim:
+            value = value[: got[key].shape[0]]  # JAX pads tables to its own multiple
+        err = np.abs(got[key] - value).max(initial=0.0)
+        scale = np.abs(value).max(initial=0.0)
+        assert err <= GRAD_RTOL[structure] * scale, (label, key, err / scale)
+
+
+@pytest.mark.parametrize("routing", ROUTINGS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tp_step_dense_gradients_before_adam_match_jax(tp_run, case, routing):
+    _assert_grads_close(tp_run["outs"][f"{case}_{routing}"], tp_run["refs"][case][2],
+                        f"{case} {routing}", CASES[case][0])
 
 
 @pytest.mark.parametrize("routing", ROUTINGS)
@@ -439,7 +485,7 @@ def test_bf16_mesh_step_without_tp_matches_jax(tp_run, case, routing):
     """``model.precision: bfloat16`` on the mesh without TP: each weight
     gradient rounded to bf16 after its sum over data (where JAX's mesh step
     rounds it), held to JAX's non-TP step at the same tolerances."""
-    want, want_losses = tp_run["refs"][case]
+    want, want_losses, _ = tp_run["refs"][case]
     got = tp_run["outs"][f"{case}_{routing}"]
     np.testing.assert_allclose(got["losses"], want_losses, rtol=TOLERANCES["loss"], atol=1e-7)
     _assert_state_close(got, want, f"{case} {routing}", PLAIN_CASES[case][0])
@@ -484,7 +530,18 @@ def test_replicated_leaves_stay_equal_across_ranks(tp_run, case):
 
 @pytest.mark.parametrize("mesh", sorted(DROPOUT_MESHES))
 def test_tp_dropout_draws_the_non_tp_masks(tp_run, mesh):
-    tp, plain = (tp_run["outs"][f"dropout_{mesh}_{kind}"] for kind in ("tp", "plain"))
+    _check_dropout(tp_run, mesh, mesh)
+
+
+@pytest.mark.parametrize("mesh", sorted(DROPOUT_MESHES))
+def test_tp_dropout_on_a_second_draw(tp_run, mesh):
+    _check_dropout(tp_run, f"{mesh}_draw2", mesh)
+
+
+def _check_dropout(tp_run, label, mesh):
+    """The TP and non-TP steps of ``label``'s batches on ``mesh`` with
+    dropout: the same masks, losses, first-step dense gradients and state."""
+    tp, plain = (tp_run["outs"][f"dropout_{label}_{kind}"] for kind in ("tp", "plain"))
     # every draw whole-width ([rows of the data shard, H]) on every rank,
     # and the masks (uniform < 1 - rate) those of the non-TP step
     dp = DROPOUT_MESHES[mesh][0]
@@ -494,7 +551,9 @@ def test_tp_dropout_draws_the_non_tp_masks(tp_run, mesh):
     np.testing.assert_array_equal(tp["draws"], plain["draws"])
     assert (tp["draws"] >= 0.8).any()  # some units dropped
     np.testing.assert_allclose(tp["losses"], plain["losses"], rtol=TOLERANCES["loss"], atol=1e-7)
-    _assert_state_close(tp, {k: v for k, v in plain.items() if "/" in k}, mesh, "dropout")
+    _assert_grads_close(tp, plain, label, "dropout")
+    _assert_state_close(tp, {k: v for k, v in plain.items() if "/" in k and not k.startswith("step1/")},
+                        label, "dropout")
     _assert_ranks_agree(tp["rank_dense"], "dropout", DROPOUT_MESHES[mesh])
 
 

@@ -183,7 +183,9 @@ def train_step(task, inputs):
     (``gather_dtypes``, one string a call); with ``task["collectives"]``
     every collective of the first step (``collectives`` [n, 4]: op, axis,
     shape, dtype); with ``task["dropout"]`` the masks' uniforms each rank
-    drew (``draws`` [world, n], ``draw_shapes``)."""
+    drew (``draws`` [world, n], ``draw_shapes``); with ``task["first_moments"]``
+    the dense first moments after the first step (``step1/opt_dense/m/...``,
+    gathered whole: (1 - b1) times that step's dense gradients)."""
     mesh = _mesh(task)
     mp = mesh[MODEL_AXIS].size()
     tp = task.get("tensor_parallel", False)
@@ -197,7 +199,7 @@ def train_step(task, inputs):
     data = place_data(mesh, pad_batch_data(data, mp))
     tscfg = TrainStepConfig(**dict(task["tscfg"], opt=DenseOptConfig(**task["opt"])))
     step = make_sharded_train_step(cfg, tscfg, mesh)
-    prefix, losses, dtypes = task.get("inputs_prefix", task["name"]), [], []
+    prefix, losses, dtypes, first = task.get("inputs_prefix", task["name"]), [], [], {}
     collectives, draws = [], []
     gather = sparse_update_module.all_gather_rows
 
@@ -225,6 +227,11 @@ def train_step(task, inputs):
                     generator=None, negatives=_t(inputs, f"{prefix}/neg{s}"), dropout_generator=drop,
                 )
             losses.append([float(metrics[k]) for k in sorted(metrics)])
+            if task.get("first_moments") and s == 0:
+                # copies: a replicated leaf's array is a view of the live
+                # moment, which the next step updates in place
+                first = {f"step1/{k}": v.copy() for k, v in gather_state_flat(state, mesh).items()
+                         if k.startswith("opt_dense/m/")}
     finally:
         sparse_update_module.all_gather_rows = gather
     # every rank's dense parameters (its slices under tensor parallelism),
@@ -234,7 +241,7 @@ def train_step(task, inputs):
     dist.all_gather(ranks, dense)
     out = dict(gather_state_flat(state, mesh), losses=np.asarray(losses),
                gather_dtypes=np.asarray(dtypes, dtype=str), rank_dense=torch.stack(ranks).numpy(),
-               collectives=np.asarray(collectives, dtype=str).reshape(-1, 4))
+               collectives=np.asarray(collectives, dtype=str).reshape(-1, 4), **first)
     if draws:
         mine = torch.cat([d.reshape(-1) for d in draws])
         every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]

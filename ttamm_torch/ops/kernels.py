@@ -59,7 +59,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -155,35 +155,56 @@ def find_nvcc() -> str | None:
     return str(default) if default.is_file() else None
 
 
-def build_library(build_dir: Path | None = None) -> Path:
-    """Compile ``csrc/*.cu`` into one shared library (cached by content,
-    headers included)."""
+def compile_shared_library(
+    compiler: str | None,
+    flags: Sequence[str],
+    sources: Sequence[Path],
+    *,
+    stem: str,
+    missing: str,
+    depends: Sequence[Path] = (),
+    salt: str = "",
+    build_dir: Path | None = None,
+    log_name: str = "build.log",
+) -> Path:
+    """``build_dir/{stem}_{hash}.so``, compiled from ``sources`` by
+    ``compiler`` with ``flags`` unless it is there already. The hash covers
+    the flags, ``salt`` (what else the output depends on) and the names and
+    bytes of ``sources`` and ``depends`` (headers), so an edited source
+    rebuilds. The compiler's output goes to ``build_dir/log_name``. Raises
+    ``RuntimeError(missing)`` when the library must be built and
+    ``compiler`` is None, and quotes the compiler's stderr when it fails."""
     build_dir = build_dir or _BUILD_DIR
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(_CSRC.glob("*.cu*")):
+    digest = hashlib.sha256(" ".join(flags).encode() + salt.encode())
+    for src in sorted({*sources, *depends}):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    lib_path = build_dir / f"libttamm_kernels_{digest.hexdigest()[:16]}.so"
+    lib_path = build_dir / f"{stem}_{digest.hexdigest()[:16]}.so"
     if lib_path.is_file():
         return lib_path
-    nvcc = find_nvcc()
-    if nvcc is None:
-        raise RuntimeError(
-            "cannot build the CUDA kernels: nvcc not found "
-            "(set CUDA_HOME or put nvcc on PATH)"
-        )
+    if compiler is None:
+        raise RuntimeError(missing)
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources)]
+    cmd = [compiler, *flags, "-o", str(tmp), *(str(s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    (build_dir / "build.log").write_text(
+    (build_dir / log_name).write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr, encoding="utf-8"
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"{Path(compiler).name} failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def build_library(build_dir: Path | None = None) -> Path:
+    """Compile ``csrc/*.cu`` into one shared library (cached by content,
+    headers included)."""
+    return compile_shared_library(
+        find_nvcc(), NVCC_FLAGS, sorted(_CSRC.glob("*.cu")), stem="libttamm_kernels",
+        depends=sorted(_CSRC.glob("*.cuh")), build_dir=build_dir,
+        missing="cannot build the CUDA kernels: nvcc not found (set CUDA_HOME or put nvcc on PATH)",
+    )
 
 
 def load_library() -> ctypes.CDLL:

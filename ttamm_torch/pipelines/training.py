@@ -107,8 +107,14 @@ device and on the mesh.
 ``model.precision: bfloat16`` runs the towers' matmuls on bf16 operands
 with float32 sums (``ttamm_torch/models/encoders.py``).
 
-The TPU knobs ``steps_per_call``, ``use_pallas`` and ``mesh.multi_host``, and the JAX
-profiler's ``diagnostics.profile_dir``, are not read.
+``diagnostics.profile_dir`` traces the first epoch's train loop (not its
+eval) with ``torch.profiler`` (host ops, and on a card its kernels) and
+writes the Chrome trace ``{experiment.name}_epoch{NNN}.pt.trace.json``
+there, as the JAX trainer writes its ``jax.profiler`` trace; on a mesh rank
+0 alone traces and writes.
+
+The TPU knobs ``steps_per_call``, ``use_pallas`` and ``mesh.multi_host`` are
+not read.
 """
 
 from __future__ import annotations
@@ -397,6 +403,7 @@ def run_single_experiment(
     embedding_summary_path = Path(
         diag_cfg.get("embedding_summary_path", "artifacts/reports/embedding_diagnostics.json")
     )
+    profile_dir = diag_cfg.get("profile_dir")
 
     monitor_cfg = dict(training_cfg.get("early_stopping", {}))
     monitor_metric = monitor_cfg.get("metric") if monitor_cfg.get("enabled", False) else None
@@ -609,6 +616,10 @@ def run_single_experiment(
         users = torch.from_numpy(train_users[perm]).to(dev)  # one upload per epoch
         items = torch.from_numpy(train_items[perm]).to(dev)
         losses, sizes = [], []
+        profiler = None
+        if profile_dir and epoch == start_epoch and is_primary_host():
+            profiler = _train_loop_profiler(dev)
+            profiler.start()
         for start in range(0, len(perm), batch_size):
             if max_steps is not None and result.steps >= max_steps:
                 break
@@ -621,6 +632,8 @@ def run_single_experiment(
             result.steps += 1
         values = torch.stack(losses).cpu().numpy()  # syncs the epoch's work
         epoch_seconds = time.perf_counter() - epoch_start
+        if profiler is not None:
+            _write_trace(profiler, dev, Path(profile_dir), experiment_name, epoch)
         if result.first_step_loss is None:
             result.first_step_loss = float(values[0])
         seen = int(sum(sizes))
@@ -852,6 +865,27 @@ def _encode_side(model, data: BatchData, side: str, search_mesh) -> torch.Tensor
     rows = None if search_mesh is None else model.tower(side).id_embedding.weight.shape[0]
     features = data.item_features if side == "item" else data.user_features
     return encode_corpus(model, side, features, num_rows=rows)
+
+
+def _train_loop_profiler(device: torch.device) -> torch.profiler.profile:
+    """The ``diagnostics.profile_dir`` profiler: host ops, and on a card
+    its kernels."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities)
+
+
+def _write_trace(profiler: torch.profiler.profile, device: torch.device, out_dir: Path,
+                 experiment_name: str, epoch: int) -> None:
+    """Stop ``profiler`` once the card has finished and write its Chrome
+    trace into ``out_dir``."""
+    _sync(device)
+    profiler.stop()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{experiment_name}_epoch{epoch:03d}.pt.trace.json"
+    profiler.export_chrome_trace(str(path))
+    logger.info("Wrote the profiler trace of epoch %d's train loop to %s", epoch, path)
 
 
 def _prepare_data(config: Mapping[str, Any], distributed: bool) -> TrainingDataset:
