@@ -117,10 +117,23 @@ result line):
    device ops, host ms and idle share of a TP and a non-TP step in turns;
    (d) a TP sharded directory read back bit for bit into a TP and a non-TP
    placement, and the export CLI from it = the non-TP directory's export;
+4e. ``training.steps_per_call`` at ``configs/default.yaml``'s and
+   ``configs/in_batch_softmax.yaml``'s widths (B = 2048, dropout on): from
+   phase 4's seeded state, 100 eager single steps against two
+   ``make_multi_train_step`` calls of 50 (the first: the eager warm-up
+   step, the CUDA graph capture and 49 replays; the second: 50 replays):
+   every state leaf, the losses, the host counts and the generator's state
+   bit for bit, the same launch counts (a replay adds its graph's captured
+   launches); then 5 turns of
+   each, alternating eager and replay, 20 steps a turn: host ms/step,
+   device ms/step, device ops/step and idle share (median and range) and
+   launches a step, which must be the same for both;
 5. train two epochs of ``configs/default.yaml`` on the card with the
    retrieval eval after each, through ``run_training`` (the main path's
    launches are counted from here; its sweep ledger must hold the one
-   run): finite losses, the last epoch's mean train loss below the first
+   run; ``training.steps_per_call: auto`` as the config says: an epoch's
+   full batches as one chunk of CUDA-graph replays, the eval losses' full
+   batches likewise): finite losses, the last epoch's mean train loss below the first
    step's; each epoch's val and test recall/ndcg@{5,10,20}, with recall@5 <=
    recall@10 <= recall@20, and the eval's seconds (host clock); the best
    val recall@10 above 20x chance (10 / items); the best checkpoint under
@@ -279,6 +292,8 @@ CORPUS_ROWS, CORPUS_DIM = 2_000_000, 128
 CHUNKED_ROWS = 10_000_000  # past the float32 slab ceiling (8,388,608 items): the chunked search
 PROFILE_STEPS = 20
 AB_STEPS = 50  # canonical train steps a turn of phase 5's checkpoint A/B
+MULTI_STEPS = 50  # replayed steps held to eager ones (phase 4e)
+MULTI_TURNS = 5  # timed turns of each, eager and replayed (phase 4e)
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 L2_FLUSH_BYTES = 256 << 20  # five times the 50 MB L2 of an H100
 
@@ -1269,8 +1284,8 @@ def _sparse_adam_rows(state, lanes: dict, tscfg) -> dict:
     computes the fused update): the coalesce with every
     duplicate lane on the scratch row, gather_rows x 3, eager adam_rows,
     scatter_set_rows x 3, the coalesce itself outside every timing. The
-    bound moves every lane's index and, for each live lane, its gradient row
-    in and its table, m and v rows in and out."""
+    bound moves every lane's index, the step's scalars and, for each live
+    lane, its gradient row in and its table, m and v rows in and out."""
     import torch
 
     from ttamm_torch.ops import kernels
@@ -1286,8 +1301,8 @@ def _sparse_adam_rows(state, lanes: dict, tscfg) -> dict:
         target, summed = check_sparse_adam_rows(table, sparse.m, sparse.v, lane, grads,
                                                 f"one step's {name} lanes")
         scratch_target, scratch_summed = coalesce_row_grads(lane, grads, scratch_row=table.shape[0] - 1)
-        hyper = dict(step=sparse.step + 1, lr=opt.lr, b1=opt.b1, b2=opt.b2, eps=1e-8,
-                     weight_decay=tscfg.sparse_weight_decay)
+        hyper = kernels.adam_row(table.device, step=sparse.step + 1, lr=opt.lr, b1=opt.b1,
+                                 b2=opt.b2, eps=1e-8, weight_decay=tscfg.sparse_weight_decay)
         copies = [t.clone() for t in (table, sparse.m, sparse.v)]
 
         def composition():
@@ -1303,7 +1318,7 @@ def _sparse_adam_rows(state, lanes: dict, tscfg) -> dict:
             ms=device_ms_cold(lambda: kernels.sparse_adam_rows_cuda(*copies, target, summed, **hyper)),
             plain_ms=device_ms_cold(lambda: kernels.sparse_adam_rows_plain(*copies, target, summed, **hyper)),
             library_ms=device_ms_cold(composition),
-            nbytes=n * 4 + live * dim * 4 * 7,
+            nbytes=n * 4 + live * dim * 4 * 7 + kernels.ADAM_SCALARS * 4,
         )
         out[name].update(lanes=n, live=live)
         _log_row(f"sparse_adam_rows ({name}; library = the composition it replaces)", out[name])
@@ -1489,7 +1504,8 @@ def _mesh_sparse_adam(layouts) -> dict:
                 for name, a, b in zip(("table", "m", "v"), got, want):
                     check(torch.equal(a, b), f"sparse_adam_rows ({label}, step {step}, weight decay "
                           f"{wd}): {name} kernel != plain")
-        hyper = dict(step=2, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
+        hyper = kernels.adam_row(group[0]["tensors"][0].device, step=2, lr=1e-3, b1=0.9, b2=0.999,
+                                 eps=1e-8, weight_decay=0.0)
         copies = [[t.clone() for t in u["tensors"]] for u in group]
         lanes = [(u["heads"], u["totals"], u["every"]) for u in group]
         k = len(group)
@@ -1509,7 +1525,8 @@ def _mesh_sparse_adam(layouts) -> dict:
             plain_ms=device_ms_cold(lambda: [kernels.sparse_adam_rows_plain(*c, h, t, **hyper)
                                              for c, (h, t, _) in zip(copies, lanes)]) / k,
             composition_ms=device_ms_cold(composition) / k,
-            bound_ms=bound_ms((sum(h.numel() for h, _, _ in lanes) * 4 + live * dim * 4 * 7) / k)[0],
+            bound_ms=bound_ms((sum(h.numel() for h, _, _ in lanes) * 4 + live * dim * 4 * 7) / k
+                              + kernels.ADAM_SCALARS * 4)[0],
             lanes=int(lanes[0][0].numel()), live=live / k,
         )
         p = parts[label]
@@ -1541,10 +1558,11 @@ def _shard_loop(ctx, lanes) -> None:
     n, dim = lanes.numel(), table.shape[1]
     grads = torch.randn((n, dim), generator=torch.Generator(device=table.device).manual_seed(13),
                         device=table.device) * 1e-2
-    hyper = dict(lr=opt.lr, b1=opt.b1, b2=opt.b2, eps=1e-8, weight_decay=0.0)
     ref = SparseAdamState(m=sparse.m.clone(), v=sparse.v.clone(), step=sparse.step)
     ref_table = table.clone()
-    sparse_adam_update(ref_table, ref, lanes, grads, **{k: hyper[k] for k in ("lr", "b1", "b2")})
+    sparse_adam_update(ref_table, ref, lanes, grads, lr=opt.lr, b1=opt.b1, b2=opt.b2)
+    hyper = kernels.adam_row(table.device, step=ref.step, lr=opt.lr, b1=opt.b1, b2=opt.b2, eps=1e-8,
+                             weight_decay=0.0)
     rows_total = padded_rows(ni, VIRTUAL_SHARDS)
     rps = rows_total // VIRTUAL_SHARDS
 
@@ -1571,22 +1589,21 @@ def _shard_loop(ctx, lanes) -> None:
         "table, m and v bit-identical to the single-device sparse_adam_update")
 
 
-def _parent_apply(table, state, lane_idx, grads, *, lr, b1, b2, eps, weight_decay) -> None:
+def _parent_apply(table, state, lane_idx, grads, *, scalars, decay) -> None:
     """The shard-local row update before sparse_adam_rows took it: the
-    masked gathers of m, v and the weights, eager adam_rows, the masked
-    scatters back (given head-only lanes, it writes what it wrote at every
-    lane of a run: the run's bytes)."""
+    masked gathers of m, v and the weights, eager adam_rows (at the step's
+    scalar row), the masked scatters back (given head-only lanes, it writes
+    what it wrote at every lane of a run: the run's bytes)."""
     import functools
 
     from ttamm_torch.ops import kernels
     from ttamm_torch.ops.sparse_adam import unfused_row_update
 
-    state.step += 1
     unfused_row_update(
         table, state.m, state.v, lane_idx, grads,
         gather=functools.partial(kernels.gather_rows, masked=True),
-        scatter=functools.partial(kernels.scatter_set_rows, masked=True), step=state.step, lr=lr,
-        b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+        scatter=functools.partial(kernels.scatter_set_rows, masked=True), scalars=scalars,
+        decay=decay,
     )
 
 
@@ -2140,6 +2157,139 @@ def phase_tensor_parallel(dev, work: Path, ctx: dict, config: dict, dataset) -> 
     torch.cuda.empty_cache()
     return {"steps": summary, "launches": launches, "timing": timing,
             "tensors_restored": restored, "export_cli_s": cli_s}
+
+
+def _turn_stats(dev, run, steps: int) -> dict:
+    """One turn of ``run(first, n)`` (n steps from batch ``first``): host
+    ms/step over ``steps`` steps, unprofiled, ending in a synchronise; then
+    device ms/step, device ops/step and the idle share over ``steps`` more
+    under ``torch.profiler`` (the card only); and the port's kernel
+    launches a step."""
+    import torch
+
+    from ttamm_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    start = time.perf_counter()
+    run(steps)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - start) / steps * 1e3
+    after = kernels.launch_counts()
+    launches = {k: (after[k] - before[k]) / steps for k in after if after[k] != before[k]}
+    timed = {}
+
+    def body():
+        begin = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        timed["wall"] = time.perf_counter() - begin
+
+    events = _profiled(lambda: run(2), body)
+    device_ms = _per_call_us(events, steps) / 1e3
+    ops = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")) / steps
+    return {"host_ms": host_ms, "device_ms": device_ms, "device_ops": ops,
+            "idle_share": 1.0 - device_ms * steps / (timed["wall"] * 1e3), "launches": launches}
+
+
+def phase_multi_step(dev, work: Path, config: dict, dataset) -> dict:
+    """Phase 4e: ``training.steps_per_call`` on the card, at
+    ``configs/default.yaml``'s and ``configs/in_batch_softmax.yaml``'s
+    widths (B = 2048, F = 105, 256 / 128, D = 128, dropout on). From phase
+    4's seeded state: 2 x MULTI_STEPS eager single steps against the same
+    steps through ``make_multi_train_step`` in two calls of MULTI_STEPS
+    (the first: the eager warm-up step, the capture and the rest replayed;
+    the second: MULTI_STEPS replays): every state leaf, the losses, the
+    host counts and the generator's state bit for bit, and the same launch
+    counts. Then MULTI_TURNS turns of each,
+    alternating (eager, replay, ...), PROFILE_STEPS steps a turn: host
+    ms/step, device ms/step, device ops/step and idle share (median and
+    range), and launches a step. Returns the summary phase 8 prints."""
+    import copy
+
+    import torch
+
+    from ttamm_torch.models.convert import train_state_to_flat
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.train import create_train_state, make_train_step
+    from ttamm_torch.train.step import make_multi_train_step
+
+    summary = {}
+    for name in ("default.yaml", "in_batch_softmax.yaml"):
+        ctx = _step_inputs(dev, _config(Path(config["data"]["root"]), work, name), dataset)
+        cfg, tscfg, data, nu, ni, b = (ctx[k] for k in ("cfg", "tscfg", "data", "nu", "ni", "batch"))
+        check(cfg.user_tower.feature_encoder.dropout > 0, f"{name}: dropout off")
+        first = 2 * MULTI_STEPS
+        total = first + MULTI_TURNS * (2 * PROFILE_STEPS + 2)  # a turn: timed, warm-up, profiled
+        users = torch.from_numpy(ctx["users"][: total * b]).to(dev).view(total, b)
+        items = torch.from_numpy(ctx["items"][: total * b]).to(dev).view(total, b)
+        state = create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED, device=dev)
+        eager, replayed = state, copy.deepcopy(state)
+        gen_e = torch.Generator(device=dev).manual_seed(STEP_SEED)
+        gen_r = torch.Generator(device=dev).manual_seed(STEP_SEED)
+        single, multi = make_train_step(cfg, tscfg), make_multi_train_step(cfg, tscfg)
+        kernels.reset_launch_counts()
+        want = torch.stack([single(eager, data, users[k], items[k], generator=gen_e)[1]["loss"]
+                            for k in range(first)])
+        torch.cuda.synchronize()
+        eager_counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        got = torch.cat([multi(replayed, data, users[k : k + MULTI_STEPS], items[k : k + MULTI_STEPS],
+                               generator=gen_r)[1] for k in (0, MULTI_STEPS)])
+        torch.cuda.synchronize()
+        replay_counts = kernels.launch_counts()
+        check(replay_counts == eager_counts,
+              f"{name}: launches of the replayed steps {replay_counts} != eager {eager_counts}")
+        check(torch.equal(got, want), f"{name}: replayed losses differ from the eager steps")
+        check((replayed.step, replayed.opt_dense.step) == (eager.step, eager.opt_dense.step),
+              f"{name}: host counts differ")
+        a, e = train_state_to_flat(replayed), train_state_to_flat(eager)
+        check(list(a) == list(e), f"{name}: the state leaves differ")
+        differ = [k for k in e if a[k].tobytes() != e[k].tobytes()]
+        check(not differ, f"{name}: leaves differ from the eager steps: {differ[:5]}")
+        check(torch.equal(gen_r.get_state(), gen_e.get_state()), f"{name}: generator states differ")
+        log(f"4e {name}: two calls of {MULTI_STEPS} steps (the first: the warm-up step, the "
+            f"capture, {MULTI_STEPS - 1} replays; the second: {MULTI_STEPS} replays) = {first} eager "
+            f"steps bit for bit: {len(e)} state leaves, {first} losses (last {float(got[-1]):.6f}), "
+            f"the generator's state; launches {replay_counts}")
+
+        pos = {"eager": first, "replay": first}
+
+        def run_eager(n):
+            k = pos["eager"]
+            for i in range(k, k + n):
+                single(eager, data, users[i], items[i], generator=gen_e)
+            pos["eager"] = k + n
+
+        def run_replay(n):
+            k = pos["replay"]
+            multi(replayed, data, users[k : k + n], items[k : k + n], generator=gen_r)
+            pos["replay"] = k + n
+
+        turns = {"eager": [], "replay": []}
+        for _ in range(MULTI_TURNS):
+            for mode, run in (("eager", run_eager), ("replay", run_replay)):
+                turns[mode].append(_turn_stats(dev, run, PROFILE_STEPS))
+        out = {}
+        for mode, stats in turns.items():
+            out[mode] = {"launches_per_step": stats[-1]["launches"]}
+            for key in ("host_ms", "device_ms", "device_ops", "idle_share"):
+                vals = sorted(t[key] for t in stats)
+                out[mode][key] = {"median": vals[len(vals) // 2], "min": vals[0], "max": vals[-1]}
+            check(out[mode]["device_ms"]["min"] > 0, f"4e {name} {mode}: the profiler saw no device work")
+            check(all(t["launches"] == stats[0]["launches"] for t in stats),
+                  f"4e {name} {mode}: launches a step changed between turns")
+            log(f"4e {name} {mode} ({MULTI_TURNS} turns of {PROFILE_STEPS} steps, median [min, max]): "
+                + " | ".join(f"{key} {v['median']:.3f} [{v['min']:.3f}, {v['max']:.3f}]"
+                             for key, v in out[mode].items() if key != "launches_per_step")
+                + f" | launches a step {out[mode]['launches_per_step']}")
+        check(out["replay"]["launches_per_step"] == out["eager"]["launches_per_step"],
+              f"4e {name}: launches a step differ between replay and eager")
+        summary[name] = out
+        del eager, replayed, state, single, multi, data
+        torch.cuda.empty_cache()
+    return summary
 
 
 def _profile_steps(dev, config: dict, dataset, result) -> tuple[dict, dict]:
@@ -3545,6 +3695,8 @@ def main() -> int:
                 tp_summary = phase_tensor_parallel(dev, work, step_ctx, config, dataset)
                 del step_ctx
                 torch.cuda.empty_cache()
+            with Phase("4e steps_per_call: the step as CUDA-graph replays"):
+                multi_summary = phase_multi_step(dev, work, config, dataset)
             kernels.reset_launch_counts()  # the main path's launches start here
             excluded = collections.Counter()
             with Phase("5 train two epochs with the eval at the canonical scale"):
@@ -3637,6 +3789,7 @@ def main() -> int:
         "pod_2x4": pod_summary,
         "packed_moments": packed_summary,
         "tensor_parallel_1x1": tp_summary,
+        "multi_step_4e": multi_summary,
         "precision_bf16": precision_summary,
         "chunked_10m": chunked_summary,
         "cli_6b": cli_summary,

@@ -60,11 +60,13 @@ GRID = "(n + kAdamWarps - 1) / kAdamWarps"
 MULTI_ROW_KERNEL = """__global__ void __launch_bounds__(kAdamThreads)
 sparse_adam_rows_kernel(float* __restrict__ w, float* __restrict__ m, float* __restrict__ v,
                         const int32_t* __restrict__ idx, const float* __restrict__ grads,
-                        int64_t n, int64_t rows, int dim, AdamScalars s) {
+                        int64_t n, int64_t rows, int dim, const float* __restrict__ scalars,
+                        int decay) {
   constexpr int kAdamRows = ROWS;
   const int64_t r0 =
       (static_cast<int64_t>(blockIdx.x) * kAdamWarps + (threadIdx.x >> 5)) * kAdamRows;
   if (r0 >= n) return;
+  const AdamScalars s = load_adam_scalars(scalars, decay);
   const int lane = threadIdx.x & 31;
   const int vecs = dim >> 2;
   int64_t target[kAdamRows];  // each row's offset in float4s, -1: no read, no write
@@ -146,8 +148,8 @@ def build(name: str, out_dir: Path) -> ctypes.CDLL:
         raise RuntimeError(proc.stderr)
     handle = ctypes.CDLL(str(lib))
     handle.regs = ptxas_line(proc.stdout + proc.stderr)
-    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    handle.ttamm_sparse_adam_rows.argtypes = [p, p, p, p, p, i64, i64, i32, *[f32] * 9, i32, p]
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    handle.ttamm_sparse_adam_rows.argtypes = [p, p, p, p, p, i64, i64, i32, p, i32, p]
     handle.ttamm_sparse_adam_rows.restype = i32
     return handle
 
@@ -184,15 +186,13 @@ def cases(dev):
     return out
 
 
-def launch(lib, table, m, v, target, summed) -> None:
+def launch(lib, table, m, v, target, summed, scalars) -> None:
     import torch
-
-    from ttamm_torch.ops import kernels
 
     rc = lib.ttamm_sparse_adam_rows(
         table.data_ptr(), m.data_ptr(), v.data_ptr(), target.data_ptr(), summed.data_ptr(),
-        target.numel(), table.shape[0], table.shape[1], *kernels._adam_scalars(**HYPER),
-        torch.cuda.current_stream().cuda_stream,
+        target.numel(), table.shape[0], table.shape[1], scalars["scalars"].data_ptr(),
+        int(scalars["decay"]), torch.cuda.current_stream().cuda_stream,
     )
     if rc:
         raise RuntimeError(f"launch refused ({rc})")
@@ -308,19 +308,20 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smoke.nvidia_smi()}")
     numerics(dev)
     data = cases(dev)
+    scal = kernels.adam_row(dev, **HYPER)  # the step's scalar row on the card
     out_dir = REPO / "build" / "sparse_adam_variants"
     for label, (table, m, v, target, summed) in data.items():
         live = int((target >= 0).sum())
-        nbytes = target.numel() * 4 + live * DIM * 4 * 7
+        nbytes = target.numel() * 4 + live * DIM * 4 * 7 + kernels.ADAM_SCALARS * 4
         copies = [t.clone() for t in (table, m, v)]
         scratch = table.shape[0] - 1
         s_target = torch.where(target >= 0, target, scratch).to(torch.int32)
 
         def composition():
             unfused_row_update(*copies, s_target, summed, gather=kernels.gather_rows_cuda,
-                               scatter=kernels.scatter_set_rows_cuda, **HYPER)
+                               scatter=kernels.scatter_set_rows_cuda, **scal)
 
-        plain = smoke.device_ms_cold(lambda: kernels.sparse_adam_rows_plain(*copies, target, summed, **HYPER))
+        plain = smoke.device_ms_cold(lambda: kernels.sparse_adam_rows_plain(*copies, target, summed, **scal))
         comp = smoke.device_ms_cold(composition)
         print(f"{label}: {target.numel()} lanes, {live} live | bound {smoke.bound_ms(nbytes)[0]:.4f} ms "
               f"| plain {plain:.4f} ms | composition (gather x 3, eager Adam, scatter x 3) {comp:.4f} ms")
@@ -330,12 +331,12 @@ def main() -> int:
         lib = libs[name]
         for label, (table, m, v, target, summed) in data.items():
             got, want = [t.clone() for t in (table, m, v)], [t.clone() for t in (table, m, v)]
-            launch(lib, *got, target, summed)
-            kernels.sparse_adam_rows_plain(*want, target, summed, **HYPER)
+            launch(lib, *got, target, summed, scal)
+            kernels.sparse_adam_rows_plain(*want, target, summed, **scal)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 raise AssertionError(f"{name} at the {label} lanes: kernel != plain")
-            times[name][label].append(smoke.device_ms_cold(lambda: launch(lib, *got, target, summed)))
+            times[name][label].append(smoke.device_ms_cold(lambda: launch(lib, *got, target, summed, scal)))
     for name, lib in libs.items():
         print(f"{name}: " + " | ".join(
             f"{label} {' / '.join(f'{t:.4f}' for t in ts)} ms" for label, ts in times[name].items()

@@ -939,12 +939,14 @@ def test_shard_local_update_on_the_card_matches_one_device(cuda):
     pad = lambda t: torch.cat([t, t.new_zeros((rps * shards - rows, 128))])  # noqa: E731
     tab, m, v = pad(table), pad(torch.zeros_like(table)), pad(torch.zeros_like(table))
     lanes = sort_lanes(idx, grads, head_init=-2)
+    scalars = torch.from_numpy(kernels.adam_scalars(
+        step=1, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)).to(cuda)
     kernels.reset_launch_counts()
     for s in range(shards):
         sl = slice(s * rps, (s + 1) * rps)
         _apply(tab[sl], SparseAdamState(m=m[sl], v=v[sl]),
                _localize(lanes.idx, s * rps, rps, lanes.is_head), lanes.totals(),
-               lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
+               scalars=scalars, decay=False)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["sparse_adam_rows"] == shards
@@ -952,3 +954,158 @@ def test_shard_local_update_on_the_card_matches_one_device(cuda):
     n = rows - 1
     assert torch.equal(tab[:n], ref_table[:n])
     assert torch.equal(m[:n], ref.m[:n]) and torch.equal(v[:n], ref.v[:n])
+
+
+# ---------------------------------------------------------------------------
+# training.steps_per_call: the multi-step calls as CUDA-graph replays
+# ---------------------------------------------------------------------------
+
+
+def _multi_case(cuda, in_batch: bool, steps: int = 16, b: int = 256):
+    """A seeded state of the default structure (BCE, 5 negatives, dense
+    mimic tables) or the recommended one (the logQ-corrected in-batch
+    softmax, sparse mimic tables), gated towers with dropout 0.15, D = 128,
+    C = 16, a cosine schedule; its data and ``steps`` batches."""
+    from ttamm_torch.models import parse_model_config
+    from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state
+    from ttamm_torch.train.optim import DenseOptConfig
+
+    tower = {
+        "type": "tower",
+        "id_embedding": {"params": {"embedding_dim": 128, "sparse": True}},
+        "feature_encoder": {"type": "mlp", "hidden_dims": [64], "output_dim": 128,
+                            "dropout": 0.15},
+        "fusion": "gated",
+    }
+    model = {"user_encoder": tower, "item_encoder": tower,
+             "adaptive_mimic": {"enabled": True, "sparse": in_batch}}
+    cfg = parse_model_config(model, user_feature_dim=12, item_feature_dim=9)
+    gen = torch.Generator().manual_seed(21)
+    nu, ni = 3000, 2000
+    data = BatchData(
+        user_features=torch.randn((nu, 12), generator=gen).to(cuda),
+        item_features=torch.randn((ni, 9), generator=gen).to(cuda),
+        positive_rows=torch.randint(0, ni, (nu, 4), generator=gen, dtype=torch.int32).to(cuda),
+        category_ids=torch.clamp(torch.randint(0, 40, (ni,), generator=gen) // 3, max=20)
+        .to(cuda, torch.int32),
+        item_log_q=torch.log_softmax(torch.randn(ni, generator=gen) * 2, 0).to(cuda)
+        if in_batch else None,
+    )
+    tscfg = TrainStepConfig(
+        num_items=ni, lambda_mimic_user=0.15, lambda_mimic_item=0.15,
+        lambda_category_alignment=0.01, cal_max_categories=16,
+        loss_type="in_batch_softmax" if in_batch else "bce",
+        opt=DenseOptConfig(name="adamw", lr=1e-3, weight_decay=0.01, lr_schedule="cosine",
+                           lr_total_steps=2 * steps, lr_final_factor=0.1),
+    )
+    state = create_train_state(cfg, num_users=nu, num_items=ni, seed=3, device=cuda)
+    users = torch.randint(0, nu, (steps, b), generator=gen, dtype=torch.int32).to(cuda)
+    items = torch.randint(0, ni, (steps, b), generator=gen, dtype=torch.int32).to(cuda)
+    return cfg, tscfg, state, data, users, items
+
+
+def _flat(state):
+    from ttamm_torch.models.convert import train_state_to_flat
+
+    return {k: torch.as_tensor(v) for k, v in train_state_to_flat(state).items()}
+
+
+@pytest.mark.parametrize("in_batch", [False, True], ids=["default", "in_batch"])
+def test_replays_equal_eager_steps_bit_for_bit(cuda, in_batch):
+    """Two multi-step calls of 8 (the first: one eager step, the capture,
+    7 replays; the second: 8 replays) equal 16 eager single steps bit for
+    bit, dropout on: every state leaf, the losses, the host counts and the
+    generator's state; the launch counts equal the eager steps'."""
+    import copy
+
+    from ttamm_torch.train import make_train_step
+    from ttamm_torch.train.step import make_multi_train_step
+
+    cfg, tscfg, state, data, users, items = _multi_case(cuda, in_batch)
+    eager, replayed = copy.deepcopy(state), copy.deepcopy(state)
+    gen_e = torch.Generator(device=cuda).manual_seed(17)
+    gen_r = torch.Generator(device=cuda).manual_seed(17)
+    single = make_train_step(cfg, tscfg)
+    kernels.reset_launch_counts()
+    want = torch.stack([single(eager, data, users[k], items[k], generator=gen_e)[1]["loss"]
+                        for k in range(16)])
+    torch.cuda.synchronize()
+    eager_counts = kernels.launch_counts()
+    multi = make_multi_train_step(cfg, tscfg)
+    kernels.reset_launch_counts()
+    got = torch.cat([multi(replayed, data, users[k : k + 8], items[k : k + 8], generator=gen_r)[1]
+                     for k in (0, 8)])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == eager_counts
+    assert eager_counts["sparse_adam_rows"] == 16 * (4 if in_batch else 2)
+    assert torch.equal(got, want)
+    assert (replayed.step, replayed.opt_dense.step) == (eager.step, eager.opt_dense.step) == (16, 16)
+    a, b = _flat(replayed), _flat(eager)
+    assert list(a) == list(b)
+    for key in b:
+        assert torch.equal(a[key], b[key]), key
+    assert torch.equal(gen_r.get_state(), gen_e.get_state())
+
+
+def test_eval_replays_equal_eager_steps_across_reseeds(cuda):
+    """The multi-step eval loss: 6 batches a call, twice with the one
+    generator object re-seeded (the trainer's per-epoch eval: one capture,
+    then replays only), equal to the eager eval steps bit for bit."""
+    from ttamm_torch.train.step import make_eval_loss_step, make_multi_eval_loss_step
+
+    cfg, tscfg, state, data, users, items = _multi_case(cuda, True, steps=6)
+    single, multi = make_eval_loss_step(cfg, tscfg), make_multi_eval_loss_step(cfg, tscfg)
+    gen = torch.Generator(device=cuda)
+    for seed in (5, 6):
+        ref = torch.Generator(device=cuda).manual_seed(seed)
+        want = torch.stack([single(state, data, users[k], items[k], generator=ref)
+                            for k in range(6)])
+        got = multi(state, data, users, items, generator=gen.manual_seed(seed))
+        assert torch.equal(got, want), seed
+        assert torch.equal(gen.get_state(), ref.get_state())
+
+
+def test_sparse_adam_rows_reads_its_scalars_through_a_pointer(cuda):
+    """The kernel given a row of a per-step scalar table (a pointer into
+    the table's middle) equals its plain version on that row and the
+    by-value form of the same step, bit for bit."""
+    import numpy as np
+
+    table, m, v, idx, grads = _adam_case(128, "all_live", 7, cuda)
+    rows = np.stack([kernels.adam_scalars(step=s, lr=1e-3 * s, b1=0.9, b2=0.999, eps=1e-8,
+                                          weight_decay=0.01) for s in (1, 2, 3)])
+    scal = torch.from_numpy(rows).to(cuda)
+    out = {}
+    for label, fn, kw in (
+        ("kernel", kernels.sparse_adam_rows_cuda, dict(scalars=scal[1], decay=True)),
+        ("plain", kernels.sparse_adam_rows_plain, dict(scalars=scal[1], decay=True)),
+        ("by value", kernels.sparse_adam_rows_cuda,
+         dict(step=2, lr=2e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)),
+    ):
+        out[label] = [t.clone() for t in (table, m, v)]
+        fn(*out[label], idx, grads, **kw)
+    torch.cuda.synchronize()
+    for got, plain, by_value in zip(out["kernel"], out["plain"], out["by value"]):
+        assert torch.equal(got, plain) and torch.equal(got, by_value)
+
+
+def test_a_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
+    """A step that syncs the host (here a gather that reads a value) cannot
+    be captured: the multi-step call raises, and nothing falls back to
+    eager steps (the launch counts are the warm-up step's alone)."""
+    from ttamm_torch.train.step import make_multi_train_step
+
+    cfg, tscfg, state, data, users, items = _multi_case(cuda, False, steps=4)
+    gather = kernels.gather_rows
+
+    def syncing(table, idx, **kw):
+        int(idx[0])  # a host read: cudaMemcpy + stream sync
+        return gather(table, idx, **kw)
+
+    monkeypatch.setattr(kernels, "gather_rows", syncing)
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        make_multi_train_step(cfg, tscfg)(state, data, users, items,
+                                          generator=torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sparse_adam_rows"] == 2  # the eager warm-up step

@@ -278,7 +278,9 @@ def test_allgather_update_keeps_the_parent_composition_bits(one_rank_mesh, step,
         parent = [t[part].clone() for t in (table, m, v)]
         port_su._apply(local[0], SparseAdamState(m=local[1], v=local[2], step=step - 1),
                        port_su._localize(lanes.idx, s * rows, rows, lanes.is_head),
-                       lanes.totals(), **hyper)
+                       lanes.totals(),
+                       scalars=torch.from_numpy(kernels.adam_scalars(step=step, **hyper)),
+                       decay=bool(weight_decay))
         _parent_update(*parent, idx, grads, base=s * rows, hyper=dict(hyper, step=step))
         for a, b in zip(local, parent):
             assert torch.equal(a, b)

@@ -91,6 +91,14 @@
 // scripts/sparse_adam_variants.py); Python scalars reach the eager ops cast
 // to f32. So the bias corrections' reciprocals and the f32 scalars come from
 // the host (AdamScalars), formed there exactly as PyTorch forms them.
+//
+// The kernel reads those scalars from device memory, through a pointer to
+// one step's row of a table of per-step scalars, not by value: a launch
+// captured into a CUDA graph freezes its by-value arguments, and the
+// multi-step train call replays one captured step many times, each replay
+// at its own step. The host writes the table once per chunk of steps; each
+// thread loads the nine floats once (they stay in L1), so the arithmetic and
+// its bits are those of the by-value form.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -151,14 +159,20 @@ scatter_set_rows_kernel(float* __restrict__ table, const int32_t* __restrict__ i
 }
 
 // The host-formed f32 scalars of one Adam step (ttamm_torch/ops/kernels.py
-// `_adam_scalars`): b1, 1 - b1, b2, 1 - b2 (each formed in double, then
-// cast), the reciprocals of the two bias corrections (formed in double),
-// eps, lr, and lr * weight_decay (formed in double); `decay` =
-// weight_decay != 0.
+// `adam_scalars`), in this order in device memory: b1, 1 - b1, b2, 1 - b2
+// (each formed in double, then cast), the reciprocals of the two bias
+// corrections (formed in double), eps, lr, and lr * weight_decay (formed in
+// double); `decay` = weight_decay != 0 (by value: it does not change from
+// step to step).
 struct AdamScalars {
   float b1, one_minus_b1, b2, one_minus_b2, inv_bias1, inv_bias2, eps, lr, lr_wd;
   int decay;
 };
+
+__device__ __forceinline__ AdamScalars load_adam_scalars(const float* __restrict__ p, int decay) {
+  return AdamScalars{__ldg(p + 0), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), __ldg(p + 4),
+                     __ldg(p + 5), __ldg(p + 6), __ldg(p + 7), __ldg(p + 8), decay};
+}
 
 constexpr int kAdamThreads = 256;
 constexpr int kAdamWarps = kAdamThreads / 32;
@@ -190,11 +204,13 @@ __device__ __forceinline__ void adam_vec(float4& w, float4& m, float4& v, const 
 __global__ void __launch_bounds__(kAdamThreads)
 sparse_adam_rows_kernel(float* __restrict__ w, float* __restrict__ m, float* __restrict__ v,
                         const int32_t* __restrict__ idx, const float* __restrict__ grads,
-                        int64_t n, int64_t rows, int dim, AdamScalars s) {
+                        int64_t n, int64_t rows, int dim, const float* __restrict__ scalars,
+                        int decay) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kAdamWarps + (threadIdx.x >> 5);
   if (r >= n) return;
   const int32_t i = __ldg(idx + r);
   if (i < 0 || i >= rows) return;  // a masked lane: no read, no write
+  const AdamScalars s = load_adam_scalars(scalars, decay);
   const int lane = threadIdx.x & 31;
   const int vecs = dim >> 2;
   const int64_t target = static_cast<int64_t>(i) * vecs;
@@ -250,17 +266,14 @@ extern "C" int ttamm_scatter_set_rows(float* table, const int32_t* idx, const fl
 }
 
 // w, m, v: f32 [rows, dim], distinct, updated in place; idx: i32 [n], each
-// live row (0 <= idx < rows) at most once; grads: f32 [n, dim]. Contiguous,
-// 16-byte aligned, dim % 4 == 0, n > 0.
+// live row (0 <= idx < rows) at most once; grads: f32 [n, dim]; scalars: the
+// step's nine f32 scalars (AdamScalars' order) in device memory.
+// Contiguous, 16-byte aligned, dim % 4 == 0, n > 0.
 extern "C" int ttamm_sparse_adam_rows(float* w, float* m, float* v, const int32_t* idx,
                                       const float* grads, int64_t n, int64_t rows, int dim,
-                                      float b1, float one_minus_b1, float b2, float one_minus_b2,
-                                      float inv_bias1, float inv_bias2, float eps, float lr,
-                                      float lr_wd, int decay, cudaStream_t stream) {
-  const AdamScalars s{b1, one_minus_b1, b2, one_minus_b2, inv_bias1, inv_bias2, eps, lr, lr_wd,
-                      decay};
+                                      const float* scalars, int decay, cudaStream_t stream) {
   const auto blocks = static_cast<unsigned int>((n + kAdamWarps - 1) / kAdamWarps);
   sparse_adam_rows_kernel<<<blocks, kAdamThreads, 0, stream>>>(w, m, v, idx, grads, n, rows,
-                                                               dim, s);
+                                                               dim, scalars, decay);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,7 @@ and every entry point of the package imports it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -34,3 +35,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device type: {dev.type}")
     return dev
+
+
+def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``array`` on ``device`` without a host sync: on a card through
+    pinned memory and a copy that does not block the host (the caching host
+    allocator keeps the pinned block until the copy has run), on the CPU as
+    a tensor over the array."""
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)

@@ -138,6 +138,16 @@ def _count(name: str) -> None:
         _launches[name] += 1
 
 
+def add_launch_counts(launches: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``launches`` to the counts: the launches of a
+    captured CUDA graph, counted at each replay (a wrapper counts where it
+    launches, and a replay runs no wrapper), and taken off again after the
+    capture itself (``times=-1``), which launches nothing."""
+    with _lock:
+        for name, n in launches.items():
+            _launches[name] += n * times
+
+
 # ---------------------------------------------------------------------------
 # Build and load
 # ---------------------------------------------------------------------------
@@ -166,16 +176,23 @@ def compile_shared_library(
     salt: str = "",
     build_dir: Path | None = None,
     log_name: str = "build.log",
+    link_flags: Sequence[str] | None = None,
 ) -> Path:
     """``build_dir/{stem}_{hash}.so``, compiled from ``sources`` by
-    ``compiler`` with ``flags`` unless it is there already. The hash covers
-    the flags, ``salt`` (what else the output depends on) and the names and
-    bytes of ``sources`` and ``depends`` (headers), so an edited source
-    rebuilds. The compiler's output goes to ``build_dir/log_name``. Raises
-    ``RuntimeError(missing)`` when the library must be built and
-    ``compiler`` is None, and quotes the compiler's stderr when it fails."""
+    ``compiler`` with ``flags`` unless it is there already; with
+    ``link_flags``, each source is compiled to an object with ``flags`` and
+    the objects are linked by a second command with ``link_flags`` alone (so
+    a compile-only flag such as ``-ffast-math`` does not reach the link).
+    The hash covers the flags, ``salt`` (what else the output depends on)
+    and the names and bytes of ``sources`` and ``depends`` (headers), so an
+    edited source rebuilds. The compiler's output goes to
+    ``build_dir/log_name``. Raises ``RuntimeError(missing)`` when the
+    library must be built and ``compiler`` is None, and quotes the
+    compiler's stderr when it fails."""
     build_dir = build_dir or _BUILD_DIR
     digest = hashlib.sha256(" ".join(flags).encode() + salt.encode())
+    if link_flags is not None:
+        digest.update(b"\0link " + " ".join(link_flags).encode())
     for src in sorted({*sources, *depends}):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -186,13 +203,25 @@ def compile_shared_library(
         raise RuntimeError(missing)
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [compiler, *flags, "-o", str(tmp), *(str(s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (build_dir / log_name).write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr, encoding="utf-8"
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"{Path(compiler).name} failed ({proc.returncode}):\n{proc.stderr}")
+    if link_flags is None:
+        cmds = [[compiler, *flags, "-o", str(tmp), *(str(s) for s in sources)]]
+    else:
+        objects = [tmp.with_name(f"{tmp.name}.{i}.o") for i in range(len(sources))]
+        cmds = [[compiler, *flags, "-c", "-o", str(o), str(src)] for o, src in zip(objects, sources)]
+        cmds.append([compiler, *link_flags, "-o", str(tmp), *(str(o) for o in objects)])
+    log = []
+    try:
+        for cmd in cmds:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"{Path(compiler).name} failed ({proc.returncode}):\n{proc.stderr}")
+    finally:
+        (build_dir / log_name).write_text("".join(log), encoding="utf-8")
+        if link_flags is not None:
+            for o in objects:
+                o.unlink(missing_ok=True)
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -230,8 +259,7 @@ def load_library() -> ctypes.CDLL:
             lib.ttamm_scatter_set_rows.restype = i32
             lib.ttamm_gather_rows_masked.argtypes = [p, p, p, i64, i64, i32, i64, p]
             lib.ttamm_gather_rows_masked.restype = i32
-            f32 = ctypes.c_float
-            lib.ttamm_sparse_adam_rows.argtypes = [p, p, p, p, p, i64, i64, i32, *[f32] * 9, i32, p]
+            lib.ttamm_sparse_adam_rows.argtypes = [p, p, p, p, p, i64, i64, i32, p, i32, p]
             lib.ttamm_sparse_adam_rows.restype = i32
             lib.ttamm_segment_second_moments.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, p]
             lib.ttamm_segment_second_moments.restype = i32
@@ -711,27 +739,30 @@ def scatter_set_rows_cuda(
 
 def sparse_adam_rows(
     table: torch.Tensor, m: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
-    grads: torch.Tensor, *, step: int, lr: float, b1: float, b2: float, eps: float,
-    weight_decay: float,
+    grads: torch.Tensor, *, scalars: torch.Tensor | None = None, decay: bool = False,
+    step: int | None = None, lr: float | None = None, b1: float = 0.9, b2: float = 0.999,
+    eps: float = 1e-8, weight_decay: float = 0.0,
 ) -> None:
-    """One sparse-row Adam step in place at (1-indexed) ``step``: for each
-    lane ``r`` with ``i = idx[r] >= 0``, ``table[i]``, ``m[i]`` and ``v[i]``
-    take :func:`ttamm_torch.ops.sparse_adam.adam_rows` of those rows and
+    """One sparse-row Adam step in place: for each lane ``r`` with ``i =
+    idx[r] >= 0``, ``table[i]``, ``m[i]`` and ``v[i]`` take
+    :func:`ttamm_torch.ops.sparse_adam.adam_rows` of those rows and
     ``grads[r]``; a lane with ``idx < 0`` reads and writes nothing.
 
     f32 ``[rows, D]`` table, m and v (distinct tensors), int32 ``[N]``
     indices, f32 ``[N, D]`` gradients. Each live row is the target of one
     lane at most: two lanes on one row would apply the update twice, in an
-    order the kernel does not fix."""
+    order the kernel does not fix.
+
+    The step's scalars: ``scalars``, the f32 ``[ADAM_SCALARS]`` row of
+    :func:`adam_scalars` on the table's device, which the kernel reads from
+    device memory (so a captured launch reads each replay's own step), and
+    ``decay`` (``weight_decay != 0``); or by value, ``step`` (1-indexed),
+    ``lr``, ``b1``, ``b2``, ``eps`` and ``weight_decay``, from which the row
+    is formed and uploaded here."""
+    scalars, decay = _adam_row(table, scalars, decay, step, lr, b1, b2, eps, weight_decay)
     if table.device.type == "cpu":
-        return sparse_adam_rows_plain(
-            table, m, v, idx, grads, step=step, lr=lr, b1=b1, b2=b2, eps=eps,
-            weight_decay=weight_decay,
-        )
-    return sparse_adam_rows_cuda(
-        table, m, v, idx, grads, step=step, lr=lr, b1=b1, b2=b2, eps=eps,
-        weight_decay=weight_decay,
-    )
+        return sparse_adam_rows_plain(table, m, v, idx, grads, scalars=scalars, decay=decay)
+    return sparse_adam_rows_cuda(table, m, v, idx, grads, scalars=scalars, decay=decay)
 
 
 def _check_sparse_adam(
@@ -757,55 +788,95 @@ def _check_sparse_adam(
         raise ValueError("sparse_adam_rows: table, m, v and grads must be distinct tensors")
 
 
-def _adam_scalars(*, step: int, lr: float, b1: float, b2: float, eps: float,
-                  weight_decay: float) -> tuple:
-    """The f32 scalars of one step as eager PyTorch on the card forms them in
-    ``adam_rows``: each Python scalar cast to f32 once (``1 - b1``, ``1 - b2``
-    and ``lr * weight_decay`` formed in double first), and a tensor divided
-    by a Python scalar ``c`` multiplied by ``1 / c`` formed in double and
-    rounded to f32 once (measured on the card, PyTorch 2.11:
-    ``scripts/sparse_adam_variants.py``; neither the f32 reciprocal of the
-    f32 scalar nor an IEEE division gives its bits). Host arithmetic on host
-    ints and floats: no sync."""
-    scalars = (
-        b1, 1.0 - b1, b2, 1.0 - b2, 1.0 / (1.0 - b1**step), 1.0 / (1.0 - b2**step),
-        eps, lr, lr * weight_decay,
+ADAM_SCALARS = 9  # the f32 scalars of one sparse Adam step (adam_scalars)
+
+
+def adam_scalars(*, step: int, lr: float, b1: float, b2: float, eps: float,
+                 weight_decay: float) -> np.ndarray:
+    """The f32 ``[ADAM_SCALARS]`` scalars of one step, as eager PyTorch on the
+    card forms them in the by-value ``adam_rows``: each Python scalar cast to
+    f32 once (``1 - b1``, ``1 - b2`` and ``lr * weight_decay`` formed in
+    double first), and a tensor divided by a Python scalar ``c`` multiplied
+    by ``1 / c`` formed in double and rounded to f32 once (measured on the
+    card, PyTorch 2.11: ``scripts/sparse_adam_variants.py``; neither the f32
+    reciprocal of the f32 scalar nor an IEEE division gives its bits). In
+    order: b1, 1 - b1, b2, 1 - b2, 1 / (1 - b1^step), 1 / (1 - b2^step),
+    eps, lr, lr * weight_decay. Host arithmetic: no sync."""
+    return np.array(
+        [b1, 1.0 - b1, b2, 1.0 - b2, 1.0 / (1.0 - b1**step), 1.0 / (1.0 - b2**step), eps, lr,
+         lr * weight_decay],
+        dtype=np.float32,
     )
-    return (*(float(np.float32(x)) for x in scalars), int(bool(weight_decay)))
+
+
+def adam_row(device: torch.device, **hyper) -> dict:
+    """:func:`sparse_adam_rows`' ``scalars`` and ``decay`` for one step given
+    by value (``hyper``: :func:`adam_scalars`' keywords): the row uploaded to
+    ``device``."""
+    return dict(scalars=torch.from_numpy(adam_scalars(**hyper)).to(device),
+                decay=bool(hyper["weight_decay"]))
+
+
+def _adam_row(table, scalars, decay, step, lr, b1, b2, eps, weight_decay):
+    """``(scalars, decay)`` of :func:`sparse_adam_rows`: as given, or formed
+    from the by-value keywords on the table's device."""
+    if scalars is not None:
+        return scalars, bool(decay)
+    if step is None or lr is None:
+        raise ValueError("sparse_adam_rows: give scalars, or step and lr")
+    row = adam_row(table.device, step=step, lr=lr, b1=b1, b2=b2, eps=eps,
+                   weight_decay=weight_decay)
+    return row["scalars"], row["decay"]
+
+
+def _check_scalars(table: torch.Tensor, scalars: torch.Tensor) -> None:
+    if (scalars.dtype != torch.float32 or scalars.shape != (ADAM_SCALARS,)
+            or scalars.device != table.device or not scalars.is_contiguous()):
+        raise ValueError(
+            f"sparse_adam_rows: scalars must be a contiguous float32 [{ADAM_SCALARS}] on "
+            f"{table.device}, got {scalars.dtype} {tuple(scalars.shape)} on {scalars.device}"
+        )
 
 
 def sparse_adam_rows_plain(
     table: torch.Tensor, m: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
-    grads: torch.Tensor, *, step: int, lr: float, b1: float, b2: float, eps: float,
-    weight_decay: float,
+    grads: torch.Tensor, *, scalars: torch.Tensor | None = None, decay: bool = False,
+    step: int | None = None, lr: float | None = None, b1: float = 0.9, b2: float = 0.999,
+    eps: float = 1e-8, weight_decay: float = 0.0,
 ) -> None:
     """The unfused composition: the masked plain gathers of m, v and the
-    weights, ``adam_rows``, the masked plain scatters back."""
+    weights, ``adam_rows``, the masked plain scatters back (the step's
+    scalars as :func:`sparse_adam_rows` takes them)."""
     from .sparse_adam import unfused_row_update
 
+    scalars, decay = _adam_row(table, scalars, decay, step, lr, b1, b2, eps, weight_decay)
     _check_sparse_adam(table, m, v, idx, grads)
+    _check_scalars(table, scalars)
     unfused_row_update(
         table, m, v, idx, grads, gather=functools.partial(gather_rows_plain, masked=True),
-        scatter=functools.partial(scatter_set_rows_plain, masked=True), step=step, lr=lr, b1=b1,
-        b2=b2, eps=eps, weight_decay=weight_decay,
+        scatter=functools.partial(scatter_set_rows_plain, masked=True), scalars=scalars,
+        decay=decay,
     )
 
 
 def sparse_adam_rows_cuda(
     table: torch.Tensor, m: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
-    grads: torch.Tensor, *, step: int, lr: float, b1: float, b2: float, eps: float,
-    weight_decay: float,
+    grads: torch.Tensor, *, scalars: torch.Tensor | None = None, decay: bool = False,
+    step: int | None = None, lr: float | None = None, b1: float = 0.9, b2: float = 0.999,
+    eps: float = 1e-8, weight_decay: float = 0.0,
 ) -> None:
-    """The kernel (``csrc/rows.cu``); the arguments are checked before the
-    device."""
+    """The kernel (``csrc/rows.cu``), which reads the step's scalars through
+    a pointer; the arguments are checked before the device."""
+    scalars, decay = _adam_row(table, scalars, decay, step, lr, b1, b2, eps, weight_decay)
     _check_sparse_adam(table, m, v, idx, grads)
     _check_vec4("sparse_adam_rows", table, m, v, grads)
     dev = _check_cuda("sparse_adam_rows", table, m, v, idx, grads)
+    _check_scalars(table, scalars)
     if idx.shape[0]:
         _launch(
             "sparse_adam_rows", dev, table.data_ptr(), m.data_ptr(), v.data_ptr(),
             idx.data_ptr(), grads.data_ptr(), idx.shape[0], table.shape[0], table.shape[1],
-            *_adam_scalars(step=step, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay),
+            scalars.data_ptr(), int(decay),
         )
 
 

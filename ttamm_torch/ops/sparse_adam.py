@@ -106,13 +106,31 @@ def sparse_adam_update(
 ) -> None:
     """One SparseAdam step for the rows at ``indices``, in place on
     ``table``, ``state.m`` and ``state.v`` (all with the scratch row as
-    their last row, which no lane touches)."""
+    their last row, which no lane touches), at ``state.step + 1``, which it
+    advances: :func:`sparse_adam_apply` with the step's scalars formed here."""
     state.step += 1
+    sparse_adam_apply(table, state, indices, row_grads, **kernels.adam_row(
+        table.device, step=state.step, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
+
+
+@torch.no_grad()
+def sparse_adam_apply(
+    table: torch.Tensor,
+    state: SparseAdamState,
+    indices: torch.Tensor,
+    row_grads: torch.Tensor,
+    *,
+    scalars: torch.Tensor,
+    decay: bool,
+) -> None:
+    """The update of :func:`sparse_adam_update` with the step's f32
+    scalars on the device (``kernels.adam_scalars``' row) and ``state.step``
+    left as it is: what a train step runs, its scalars read from a table
+    of per-step scalars (``train/step.py``)."""
     # non-head lanes masked: each live row is the target of one lane
     target_rows, grads = coalesce_row_grads(indices, row_grads.to(table.dtype), scratch_row=-1)
     kernels.sparse_adam_rows(
-        table, state.m, state.v, target_rows, grads, step=state.step, lr=lr, b1=b1, b2=b2,
-        eps=eps, weight_decay=weight_decay,
+        table, state.m, state.v, target_rows, grads, scalars=scalars, decay=decay
     )
 
 
@@ -149,23 +167,32 @@ def adam_rows(
     v_rows: torch.Tensor,
     grads: torch.Tensor,
     *,
-    step: int,
-    lr: float,
-    b1: float,
-    b2: float,
-    eps: float,
-    weight_decay: float,
+    scalars: torch.Tensor | None = None,
+    decay: bool = False,
+    step: int | None = None,
+    lr: float | None = None,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The Adam arithmetic of gathered rows at (1-indexed) ``step``:
-    ``(new weights, new m, new v)``. The arithmetic of
-    :func:`unfused_row_update`; ``csrc/rows.cu``
-    (``sparse_adam_rows``) repeats it op for op, so all compute the same
+    """The Adam arithmetic of gathered rows: ``(new weights, new m, new
+    v)``, the step's scalars as ``kernels.sparse_adam_rows`` takes them (the
+    f32 row of ``kernels.adam_scalars`` and ``decay``, or by value). One
+    eager op per step of the by-value form on the card, each 0-d scalar of
+    the row where that form had its Python scalar, and each division by a
+    Python scalar a multiply by the row's reciprocal (which is how eager
+    PyTorch divides on the card): the arithmetic of
+    :func:`unfused_row_update`, which ``csrc/rows.cu``
+    (``sparse_adam_rows``) repeats op for op, so all compute the same
     bits."""
-    m_new = b1 * m_rows + (1.0 - b1) * grads
-    v_new = b2 * v_rows + (1.0 - b2) * torch.square(grads)
-    m_hat = m_new / (1.0 - b1**step)
-    v_hat = v_new / (1.0 - b2**step)
-    delta = lr * m_hat / (torch.sqrt(v_hat) + eps)
-    if weight_decay:
-        delta = delta + (lr * weight_decay) * w_rows
+    s, decay = kernels._adam_row(w_rows, scalars, decay, step, lr, b1, b2, eps, weight_decay)
+    b1_, one_b1, b2_, one_b2, inv_bc1, inv_bc2, eps_, lr_, lr_wd = s.unbind()
+    m_new = b1_ * m_rows + one_b1 * grads
+    v_new = b2_ * v_rows + one_b2 * torch.square(grads)
+    m_hat = m_new * inv_bc1
+    v_hat = v_new * inv_bc2
+    delta = lr_ * m_hat / (torch.sqrt(v_hat) + eps_)
+    if decay:
+        delta = delta + lr_wd * w_rows
     return w_rows - delta, m_new, v_new

@@ -158,7 +158,7 @@ def gather_lanes(
 ) -> SortedLanes:
     """The lanes of every data shard, all-gathered over ``data`` in
     ``row_grads``' dtype and widened to ``dtype``, put in the one-device
-    order (``gather_order``, see :func:`sharded_sparse_adam_update`) and
+    order (``gather_order``, see :func:`sharded_sparse_adam_apply`) and
     sorted: what the allgather routing and the global-norm clip both start
     from."""
     idx_all = all_gather_rows(indices.to(torch.int64), mesh, DATA_AXIS)
@@ -168,14 +168,12 @@ def gather_lanes(
     return sort_lanes(idx_all, g_all, head_init=-2)
 
 
-def _apply(table, state, lane_idx, grads, *, lr, b1, b2, eps, weight_decay) -> None:
-    """One ``sparse_adam_rows`` launch on this shard's rows, in place.
-    ``lane_idx`` is shard-local, -1 where the lane is skipped, and holds
-    each live row once."""
-    state.step += 1
+def _apply(table, state, lane_idx, grads, *, scalars, decay) -> None:
+    """One ``sparse_adam_rows`` launch on this shard's rows, in place, at
+    the step's scalars. ``lane_idx`` is shard-local, -1 where the lane is
+    skipped, and holds each live row once."""
     kernels.sparse_adam_rows(
-        table, state.m, state.v, lane_idx, grads, step=state.step, lr=lr, b1=b1, b2=b2,
-        eps=eps, weight_decay=weight_decay,
+        table, state.m, state.v, lane_idx, grads, scalars=scalars, decay=decay
     )
 
 
@@ -203,13 +201,36 @@ def sharded_sparse_adam_update(
     b2: float = 0.999,
     eps: float = 1e-8,
     weight_decay: float = 0.0,
+    **options,
+) -> bool:
+    """One SparseAdam step of a row-sharded table at ``state.step + 1``,
+    which it advances: :func:`sharded_sparse_adam_apply` with the step's
+    scalars formed here (``options``: its keywords after ``decay``)."""
+    state.step += 1
+    row = kernels.adam_row(table.device, step=state.step, lr=lr, b1=b1, b2=b2, eps=eps,
+                           weight_decay=weight_decay)
+    return sharded_sparse_adam_apply(mesh, table, state, indices, row_grads, **row, **options)
+
+
+@torch.no_grad()
+def sharded_sparse_adam_apply(
+    mesh: DeviceMesh,
+    table: torch.Tensor,
+    state: SparseAdamState,
+    indices: torch.Tensor,
+    row_grads: torch.Tensor,
+    *,
+    scalars: torch.Tensor,
+    decay: bool,
     routing: str = "allgather",
     capacity_factor: float = 2.0,
     gather_order: torch.Tensor | None = None,
     gathered: SortedLanes | None = None,
 ) -> bool:
     """One SparseAdam step of a row-sharded table, in place on this rank's
-    ``table`` / ``state.m`` / ``state.v`` shards.
+    ``table`` / ``state.m`` / ``state.v`` shards, at the step's f32 scalars
+    (``kernels.adam_scalars``' row on the device; ``state.step`` is left as
+    it is).
 
     ``indices`` int ``[n / dp]`` (global row ids; -1 marks a padding lane)
     and ``row_grads`` ``[n / dp, D]`` are this rank's data shard, in the
@@ -227,7 +248,7 @@ def sharded_sparse_adam_update(
     base = row_offset(mesh, rows)
     dp, mp = axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS)
     idx = indices.to(torch.int64)
-    hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    hyper = dict(scalars=scalars, decay=decay)
 
     def allgather_update() -> None:
         # the unsummed lanes cross the wire in their own dtype

@@ -113,8 +113,15 @@ writes the Chrome trace ``{experiment.name}_epoch{NNN}.pt.trace.json``
 there, as the JAX trainer writes its ``jax.profiler`` trace; on a mesh rank
 0 alone traces and writes.
 
-The TPU knobs ``steps_per_call``, ``use_pallas`` and ``mesh.multi_host`` are
-not read.
+``training.steps_per_call`` (``auto``, the JAX rule of
+:func:`_pick_steps_per_call`: the whole epoch at the canonical corpus, or an
+int >= 1) runs an epoch's full batches in chunks of that many steps through
+``make_multi_train_step``, the remainder batch through the single step,
+and the eval loss's full batches through ``make_multi_eval_loss_step``; on
+a card the steps of a chunk are replays of one captured CUDA graph of the
+step (``train/step.py``), bit for bit the eager steps. ``1`` runs eager
+single steps. On a mesh the steps run one by one whatever it says. The TPU
+knobs ``use_pallas`` and ``mesh.multi_host`` are not read.
 """
 
 from __future__ import annotations
@@ -203,6 +210,8 @@ from ..train.step import (
     TrainStepConfig,
     encode_corpus,
     make_eval_loss_step,
+    make_multi_eval_loss_step,
+    make_multi_train_step,
     make_train_step,
 )
 from ..utils import configure_logging, expand_grid, get_logger
@@ -305,23 +314,60 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _pick_steps_per_call(num_full_batches: int, cap: int = 8192) -> int:
+    """``training.steps_per_call: auto`` (the JAX trainer's rule): the K <=
+    ``cap`` that makes an epoch's ``num_full // K`` multi-step calls plus
+    ``num_full % K`` single steps fewest, the whole epoch wherever it fits
+    under the cap."""
+    if num_full_batches <= 1:
+        return max(num_full_batches, 1)
+    best_k, best_cost = 1, num_full_batches
+    for k in range(2, min(cap, num_full_batches) + 1):
+        cost = num_full_batches // k + num_full_batches % k
+        if cost < best_cost:
+            best_k, best_cost = k, cost
+    return best_k
+
+
+def _steps_per_call(training_cfg: Mapping[str, Any], num_full_batches: int) -> int:
+    """``training.steps_per_call``: ``auto`` (or unset) or an int >= 1."""
+    raw = training_cfg.get("steps_per_call", "auto")
+    if raw is None or str(raw).lower() == "auto":
+        return _pick_steps_per_call(num_full_batches)
+    if int(raw) < 1:
+        raise ValueError(f"training.steps_per_call must be auto or >= 1, got {raw!r}")
+    return int(raw)
+
+
 def _dataset_loss(
-    eval_step, state, data, users: np.ndarray, items: np.ndarray, batch_size: int,
-    generator: torch.Generator, device: torch.device,
+    eval_step, multi_eval_step, state, data, users: np.ndarray, items: np.ndarray,
+    batch_size: int, generator: torch.Generator, device: torch.device,
 ) -> float:
-    """Sample-weighted mean eval loss over a split; one host read at the end."""
+    """Sample-weighted mean eval loss over a split; one host read at the end.
+    The full batches go through ``multi_eval_step`` in one call (None: one
+    by one), the remainder batch through ``eval_step``."""
     if len(users) == 0:
         return float("nan")
     u = torch.from_numpy(users).to(device)
     p = torch.from_numpy(items).to(device)
     losses, sizes = [], []
-    for start in range(0, len(users), batch_size):
+    num_full = len(users) // batch_size
+    start = 0
+    if multi_eval_step is not None and num_full:
+        full = num_full * batch_size
+        losses.append(multi_eval_step(
+            state, data, u[:full].view(num_full, batch_size), p[:full].view(num_full, batch_size),
+            generator=generator,
+        ))
+        sizes += [batch_size] * num_full
+        start = full
+    for start in range(start, len(users), batch_size):
         losses.append(eval_step(
             state, data, u[start : start + batch_size], p[start : start + batch_size],
             generator=generator,
-        ))
+        ).reshape(1))
         sizes.append(min(batch_size, len(users) - start))
-    values = torch.stack(losses).cpu().numpy()
+    values = torch.cat(losses).cpu().numpy()
     return float(np.dot(values, sizes) / sum(sizes))
 
 
@@ -530,6 +576,17 @@ def run_single_experiment(
     )
     train_step = make_train_step(model_cfg, tscfg, mesh=mesh)
     eval_step = make_eval_loss_step(model_cfg, tscfg, mesh=mesh)
+    steps_per_call = _steps_per_call(training_cfg, len(train_df) // batch_size)
+    multi_step = multi_eval_step = None
+    if mesh is not None:
+        logger.info("steps_per_call=%d is not used on a mesh: the steps run one by one",
+                    steps_per_call)
+    else:
+        logger.info("steps_per_call=%s -> %d", training_cfg.get("steps_per_call", "auto"),
+                    steps_per_call)
+        if steps_per_call > 1:
+            multi_step = make_multi_train_step(model_cfg, tscfg)
+            multi_eval_step = make_multi_eval_loss_step(model_cfg, tscfg)
 
     start_epoch = 1
     resume = Path(training_cfg["resume_from"]) if training_cfg.get("resume_from") else None
@@ -600,6 +657,9 @@ def run_single_experiment(
 
     # negatives: one stream, the same on every rank
     generator = torch.Generator(device=dev).manual_seed(seed)
+    # the eval losses' streams, re-seeded each epoch (one object a split, so
+    # the multi-step eval's captured graph is kept across epochs)
+    val_gen, test_gen = torch.Generator(device=dev), torch.Generator(device=dev)
     step_kwargs = {}
     if mesh is not None:
         step_kwargs["dropout_generator"] = dropout_generator(seed, mesh, dev)
@@ -620,17 +680,35 @@ def run_single_experiment(
         if profile_dir and epoch == start_epoch and is_primary_host():
             profiler = _train_loop_profiler(dev)
             profiler.start()
-        for start in range(0, len(perm), batch_size):
+        start = 0
+        if multi_step is not None:
+            # the full batches in chunks of steps_per_call (the last one, or
+            # one cut by max_steps, shorter), each one multi-step call
+            full = len(perm) // batch_size
+            if max_steps is not None:
+                full = max(min(full, max_steps - result.steps), 0)
+            for first in range(0, full, steps_per_call):
+                steps = min(steps_per_call, full - first)
+                rows = slice(first * batch_size, (first + steps) * batch_size)
+                state, chunk = multi_step(
+                    state, data, users[rows].view(steps, batch_size),
+                    items[rows].view(steps, batch_size), generator=generator,
+                )
+                losses.append(chunk)
+                sizes += [batch_size] * steps
+                result.steps += steps
+            start = full * batch_size
+        for start in range(start, len(perm), batch_size):
             if max_steps is not None and result.steps >= max_steps:
                 break
             state, metrics = train_step(
                 state, data, users[start : start + batch_size],
                 items[start : start + batch_size], generator=generator, **step_kwargs,
             )
-            losses.append(metrics["loss"])
+            losses.append(metrics["loss"].reshape(1))
             sizes.append(min(batch_size, len(perm) - start))
             result.steps += 1
-        values = torch.stack(losses).cpu().numpy()  # syncs the epoch's work
+        values = torch.cat(losses).cpu().numpy()  # syncs the epoch's work
         epoch_seconds = time.perf_counter() - epoch_start
         if profiler is not None:
             _write_trace(profiler, dev, Path(profile_dir), experiment_name, epoch)
@@ -665,9 +743,10 @@ def run_single_experiment(
         val_metrics = test_metrics = None
         monitor_value: float | None = None
         if len(val_users):
-            val_gen = torch.Generator(device=dev).manual_seed(seed * 1000003 + 7_000_003 + epoch)
+            val_gen.manual_seed(seed * 1000003 + 7_000_003 + epoch)
             val_loss_value = _dataset_loss(
-                eval_step, state, data, val_users, val_items, batch_size, val_gen, dev
+                eval_step, multi_eval_step, state, data, val_users, val_items, batch_size,
+                val_gen, dev,
             )
             lap("val_loss")
             val_metrics = retrieval_metrics(eval_model, val_plan, val_df, item_embeddings,
@@ -686,9 +765,10 @@ def run_single_experiment(
         result.val_metrics.append(val_metrics)
         test_loss_value = float("nan")
         if len(test_users):
-            test_gen = torch.Generator(device=dev).manual_seed(seed * 1000003 + 9_000_001 + epoch)
+            test_gen.manual_seed(seed * 1000003 + 9_000_001 + epoch)
             test_loss_value = _dataset_loss(
-                eval_step, state, data, test_users, test_items, batch_size, test_gen, dev
+                eval_step, multi_eval_step, state, data, test_users, test_items, batch_size,
+                test_gen, dev,
             )
             lap("test_loss")
             test_metrics = retrieval_metrics(eval_model, test_plan, test_df, item_embeddings,

@@ -3,11 +3,16 @@
 ``native/flat_index.cpp``, byte for byte), loaded through ctypes.
 
 The library is compiled by ``g++`` at first use with ``native/Makefile``'s
-flags into ``build/ttamm_torch/``, under a name hashed over the source, the
-flags and the CPU features ``-march=native`` turns on (a library built for
-one CPU may not run on another). Nothing falls back: without ``g++``, when
-the build fails (its stderr quoted) or when the searcher returns an error,
-a call raises.
+compile flags into ``build/ttamm_torch/``, under a name hashed over the
+source, the flags and the CPU features ``-march=native`` turns on (a library
+built for one CPU may not run on another). It is linked by a separate
+command without ``-ffast-math``: linked with it, GCC adds ``crtfastmath.o``,
+whose constructor sets flush-to-zero and denormals-are-zero in the loading
+thread's floating-point mode (and so in every thread it starts later),
+which would change every later float computation of the process that
+loads the library. Nothing falls back: without ``g++``, when the build
+fails (its stderr quoted) or when the searcher returns an error, a call
+raises.
 """
 
 from __future__ import annotations
@@ -23,9 +28,8 @@ import numpy as np
 from ..ops.kernels import compile_shared_library
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host" / "flat_index.cpp"
-CXX_FLAGS = (
-    "-O3", "-march=native", "-ffast-math", "-fPIC", "-std=c++17", "-shared", "-pthread",
-)
+CXX_FLAGS = ("-O3", "-march=native", "-ffast-math", "-fPIC", "-std=c++17", "-pthread")
+LINK_FLAGS = ("-shared", "-pthread")  # no -ffast-math: no crtfastmath.o
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -51,7 +55,7 @@ def build_native_library(build_dir: Path | None = None) -> Path:
     return compile_shared_library(
         cxx, CXX_FLAGS, [_SOURCE], stem="libttamm_flat_index",
         salt="" if cxx is None else _native_target(cxx), build_dir=build_dir,
-        log_name="build_host.log",
+        log_name="build_host.log", link_flags=LINK_FLAGS,
         missing="cannot build the native search library: g++ not found (put g++ on PATH)",
     )
 

@@ -9,8 +9,12 @@ A functional update over a list of tensors, in place:
 - SGD: optional momentum buffer, L2 decay folded into the gradient.
 
 Bias correction as torch: ``lr * sqrt(1-b2^t) / (1-b1^t)``. The step count
-and the learning-rate schedule live on the host (Python numbers), so an
-update issues no host sync.
+and the learning-rate schedule live on the host (Python numbers): the
+scalars that change from step to step (the decay factor, the step size,
+the second bias correction) are formed there in double, rounded to f32 once
+(:func:`dense_scalars`) and read by the update from device memory
+(:func:`dense_opt_apply`), so an update issues no host sync and a captured
+update (``train/step.py``'s CUDA graph) reads each replay's own step.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -63,6 +68,22 @@ def lr_scale(cfg: DenseOptConfig, step: int) -> float:
     raise ValueError(f"Unknown lr_schedule: {cfg.lr_schedule}")
 
 
+DENSE_SCALARS = 3  # the f32 scalars of one dense step (dense_scalars)
+
+
+def dense_scalars(cfg: DenseOptConfig, step: int) -> np.ndarray:
+    """The f32 ``[DENSE_SCALARS]`` scalars of (1-indexed) step ``step``,
+    formed in double and rounded once: Adam / AdamW ``(1 - lr * wd, -lr /
+    (1 - b1^t), 1 - b2^t)`` (the first read under AdamW with decay only),
+    SGD ``(-lr, 0, 0)``."""
+    lr = cfg.lr * lr_scale(cfg, step)
+    if cfg.name == "sgd":
+        row = (-lr, 0.0, 0.0)
+    else:
+        row = (1.0 - lr * cfg.weight_decay, -lr / (1.0 - cfg.b1**step), 1.0 - cfg.b2**step)
+    return np.array(row, dtype=np.float32)
+
+
 @torch.no_grad()
 def dense_opt_update(
     params: list[torch.Tensor],
@@ -70,9 +91,28 @@ def dense_opt_update(
     state: DenseOptState,
     cfg: DenseOptConfig,
 ) -> None:
-    """One optimizer step on ``params`` in place (and on ``state``)."""
+    """One optimizer step on ``params`` in place (and on ``state``) at
+    ``state.step + 1``, which it advances: :func:`dense_opt_apply` with the
+    step's scalars formed here."""
     state.step += 1
-    lr = cfg.lr * lr_scale(cfg, state.step)
+    scalars = torch.from_numpy(dense_scalars(cfg, state.step))
+    dense_opt_apply(params, grads, state, cfg, scalars.to(params[0].device) if params else scalars)
+
+
+@torch.no_grad()
+def dense_opt_apply(
+    params: list[torch.Tensor],
+    grads: list[torch.Tensor],
+    state: DenseOptState,
+    cfg: DenseOptConfig,
+    scalars: torch.Tensor,
+) -> None:
+    """The update of :func:`dense_opt_update` with the step's f32 scalars
+    (:func:`dense_scalars`' row, on the parameters' device) read as 0-d
+    tensors, ``state.step`` left as it is."""
+    if not params:
+        return
+    first, step_size, bc2 = scalars.unbind()
     if cfg.name == "sgd":
         if cfg.weight_decay:
             grads = torch._foreach_add(grads, params, alpha=cfg.weight_decay)
@@ -80,21 +120,21 @@ def dense_opt_update(
             torch._foreach_mul_(state.m, cfg.momentum)
             torch._foreach_add_(state.m, grads)
             grads = state.m
-        torch._foreach_add_(params, grads, alpha=-lr)
+        torch._foreach_add_(params, torch._foreach_mul(grads, first))
         return
     if cfg.name == "adam" and cfg.weight_decay:
         grads = torch._foreach_add(grads, params, alpha=cfg.weight_decay)
     if cfg.name == "adamw" and cfg.weight_decay:
-        torch._foreach_mul_(params, 1.0 - lr * cfg.weight_decay)
+        torch._foreach_mul_(params, first)
     torch._foreach_mul_(state.m, cfg.b1)
     torch._foreach_add_(state.m, grads, alpha=1.0 - cfg.b1)
     torch._foreach_mul_(state.v, cfg.b2)
     torch._foreach_addcmul_(state.v, grads, grads, value=1.0 - cfg.b2)
-    bc1 = 1.0 - cfg.b1**state.step
-    bc2 = 1.0 - cfg.b2**state.step
     denom = torch._foreach_sqrt(torch._foreach_div(state.v, bc2))
     torch._foreach_add_(denom, cfg.eps)
-    torch._foreach_addcdiv_(params, state.m, denom, value=-lr / bc1)
+    update = torch._foreach_div(state.m, denom)
+    torch._foreach_mul_(update, step_size)
+    torch._foreach_add_(params, update)
 
 
 def parse_dense_opt_config(training_cfg: dict, *, total_steps: int = 0) -> DenseOptConfig:

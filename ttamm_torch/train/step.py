@@ -61,14 +61,15 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..device import host_to_device
 from ..models.adaptive_mimic import mimic_forward
 from ..models.encoders import TPContext
 from ..models.two_tower import ModelConfig, TwoTower
 from ..ops import kernels
 from ..ops.losses import bce_with_logits, category_alignment_loss
 from ..ops.sampling import sample_negative_items
-from ..ops.sparse_adam import coalesce_row_grads, sparse_adam_update, sum_rows
-from .optim import DenseOptConfig, dense_opt_update, lr_scale
+from ..ops.sparse_adam import coalesce_row_grads, sparse_adam_apply, sum_rows
+from .optim import DENSE_SCALARS, DenseOptConfig, dense_opt_apply, dense_scalars, lr_scale
 from .state import BatchData, TrainState, dense_table_names, sparse_table_names
 
 LOSSES = ("bce", "in_batch_softmax")
@@ -419,11 +420,13 @@ class _OneDevice:
         _, summed = coalesce_row_grads(lanes.idx, lanes.grad, scratch_row=table.shape[0] - 1)
         return lanes, torch.sum(torch.square(summed))
 
-    def sparse_update(self, table, opt_state, lanes: _Lanes, tscfg: TrainStepConfig, lr) -> None:
-        opt = tscfg.opt
-        sparse_adam_update(
-            table, opt_state, lanes.idx, lanes.grad,
-            lr=lr, b1=opt.b1, b2=opt.b2, weight_decay=tscfg.sparse_weight_decay,
+    def sparse_update(self, table, opt_state, lanes: _Lanes, tscfg: TrainStepConfig,
+                      scalars: torch.Tensor) -> None:
+        """Sparse-row Adam on one table at the step's f32 scalars
+        (``kernels.adam_scalars``' row on the device)."""
+        sparse_adam_apply(
+            table, opt_state, lanes.idx, lanes.grad, scalars=scalars,
+            decay=bool(tscfg.sparse_weight_decay),
         )
 
 
@@ -596,13 +599,12 @@ class _Mesh(_OneDevice):
         totals = torch.where(gathered.is_head[:, None], gathered.totals(), 0.0)
         return lanes._replace(gathered=gathered), torch.sum(torch.square(totals))
 
-    def sparse_update(self, table, opt_state, lanes, tscfg, lr):
-        opt = tscfg.opt
-        self._update.sharded_sparse_adam_update(
-            self.mesh, table, opt_state, lanes.idx, lanes.grad,
-            lr=lr, b1=opt.b1, b2=opt.b2, weight_decay=tscfg.sparse_weight_decay,
-            routing=tscfg.update_routing, capacity_factor=tscfg.update_capacity_factor,
-            gather_order=lanes.order, gathered=lanes.gathered,
+    def sparse_update(self, table, opt_state, lanes, tscfg, scalars):
+        self._update.sharded_sparse_adam_apply(
+            self.mesh, table, opt_state, lanes.idx, lanes.grad, scalars=scalars,
+            decay=bool(tscfg.sparse_weight_decay), routing=tscfg.update_routing,
+            capacity_factor=tscfg.update_capacity_factor, gather_order=lanes.order,
+            gathered=lanes.gathered,
         )
 
 
@@ -627,23 +629,45 @@ def _batch_lanes(layout: _OneDevice, tscfg: TrainStepConfig, data, u_idx, pos_id
     return _Batch(batch, lo, hi, u_idx[lo:hi], items)
 
 
-def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> TrainStep:
-    """Build ``train_step(state, data, u_idx, pos_idx, *, generator,
-    negatives=None, dropout_generator=None) -> (state, metrics)``.
+def step_scalars(state: TrainState, tscfg: TrainStepConfig, steps: int) -> np.ndarray:
+    """The f32 ``[steps, DENSE_SCALARS + ADAM_SCALARS * tables]`` scalars of
+    the next ``steps`` train steps from ``state``'s counts, each formed on
+    the host in double and rounded once: row ``k`` holds step ``k + 1``'s
+    dense optimizer scalars (``optim.dense_scalars``), then each sparse
+    table's (``kernels.adam_scalars``, in ``sparse_table_names`` order, at
+    the table's own count and the schedule's learning rate). A step reads
+    its row from the device, so a step and a replay of a captured step run
+    the same ops on the same values."""
+    opt = tscfg.opt
+    names = sparse_table_names(state.model.cfg)
+    rows = np.empty((steps, DENSE_SCALARS + kernels.ADAM_SCALARS * len(names)), np.float32)
+    for k in range(1, steps + 1):
+        lr_t = opt.lr * lr_scale(opt, state.step + k)
+        rows[k - 1, :DENSE_SCALARS] = dense_scalars(opt, state.opt_dense.step + k)
+        for i, n in enumerate(names):
+            lo = DENSE_SCALARS + i * kernels.ADAM_SCALARS
+            rows[k - 1, lo : lo + kernels.ADAM_SCALARS] = kernels.adam_scalars(
+                step=state.opt_sparse[n].step + k, lr=lr_t, b1=opt.b1, b2=opt.b2, eps=1e-8,
+                weight_decay=tscfg.sparse_weight_decay,
+            )
+    return rows
 
-    ``generator`` (on the data's device) draws the negatives (the in-batch
-    loss: the pool of mixed negatives) and, on one device, the dropout
-    masks unless ``dropout_generator`` is given; ``negatives`` ``[B, NEG]``
-    (the in-batch loss: ``[M]``) replaces the draw (tests inject the JAX
-    draws). The state is updated in place and
-    returned; the metrics are 0-d device tensors (``loss`` and the four loss
-    terms), read by the caller when it likes, so a step issues no host sync.
 
-    ``mesh``: the step on one rank of a ``(data, model)`` mesh, whose
-    differences :class:`_Mesh` lists (dropout from ``dropout_generator``),
-    with the dense tower layers split over ``model`` where the state was
-    placed so (``TrainState.tensor_parallel``).
-    """
+def _advance(state: TrainState, steps: int) -> None:
+    """The host counts after ``steps`` train steps: the state's, the dense
+    optimizer's and each sparse table's."""
+    state.step += steps
+    state.opt_dense.step += steps
+    for opt_state in state.opt_sparse.values():
+        opt_state.step += steps
+
+
+def _train_core(cfg: ModelConfig, tscfg: TrainStepConfig, mesh=None):
+    """``core(state, data, u_idx, pos_idx, scalars, *, generator,
+    negatives=None, dropout_generator=None) -> metrics``: one train step at
+    the f32 ``scalars`` row of :func:`step_scalars` (on the device), the
+    state updated in place and its host counts left as they are, so the
+    same Python runs eagerly and under a CUDA graph capture."""
     _check_config(tscfg)
     layout = _layout(tscfg, mesh)
     sparse_names = sparse_table_names(cfg)
@@ -667,7 +691,8 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
             total = total + lam_c * cal
         return total
 
-    def train_step(state, data, u_idx, pos_idx, *, generator, negatives=None, dropout_generator=None):
+    def core(state, data, u_idx, pos_idx, scalars, *, generator, negatives=None,
+             dropout_generator=None):
         model, tp = state.model, layout.tp(state)
         bt = _batch_lanes(layout, tscfg, data, u_idx, pos_idx, generator, negatives)
         row_idx = _row_indices(bt)
@@ -721,22 +746,53 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
             lanes = {n: ln.scaled(scale) for n, ln in lanes.items()}
         lanes = {n: ln.on_wire(layout.wire) for n, ln in lanes.items()}
 
-        dense_opt_update(
+        dense_opt_apply(
             [t for _, t in state.dense_targets()], dense_grads + table_grads, state.opt_dense, opt,
+            scalars[:DENSE_SCALARS],
         )
-        lr_t = opt.lr * lr_scale(opt, state.step + 1)
-        for n in sparse_names:
-            layout.sparse_update(tables[n], state.opt_sparse[n], lanes[n], tscfg, lr_t)
-        state.step += 1
+        for i, n in enumerate(sparse_names):
+            lo = DENSE_SCALARS + i * kernels.ADAM_SCALARS
+            layout.sparse_update(tables[n], state.opt_sparse[n], lanes[n], tscfg,
+                                 scalars[lo : lo + kernels.ADAM_SCALARS])
         retrieval, mu, mi = layout.reduce_losses(parts)
         cal = None if cal_loss is None else cal_loss.detach()
-        metrics = {
+        return {
             "loss": combine(retrieval, mu, mi, cal),
             "retrieval_loss": retrieval,
             "mimic_user_loss": mu,
             "mimic_item_loss": mi,
             "category_alignment_loss": retrieval.new_zeros(()) if cal is None else cal,
         }
+
+    return core
+
+
+def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> TrainStep:
+    """Build ``train_step(state, data, u_idx, pos_idx, *, generator,
+    negatives=None, dropout_generator=None) -> (state, metrics)``.
+
+    ``generator`` (on the data's device) draws the negatives (the in-batch
+    loss: the pool of mixed negatives) and, on one device, the dropout
+    masks unless ``dropout_generator`` is given; ``negatives`` ``[B, NEG]``
+    (the in-batch loss: ``[M]``) replaces the draw (tests inject the JAX
+    draws). The state is updated in place and
+    returned; the metrics are 0-d device tensors (``loss`` and the four loss
+    terms), read by the caller when it likes, so a step issues no host sync
+    (its optimizer scalars, :func:`step_scalars`, reach the card through
+    pinned memory without one).
+
+    ``mesh``: the step on one rank of a ``(data, model)`` mesh, whose
+    differences :class:`_Mesh` lists (dropout from ``dropout_generator``),
+    with the dense tower layers split over ``model`` where the state was
+    placed so (``TrainState.tensor_parallel``).
+    """
+    core = _train_core(cfg, tscfg, mesh)
+
+    def train_step(state, data, u_idx, pos_idx, *, generator, negatives=None, dropout_generator=None):
+        scalars = host_to_device(step_scalars(state, tscfg, 1)[0], u_idx.device)
+        metrics = core(state, data, u_idx, pos_idx, scalars, generator=generator,
+                       negatives=negatives, dropout_generator=dropout_generator)
+        _advance(state, 1)
         return state, metrics
 
     return train_step
@@ -773,6 +829,172 @@ def make_eval_loss_step(
         return loss
 
     return eval_loss_step
+
+
+# ---------------------------------------------------------------------------
+# Many steps a call: CUDA-graph replays of one captured step
+# ---------------------------------------------------------------------------
+
+
+class _Graph(NamedTuple):
+    """One captured step and its static buffers: the chunk's batches ``u``,
+    ``p`` ``[cap, B]``, its scalar rows ``s`` ``[cap, n]`` (None for the
+    eval loss), its losses ``loss`` ``[cap]`` and the device step counter
+    ``ctr`` at which a replay reads its row and writes its loss; ``launches``:
+    the port's kernel launches of one replay, by name; ``generator``: the
+    registered generator, held so that its id in the key stays its own."""
+
+    graph: Any
+    u: torch.Tensor
+    p: torch.Tensor
+    s: torch.Tensor | None
+    loss: torch.Tensor
+    ctr: torch.Tensor
+    launches: dict[str, int]
+    generator: Any
+
+
+def _graph_key(state: TrainState, data: BatchData, u_all: torch.Tensor, generator) -> tuple:
+    """What a captured step is bound to: the address, shape and dtype of
+    every state and dataset tensor it reads or writes, the batch's shape and
+    dtype, and the generator."""
+    tensors = [t for _, t in state.dense_targets()]
+    tensors += list(state.tables.values()) + state.opt_dense.m + state.opt_dense.v
+    for opt_state in state.opt_sparse.values():
+        tensors += [opt_state.m, opt_state.v]
+    tensors += [t for t in vars(data).values() if t is not None]
+    return (
+        tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors),
+        tuple(u_all.shape[1:]), u_all.dtype, id(generator),
+    )
+
+
+class _Replayer:
+    """``run(state, data, u_all [K, B], p_all [K, B], scalars, generator) ->
+    losses [K]``: K calls of ``body(state, data, u, p, scalars_row,
+    generator) -> loss`` (a 0-d tensor), the step's state updates in place.
+
+    On the CPU, the loop of K calls. On a card, each call past the first is
+    a replay of one CUDA graph of ``body``: the first call of a key
+    (:func:`_graph_key`) runs its step eagerly, which builds the kernels
+    and sets up cuBLAS and autograd, then captures ``body`` reading its
+    batch and scalar row from static buffers at a step counter on the
+    device (registering ``generator``, whose draws then advance each replay
+    as an eager step's would). A chunk is then one upload of its batches
+    and scalar rows into the static buffers and one replay a step, with no
+    host sync; the kernels' launch counts grow by the captured launches at
+    each replay. A graph is captured again only for a key it was not
+    captured for (a state or dataset tensor reallocated, as by a resume or
+    a restore, another generator or batch shape) or a longer chunk. A
+    capture or replay that fails raises: nothing falls back to eager
+    steps."""
+
+    KEEP = 2  # graphs held at once: the eval's val and test generators
+
+    def __init__(self, body):
+        self._body = body
+        self._graphs: dict[tuple, _Graph] = {}
+
+    def run(self, state, data, u_all, p_all, scalars, generator) -> torch.Tensor:
+        steps = u_all.shape[0]
+        dev = u_all.device
+        rows = None if scalars is None else host_to_device(scalars, dev)
+        if dev.type != "cuda":
+            return torch.stack([
+                self._body(state, data, u_all[k], p_all[k], None if rows is None else rows[k],
+                           generator)
+                for k in range(steps)
+            ])
+        losses = torch.empty(steps, dtype=torch.float32, device=dev)
+        key = _graph_key(state, data, u_all, generator)
+        graph = self._graphs.get(key)
+        start = 0
+        if graph is None or graph.u.shape[0] < steps:
+            loss = self._body(state, data, u_all[0], p_all[0], None if rows is None else rows[0],
+                              generator)
+            losses[:1].copy_(loss.reshape(1))
+            graph = self._capture(key, state, data, u_all, rows, generator)
+            start = 1
+        graph.u[:steps].copy_(u_all)
+        graph.p[:steps].copy_(p_all)
+        if rows is not None:
+            graph.s[:steps].copy_(rows)
+        graph.ctr.fill_(start)
+        for _ in range(start, steps):
+            graph.graph.replay()
+        kernels.add_launch_counts(graph.launches, steps - start)
+        losses[start:].copy_(graph.loss[start:steps])
+        return losses
+
+    def _capture(self, key, state, data, u_all, rows, generator) -> _Graph:
+        self._graphs.pop(key, None)
+        while len(self._graphs) >= self.KEEP:
+            self._graphs.pop(next(iter(self._graphs)))
+        dev = u_all.device
+        steps = u_all.shape[0]
+        u, p = torch.empty_like(u_all), torch.empty_like(u_all)
+        s = None if rows is None else torch.empty_like(rows)
+        loss_buf = torch.zeros(steps, dtype=torch.float32, device=dev)
+        ctr = torch.zeros(1, dtype=torch.int64, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before = kernels.launch_counts()
+        try:
+            # thread_local: the background checkpoint writer may use its own
+            # stream meanwhile; a host sync in the step still raises
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                row = None if s is None else torch.index_select(s, 0, ctr)[0]
+                loss = self._body(state, data, torch.index_select(u, 0, ctr)[0],
+                                  torch.index_select(p, 0, ctr)[0], row, generator)
+                loss_buf.index_copy_(0, ctr, loss.reshape(1).float())
+                ctr.add_(1)
+        finally:
+            after = kernels.launch_counts()
+            launches = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+            kernels.add_launch_counts(launches, -1)  # captured, not run
+        self._graphs[key] = _Graph(graph, u, p, s, loss_buf, ctr, launches, generator)
+        return self._graphs[key]
+
+
+def make_multi_train_step(cfg: ModelConfig, tscfg: TrainStepConfig):
+    """Build ``multi(state, data, u_all [K, B], p_all [K, B], *, generator)
+    -> (state, losses [K])``: K train steps of :func:`make_train_step` on
+    one device in one call (the JAX package's ``lax.scan`` of K steps,
+    ``training.steps_per_call``), bit for bit the K single steps, the
+    generator's draws included. The optimizers' scalars of the K steps are
+    formed once on the host (:func:`step_scalars`) and uploaded once; on a
+    card the steps past the first of a new state are replays of one captured
+    step (:class:`_Replayer`), so the host issues a replay, not ~500 eager
+    ops, a step. The state's host counts advance by K."""
+    core = _train_core(cfg, tscfg)
+    replayer = _Replayer(
+        lambda state, data, u, p, s, gen: core(state, data, u, p, s, generator=gen)["loss"]
+    )
+
+    def multi(state, data, u_all, p_all, *, generator):
+        losses = replayer.run(
+            state, data, u_all, p_all, step_scalars(state, tscfg, u_all.shape[0]), generator
+        )
+        _advance(state, u_all.shape[0])
+        return state, losses
+
+    return multi
+
+
+def make_multi_eval_loss_step(cfg: ModelConfig, tscfg: TrainStepConfig):
+    """Build ``multi(state, data, u_all [K, B], p_all [K, B], *, generator)
+    -> losses [K]``: K eval-loss steps of :func:`make_eval_loss_step` on one
+    device in one call, as :func:`make_multi_train_step` (replays of one
+    captured step on a card; one graph a generator, so a caller that
+    re-seeds one generator object per split reuses it)."""
+    step = make_eval_loss_step(cfg, tscfg)
+    replayer = _Replayer(lambda state, data, u, p, s, gen: step(state, data, u, p, generator=gen))
+
+    def multi(state, data, u_all, p_all, *, generator):
+        return replayer.run(state, data, u_all, p_all, None, generator)
+
+    return multi
 
 
 @torch.no_grad()
