@@ -262,6 +262,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1657,7 +1658,7 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
     from ttamm_torch.ops import kernels
     from ttamm_torch.ops.sampling import sample_negative_items
     from ttamm_torch.parallel import MeshConfig, build_mesh, place_data, place_state
-    from ttamm_torch.parallel.sparse_update import OWNER_STATS
+    from ttamm_torch.parallel.sparse_update import owner_stats, reset_owner_stats
     from ttamm_torch.parallel.step import make_sharded_train_step
     from ttamm_torch.train import create_train_state, make_train_step
 
@@ -1687,6 +1688,7 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
         return out
 
     with one_rank_nccl():
+        reset_owner_stats()
         mesh = build_mesh(MeshConfig(1, 1), "cuda")
         mdata = place_data(mesh, data)
         steps = {r: make_sharded_train_step(cfg, tscfg._replace(update_routing=r), mesh)
@@ -1767,9 +1769,10 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
                              "host_ms": (time.perf_counter() - start) / 3 * 1e3}
             log(f"step {label}: device {dev_ms:.3f} ms, {ops:.1f} device ops | host clock "
                 f"{timing[label]['host_ms']:.3f} ms")
-        log(f"owner routing: {OWNER_STATS['checks']} overflow checks (one host sync each), "
-            f"{OWNER_STATS['overflows']} overflows")
-        timing["owner_stats"] = dict(OWNER_STATS)
+        stats = owner_stats()  # the device counters, read once
+        log(f"owner routing: {stats['checks']} overflow checks (on the device, no host sync), "
+            f"{stats['overflows']} overflows")
+        timing["owner_stats"] = stats
     return counts, timing
 
 
@@ -1821,6 +1824,12 @@ def one_rank_nccl():
     try:
         yield
     finally:
+        from ttamm_torch.ops import device_cond
+
+        # the graphs that hold the group's collectives go before it
+        device_cond.clear()
+        gc.collect()
+        torch.cuda.synchronize()
         dist.destroy_process_group()
 
 
@@ -2288,6 +2297,210 @@ def phase_multi_step(dev, work: Path, config: dict, dataset) -> dict:
               f"4e {name}: launches a step differ between replay and eager")
         summary[name] = out
         del eager, replayed, state, single, multi, data
+        torch.cuda.empty_cache()
+    return summary
+
+
+def _flat_bytes(state, mesh) -> dict:
+    """Every leaf of a placed state, gathered whole, as bytes."""
+    from ttamm_torch.parallel import gather_state_flat
+
+    return {k: v.tobytes() for k, v in gather_state_flat(state, mesh).items()}
+
+
+def _mesh_multi_case(dev, mesh, label: str, c: dict, tscfg, tp: bool) -> dict:
+    """One case of phase 4f on the 1x1 NCCL ``mesh``: from phase 4's seeded
+    state, 2 x MULTI_STEPS eager sharded steps against two
+    ``make_sharded_multi_train_step`` calls of MULTI_STEPS (the first: the
+    eager warm-up step, the capture, the rest replayed; the second:
+    replays), both generators (negatives, dropout) drawn, bit for bit:
+    every leaf, the losses, the host counts, both generators' states and
+    the launch counts; then MULTI_TURNS turns each way, alternating, of
+    PROFILE_STEPS steps (``_turn_stats``). Returns the turns' summary."""
+    import copy
+
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.parallel import place_state
+    from ttamm_torch.parallel.sparse_update import owner_stats, reset_owner_stats
+    from ttamm_torch.parallel.step import make_sharded_multi_train_step, make_sharded_train_step
+    from ttamm_torch.pipelines.training import dropout_generator
+    from ttamm_torch.train import create_train_state
+
+    cfg, data, nu, ni, b = (c[k] for k in ("cfg", "data", "nu", "ni", "batch"))
+    check(cfg.user_tower.feature_encoder.dropout > 0, f"4f {label}: dropout off")
+    first = 2 * MULTI_STEPS
+    total = first + MULTI_TURNS * (2 * PROFILE_STEPS + 2)  # a turn: timed, warm-up, profiled
+    users = torch.from_numpy(c["users"][: total * b]).to(dev).view(total, b)
+    items = torch.from_numpy(c["items"][: total * b]).to(dev).view(total, b)
+    state = place_state(mesh, create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED,
+                                                 device=dev), tensor_parallel=tp)
+    eager, replayed = state, copy.deepcopy(state)
+    gens = {w: (torch.Generator(device=dev).manual_seed(STEP_SEED),
+                dropout_generator(STEP_SEED, mesh, dev)) for w in ("eager", "replay")}
+    single = make_sharded_train_step(cfg, tscfg, mesh)
+    multi = make_sharded_multi_train_step(cfg, tscfg, mesh)
+    reset_owner_stats()
+    kernels.reset_launch_counts()
+    g, d = gens["eager"]
+    want = torch.stack([single(eager, data, users[k], items[k], generator=g, dropout_generator=d)[1]
+                        ["loss"] for k in range(first)])
+    torch.cuda.synchronize()
+    eager_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    g, d = gens["replay"]
+    got = torch.cat([multi(replayed, data, users[k : k + MULTI_STEPS], items[k : k + MULTI_STEPS],
+                           generator=g, dropout_generator=d)[1] for k in (0, MULTI_STEPS)])
+    torch.cuda.synchronize()
+    replay_counts = kernels.launch_counts()
+    stats = owner_stats()
+    check(replay_counts == eager_counts,
+          f"4f {label}: launches of the replayed steps {replay_counts} != eager {eager_counts}")
+    check(torch.equal(got, want), f"4f {label}: replayed losses differ from the eager steps")
+    counts = lambda st: (st.step, st.opt_dense.step, *(s.step for s in st.opt_sparse.values()))  # noqa: E731
+    check(counts(replayed) == counts(eager), f"4f {label}: host counts differ")
+    a, e = _flat_bytes(replayed, mesh), _flat_bytes(eager, mesh)
+    check(list(a) == list(e), f"4f {label}: the state leaves differ")
+    differ = [k for k in e if a[k] != e[k]]
+    check(not differ, f"4f {label}: leaves differ from the eager steps: {differ[:5]}")
+    for i, name in enumerate(("negatives'", "dropout")):
+        check(torch.equal(gens["replay"][i].get_state(), gens["eager"][i].get_state()),
+              f"4f {label}: the {name} generator states differ")
+    if tscfg.update_routing == "owner":
+        tables = len(eager.opt_sparse)
+        check(stats == {"checks": 2 * first * tables, "overflows": 0},
+              f"4f {label}: owner routing counters {stats}")
+    log(f"4f {label}: two calls of {MULTI_STEPS} steps (the first: the warm-up step, the capture, "
+        f"{MULTI_STEPS - 1} replays; the second: {MULTI_STEPS} replays) = {first} eager sharded "
+        f"steps bit for bit: {len(e)} state leaves, {first} losses (last {float(got[-1]):.6f}), both "
+        f"generators' states; launches {replay_counts}; owner counters {stats}")
+
+    pos = {"eager": first, "replay": first}
+
+    def run_eager(n):
+        k = pos["eager"]
+        g, d = gens["eager"]
+        for i in range(k, k + n):
+            single(eager, data, users[i], items[i], generator=g, dropout_generator=d)
+        pos["eager"] = k + n
+
+    def run_replay(n):
+        k = pos["replay"]
+        g, d = gens["replay"]
+        multi(replayed, data, users[k : k + n], items[k : k + n], generator=g, dropout_generator=d)
+        pos["replay"] = k + n
+
+    turns = {"eager": [], "replay": []}
+    for _ in range(MULTI_TURNS):
+        for mode, run in (("eager", run_eager), ("replay", run_replay)):
+            turns[mode].append(_turn_stats(dev, run, PROFILE_STEPS))
+    out = {}
+    for mode, stats in turns.items():
+        out[mode] = {"launches_per_step": stats[-1]["launches"]}
+        for key in ("host_ms", "device_ms", "device_ops", "idle_share"):
+            vals = sorted(t[key] for t in stats)
+            out[mode][key] = {"median": vals[len(vals) // 2], "min": vals[0], "max": vals[-1]}
+        check(out[mode]["device_ms"]["min"] > 0, f"4f {label} {mode}: the profiler saw no device work")
+        log(f"4f {label} {mode} ({MULTI_TURNS} turns of {PROFILE_STEPS} steps, median [min, max]): "
+            + " | ".join(f"{key} {v['median']:.3f} [{v['min']:.3f}, {v['max']:.3f}]"
+                         for key, v in out[mode].items() if key != "launches_per_step")
+            + f" | launches a step {out[mode]['launches_per_step']}")
+    check(out["replay"]["launches_per_step"] == out["eager"]["launches_per_step"],
+          f"4f {label}: launches a step differ between replay and eager")
+    return out
+
+
+def _forced_overflow(dev, mesh, c: dict, tscfg) -> dict:
+    """Phase 4f's forced overflow: the owner routing at capacity factor
+    1e-4 (a buffer of 256 lanes a table, far below a step's distinct rows).
+    From phase 4's seeded state, three eager sharded steps against one
+    multi-step call of two (the warm-up step, the capture, a replay) and
+    one of one (a replay alone), dropout on: bit for bit, and the device
+    counters of the replayed step alone must read one check and one
+    overflow a sparse table."""
+    import copy
+
+    import torch
+
+    from ttamm_torch.parallel import place_state
+    from ttamm_torch.parallel.sparse_update import owner_stats, reset_owner_stats
+    from ttamm_torch.parallel.step import make_sharded_multi_train_step, make_sharded_train_step
+    from ttamm_torch.pipelines.training import dropout_generator
+    from ttamm_torch.train import create_train_state
+
+    cfg, data, nu, ni, b = (c[k] for k in ("cfg", "data", "nu", "ni", "batch"))
+    tscfg = tscfg._replace(update_routing="owner", update_capacity_factor=1e-4)
+    users = torch.from_numpy(c["users"][: 3 * b]).to(dev).view(3, b)
+    items = torch.from_numpy(c["items"][: 3 * b]).to(dev).view(3, b)
+    eager = place_state(mesh, create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED,
+                                                 device=dev))
+    replayed = copy.deepcopy(eager)
+    gens = [(torch.Generator(device=dev).manual_seed(STEP_SEED), dropout_generator(STEP_SEED, mesh, dev))
+            for _ in range(2)]
+    single = make_sharded_train_step(cfg, tscfg, mesh)
+    multi = make_sharded_multi_train_step(cfg, tscfg, mesh)
+    reset_owner_stats()
+    want = torch.stack([single(eager, data, users[k], items[k], generator=gens[0][0],
+                               dropout_generator=gens[0][1])[1]["loss"] for k in range(3)])
+    eager_stats = owner_stats()
+    _, first = multi(replayed, data, users[:2], items[:2], generator=gens[1][0],
+                     dropout_generator=gens[1][1])
+    reset_owner_stats()
+    _, last = multi(replayed, data, users[2:], items[2:], generator=gens[1][0],
+                    dropout_generator=gens[1][1])
+    torch.cuda.synchronize()
+    stats = owner_stats()
+    tables = len(eager.opt_sparse)
+    check(eager_stats == {"checks": 3 * tables, "overflows": 3 * tables},
+          f"4f forced overflow: the eager steps' counters {eager_stats}")
+    check(stats == {"checks": tables, "overflows": tables},
+          f"4f forced overflow: the replayed step's counters {stats}")
+    check(torch.equal(torch.cat([first, last]), want), "4f forced overflow: losses differ")
+    a, e = _flat_bytes(replayed, mesh), _flat_bytes(eager, mesh)
+    differ = [k for k in e if a[k] != e[k]]
+    check(not differ, f"4f forced overflow: leaves differ from the eager steps: {differ[:5]}")
+    log(f"4f forced overflow (owner, capacity factor 1e-4): a replayed overflowing step (one replay "
+        f"alone) = its eager step bit for bit ({len(e)} leaves, losses); its device counters "
+        f"{stats} (one overflow a sparse table), the eager steps' {eager_stats}")
+    return {"replayed_step": stats, "eager_steps": eager_stats}
+
+
+def phase_mesh_multi_step(dev, work: Path, config: dict, dataset) -> dict:
+    """Phase 4f: the mesh's multi-step on a 1x1 NCCL mesh (one card),
+    ``make_sharded_multi_train_step`` as CUDA-graph replays of the sharded
+    step with its collectives, held to the eager sharded steps
+    (``_mesh_multi_case``) at full width (B = 2048, dropout on):
+    ``configs/default.yaml`` under the allgather and the owner routing, the
+    same with ``mesh.tensor_parallel``, and ``configs/pod_2x4.yaml`` with
+    ``embedding_exchange: alltoall`` (owner routing, bf16 wire and
+    features); then the forced overflow (``_forced_overflow``). Returns the
+    summary phase 8 prints."""
+    import torch
+
+    from ttamm_torch.parallel import MeshConfig, build_mesh, place_data
+
+    default = _step_inputs(dev, _config(Path(config["data"]["root"]), work), dataset)
+    pod_config = _config(Path(config["data"]["root"]), work / "pod_4f", "pod_2x4.yaml")
+    pod = _step_inputs(dev, pod_config, dataset)
+    pod_tscfg = pod["tscfg"]._replace(
+        update_routing=pod_config["training"]["update_routing"], embedding_exchange="alltoall",
+        update_capacity_factor=float(pod_config["training"].get("update_capacity_factor", 2.0)))
+    summary = {}
+    with one_rank_nccl():
+        mesh = build_mesh(MeshConfig(1, 1), "cuda")
+        for c in (default, pod):
+            c["data"] = place_data(mesh, c["data"])
+        cases = {f"default {r}{' tp' if tp else ''}": (default, default["tscfg"]._replace(
+                     update_routing=r), tp)
+                 for tp in (False, True) for r in ("allgather", "owner")}
+        cases["pod_2x4 owner alltoall"] = (pod, pod_tscfg, False)
+        for label, (c, tscfg, tp) in cases.items():
+            summary[label] = _mesh_multi_case(dev, mesh, label, c, tscfg, tp)
+            torch.cuda.empty_cache()
+        summary["forced_overflow"] = _forced_overflow(dev, mesh, default, default["tscfg"])
+        del default, pod
+        gc.collect()
         torch.cuda.empty_cache()
     return summary
 
@@ -3697,6 +3910,8 @@ def main() -> int:
                 torch.cuda.empty_cache()
             with Phase("4e steps_per_call: the step as CUDA-graph replays"):
                 multi_summary = phase_multi_step(dev, work, config, dataset)
+            with Phase("4f the mesh's multi-step: sharded steps as CUDA-graph replays"):
+                mesh_multi_summary = phase_mesh_multi_step(dev, work, config, dataset)
             kernels.reset_launch_counts()  # the main path's launches start here
             excluded = collections.Counter()
             with Phase("5 train two epochs with the eval at the canonical scale"):
@@ -3790,6 +4005,7 @@ def main() -> int:
         "packed_moments": packed_summary,
         "tensor_parallel_1x1": tp_summary,
         "multi_step_4e": multi_summary,
+        "mesh_multi_step_4f": mesh_multi_summary,
         "precision_bf16": precision_summary,
         "chunked_10m": chunked_summary,
         "cli_6b": cli_summary,

@@ -1109,3 +1109,158 @@ def test_a_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
                                           generator=torch.Generator(device=cuda).manual_seed(1))
     torch.cuda.synchronize()
     assert kernels.launch_counts()["sparse_adam_rows"] == 2  # the eager warm-up step
+
+
+def test_device_cond_takes_one_branch_eager_and_replayed(cuda):
+    """``device_cond.cond`` on the card: the branch the device flag names
+    runs, eagerly (its own small graph) and inside a captured graph at each
+    replay, with no host read; one branch's launches are counted a call."""
+    from ttamm_torch.ops import device_cond
+
+    table = torch.arange(40 * 8, dtype=torch.float32, device=cuda).view(40, 8)
+    out = torch.zeros(6, 8, device=cuda)
+
+    def take(shift):
+        def branch(idx, flag):
+            out.copy_(kernels.gather_rows(table, idx) + shift)
+        return branch
+
+    def call(idx):
+        flag = (idx.sum() > 100).to(torch.int32).reshape(1)
+        device_cond.cond(flag, take(1.0), take(-1.0), (idx, flag), key=("cuda test", out.data_ptr()))
+
+    def want(idx):
+        return table[idx.long()] + (1.0 if int(idx.sum()) > 100 else -1.0)
+
+    lanes = [torch.tensor(v, dtype=torch.int32, device=cuda) for v in
+             ([1, 2, 3, 4, 5, 6], [30, 31, 32, 33, 34, 35], [0, 0, 0, 0, 0, 39])]
+    kernels.reset_launch_counts()
+    for idx in lanes:
+        call(idx)
+        assert torch.equal(out, want(idx))
+    assert kernels.launch_counts()["gather_rows"] == len(lanes)
+    static = lanes[0].clone()
+    graph = torch.cuda.CUDAGraph()
+    with device_cond.holding() as held, torch.cuda.graph(graph):
+        call(static)
+    assert len(held) == 1
+    for idx in lanes * 2:
+        static.copy_(idx)
+        graph.replay()
+        assert torch.equal(out, want(idx))
+    device_cond.clear()
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(cuda):
+    """A 1x1 ``DeviceMesh`` over a one-rank NCCL group on this card."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from ttamm_torch.ops import device_cond
+    from ttamm_torch.parallel import MeshConfig, build_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300),
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield build_mesh(MeshConfig(1, 1), "cuda")
+    finally:
+        device_cond.clear()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("routing,factor", [("allgather", 2.0), ("owner", 2.0), ("owner", 1e-3)],
+                         ids=["allgather", "owner", "owner_overflow"])
+def test_mesh_replays_equal_eager_steps_bit_for_bit(cuda, nccl_mesh, routing, factor):
+    """On a 1x1 NCCL mesh, two ``make_sharded_multi_train_step`` calls of 8
+    equal 16 eager sharded steps bit for bit, dropout on (the trainer's
+    dropout stream): every leaf, the losses, both generators, the launch
+    counts; under the owner routing the device counters count every check,
+    and at capacity factor 1e-3 the item table's (a 256-lane buffer
+    against ~1,090 distinct rows a step) overflow at every step; the user
+    table's 256 lanes fill the smallest buffer and cannot."""
+    import copy
+
+    from ttamm_torch.parallel import place_state
+    from ttamm_torch.parallel.sparse_update import owner_stats, reset_owner_stats
+    from ttamm_torch.parallel.step import make_sharded_multi_train_step, make_sharded_train_step
+    from ttamm_torch.pipelines.training import dropout_generator
+
+    cfg, tscfg, state, data, users, items = _multi_case(cuda, False)
+    tscfg = tscfg._replace(update_routing=routing, update_capacity_factor=factor)
+    eager = place_state(nccl_mesh, state)
+    replayed = copy.deepcopy(eager)
+    gens = [(torch.Generator(device=cuda).manual_seed(17), dropout_generator(3, nccl_mesh, cuda))
+            for _ in range(2)]
+    single = make_sharded_train_step(cfg, tscfg, nccl_mesh)
+    reset_owner_stats()
+    kernels.reset_launch_counts()
+    want = torch.stack([single(eager, data, users[k], items[k], generator=gens[0][0],
+                               dropout_generator=gens[0][1])[1]["loss"] for k in range(16)])
+    torch.cuda.synchronize()
+    eager_counts = kernels.launch_counts()
+    multi = make_sharded_multi_train_step(cfg, tscfg, nccl_mesh)
+    kernels.reset_launch_counts()
+    got = torch.cat([multi(replayed, data, users[k : k + 8], items[k : k + 8],
+                           generator=gens[1][0], dropout_generator=gens[1][1])[1] for k in (0, 8)])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == eager_counts
+    assert torch.equal(got, want)
+    a, b = _flat(replayed), _flat(eager)
+    for key in b:
+        assert torch.equal(a[key], b[key]), key
+    for replayed_gen, eager_gen in zip(gens[1], gens[0]):
+        assert torch.equal(replayed_gen.get_state(), eager_gen.get_state())
+    stats = owner_stats()
+    checks = 2 * 16 * 2 if routing == "owner" else 0  # two ways, 16 steps, 2 sparse tables
+    assert stats == {"checks": checks, "overflows": 2 * 16 if factor < 1 else 0}
+
+
+def test_masked_plain_row_forms_in_a_capture_give_their_bits(cuda):
+    """The masked plain gather and scatter called on the card inside a CUDA
+    graph capture (a check's plain step in a branch graph) take their
+    sync-free forms: replayed, the same bits as the eager plain versions."""
+    gen = torch.Generator().manual_seed(5)
+    table = torch.randn((50, 16), generator=gen).to(cuda)
+    # global ids of a shard of rows [10, 60): foreign ids on either side
+    ids = torch.tensor([3, -1, 60, 12, 7, 12, -1, 59, 10, 25], dtype=torch.int32, device=cuda)
+    lanes = torch.where((ids >= 10) & (ids < 60), ids - 10, -1).to(torch.int32)  # shard-local
+    rows = torch.randn((lanes.shape[0], 16), generator=gen).to(cuda)
+    rows[5] = rows[3]  # the two lanes of local row 2 carry the same bytes
+    want_gather = kernels.gather_rows_plain(table, ids, masked=True, base=10)
+    want_table = kernels.scatter_set_rows_plain(table.clone(), lanes, rows, masked=True)
+    got_table = table.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got_gather = kernels.gather_rows_plain(table, ids, masked=True, base=10)
+        kernels.scatter_set_rows_plain(got_table, lanes, rows, masked=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got_gather, want_gather) and torch.equal(got_table, want_table)
+
+
+def test_the_ragged_exchange_refuses_a_capture(cuda, nccl_mesh):
+    """The ragged all-to-all exchange reads its split sizes on the host: in
+    a captured step it raises, naming itself; the dense one is captured."""
+    from ttamm_torch.parallel import exchange
+
+    table = torch.randn((64, 16), device=cuda)
+    ids = torch.randint(0, 64, (32,), dtype=torch.int32, device=cuda)
+    want = exchange.exchange_rows(table, ids, nccl_mesh, variant="ragged")
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="ragged"):
+        with torch.cuda.graph(graph):
+            exchange.exchange_rows(table, ids, nccl_mesh, variant="ragged")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = exchange.exchange_rows(table, ids, nccl_mesh, variant="dense")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

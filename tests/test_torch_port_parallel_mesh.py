@@ -12,7 +12,11 @@ mode. The scenarios:
   ``_pick_block`` takes its Pallas path. Tolerances: allgather table, m and
   v atol 1e-6 (the same coalesce order; only the bias corrections' f32 vs
   f64 powers differ); owner atol 1e-5 (two-phase duplicate sums, the
-  tolerance of ``ttamm_tpu/parallel/sparse_update.py``); and each rank's
+  tolerance of ``ttamm_tpu/parallel/sparse_update.py``); both sides also
+  held to a float64 numpy oracle of the update at the same tolerance, the
+  message naming the array, its first rows and each side's distance from
+  the oracle (the JAX side gets its own copies of the inputs, is waited
+  for, and the inputs must be unchanged after it); and each rank's
   one ``sparse_adam_rows`` call holding every row its shard owns once,
   -1 on every other lane;
 - the sharded training step on a 2x2 mesh, two steps under both routings
@@ -126,12 +130,51 @@ def _update_inputs(name, id_range, skew):
 
 
 def _jax_update(mesh_shape, routing, factor, x):
+    """The JAX sharded update on its own copies of the inputs, waited for;
+    the inputs must come back unchanged."""
+    saved = {k: a.copy() for k, a in x.items()}
     mesh = build_mesh(MeshConfig(*mesh_shape))
-    st = SparseAdamState(m=jnp.asarray(x["m"]), v=jnp.asarray(x["v"]), step=jnp.asarray(2, jnp.int32))
+    st = SparseAdamState(m=jnp.array(x["m"].copy()), v=jnp.array(x["v"].copy()),
+                         step=jnp.asarray(2, jnp.int32))
     fn = jax.jit(lambda t, s, i, g: sharded_sparse_adam_update(
         mesh, t, s, i, g, lr=LR, routing=routing, capacity_factor=factor, interpret=True))
-    table, state = fn(jnp.asarray(x["table"]), st, jnp.asarray(x["idx"]), jnp.asarray(x["grads"]))
+    table, state = jax.block_until_ready(fn(
+        jnp.array(x["table"].copy()), st, jnp.array(x["idx"].copy()), jnp.array(x["grads"].copy())))
+    for k, a in x.items():
+        assert np.array_equal(a, saved[k]), f"the JAX update wrote its input {k}"
     return {"table": np.asarray(table), "m": np.asarray(state.m), "v": np.asarray(state.v)}
+
+
+def _oracle_update(x, step=3, b1=0.9, b2=0.999, eps=1e-8):
+    """The sharded update in float64 numpy: every lane of a row summed, Adam
+    on the touched rows at ``step``'s bias corrections."""
+    table, m, v = (x[k].astype(np.float64) for k in ("table", "m", "v"))
+    rows = np.unique(x["idx"])
+    summed = np.zeros(table.shape)
+    np.add.at(summed, x["idx"], x["grads"].astype(np.float64))
+    gr = summed[rows]
+    m[rows] = b1 * m[rows] + (1.0 - b1) * gr
+    v[rows] = b2 * v[rows] + (1.0 - b2) * gr * gr
+    table[rows] -= LR * (m[rows] / (1.0 - b1**step)) / (np.sqrt(v[rows] / (1.0 - b2**step)) + eps)
+    return {"table": table, "m": m, "v": v}
+
+
+def _check_sides(name, port, jax_side, oracle, atol):
+    """Port and JAX within ``atol`` of each other and of the float64 oracle;
+    the message names the array, its first rows off and each side's
+    distance from the oracle."""
+    off = {"port-jax": np.abs(port - jax_side) > atol, "port-oracle": np.abs(port - oracle) > atol,
+           "jax-oracle": np.abs(jax_side - oracle) > atol}
+    if not any(o.any() for o in off.values()):
+        return
+    rows = np.unique(np.nonzero(np.logical_or.reduce(list(off.values())))[0])[:6]
+    per_row = {int(r): (float(np.abs(port[r] - oracle[r]).max()),
+                        float(np.abs(jax_side[r] - oracle[r]).max())) for r in rows}
+    raise AssertionError(
+        f"{name}: elements off {({k: int(o.sum()) for k, o in off.items()})}; first rows "
+        f"{rows.tolist()}; max |port - oracle|, |jax - oracle| by row {per_row}; whole array: "
+        f"port - oracle {np.abs(port - oracle).max():.4e}, jax - oracle "
+        f"{np.abs(jax_side - oracle).max():.4e}, port - jax {np.abs(port - jax_side).max():.4e}")
 
 
 def _step_setup():
@@ -340,6 +383,9 @@ def test_sharded_sparse_adam_update_matches_jax(mesh_run, name):
     routing, skew = UPDATES[name][1], UPDATES[name][4]
     got, want = mesh_run["outs"][name], mesh_run["refs"][name]
     atol = 1e-6 if routing == "allgather" or skew else 1e-5
+    oracle = _oracle_update(_update_inputs(name, *UPDATES[name][3:]))
+    for key in ("table", "m", "v"):
+        _check_sides(f"{name} {key}", got[key], want[key], oracle[key], atol)
     for key in ("table", "m", "v"):
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=atol, err_msg=key)
     assert int(got["step"]) == 3

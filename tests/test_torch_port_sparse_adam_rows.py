@@ -12,8 +12,22 @@ after three steps, as in ``test_torch_port_train_ops.py`` (float32 on both
 sides; the bias corrections are computed in another precision). Against the
 port's own unfused composition, and between the step's table reads and
 ``index_select``: bit for bit (the same operations on the same values).
+
+The JAX comparison also holds table, m and v after each step, both sides
+against a float64 numpy oracle of the same update (coalesce, then Adam with
+the bias corrections and lr of the step), at the same tolerance, so that a
+mismatch names the step, the array, its first rows and each side's distance
+from the oracle. Each side gets its own copies of the table and of each
+step's ids and gradients; each JAX step is waited for before the port's
+runs, and after each step the ids and gradients both sides were given must
+still equal saved copies (neither side writes its inputs). Under JAX 0.9,
+``interpret=True`` runs a Pallas kernel through the HLO interpreter
+(``pallas_call_hlo_interpret``): the kernel's state effects discharged and
+its grid walked by a sequential loop inside one XLA computation, its DMAs
+plain copies, so no thread or timing enters the JAX side.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,15 +64,54 @@ def _table(rng):
     return table
 
 
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _oracle_step(table, m, v, idx, g, *, lr, step, weight_decay, b1=0.9, b2=0.999, eps=1e-8):
+    """One sparse Adam step in float64 numpy, in place: the lanes of each row
+    summed, then Adam on the touched rows at ``step``'s bias corrections,
+    decoupled decay on the touched rows."""
+    rows = np.unique(idx)
+    summed = np.zeros((table.shape[0], g.shape[1]))
+    np.add.at(summed, idx, g.astype(np.float64))
+    gr = summed[rows]
+    m[rows] = b1 * m[rows] + (1.0 - b1) * gr
+    v[rows] = b2 * v[rows] + (1.0 - b2) * gr * gr
+    m_hat, v_hat = m[rows] / (1.0 - b1**step), v[rows] / (1.0 - b2**step)
+    delta = lr * m_hat / (np.sqrt(v_hat) + eps)
+    table[rows] -= delta + lr * weight_decay * table[rows]
+
+
+def _check_sides(step, name, port, jax_side, oracle):
+    """``port`` and ``jax_side`` equal within TOL, and each within TOL of the
+    float64 ``oracle``; the message names the step, the array, the first
+    rows off and each side's distance from the oracle."""
+    off = {"port-jax": ~np.isclose(port, jax_side, **TOL),
+           "port-oracle": ~np.isclose(port, oracle, **TOL),
+           "jax-oracle": ~np.isclose(jax_side, oracle, **TOL)}
+    if not any(o.any() for o in off.values()):
+        return
+    rows = np.unique(np.nonzero(np.logical_or.reduce(list(off.values())))[0])[:6]
+    per_row = {int(r): (float(np.abs(port[r] - oracle[r]).max()),
+                        float(np.abs(jax_side[r] - oracle[r]).max())) for r in rows}
+    raise AssertionError(
+        f"step {step}, {name}: elements off {({k: int(o.sum()) for k, o in off.items()})}; "
+        f"first rows {rows.tolist()}; max |port - oracle|, |jax - oracle| by row {per_row}; "
+        f"whole array: port - oracle {np.abs(port - oracle).max():.4e}, "
+        f"jax - oracle {np.abs(jax_side - oracle).max():.4e}, "
+        f"port - jax {np.abs(port - jax_side).max():.4e}")
+
+
 @pytest.mark.parametrize("schedule", ["constant", "cosine"])
 @pytest.mark.parametrize("weight_decay", [0.0, 0.05])
 @pytest.mark.parametrize("layout", ["duplicates", "one_row", "one_lane"])
 def test_sparse_adam_update_matches_jax(monkeypatch, layout, weight_decay, schedule):
     """Three steps against the JAX update on its row-kernel path (N = 1 takes
     the JAX package's sorted path: no DMA block divides one lane), every row
-    compared, the scratch row exactly zero in table, m and v. Each step is
-    one ``sparse_adam_rows`` call whose lanes hold each touched row once and
-    -1 on every other lane."""
+    compared after each step, both sides against the float64 oracle too,
+    the scratch row exactly zero in table, m and v. Each step is one
+    ``sparse_adam_rows`` call whose lanes hold each touched row once and -1
+    on every other lane."""
     lanes = []
     fused = kernels.sparse_adam_rows
 
@@ -69,24 +122,36 @@ def test_sparse_adam_update_matches_jax(monkeypatch, layout, weight_decay, sched
     monkeypatch.setattr(kernels, "sparse_adam_rows", spy)
     rng = np.random.default_rng(11)
     table = _table(rng)
-    j_table, j_state = jnp.asarray(table), jax_sparse.init_sparse_adam(jnp.asarray(table))
+    j_table = jnp.array(table.copy())
+    j_state = jax_sparse.init_sparse_adam(j_table)
     t_table = torch.from_numpy(table.copy())
     t_state = init_sparse_adam(t_table)
+    oracle = [table.astype(np.float64), np.zeros(table.shape), np.zeros(table.shape)]
     cfg = optim.DenseOptConfig(
         lr=0.01, lr_schedule=schedule, lr_total_steps=3, lr_final_factor=0.1
     )
     for step in range(1, 4):
         idx = _lanes(layout, rng)
         g = rng.standard_normal((idx.shape[0], D)).astype(np.float32)
+        saved = (idx.copy(), g.copy())
+        j_inputs, t_inputs = (idx.copy(), g.copy()), (idx.copy(), g.copy())
         lr = cfg.lr * optim.lr_scale(cfg, step)
         j_table, j_state = jax_sparse.sparse_adam_update(
-            j_table, j_state, jnp.asarray(idx), jnp.asarray(g), lr=lr,
+            j_table, j_state, jnp.array(j_inputs[0]), jnp.array(j_inputs[1]), lr=lr,
             weight_decay=weight_decay, use_pallas=True,
         )
+        jax.block_until_ready((j_table, j_state))
         sparse_adam_update(
-            t_table, t_state, torch.from_numpy(idx), torch.from_numpy(g), lr=lr,
+            t_table, t_state, torch.from_numpy(t_inputs[0]), torch.from_numpy(t_inputs[1]), lr=lr,
             weight_decay=weight_decay,
         )
+        for side, (i, x) in (("jax", j_inputs), ("port", t_inputs)):
+            assert np.array_equal(i, saved[0]) and np.array_equal(x, saved[1]), \
+                f"step {step}: the {side} side wrote its inputs"
+        _oracle_step(*oracle, saved[0], saved[1], lr=lr, step=step, weight_decay=weight_decay)
+        for name, got, want, ref in zip(("table", "m", "v"), (t_table, t_state.m, t_state.v),
+                                        (j_table, j_state.m, j_state.v), oracle):
+            _check_sides(step, name, got.numpy(), np.asarray(want), ref)
     assert t_state.step == int(j_state.step) == 3
     for got, want in ((t_table, j_table), (t_state.m, j_state.m), (t_state.v, j_state.v)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)

@@ -47,11 +47,18 @@ from ttamm_torch.parallel import sparse_update as sparse_update_module  # noqa: 
 from ttamm_torch.parallel.embedding_lookup import sharded_rows  # noqa: E402
 from ttamm_torch.parallel.mesh import all_gather_rows, axis_index  # noqa: E402
 from ttamm_torch.parallel.sparse_update import sharded_sparse_adam_update  # noqa: E402
-from ttamm_torch.parallel.step import make_sharded_topk, make_sharded_train_step  # noqa: E402
+from ttamm_torch.parallel.step import (  # noqa: E402
+    make_sharded_multi_eval_loss_step,
+    make_sharded_multi_train_step,
+    make_sharded_topk,
+    make_sharded_train_step,
+)
+from ttamm_torch.pipelines import training as training_module  # noqa: E402
 from ttamm_torch.pipelines.training import dropout_generator, run_single_experiment  # noqa: E402
 from ttamm_torch.train import BatchData, TrainStepConfig, create_train_state  # noqa: E402
 from ttamm_torch.train.optim import DenseOptConfig  # noqa: E402
 from ttamm_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint  # noqa: E402
+from ttamm_torch.train.step import make_eval_loss_step  # noqa: E402
 from ttamm_torch.train.sharded_checkpoint import (  # noqa: E402
     load_sharded_checkpoint,
     save_sharded_checkpoint,
@@ -113,6 +120,8 @@ def sparse_update(task, inputs):
     meta = [torch.empty_like(own) for _ in range(world)]
     dist.all_gather(meta, own)
     meta = torch.stack(meta).numpy()
+    # the owner routing's device flag (None under the others), read here
+    overflow = overflow is not None and bool(overflow.reshape(-1)[0])
     return dict(out, overflow=np.asarray(overflow), step=np.asarray(state.step),
                 lanes=torch.stack(every).numpy(), bases=meta[:, 0], calls=meta[:, 1])
 
@@ -364,11 +373,124 @@ def checkpoint(task, inputs):
     return out
 
 
+def multi_step(task, inputs):
+    """K steps of the placed state two ways: K calls of
+    ``make_sharded_train_step`` and one ``make_sharded_multi_train_step``
+    call on the batches ``{prefix}/u``, ``{prefix}/p`` [K, B], the negatives
+    (or the pool) drawn from a generator seeded ``task["seed"]`` on every
+    rank and, with ``task["dropout"]``, dropout from the trainer's stream of
+    this rank; then the eval loss of the same batches by single steps and by
+    ``make_sharded_multi_eval_loss_step``. Returns each way's state
+    (``single/...``, ``multi/...``), losses, host counts, generator states
+    (the dropout stream's of every rank) and eval losses, and the owner
+    routing's device counters over both (``owner_stats``: checks,
+    overflows)."""
+    mesh = _mesh(task)
+    mp = mesh[MODEL_AXIS].size()
+    cfg, state = _model(task, inputs)
+    data = BatchData(
+        _t(inputs, "data/user_features"), _t(inputs, "data/item_features"),
+        *(_t(inputs, f"data/{k}") for k in ("positive_rows", "category_ids")),
+        item_log_q=_t(inputs, "data/item_log_q") if task.get("log_q") else None)
+    state = place_state(mesh, pad_state_rows(state, mp),
+                        tensor_parallel=task.get("tensor_parallel", False))
+    data = place_data(mesh, pad_batch_data(data, mp))
+    tscfg = TrainStepConfig(**dict(task["tscfg"], opt=DenseOptConfig(**task["opt"])))
+    u_all, p_all = _t(inputs, f"{task['inputs_prefix']}/u"), _t(inputs, f"{task['inputs_prefix']}/p")
+    single = make_sharded_train_step(cfg, tscfg, mesh)
+    multi = make_sharded_multi_train_step(cfg, tscfg, mesh)
+    sparse_update_module.reset_owner_stats()
+    out = {}
+    for way in ("single", "multi"):
+        st = copy.deepcopy(state)
+        gen = torch.Generator().manual_seed(task["seed"])
+        drop = dropout_generator(3, mesh, torch.device("cpu")) if task.get("dropout") else None
+        if drop is not None:
+            st.model.train()
+        if way == "single":
+            losses = torch.stack([
+                single(st, data, u_all[k], p_all[k], generator=gen, dropout_generator=drop)[1]["loss"]
+                for k in range(u_all.shape[0])])
+        else:
+            st, losses = multi(st, data, u_all, p_all, generator=gen, dropout_generator=drop)
+        out.update({f"{way}/{k}": v for k, v in gather_state_flat(st, mesh).items()})
+        out[f"{way}/losses"] = losses.numpy()
+        out[f"{way}/counts"] = np.asarray(
+            [st.step, st.opt_dense.step, *(s.step for s in st.opt_sparse.values())])
+        out[f"{way}/generator"] = gen.get_state().numpy()
+        if drop is not None:
+            mine = drop.get_state()
+            every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+            dist.all_gather(every, mine)
+            out[f"{way}/dropout_generators"] = torch.stack(every).numpy()
+        st.model.eval()
+        gen.manual_seed(task["seed"] + 1)
+        if way == "single":
+            step = make_eval_loss_step(cfg, tscfg, mesh=mesh)
+            evals = torch.stack([step(st, data, u_all[k], p_all[k], generator=gen)
+                                 for k in range(u_all.shape[0])])
+        else:
+            evals = make_sharded_multi_eval_loss_step(cfg, tscfg, mesh)(
+                st, data, u_all, p_all, generator=gen)
+        out[f"{way}/eval_losses"] = evals.numpy()
+    stats = sparse_update_module.owner_stats()
+    out["owner_stats"] = np.asarray([stats["checks"], stats["overflows"]])
+    return out
+
+
+def owner_overflow(task, inputs):
+    """One update of the sparse-update inputs ``task["inputs_prefix"]`` under
+    each routing of ``task["runs"]`` ([name, routing, capacity factor]),
+    every run from the same shards, with the owner routing's device counters
+    counted from zero for each: ``{name}/table`` ... and ``{name}/stats``
+    (checks, overflows), and ``{name}/flag`` the flag it returned (-1 for
+    None)."""
+    mesh = _mesh(task)
+    prefix = task["inputs_prefix"]
+    idx, grads = _t(inputs, f"{prefix}/idx"), _t(inputs, f"{prefix}/grads")
+    dp = mesh[DATA_AXIS].size()
+    chunk = idx.shape[0] // dp
+    lo = axis_index(mesh, DATA_AXIS) * chunk
+    out = {}
+    for name, routing, factor in task["runs"]:
+        table, m, v = (_slice(mesh, _t(inputs, f"{prefix}/{k}")) for k in ("table", "m", "v"))
+        state = SparseAdamState(m=m, v=v, step=2)
+        sparse_update_module.reset_owner_stats()
+        flag = sharded_sparse_adam_update(
+            mesh, table, state, idx[lo : lo + chunk], grads[lo : lo + chunk], lr=task["lr"],
+            routing=routing, capacity_factor=factor)
+        stats = sparse_update_module.owner_stats()
+        out.update({f"{name}/{k}": all_gather_rows(t, mesh, MODEL_AXIS).numpy()
+                    for k, t in (("table", table), ("m", state.m), ("v", state.v))})
+        out[f"{name}/stats"] = np.asarray([stats["checks"], stats["overflows"]])
+        out[f"{name}/flag"] = np.asarray(-1 if flag is None else int(flag.reshape(-1)[0]))
+    return out
+
+
 def train_run(task, inputs):
     """``run_single_experiment`` of ``task["config"]`` on the CPU mesh (the
-    process group is this worker's); the losses and the checkpoint paths."""
-    result = run_single_experiment(task["config"], device="cpu")
-    return {"train_loss": np.asarray(result.train_loss), "val_loss": np.asarray(result.val_loss),
+    process group is this worker's); the losses, the checkpoint paths and
+    the steps run through ``make_sharded_multi_train_step``
+    (``multi_steps``)."""
+    steps, build = [], training_module.make_sharded_multi_train_step
+
+    def counted(*args, **kwargs):
+        multi = build(*args, **kwargs)
+
+        def run(state, data, u_all, *rest, **kw):
+            steps.append(u_all.shape[0])
+            return multi(state, data, u_all, *rest, **kw)
+
+        return run
+
+    training_module.make_sharded_multi_train_step = counted
+    try:
+        result = run_single_experiment(task["config"], device="cpu")
+    finally:
+        training_module.make_sharded_multi_train_step = build
+    return {"multi_steps": np.asarray(sum(steps)),
+            "train_loss": np.asarray(result.train_loss), "val_loss": np.asarray(result.val_loss),
+            "test_loss": np.asarray(result.test_loss), "steps": np.asarray(result.steps),
             "best_checkpoint": np.asarray(str(result.best_checkpoint_path)),
             "last_checkpoint": np.asarray(str(result.checkpoint_path)),
             "tensor_parallel": np.asarray(result.state.tensor_parallel)}
@@ -401,7 +523,8 @@ def async_checkpoint(task, inputs):
 
 TASKS = {"sparse_update": sparse_update, "train_step": train_step, "search": search,
          "checkpoint": checkpoint, "async_checkpoint": async_checkpoint,
-         "exchange_lookup": exchange_lookup, "feature_rows": feature_rows, "train_run": train_run}
+         "exchange_lookup": exchange_lookup, "feature_rows": feature_rows, "train_run": train_run,
+         "multi_step": multi_step, "owner_overflow": owner_overflow}
 
 
 def main() -> int:

@@ -269,6 +269,8 @@ def load_library() -> ctypes.CDLL:
             lib.ttamm_category_grouping.restype = i32
             lib.ttamm_category_grouping_warps.argtypes = [i32]
             lib.ttamm_category_grouping_warps.restype = i32
+            lib.ttamm_graph_if.argtypes = [p, i32, p, p]
+            lib.ttamm_graph_if.restype = i32
             _lib = lib
         return _lib
 
@@ -659,11 +661,25 @@ def gather_rows_plain(
     _check_rows("gather_rows", table, idx)
     if not masked:
         return table[idx]
-    out = table.new_zeros((idx.shape[0], table.shape[1]))
     local = idx.long() - base
     live = (local >= 0) & (local < table.shape[0])
+    if _capturing(table):
+        # the same rows without a boolean index (a host sync), which a
+        # captured step cannot hold
+        if not table.shape[0]:
+            return table.new_zeros((idx.shape[0], table.shape[1]))
+        rows = table[local.clamp(0, table.shape[0] - 1)]
+        return torch.where(live[:, None], rows, 0.0)
+    out = table.new_zeros((idx.shape[0], table.shape[1]))
     out[live] = table[local[live]]
     return out
+
+
+def _capturing(t: torch.Tensor) -> bool:
+    """True inside a CUDA graph capture on ``t``'s card: a plain version
+    called on the card there (the checks do so) takes a form without a host
+    sync, with the same bits."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
 def gather_rows_cuda(
@@ -710,6 +726,11 @@ def scatter_set_rows_plain(
     table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, *, masked: bool = False
 ) -> torch.Tensor:
     _check_scatter(table, idx, rows)
+    if masked and _capturing(table):
+        # the skipped lanes write a row past the table, dropped after
+        grown = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+        grown.index_copy_(0, torch.where(idx >= 0, idx.long(), table.shape[0]), rows)
+        return table.copy_(grown[:-1])
     if masked:
         live = idx >= 0
         idx, rows = idx[live], rows[live]

@@ -27,7 +27,9 @@ Two collective layouts share that plan:
   takes it, as the JAX package does off the TPU.
 - ``ragged``: only the real bucket sizes move (``all_to_all_single`` with
   split sizes). The split sizes are needed on the host, so every lookup
-  costs one device-to-host sync of the ``[S, S]`` count matrix.
+  costs one device-to-host sync of the ``[S, S]`` count matrix, and it
+  raises inside a CUDA graph capture (a replayed step); the trainer never
+  selects it. ``dense`` has no host read and is captured.
 
 :func:`exchange_rows` reads outside autograd (the sparse tables);
 :func:`exchange_lookup` is differentiable in the table shard (the dense
@@ -124,7 +126,12 @@ def _dense_rows(local: torch.Tensor, ids: torch.Tensor, mesh: DeviceMesh) -> tor
 
 
 def _ragged_rows(local: torch.Tensor, ids: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
-    """Steps 1-4 moving only the real buckets; one host sync for the sizes."""
+    """Steps 1-4 moving only the real buckets; one host sync for the sizes,
+    so it refuses to run inside a CUDA graph capture."""
+    if ids.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "the ragged all-to-all exchange reads its split sizes on the host and cannot run "
+            "in a captured step: use variant='dense' (what embedding_exchange: alltoall takes)")
     rows, num_shards = local.shape[0], axis_size(mesh, MODEL_AXIS)
     group, me = mesh.get_group(MODEL_AXIS), axis_index(mesh, MODEL_AXIS)
     plan = route_by_owner(ids, rows, num_shards, capacity=ids.shape[0])

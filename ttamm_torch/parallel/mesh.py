@@ -15,6 +15,13 @@ default process group with dims ``("data", "model")``: rank = data index x
 model + model index, the JAX ``reshape(dp, mp)`` of the device list. The
 collectives below are the ones the port's sharded code issues; each names
 the mesh axis it runs over.
+
+On a card they may be captured into a CUDA graph (the replayed steps of
+``train/step.py``), as PyTorch allows for NCCL: each takes its group from
+the mesh, which resolves it on the host while the capture records, and
+each group's communicator is made before the first capture
+(:func:`warm_groups`, from the eager step that precedes it). None reads a
+value on the host.
 """
 
 from __future__ import annotations
@@ -74,6 +81,16 @@ def axis_size(mesh: DeviceMesh, axis: str) -> int:
 
 def axis_index(mesh: DeviceMesh, axis: str) -> int:
     return mesh.get_local_rank(axis)
+
+
+def warm_groups(mesh: DeviceMesh, device: torch.device) -> None:
+    """One small all-reduce on the whole mesh and on each axis's group, so
+    that every communicator a step's collectives use exists before a CUDA
+    graph captures them (a capture cannot create one). Every rank must call
+    it at the same point."""
+    one = torch.ones(1, device=device)
+    for group in (None, mesh.get_group(DATA_AXIS), mesh.get_group(MODEL_AXIS)):
+        dist.all_reduce(one, group=group)
 
 
 def all_reduce(t: torch.Tensor, mesh: DeviceMesh, axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:

@@ -36,10 +36,15 @@ routing to ``allclose`` (1e-5), not bit for bit.
 Overflow is never dropped: if any rank owns more coalesced lanes than the
 capacity, a one-integer ``all_reduce(MAX)`` over the whole mesh tells every
 rank, and that step takes the allgather routing (with ``gathered`` where
-the caller has it). In eager torch the flag is read on the host
-(``.item()``): one host sync per sparse table per step, counted in
-``OWNER_STATS``. ``owner_unchecked`` skips the check and drops overflowing
-lanes; use it only where the capacity has been audited.
+the caller has it), as the JAX ``lax.cond`` after a ``pmax``. The flag
+stays on the device: ``ops/device_cond.py`` takes one branch by it (on a
+card two IF nodes of a CUDA graph, each branch captured once), so a step
+that does not overflow runs the owner routing's collectives alone, and the
+step runs the same code eagerly and as a replayed graph with no host sync.
+The checks and the overflows are counted on the device
+(:func:`owner_stats`, one host read where a caller asks).
+``owner_unchecked`` skips the check and drops overflowing lanes; use it
+only where the capacity has been audited.
 
 Every data replica of a table shard applies the same update, so replicas
 stay bit-identical without a reduction.
@@ -62,15 +67,40 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..ops import kernels
+from ..ops import device_cond, kernels
 from ..ops.sparse_adam import SparseAdamState
 from .mesh import DATA_AXIS, MODEL_AXIS, all_gather_rows, axis_size
 from .sharding import row_offset
 
 ROUTINGS = ("allgather", "owner", "owner_unchecked")
-# owner routing: steps checked for overflow, steps that overflowed (and took
-# the allgather routing); each check is one host sync
-OWNER_STATS = {"checks": 0, "overflows": 0}
+# owner routing, by device: int64 [checks, overflows], a check a sparse table
+# a step, an overflow where it took the allgather routing
+_owner_counts: dict[torch.device, torch.Tensor] = {}
+
+
+def owner_stats() -> dict[str, int]:
+    """The owner routing's checks and overflows since the last reset,
+    summed over devices (one host read of each device's counters)."""
+    checks = overflows = 0
+    for counts in _owner_counts.values():
+        c, o = counts.tolist()
+        checks, overflows = checks + c, overflows + o
+    return {"checks": checks, "overflows": overflows}
+
+
+def reset_owner_stats() -> None:
+    """Zero the counters in place (a captured step keeps adding to them)."""
+    for counts in _owner_counts.values():
+        counts.zero_()
+
+
+def _count_check(flag: torch.Tensor) -> None:
+    """One check, and an overflow where ``flag`` is set, on the device.
+    The counters are made by the first (eager) step on a device."""
+    counts = _owner_counts.get(flag.device)
+    if counts is None:
+        counts = _owner_counts[flag.device] = torch.zeros(2, dtype=torch.int64, device=flag.device)
+    counts.add_(torch.cat([torch.ones_like(flag), flag]).to(torch.int64))
 
 
 def _pick_block(n: int) -> int | None:
@@ -202,7 +232,7 @@ def sharded_sparse_adam_update(
     eps: float = 1e-8,
     weight_decay: float = 0.0,
     **options,
-) -> bool:
+) -> torch.Tensor | None:
     """One SparseAdam step of a row-sharded table at ``state.step + 1``,
     which it advances: :func:`sharded_sparse_adam_apply` with the step's
     scalars formed here (``options``: its keywords after ``decay``)."""
@@ -226,7 +256,7 @@ def sharded_sparse_adam_apply(
     capacity_factor: float = 2.0,
     gather_order: torch.Tensor | None = None,
     gathered: SortedLanes | None = None,
-) -> bool:
+) -> torch.Tensor | None:
     """One SparseAdam step of a row-sharded table, in place on this rank's
     ``table`` / ``state.m`` / ``state.v`` shards, at the step's f32 scalars
     (``kernels.adam_scalars``' row on the device; ``state.step`` is left as
@@ -240,26 +270,28 @@ def sharded_sparse_adam_apply(
     coalesce sums them in. ``gathered``: :func:`gather_lanes` of these
     lanes, where the caller has it already; the allgather routing (and an
     owner step that overflows) then gathers and sorts nothing again.
-    Returns True when the owner routing overflowed and the step took the
-    allgather routing."""
+    Returns the owner routing's overflow flag (int32 ``[1]`` on the device,
+    the same on every rank: nonzero where the step took the allgather
+    routing), None under the other routings."""
     if routing not in ROUTINGS:
         raise ValueError(f"Unknown update routing: {routing}")
     rows = table.shape[0]
     base = row_offset(mesh, rows)
     dp, mp = axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS)
     idx = indices.to(torch.int64)
-    hyper = dict(scalars=scalars, decay=decay)
 
-    def allgather_update() -> None:
-        # the unsummed lanes cross the wire in their own dtype
-        lanes = gathered if gathered is not None else gather_lanes(
-            mesh, idx, row_grads, gather_order, table.dtype)
+    def allgather_update(scalars, lanes: SortedLanes) -> None:
         _apply(table, state, _localize(lanes.idx, base, rows, lanes.is_head), lanes.totals(),
-               **hyper)
+               scalars=scalars, decay=decay)
+
+    def gathered_lanes(idx, row_grads, gather_order=None) -> SortedLanes:
+        # the unsummed lanes cross the wire in their own dtype
+        return gather_lanes(mesh, idx, row_grads, gather_order, table.dtype)
 
     if routing == "allgather":
-        allgather_update()
-        return False
+        allgather_update(scalars, gathered if gathered is not None else
+                         gathered_lanes(idx, row_grads, gather_order))
+        return None
 
     n = idx.shape[0] * dp
     cap = owner_capacity(n, dp, mp, capacity_factor)
@@ -267,33 +299,52 @@ def sharded_sparse_adam_apply(
     sorted_idx, g_coal, is_head, _ = _coalesce_sorted(idx, grads, head_init=-2)
     local = sorted_idx - base
     owned = is_head & (local >= 0) & (local < rows)
-    if routing == "owner":
-        flag = (owned.sum() > cap).to(torch.int32).reshape(1)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX)  # the whole mesh
-        OWNER_STATS["checks"] += 1
-        if flag.item():  # one host sync per table per step
-            OWNER_STATS["overflows"] += 1
-            allgather_update()
-            return True
-    # compact the owned head lanes into the [cap] buffer; slot cap takes every
-    # discarded write (lanes not owned, and overflow under owner_unchecked)
-    pos = torch.cumsum(owned, 0) - 1
-    tgt = torch.where(owned & (pos < cap), pos, cap)
-    idx_c = idx.new_full((cap + 1,), -1).index_copy_(
-        0, tgt, torch.where(owned, sorted_idx, -1)
-    )[:cap]
-    g_c = grads.new_zeros((cap + 1, grads.shape[1])).index_copy_(
-        0, tgt, torch.where(owned[:, None], g_coal, 0.0)
-    )[:cap]
-    idx_all = all_gather_rows(idx_c, mesh, DATA_AXIS)
-    # the coalesced totals rounded to the wire dtype again
-    g_all = all_gather_rows(g_c.to(row_grads.dtype), mesh, DATA_AXIS).to(table.dtype)
-    if dp == 1:
-        # one data shard: the buffer holds distinct sorted rows already, its
-        # sentinel tail last
-        _apply(table, state, _localize(idx_all, base, rows), g_all, **hyper)
+
+    def owner_update(scalars, owned, sorted_idx, g_coal, *_) -> None:
+        # compact the owned head lanes into the [cap] buffer; slot cap takes
+        # every discarded write (lanes not owned, and overflow under
+        # owner_unchecked)
+        pos = torch.cumsum(owned, 0) - 1
+        tgt = torch.where(owned & (pos < cap), pos, cap)
+        idx_c = sorted_idx.new_full((cap + 1,), -1).index_copy_(
+            0, tgt, torch.where(owned, sorted_idx, -1)
+        )[:cap]
+        g_c = g_coal.new_zeros((cap + 1, g_coal.shape[1])).index_copy_(
+            0, tgt, torch.where(owned[:, None], g_coal, 0.0)
+        )[:cap]
+        idx_all = all_gather_rows(idx_c, mesh, DATA_AXIS)
+        # the coalesced totals rounded to the wire dtype again
+        g_all = all_gather_rows(g_c.to(row_grads.dtype), mesh, DATA_AXIS).to(table.dtype)
+        if dp == 1:
+            # one data shard: the buffer holds distinct sorted rows already,
+            # its sentinel tail last
+            _apply(table, state, _localize(idx_all, base, rows), g_all, scalars=scalars,
+                   decay=decay)
+        else:
+            allgather_update(scalars, sort_lanes(idx_all, g_all, head_init=-2))
+
+    head = (scalars, owned, sorted_idx, g_coal)
+    if routing == "owner_unchecked":
+        owner_update(*head)
+        return None
+    flag = (owned.sum() > cap).to(torch.int32).reshape(1)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)  # the whole mesh
+    _count_check(flag)
+    if gathered is not None:
+        def fallback(scalars, *rest):
+            allgather_update(scalars, SortedLanes(*rest[3:]))
+
+        tail = tuple(gathered)
     else:
-        lanes = sort_lanes(idx_all, g_all, head_init=-2)
-        _apply(table, state, _localize(lanes.idx, base, rows, lanes.is_head), lanes.totals(),
-               **hyper)
-    return False
+        def fallback(scalars, *rest):
+            allgather_update(scalars, gathered_lanes(*rest[3:]))
+
+        tail = (idx, row_grads) + (() if gather_order is None else (gather_order,))
+    # the key holds the data group (whose communicator the branches' all-gathers
+    # use; a new group is a new object) and the row update they capture (a
+    # check that swaps in a plain version gets graphs of its own)
+    key = ("sharded_sparse_adam", table.data_ptr(), state.m.data_ptr(), state.v.data_ptr(),
+           rows, base, dp, cap, decay, row_grads.dtype, gathered is None,
+           mesh.get_group(DATA_AXIS), _apply, kernels.sparse_adam_rows)
+    device_cond.cond(flag, fallback, owner_update, head + tail, key=key)
+    return flag

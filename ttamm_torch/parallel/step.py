@@ -1,10 +1,14 @@
 """The sharded training steps and the sharded exact top-k (port of
 ``ttamm_tpu/parallel/step.py``).
 
-torch has no jit, so :func:`make_sharded_train_step` and
-:func:`make_sharded_multi_train_step` are thin wrappers around
-``make_train_step(..., mesh=)``, kept so that a reader of the JAX package
-finds the counterpart.
+torch has no jit, so :func:`make_sharded_train_step` is a thin wrapper
+around ``make_train_step(..., mesh=)``, kept so that a reader of the JAX
+package finds the counterpart. :func:`make_sharded_multi_train_step` and
+:func:`make_sharded_multi_eval_loss_step` are the JAX scanned steps: on a
+card K steps of the mesh in one call, every step past the first a replay
+of one captured CUDA graph of the sharded step, collectives included
+(``train/step.py`` ``make_multi_train_step(mesh=)``); on the CPU (gloo
+ranks) the loop of K steps.
 
 :func:`sharded_mips_topk` is the eval's distributed search: each model shard
 searches its own item rows (its pad rows never among them, blocked ids
@@ -24,7 +28,12 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..models.two_tower import ModelConfig
 from ..ops import kernels
 from ..ops.topk import mips_topk
-from ..train.step import TrainStepConfig, make_train_step
+from ..train.step import (
+    TrainStepConfig,
+    make_multi_eval_loss_step,
+    make_multi_train_step,
+    make_train_step,
+)
 from .mesh import MODEL_AXIS, all_gather_rows, axis_index, axis_size
 
 
@@ -37,20 +46,18 @@ def make_sharded_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, mesh: Devi
 
 def make_sharded_multi_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, mesh: DeviceMesh):
     """``multi(state, data, u_all [K, B], p_all [K, B], *, generator,
-    dropout_generator=None) -> (state, losses [K])``: K sharded steps in a
-    row (the JAX package scans them in one device call)."""
-    step = make_sharded_train_step(cfg, tscfg, mesh)
+    dropout_generator=None) -> (state, losses [K])``: K sharded steps in one
+    call, bit for bit K calls of :func:`make_sharded_train_step`, the
+    generators' draws included (the JAX package scans them in one device
+    call; here replays of one captured step on a card)."""
+    return make_multi_train_step(cfg, tscfg, mesh=mesh)
 
-    def multi(state, data, u_all, p_all, *, generator, dropout_generator=None):
-        losses = []
-        for u, p in zip(u_all, p_all):
-            state, metrics = step(
-                state, data, u, p, generator=generator, dropout_generator=dropout_generator
-            )
-            losses.append(metrics["loss"])
-        return state, torch.stack(losses)
 
-    return multi
+def make_sharded_multi_eval_loss_step(cfg: ModelConfig, tscfg: TrainStepConfig, mesh: DeviceMesh):
+    """``multi(state, data, u_all [K, B], p_all [K, B], *, generator) ->
+    losses [K]``: K sharded eval-loss steps in one call
+    (``make_multi_eval_loss_step(mesh=)``)."""
+    return make_multi_eval_loss_step(cfg, tscfg, mesh=mesh)
 
 
 @torch.no_grad()

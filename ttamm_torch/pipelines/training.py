@@ -119,9 +119,14 @@ int >= 1) runs an epoch's full batches in chunks of that many steps through
 ``make_multi_train_step``, the remainder batch through the single step,
 and the eval loss's full batches through ``make_multi_eval_loss_step``; on
 a card the steps of a chunk are replays of one captured CUDA graph of the
-step (``train/step.py``), bit for bit the eager steps. ``1`` runs eager
-single steps. On a mesh the steps run one by one whatever it says. The TPU
-knobs ``use_pallas`` and ``mesh.multi_host`` are not read.
+step (``train/step.py``), bit for bit the eager steps. On a mesh the chunks
+go through ``make_sharded_multi_train_step`` (the JAX trainer's choice
+where ``batch_size`` splits evenly over ``data``; the port's sharded step
+takes any split) and the eval loss's through
+``make_sharded_multi_eval_loss_step``: the sharded step's collectives are
+captured with it, and the owner routing's overflow is taken on the device.
+``1`` runs eager single steps. The TPU knobs ``use_pallas`` and
+``mesh.multi_host`` are not read.
 """
 
 from __future__ import annotations
@@ -190,6 +195,7 @@ from ..reporting import (
     write_embedding_summary,
     write_recommendation_report,
 )
+from ..parallel.step import make_sharded_multi_eval_loss_step, make_sharded_multi_train_step
 from ..serve.flat_index import build_flat_index
 from ..train.checkpoint import (
     AsyncCheckpointer,
@@ -578,15 +584,18 @@ def run_single_experiment(
     eval_step = make_eval_loss_step(model_cfg, tscfg, mesh=mesh)
     steps_per_call = _steps_per_call(training_cfg, len(train_df) // batch_size)
     multi_step = multi_eval_step = None
-    if mesh is not None:
-        logger.info("steps_per_call=%d is not used on a mesh: the steps run one by one",
-                    steps_per_call)
-    else:
-        logger.info("steps_per_call=%s -> %d", training_cfg.get("steps_per_call", "auto"),
-                    steps_per_call)
-        if steps_per_call > 1:
-            multi_step = make_multi_train_step(model_cfg, tscfg)
-            multi_eval_step = make_multi_eval_loss_step(model_cfg, tscfg)
+    if steps_per_call > 1 and mesh is None:
+        multi_step = make_multi_train_step(model_cfg, tscfg)
+        multi_eval_step = make_multi_eval_loss_step(model_cfg, tscfg)
+    elif steps_per_call > 1:
+        # JAX takes its sharded multi-step where the batch splits evenly over
+        # data and a mesh-hinted one elsewhere; the port's sharded step takes
+        # any split, so it serves both
+        multi_step = make_sharded_multi_train_step(model_cfg, tscfg, mesh)
+        multi_eval_step = make_sharded_multi_eval_loss_step(model_cfg, tscfg, mesh)
+    logger.info("steps_per_call=%s -> %d%s", training_cfg.get("steps_per_call", "auto"),
+                steps_per_call, "" if multi_step is None else " | full batches through "
+                + ("make_multi_train_step" if mesh is None else "make_sharded_multi_train_step"))
 
     start_epoch = 1
     resume = Path(training_cfg["resume_from"]) if training_cfg.get("resume_from") else None
@@ -692,7 +701,7 @@ def run_single_experiment(
                 rows = slice(first * batch_size, (first + steps) * batch_size)
                 state, chunk = multi_step(
                     state, data, users[rows].view(steps, batch_size),
-                    items[rows].view(steps, batch_size), generator=generator,
+                    items[rows].view(steps, batch_size), generator=generator, **step_kwargs,
                 )
                 losses.append(chunk)
                 sizes += [batch_size] * steps

@@ -65,7 +65,7 @@ from ..device import host_to_device
 from ..models.adaptive_mimic import mimic_forward
 from ..models.encoders import TPContext
 from ..models.two_tower import ModelConfig, TwoTower
-from ..ops import kernels
+from ..ops import device_cond, kernels
 from ..ops.losses import bce_with_logits, category_alignment_loss
 from ..ops.sampling import sample_negative_items
 from ..ops.sparse_adam import coalesce_row_grads, sparse_adam_apply, sum_rows
@@ -492,6 +492,16 @@ class _Mesh(_OneDevice):
         self.dp = pmesh.axis_size(mesh, pmesh.DATA_AXIS)
         self.d = pmesh.axis_index(mesh, pmesh.DATA_AXIS)
         self.num_neg = tscfg.negatives_per_positive
+        self._indices: dict[tuple, torch.Tensor] = {}  # the lane orders, on the device
+
+    def _on_device(self, key: tuple, index: np.ndarray, device: torch.device) -> torch.Tensor:
+        """The host array ``index`` (named by ``key``) on ``device``,
+        uploaded once, by the first (eager) step that needs it, so that a
+        captured step reads it from the card."""
+        key = (*key, device)
+        if key not in self._indices:
+            self._indices[key] = torch.from_numpy(index).to(device)
+        return self._indices[key]
 
     def shard(self, batch):
         return _data_shard(batch, self.dp, self.d)
@@ -580,7 +590,7 @@ class _Mesh(_OneDevice):
         rows = torch.cat([rows, rows.new_zeros((chunk - rows.shape[0], rows.shape[1]))])
         full = self._pm.all_gather_rows_grad(rows, self.mesh, self._pm.DATA_AXIS)
         keep = _shard_rows(total, self.dp)
-        return full if keep is None else full[torch.from_numpy(keep).to(full.device)]
+        return full if keep is None else full[self._on_device(("rows", total), keep, full.device)]
 
     def lanes(self, side, idx, grad, bt):
         """This rank's lanes padded to one length on every rank, and the
@@ -590,7 +600,9 @@ class _Mesh(_OneDevice):
         k = 0 if side == "user" else 1
         idx, grad = _pad_lanes(idx, grad, widths[k])
         order = orders[k]
-        return _Lanes(idx, grad, None if order is None else torch.from_numpy(order).to(idx.device))
+        if order is not None:
+            order = self._on_device(("lanes", bt.size, pool, k), order, idx.device)
+        return _Lanes(idx, grad, order)
 
     def sparse_sq(self, table, lanes):
         """The lanes of every data shard gathered and sorted once: the norm
@@ -841,8 +853,10 @@ class _Graph(NamedTuple):
     ``p`` ``[cap, B]``, its scalar rows ``s`` ``[cap, n]`` (None for the
     eval loss), its losses ``loss`` ``[cap]`` and the device step counter
     ``ctr`` at which a replay reads its row and writes its loss; ``launches``:
-    the port's kernel launches of one replay, by name; ``generator``: the
-    registered generator, held so that its id in the key stays its own."""
+    the port's kernel launches of one replay, by name; ``generators``: the
+    registered generators, held so that their ids in the key stay their
+    own; ``branches``: the graphs of the on-device branches
+    (``ops/device_cond.py``) whose nodes it embeds."""
 
     graph: Any
     u: torch.Tensor
@@ -851,13 +865,15 @@ class _Graph(NamedTuple):
     loss: torch.Tensor
     ctr: torch.Tensor
     launches: dict[str, int]
-    generator: Any
+    generators: tuple
+    branches: list
 
 
-def _graph_key(state: TrainState, data: BatchData, u_all: torch.Tensor, generator) -> tuple:
+def _graph_key(state: TrainState, data: BatchData, u_all: torch.Tensor, generators: tuple) -> tuple:
     """What a captured step is bound to: the address, shape and dtype of
     every state and dataset tensor it reads or writes, the batch's shape and
-    dtype, and the generator."""
+    dtype, and the generators (the negatives' and, on a mesh, the dropout
+    masks')."""
     tensors = [t for _, t in state.dense_targets()]
     tensors += list(state.tables.values()) + state.opt_dense.m + state.opt_dense.v
     for opt_state in state.opt_sparse.values():
@@ -865,55 +881,65 @@ def _graph_key(state: TrainState, data: BatchData, u_all: torch.Tensor, generato
     tensors += [t for t in vars(data).values() if t is not None]
     return (
         tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors),
-        tuple(u_all.shape[1:]), u_all.dtype, id(generator),
+        tuple(u_all.shape[1:]), u_all.dtype, tuple(id(g) for g in generators),
     )
 
 
 class _Replayer:
-    """``run(state, data, u_all [K, B], p_all [K, B], scalars, generator) ->
-    losses [K]``: K calls of ``body(state, data, u, p, scalars_row,
-    generator) -> loss`` (a 0-d tensor), the step's state updates in place.
+    """``run(state, data, u_all [K, B], p_all [K, B], scalars, generators)
+    -> losses [K]``: K calls of ``body(state, data, u, p, scalars_row,
+    generators) -> loss`` (a 0-d tensor), the step's state updates in
+    place; ``generators``: the negatives' generator and the dropout masks'
+    (or None).
 
     On the CPU, the loop of K calls. On a card, each call past the first is
     a replay of one CUDA graph of ``body``: the first call of a key
-    (:func:`_graph_key`) runs its step eagerly, which builds the kernels
-    and sets up cuBLAS and autograd, then captures ``body`` reading its
-    batch and scalar row from static buffers at a step counter on the
-    device (registering ``generator``, whose draws then advance each replay
-    as an eager step's would). A chunk is then one upload of its batches
-    and scalar rows into the static buffers and one replay a step, with no
-    host sync; the kernels' launch counts grow by the captured launches at
-    each replay. A graph is captured again only for a key it was not
-    captured for (a state or dataset tensor reallocated, as by a resume or
-    a restore, another generator or batch shape) or a longer chunk. A
-    capture or replay that fails raises: nothing falls back to eager
-    steps."""
+    (:func:`_graph_key`) runs its step eagerly, which builds the kernels,
+    sets up cuBLAS and autograd and, on a ``mesh``, the communicators of
+    every group (``parallel.mesh.warm_groups``) and the owner routing's
+    branch graphs, then captures ``body`` reading its batch and scalar row
+    from static buffers at a step counter on the device (registering each
+    generator, whose draws then advance each replay as an eager step's
+    would). On a mesh the collectives are captured with the rest; every
+    rank captures and replays the same steps. A chunk is then one upload
+    of its batches and scalar rows into the static buffers and one replay a
+    step, with no host sync; the kernels' launch counts grow by the
+    captured launches at each replay. A graph is captured again only for a
+    key it was not captured for (a state or dataset tensor reallocated, as
+    by a resume or a restore, another generator or batch shape) or a longer
+    chunk. A capture or replay that fails raises: nothing falls back to
+    eager steps."""
 
     KEEP = 2  # graphs held at once: the eval's val and test generators
 
-    def __init__(self, body):
+    def __init__(self, body, mesh=None):
         self._body = body
+        self._mesh = mesh
         self._graphs: dict[tuple, _Graph] = {}
 
-    def run(self, state, data, u_all, p_all, scalars, generator) -> torch.Tensor:
+    def run(self, state, data, u_all, p_all, scalars, generators) -> torch.Tensor:
         steps = u_all.shape[0]
         dev = u_all.device
         rows = None if scalars is None else host_to_device(scalars, dev)
         if dev.type != "cuda":
             return torch.stack([
                 self._body(state, data, u_all[k], p_all[k], None if rows is None else rows[k],
-                           generator)
+                           generators)
                 for k in range(steps)
             ])
         losses = torch.empty(steps, dtype=torch.float32, device=dev)
-        key = _graph_key(state, data, u_all, generator)
+        key = _graph_key(state, data, u_all, generators)
         graph = self._graphs.get(key)
         start = 0
         if graph is None or graph.u.shape[0] < steps:
+            if self._mesh is not None:
+                from ..parallel.mesh import warm_groups
+
+                warm_groups(self._mesh, dev)
             loss = self._body(state, data, u_all[0], p_all[0], None if rows is None else rows[0],
-                              generator)
+                              generators)
             losses[:1].copy_(loss.reshape(1))
-            graph = self._capture(key, state, data, u_all, rows, generator)
+            graph = self._capture(key, state, data, u_all, rows, generators)
             start = 1
         graph.u[:steps].copy_(u_all)
         graph.p[:steps].copy_(p_all)
@@ -926,7 +952,7 @@ class _Replayer:
         losses[start:].copy_(graph.loss[start:steps])
         return losses
 
-    def _capture(self, key, state, data, u_all, rows, generator) -> _Graph:
+    def _capture(self, key, state, data, u_all, rows, generators) -> _Graph:
         self._graphs.pop(key, None)
         while len(self._graphs) >= self.KEEP:
             self._graphs.pop(next(iter(self._graphs)))
@@ -937,44 +963,56 @@ class _Replayer:
         loss_buf = torch.zeros(steps, dtype=torch.float32, device=dev)
         ctr = torch.zeros(1, dtype=torch.int64, device=dev)
         graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
+        registered = []
+        for gen in generators:
+            if gen is not None and all(gen is not g for g in registered):
+                graph.register_generator_state(gen)
+                registered.append(gen)
         before = kernels.launch_counts()
         try:
             # thread_local: the background checkpoint writer may use its own
             # stream meanwhile; a host sync in the step still raises
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with device_cond.holding() as branches, \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 row = None if s is None else torch.index_select(s, 0, ctr)[0]
                 loss = self._body(state, data, torch.index_select(u, 0, ctr)[0],
-                                  torch.index_select(p, 0, ctr)[0], row, generator)
+                                  torch.index_select(p, 0, ctr)[0], row, generators)
                 loss_buf.index_copy_(0, ctr, loss.reshape(1).float())
                 ctr.add_(1)
         finally:
             after = kernels.launch_counts()
             launches = {n: after[n] - before[n] for n in after if after[n] != before[n]}
             kernels.add_launch_counts(launches, -1)  # captured, not run
-        self._graphs[key] = _Graph(graph, u, p, s, loss_buf, ctr, launches, generator)
+        self._graphs[key] = _Graph(graph, u, p, s, loss_buf, ctr, launches, tuple(registered),
+                                   list(branches))
         return self._graphs[key]
 
 
-def make_multi_train_step(cfg: ModelConfig, tscfg: TrainStepConfig):
-    """Build ``multi(state, data, u_all [K, B], p_all [K, B], *, generator)
-    -> (state, losses [K])``: K train steps of :func:`make_train_step` on
-    one device in one call (the JAX package's ``lax.scan`` of K steps,
-    ``training.steps_per_call``), bit for bit the K single steps, the
-    generator's draws included. The optimizers' scalars of the K steps are
-    formed once on the host (:func:`step_scalars`) and uploaded once; on a
-    card the steps past the first of a new state are replays of one captured
-    step (:class:`_Replayer`), so the host issues a replay, not ~500 eager
-    ops, a step. The state's host counts advance by K."""
-    core = _train_core(cfg, tscfg)
+def make_multi_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None):
+    """Build ``multi(state, data, u_all [K, B], p_all [K, B], *, generator,
+    dropout_generator=None) -> (state, losses [K])``: K train steps of
+    :func:`make_train_step` in one call (the JAX package's ``lax.scan`` of
+    K steps, ``training.steps_per_call``), bit for bit the K single steps,
+    the generators' draws included. The optimizers' scalars of the K steps
+    are formed once on the host (:func:`step_scalars`) and uploaded once; on
+    a card the steps past the first of a new state are replays of one
+    captured step (:class:`_Replayer`), so the host issues a replay, not
+    ~500 eager ops, a step. The state's host counts advance by K.
+
+    ``mesh``: the K steps on one rank of a ``(data, model)`` mesh
+    (``parallel.step.make_sharded_multi_train_step``), every rank calling
+    with the same batches; its collectives are in the captured step."""
+    core = _train_core(cfg, tscfg, mesh)
     replayer = _Replayer(
-        lambda state, data, u, p, s, gen: core(state, data, u, p, s, generator=gen)["loss"]
+        lambda state, data, u, p, s, gens: core(
+            state, data, u, p, s, generator=gens[0], dropout_generator=gens[1])["loss"],
+        mesh,
     )
 
-    def multi(state, data, u_all, p_all, *, generator):
+    def multi(state, data, u_all, p_all, *, generator, dropout_generator=None):
         losses = replayer.run(
-            state, data, u_all, p_all, step_scalars(state, tscfg, u_all.shape[0]), generator
+            state, data, u_all, p_all, step_scalars(state, tscfg, u_all.shape[0]),
+            (generator, dropout_generator),
         )
         _advance(state, u_all.shape[0])
         return state, losses
@@ -982,17 +1020,18 @@ def make_multi_train_step(cfg: ModelConfig, tscfg: TrainStepConfig):
     return multi
 
 
-def make_multi_eval_loss_step(cfg: ModelConfig, tscfg: TrainStepConfig):
+def make_multi_eval_loss_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None):
     """Build ``multi(state, data, u_all [K, B], p_all [K, B], *, generator)
-    -> losses [K]``: K eval-loss steps of :func:`make_eval_loss_step` on one
-    device in one call, as :func:`make_multi_train_step` (replays of one
-    captured step on a card; one graph a generator, so a caller that
-    re-seeds one generator object per split reuses it)."""
-    step = make_eval_loss_step(cfg, tscfg)
-    replayer = _Replayer(lambda state, data, u, p, s, gen: step(state, data, u, p, generator=gen))
+    -> losses [K]``: K eval-loss steps of :func:`make_eval_loss_step` in
+    one call, as :func:`make_multi_train_step` (replays of one captured
+    step on a card; one graph a generator, so a caller that re-seeds one
+    generator object per split reuses it); ``mesh`` as there."""
+    step = make_eval_loss_step(cfg, tscfg, mesh=mesh)
+    replayer = _Replayer(
+        lambda state, data, u, p, s, gens: step(state, data, u, p, generator=gens[0]), mesh)
 
     def multi(state, data, u_all, p_all, *, generator):
-        return replayer.run(state, data, u_all, p_all, None, generator)
+        return replayer.run(state, data, u_all, p_all, None, (generator,))
 
     return multi
 
