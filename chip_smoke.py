@@ -128,6 +128,24 @@ result line):
    each, alternating eager and replay, 20 steps a turn: host ms/step,
    device ms/step, device ops/step and idle share (median and range) and
    launches a step, which must be the same for both;
+4f. the mesh's multi-step on a 1x1 NCCL mesh (``configs/default.yaml``
+   allgather / owner, each with and without ``mesh.tensor_parallel``,
+   ``configs/pod_2x4.yaml`` owner through the all-to-all exchange; B = 2048,
+   dropout on): two ``make_sharded_multi_train_step`` calls of 50 = 100
+   eager sharded steps bit for bit, a replayed forced overflow, then 3
+   turns each way of host / device ms, ops and idle share;
+4g. the wire inventory on 4f's mesh: each 4f case's collectives recorded
+   (``parallel/collective_inspect.py``) for one eager sharded step and for
+   a multi-step call (the groups' warm-up, its eager step, the capture):
+   the same list in order (op, axis, dtype, shape, branch); no collective
+   moving half the smallest table or more; every floating all-gather over
+   ``data`` bf16 under the pod recipe; under the owner routing each sparse
+   table's full-width gathers in the ``overflow`` branch, issued by 4f's
+   forced overflow (its device counters); each case's count and bytes by
+   axis printed; then ``scripts/torch_predict_scaling.py`` (run beside the
+   card's steps on CPU gloo ranks) for ``configs/default.yaml`` and
+   ``configs/pod_2x4.yaml`` at 2x4 and 8x1 from 4e's replay ms/step, its
+   lines printed;
 5. train two epochs of ``configs/default.yaml`` on the card with the
    retrieval eval after each, through ``run_training`` (the main path's
    launches are counted from here; its sweep ledger must hold the one
@@ -295,6 +313,7 @@ PROFILE_STEPS = 20
 AB_STEPS = 50  # canonical train steps a turn of phase 5's checkpoint A/B
 MULTI_STEPS = 50  # replayed steps held to eager ones (phase 4e)
 MULTI_TURNS = 5  # timed turns of each, eager and replayed (phase 4e)
+MESH_TURNS = 3  # the same on the 1x1 mesh for five cases (phase 4f; fewer, for the script's time)
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 L2_FLUSH_BYTES = 256 << 20  # five times the 50 MB L2 of an H100
 
@@ -1624,10 +1643,10 @@ def parent_mesh_path():
 
     class ParentLookup(el._ShardedLookup):
         @staticmethod
-        def forward(ctx, local, idx, mesh, wire_dtype):
+        def forward(ctx, local, idx, mesh, wire_dtype, lanes):
             owned, lane = el._owned(local.shape[0], idx, mesh)
             ctx.save_for_backward(idx)
-            ctx.mesh, ctx.rows, ctx.wire = mesh, local.shape[0], wire_dtype
+            ctx.mesh, ctx.rows, ctx.wire, ctx.lanes = mesh, local.shape[0], wire_dtype, lanes
             rows = torch.where(owned[:, None], torch.index_select(local, 0, lane), 0.0)
             if axis_size(mesh, MODEL_AXIS) > 1:
                 all_reduce(rows, mesh, MODEL_AXIS)
@@ -2315,7 +2334,7 @@ def _mesh_multi_case(dev, mesh, label: str, c: dict, tscfg, tp: bool) -> dict:
     eager warm-up step, the capture, the rest replayed; the second:
     replays), both generators (negatives, dropout) drawn, bit for bit:
     every leaf, the losses, the host counts, both generators' states and
-    the launch counts; then MULTI_TURNS turns each way, alternating, of
+    the launch counts; then MESH_TURNS turns each way, alternating, of
     PROFILE_STEPS steps (``_turn_stats``). Returns the turns' summary."""
     import copy
 
@@ -2331,7 +2350,7 @@ def _mesh_multi_case(dev, mesh, label: str, c: dict, tscfg, tp: bool) -> dict:
     cfg, data, nu, ni, b = (c[k] for k in ("cfg", "data", "nu", "ni", "batch"))
     check(cfg.user_tower.feature_encoder.dropout > 0, f"4f {label}: dropout off")
     first = 2 * MULTI_STEPS
-    total = first + MULTI_TURNS * (2 * PROFILE_STEPS + 2)  # a turn: timed, warm-up, profiled
+    total = first + MESH_TURNS * (2 * PROFILE_STEPS + 2)  # a turn: timed, warm-up, profiled
     users = torch.from_numpy(c["users"][: total * b]).to(dev).view(total, b)
     items = torch.from_numpy(c["items"][: total * b]).to(dev).view(total, b)
     state = place_state(mesh, create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED,
@@ -2392,7 +2411,7 @@ def _mesh_multi_case(dev, mesh, label: str, c: dict, tscfg, tp: bool) -> dict:
         pos["replay"] = k + n
 
     turns = {"eager": [], "replay": []}
-    for _ in range(MULTI_TURNS):
+    for _ in range(MESH_TURNS):
         for mode, run in (("eager", run_eager), ("replay", run_replay)):
             turns[mode].append(_turn_stats(dev, run, PROFILE_STEPS))
     out = {}
@@ -2402,7 +2421,7 @@ def _mesh_multi_case(dev, mesh, label: str, c: dict, tscfg, tp: bool) -> dict:
             vals = sorted(t[key] for t in stats)
             out[mode][key] = {"median": vals[len(vals) // 2], "min": vals[0], "max": vals[-1]}
         check(out[mode]["device_ms"]["min"] > 0, f"4f {label} {mode}: the profiler saw no device work")
-        log(f"4f {label} {mode} ({MULTI_TURNS} turns of {PROFILE_STEPS} steps, median [min, max]): "
+        log(f"4f {label} {mode} ({MESH_TURNS} turns of {PROFILE_STEPS} steps, median [min, max]): "
             + " | ".join(f"{key} {v['median']:.3f} [{v['min']:.3f}, {v['max']:.3f}]"
                          for key, v in out[mode].items() if key != "launches_per_step")
             + f" | launches a step {out[mode]['launches_per_step']}")
@@ -2466,7 +2485,155 @@ def _forced_overflow(dev, mesh, c: dict, tscfg) -> dict:
     return {"replayed_step": stats, "eager_steps": eager_stats}
 
 
-def phase_mesh_multi_step(dev, work: Path, config: dict, dataset) -> dict:
+def _wire_steps(dev, mesh, c: dict, tscfg, tp: bool) -> tuple[list, list, dict, int]:
+    """Phase 4g's records of one case: one eager sharded step of a fresh
+    seeded state, and one ``make_sharded_multi_train_step`` call of two
+    steps on a copy (the warm-up of the groups, its eager first step, the
+    capture, a replay, which runs no Python). Returns the eager step's
+    record, the multi-step call's, the tables' shapes and the number of
+    sparse tables."""
+    import copy
+
+    import torch
+
+    from ttamm_torch.parallel import place_state
+    from ttamm_torch.parallel.collective_inspect import record_collectives
+    from ttamm_torch.parallel.step import make_sharded_multi_train_step, make_sharded_train_step
+    from ttamm_torch.pipelines.training import dropout_generator
+    from ttamm_torch.train import create_train_state
+
+    cfg, data, nu, ni, b = (c[k] for k in ("cfg", "data", "nu", "ni", "batch"))
+    users = torch.from_numpy(c["users"][: 2 * b]).to(dev).view(2, b)
+    items = torch.from_numpy(c["items"][: 2 * b]).to(dev).view(2, b)
+    eager = place_state(mesh, create_train_state(cfg, num_users=nu, num_items=ni, seed=STEP_SEED,
+                                                 device=dev), tensor_parallel=tp)
+    replayed = copy.deepcopy(eager)
+    gens = [(torch.Generator(device=dev).manual_seed(STEP_SEED), dropout_generator(STEP_SEED, mesh, dev))
+            for _ in range(2)]
+    with record_collectives(mesh) as one:
+        make_sharded_train_step(cfg, tscfg, mesh)(eager, data, users[0], items[0], generator=gens[0][0],
+                                                  dropout_generator=gens[0][1])
+    with record_collectives(mesh) as multi:
+        multi_step = make_sharded_multi_train_step(cfg, tscfg, mesh)
+        multi_step(replayed, data, users, items, generator=gens[1][0], dropout_generator=gens[1][1])
+    torch.cuda.synchronize()
+    return one, multi, {n: tuple(t.shape) for n, t in eager.tables.items()}, len(eager.opt_sparse)
+
+
+def _axis_totals(records) -> dict:
+    out: dict[str, dict[str, int]] = {}
+    for r in records:
+        entry = out.setdefault(r.axis, {"count": 0, "bytes": 0})
+        entry["count"] += 1
+        entry["bytes"] += r.bytes
+    return out
+
+
+def _wire_inventory(dev, mesh, cases: dict, default: dict, scaling) -> dict:
+    """Phase 4g on 4f's 1x1 NCCL mesh: each of 4f's cases recorded
+    (``_wire_steps``): the eager step's record = the captured step's (op,
+    axis, dtype, shape, branch, in order); no collective moves half the
+    smallest table or more; every all-gather over ``data`` of a floating tensor in
+    bf16 under the pod recipe; under the owner routing the overflow branch
+    (``branch="overflow"``) holds each sparse table's full-width gathers,
+    and 4f's forced overflow issues them (its device counters: one
+    overflow a table). Then the weak-scaling prediction's lines
+    (``scaling``: the running ``scripts/torch_predict_scaling.py``)."""
+    import torch
+
+    from ttamm_torch.parallel.collective_inspect import assert_no_table_sized_collectives
+    from ttamm_torch.parallel.sparse_update import owner_stats, reset_owner_stats
+
+    key = lambda r: (r.op, r.axis, r.dtype, r.shape, r.branch)  # noqa: E731
+    summary = {}
+    for label, (c, case_tscfg, tp) in cases.items():
+        one, multi, tables, _ = _wire_steps(dev, mesh, c, case_tscfg, tp)
+        warm = [key(r) for r in multi[:3]]
+        check(warm == [("all-reduce", a, "float32", (1,), None) for a in ("world", "data", "model")],
+              f"4g {label}: the multi-step call's first collectives {warm} are not warm_groups'")
+        n = len(one)
+        check(len(multi) == 3 + 2 * n, f"4g {label}: {len(multi)} collectives in the multi-step "
+              f"call, not 3 + 2 x {n}")
+        check([key(r) for r in multi[3 : 3 + n]] == [key(r) for r in one],
+              f"4g {label}: the multi-step call's eager step differs from the eager step")
+        check([key(r) for r in multi[3 + n :]] == [key(r) for r in one],
+              f"4g {label}: the captured step's collectives differ from the eager step's")
+        # half the smallest table, the JAX default fraction: a tenth is below
+        # one step's item lanes here (12,288 x 128 f32 = 12.3% of the item
+        # table), which the sparse update has always gathered
+        assert_no_table_sized_collectives(one, tables)
+        if "pod" in label:
+            floats = [r.dtype for r in one if r.op == "all-gather" and r.axis == "data"
+                      and r.dtype in ("float32", "bfloat16")]
+            check(floats and all(d == "bfloat16" for d in floats),
+                  f"4g {label}: all-gathers over data in {floats}")
+        if case_tscfg.update_routing == "owner":
+            b, dim = c["batch"], tables["user_id"][1]
+            items = (b + case_tscfg.mixed_negatives if case_tscfg.loss_type == "in_batch_softmax"
+                     else b * (1 + case_tscfg.negatives_per_positive))
+            for lanes in (b, items):  # at one data shard the lanes of the whole batch
+                for shape in ((lanes,), (lanes, dim)):
+                    check(any(r.branch == "overflow" and r.op == "all-gather" and r.shape == shape
+                              for r in one), f"4g {label}: no full-width {shape} gather in the "
+                              "overflow branch")
+        totals = _axis_totals(one)
+        largest = max(one, key=lambda r: r.bytes)
+        share = largest.bytes / min(math.prod(shape) * 4 for shape in tables.values())
+        log(f"4g {label}: {n} collectives a step, eager = captured (op, axis, dtype, shape, "
+            f"branch); by axis {totals}; the largest {largest}, {share:.4f} of the smallest table; "
+            f"overflow-branch entries {sum(r.branch == 'overflow' for r in one)}")
+        summary[label] = {"collectives": n, "by_axis": totals, "largest_bytes": largest.bytes,
+                          "largest_table_share": share}
+        torch.cuda.empty_cache()
+    forced = default["tscfg"]._replace(update_routing="owner", update_capacity_factor=1e-4)
+    reset_owner_stats()
+    one, _, _, tables = _wire_steps(dev, mesh, default, forced, False)
+    stats = owner_stats()
+    over = [r for r in one if r.branch == "overflow"]
+    check(stats["overflows"] >= tables and len(over) == 2 * tables,
+          f"4g forced overflow: counters {stats}, overflow-branch entries {len(over)}")
+    log(f"4g forced overflow (capacity factor 1e-4): its overflow branch's gathers "
+        f"{[str(r) for r in over]}; device counters {stats}")
+    summary["forced_overflow"] = {"overflow_entries": len(over), "counters": stats}
+    out, err = scaling.communicate(timeout=600)
+    check(scaling.returncode == 0,
+          f"4g torch_predict_scaling.py exited {scaling.returncode}:\n{err[-3000:]}")
+    lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    check(len(lines) == 4, f"4g torch_predict_scaling.py printed {len(lines)} lines, not 4")
+    for line in lines:
+        check(line["ranks_agree"] and 0 < line["predicted_weak_scaling_efficiency"] <= 1
+              and line["wire_bytes_per_device"] > 0, f"4g prediction line {line}")
+        log("4g prediction: " + json.dumps({k: line[k] for k in (
+            "config", "mesh", "features_dtype", "comm_dtype", "update_routing", "collectives_per_step",
+            "wire_bytes_per_device", "wire_bytes_by_axis", "t1_ms", "t_comm_ms",
+            "predicted_weak_scaling_efficiency")}))
+        log("4g prediction, per op and axis: " + json.dumps(line["collectives"])
+            + f" | overflow branch (not paid): {json.dumps(line['overflow_branch'])}")
+    summary["prediction"] = lines
+    return summary
+
+
+def phase_wire(dev, mesh, cases: dict, default: dict, t1_ms: list[float], features: int) -> dict:
+    """Phase 4g: ``scripts/torch_predict_scaling.py`` started for
+    ``configs/default.yaml`` and ``configs/pod_2x4.yaml`` at 2x4 and 8x1 from
+    ``t1_ms`` (4e's one-device replay ms/step of the default and the
+    in-batch configuration, which the pod recipe stacks its wire options
+    on) at the corpus's feature width; its CPU ranks run while
+    ``_wire_inventory`` records 4f's cases on the card."""
+    scaling = subprocess.Popen(
+        [sys.executable, str(REPO / "scripts" / "torch_predict_scaling.py"), "--config",
+         "configs/default.yaml", "configs/pod_2x4.yaml", "--meshes", "2x4,8x1", "--t1-ms",
+         *(f"{t:.6f}" for t in t1_ms), "--features", str(features)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        return _wire_inventory(dev, mesh, cases, default, scaling)
+    finally:
+        if scaling.poll() is None:
+            scaling.kill()
+            scaling.communicate()
+
+
+def phase_mesh_multi_step(dev, work: Path, config: dict, dataset, multi_summary: dict) -> dict:
     """Phase 4f: the mesh's multi-step on a 1x1 NCCL mesh (one card),
     ``make_sharded_multi_train_step`` as CUDA-graph replays of the sharded
     step with its collectives, held to the eager sharded steps
@@ -2499,6 +2666,11 @@ def phase_mesh_multi_step(dev, work: Path, config: dict, dataset) -> dict:
             summary[label] = _mesh_multi_case(dev, mesh, label, c, tscfg, tp)
             torch.cuda.empty_cache()
         summary["forced_overflow"] = _forced_overflow(dev, mesh, default, default["tscfg"])
+        with Phase("4g the wire inventory: the sharded step's collectives, the scaling prediction"):
+            t1 = [multi_summary[name]["replay"]["host_ms"]["median"]
+                  for name in ("default.yaml", "in_batch_softmax.yaml")]
+            summary["wire_4g"] = phase_wire(dev, mesh, cases, default, t1,
+                                            dataset.item_feature_matrix.shape[1])
         del default, pod
         gc.collect()
         torch.cuda.empty_cache()
@@ -3911,7 +4083,8 @@ def main() -> int:
             with Phase("4e steps_per_call: the step as CUDA-graph replays"):
                 multi_summary = phase_multi_step(dev, work, config, dataset)
             with Phase("4f the mesh's multi-step: sharded steps as CUDA-graph replays"):
-                mesh_multi_summary = phase_mesh_multi_step(dev, work, config, dataset)
+                mesh_multi_summary = phase_mesh_multi_step(dev, work, config, dataset,
+                                                           multi_summary)
             kernels.reset_launch_counts()  # the main path's launches start here
             excluded = collections.Counter()
             with Phase("5 train two epochs with the eval at the canonical scale"):

@@ -27,10 +27,12 @@ scenarios and their tolerances:
   bf16 lanes) atol 1e-6,
   owner atol 1e-5 (its two-phase sums), the owner buffer's totals rounded
   to bf16 once more on both sides;
-- the dtype of every floating tensor the sparse update all-gathers over
-  ``data``: bf16 under ``comm_dtype: bfloat16``, float32 otherwise, and
-  with the clip one float32 gather a table for the norm (as the JAX
-  package's partitioner moves the float32 lanes for it);
+- the dtype of every floating tensor all-gathered over ``data``
+  (``record_collectives``): the dense mimic tables' lane gradients in
+  their backward, then the sparse update's, bf16 under ``comm_dtype:
+  bfloat16``, float32 otherwise, and with the clip one float32 gather a
+  sparse table for the norm between them (as the JAX package's
+  partitioner moves the float32 lanes for it);
 - bf16 feature rows through ``sharded_rows`` (a bf16 sum over ``model``)
   equal to ``index_select``, bit for bit but an owner's -0.0, which the
   sum returns as +0.0;
@@ -236,14 +238,15 @@ def test_bf16_wire_sparse_update_matches_jax(ranks, name):
 @pytest.mark.parametrize("name", sorted(SPIES))
 def test_data_axis_gathers_carry_the_wire_dtype(ranks, name):
     """The port's counterpart of the JAX package's
-    ``test_comm_bf16_emits_bf16_row_grad_allgathers``: two sparse tables, one
-    step; each of their row-gradient all-gathers over ``data``."""
+    ``test_comm_bf16_emits_bf16_row_grad_allgathers``: two dense mimic
+    tables and two sparse tables, one step; every floating all-gather over
+    ``data`` of it."""
     comm, routing, clip = SPIES[name]
     dtypes = list(ranks["outs"][name]["gather_dtypes"])
-    if clip is None:
-        assert dtypes == [comm] * 2, dtypes
-    else:  # the norm's float32 lanes, then the update's wire lanes
-        assert dtypes == ["float32"] * 2 + [comm] * 2, dtypes
+    if clip is None:  # the mimic tables' lanes, then the update's
+        assert dtypes == [comm] * 4, dtypes
+    else:  # the mimic tables' lanes, the norm's float32 lanes, the update's
+        assert dtypes == [comm] * 2 + ["float32"] * 2 + [comm] * 2, dtypes
 
 
 @pytest.mark.parametrize("mesh", ["2x2", "1x4"])

@@ -63,7 +63,7 @@ fallback). The scenarios:
   in their first-step gradients; after the steps every
   replicated leaf and row-layer bias is bit-equal on every rank, and each
   split leaf on the data ranks of its model index;
-- a spy on every collective of a TP step: each all-reduce over ``model``
+- every collective of a TP step (``record_collectives``): each all-reduce over ``model``
   is batch-sized (rows of the data shard) or a vector of squared norms (the
   clip's), f's backward and g's forward among them; no collective carries a
   dense weight; the all-reduce of dense gradients over ``data`` carries
@@ -563,12 +563,15 @@ def _check_dropout(tp_run, label, mesh):
 
 
 def test_tp_step_collectives_are_batch_sized(tp_run):
-    records = tp_run["outs"]["bce_2x2_allgather"]["collectives"]
+    out = tp_run["outs"]["bce_2x2_allgather"]
+    records = out["collectives"]
+    # the record lists every torch.distributed collective the step called
+    assert len(records) == int(out["dist_calls"])
     segments = _leaf_segments("bce", 2)
     dp = 2
     users, items = B // dp, B // dp * (1 + NEG)
     model_reduces = [tuple(int(x) for x in shape.split("x")) for op, axis, shape, _ in records
-                     if op == "all_reduce" and axis == "model"]
+                     if op == "all-reduce" and axis == "model"]
     assert model_reduces
     for shape in model_reduces:
         batch_sized = shape[0] in (users, items)
@@ -593,7 +596,7 @@ def test_tp_step_collectives_are_batch_sized(tp_run):
     local = sum(n for _, n, _ in segments)
     whole = sum(n * (2 if split else 1) for _, n, split in segments)
     data_reduces = [int(shape) for op, axis, shape, _ in records
-                    if op == "all_reduce" and axis == "data" and "x" not in shape]
+                    if op == "all-reduce" and axis == "data" and "x" not in shape]
     assert local in data_reduces and whole not in data_reduces and local < whole
 
 

@@ -43,6 +43,7 @@ from ttamm_torch.parallel import (  # noqa: E402
     place_state,
 )
 from ttamm_torch.parallel import exchange  # noqa: E402
+from ttamm_torch.parallel.collective_inspect import record_collectives  # noqa: E402
 from ttamm_torch.parallel import sparse_update as sparse_update_module  # noqa: E402
 from ttamm_torch.parallel.embedding_lookup import sharded_rows  # noqa: E402
 from ttamm_torch.parallel.mesh import all_gather_rows, axis_index  # noqa: E402
@@ -143,31 +144,6 @@ def _model(task, inputs):
 
 
 @contextlib.contextmanager
-def _collective_spy(mesh, records: list):
-    """Record ``(op, axis, shape, dtype)`` of every collective issued while
-    it is active (the axis from the group's ranks)."""
-    groups = {tuple(dist.get_process_group_ranks(mesh.get_group(a))): a for a in (DATA_AXIS, MODEL_AXIS)}
-    names = ("all_reduce", "all_gather_into_tensor", "all_gather", "all_to_all_single")
-    originals = {n: getattr(dist, n) for n in names}
-
-    def wrap(name, fn):
-        def spy(first, *args, group=None, **kwargs):
-            t = first if name == "all_reduce" else args[0]  # the input
-            axis = groups.get(tuple(dist.get_process_group_ranks(group)), "world") if group else "world"
-            records.append((name, axis, "x".join(map(str, t.shape)), str(t.dtype).removeprefix("torch.")))
-            return fn(first, *args, group=group, **kwargs)
-        return spy
-
-    for n, fn in originals.items():
-        setattr(dist, n, wrap(n, fn))
-    try:
-        yield
-    finally:
-        for n, fn in originals.items():
-            setattr(dist, n, fn)
-
-
-@contextlib.contextmanager
 def _draw_spy(draws: list):
     """Record every ``torch.rand`` tensor drawn while it is active (the
     dropout masks' uniforms: the steps are given their negatives)."""
@@ -185,16 +161,57 @@ def _draw_spy(draws: list):
         torch.rand = rand
 
 
+# every collective torch.distributed offers (barrier and the object
+# collectives aside: they carry no step data)
+_DIST_COLLECTIVES = ("all_reduce", "all_reduce_coalesced", "all_gather", "all_gather_into_tensor",
+                     "all_gather_coalesced", "all_to_all", "all_to_all_single", "broadcast",
+                     "reduce", "reduce_scatter", "reduce_scatter_tensor", "gather", "scatter",
+                     "send", "recv", "isend", "irecv", "batch_isend_irecv")
+
+
+@contextlib.contextmanager
+def _dist_calls(calls: list):
+    """Append the name of every ``torch.distributed`` collective called
+    while it is active, whoever calls it: what a record of
+    ``parallel/mesh.py``'s primitives must match, call for call."""
+    originals = {n: getattr(dist, n) for n in _DIST_COLLECTIVES if hasattr(dist, n)}
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return counted
+
+    for n, fn in originals.items():
+        setattr(dist, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in originals.items():
+            setattr(dist, n, fn)
+
+
+def _input_shape(c) -> str:
+    """The shape a rank passed to a recorded collective, as ``AxB`` (an
+    all-gather's result holds the group's inputs along dim 0)."""
+    shape = list(c.shape)
+    if c.op == "all-gather":
+        shape[0] //= c.group_size
+    return "x".join(map(str, shape))
+
+
 def train_step(task, inputs):
     """``task["steps"]`` sharded steps, with ``task["tensor_parallel"]`` on a
     tensor-parallel placement; with ``task["spy"]``, also the dtype of every
-    floating tensor the sparse update all-gathers over ``data``
-    (``gather_dtypes``, one string a call); with ``task["collectives"]``
-    every collective of the first step (``collectives`` [n, 4]: op, axis,
-    shape, dtype); with ``task["dropout"]`` the masks' uniforms each rank
-    drew (``draws`` [world, n], ``draw_shapes``); with ``task["first_moments"]``
-    the dense first moments after the first step (``step1/opt_dense/m/...``,
-    gathered whole: (1 - b1) times that step's dense gradients)."""
+    floating tensor all-gathered over ``data`` (``gather_dtypes``, one string
+    a call, from ``record_collectives``); with ``task["collectives"]`` every
+    collective of the first step (``collectives`` [n, 4]: op, axis, the
+    shape a rank passed, dtype) and the number of ``torch.distributed``
+    collectives called in it (``dist_calls``); with ``task["dropout"]`` the
+    masks' uniforms each rank drew (``draws`` [world, n], ``draw_shapes``);
+    with ``task["first_moments"]`` the dense first moments after the first
+    step (``step1/opt_dense/m/...``, gathered whole: (1 - b1) times that
+    step's dense gradients)."""
     mesh = _mesh(task)
     mp = mesh[MODEL_AXIS].size()
     tp = task.get("tensor_parallel", False)
@@ -209,40 +226,36 @@ def train_step(task, inputs):
     tscfg = TrainStepConfig(**dict(task["tscfg"], opt=DenseOptConfig(**task["opt"])))
     step = make_sharded_train_step(cfg, tscfg, mesh)
     prefix, losses, dtypes, first = task.get("inputs_prefix", task["name"]), [], [], {}
-    collectives, draws = [], []
-    gather = sparse_update_module.all_gather_rows
-
-    def spy(t, mesh_, axis):
-        if axis == DATA_AXIS and t.is_floating_point():
-            dtypes.append(str(t.dtype).removeprefix("torch."))
-        return gather(t, mesh_, axis)
-
-    if task.get("spy"):
-        sparse_update_module.all_gather_rows = spy
+    collectives, draws, dist_calls = [], [], -1
     # with task["dropout"], the trainer's dropout stream of this rank
     drop = dropout_generator(3, mesh, torch.device("cpu")) if task.get("dropout") else None
     if drop is not None:
         state.model.train()
-    try:
-        for s in range(task["steps"]):
-            spies = contextlib.ExitStack()
-            if task.get("collectives") and s == 0:
-                spies.enter_context(_collective_spy(mesh, collectives))
-            if drop is not None:
-                spies.enter_context(_draw_spy(draws))
-            with spies:
-                state, metrics = step(
-                    state, data, _t(inputs, f"{prefix}/u{s}"), _t(inputs, f"{prefix}/p{s}"),
-                    generator=None, negatives=_t(inputs, f"{prefix}/neg{s}"), dropout_generator=drop,
-                )
-            losses.append([float(metrics[k]) for k in sorted(metrics)])
-            if task.get("first_moments") and s == 0:
-                # copies: a replicated leaf's array is a view of the live
-                # moment, which the next step updates in place
-                first = {f"step1/{k}": v.copy() for k, v in gather_state_flat(state, mesh).items()
-                         if k.startswith("opt_dense/m/")}
-    finally:
-        sparse_update_module.all_gather_rows = gather
+    for s in range(task["steps"]):
+        spies = contextlib.ExitStack()
+        records, calls = [], []
+        if task.get("spy") or (task.get("collectives") and s == 0):
+            records = spies.enter_context(record_collectives(mesh))
+            spies.enter_context(_dist_calls(calls))
+        if drop is not None:
+            spies.enter_context(_draw_spy(draws))
+        with spies:
+            state, metrics = step(
+                state, data, _t(inputs, f"{prefix}/u{s}"), _t(inputs, f"{prefix}/p{s}"),
+                generator=None, negatives=_t(inputs, f"{prefix}/neg{s}"), dropout_generator=drop,
+            )
+        if task.get("spy"):
+            dtypes += [c.dtype for c in records if c.op == "all-gather" and c.axis == DATA_AXIS
+                       and c.dtype.startswith(("float", "bfloat"))]
+        if task.get("collectives") and s == 0:
+            collectives = [(c.op, c.axis, _input_shape(c), c.dtype) for c in records]
+            dist_calls = len(calls)
+        losses.append([float(metrics[k]) for k in sorted(metrics)])
+        if task.get("first_moments") and s == 0:
+            # copies: a replicated leaf's array is a view of the live
+            # moment, which the next step updates in place
+            first = {f"step1/{k}": v.copy() for k, v in gather_state_flat(state, mesh).items()
+                     if k.startswith("opt_dense/m/")}
     # every rank's dense parameters (its slices under tensor parallelism),
     # to hold them equal
     dense = torch.cat([p.detach().reshape(-1) for _, p in state.model.dense_parameters()])
@@ -250,7 +263,8 @@ def train_step(task, inputs):
     dist.all_gather(ranks, dense)
     out = dict(gather_state_flat(state, mesh), losses=np.asarray(losses),
                gather_dtypes=np.asarray(dtypes, dtype=str), rank_dense=torch.stack(ranks).numpy(),
-               collectives=np.asarray(collectives, dtype=str).reshape(-1, 4), **first)
+               collectives=np.asarray(collectives, dtype=str).reshape(-1, 4),
+               dist_calls=np.asarray(dist_calls), **first)
     if draws:
         mine = torch.cat([d.reshape(-1) for d in draws])
         every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
@@ -521,8 +535,92 @@ def async_checkpoint(task, inputs):
     return {}
 
 
-TASKS = {"sparse_update": sparse_update, "train_step": train_step, "search": search,
-         "checkpoint": checkpoint, "async_checkpoint": async_checkpoint,
+def _seeded_mesh_step(task, mesh):
+    """The model, a seeded state of ``task["rows"]`` rows a table placed on
+    ``mesh`` (``task["tensor_parallel"]``), seeded dataset arrays, the step
+    config and a seeded batch of ``task["batch"]`` (users, items): the
+    shapes of the JAX package's collective tests, values from numpy."""
+    rows, f = task["rows"], task["features"]
+    mp = mesh[MODEL_AXIS].size()
+    cfg = parse_model_config(task["model"], user_feature_dim=f, item_feature_dim=f)
+    state = create_train_state(cfg, num_users=rows, num_items=rows, seed=0, device="cpu")
+    state = place_state(mesh, pad_state_rows(state, mp),
+                        tensor_parallel=task.get("tensor_parallel", False))
+    rng = np.random.default_rng(0)
+    data = BatchData(
+        torch.from_numpy(rng.normal(0, 1, (rows, f)).astype(np.float32)),
+        torch.from_numpy(rng.normal(0, 1, (rows, f)).astype(np.float32)),
+        torch.from_numpy(rng.integers(0, rows, (rows, 3)).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 4, rows).astype(np.int32)))
+    data = place_data(mesh, pad_batch_data(data, mp))
+    tscfg = TrainStepConfig(**dict(task["tscfg"], num_items=rows, opt=DenseOptConfig(**task["opt"])))
+    u, p = (torch.from_numpy(rng.integers(0, rows, task["batch"]).astype(np.int32)) for _ in range(2))
+    return cfg, state, data, tscfg, u, p
+
+
+def _record_arrays(records) -> dict:
+    """A record as ``records`` [n, 7] strings (op, axis, dtype, shape as
+    ``AxB``, branch or '', bytes, group size)."""
+    rows = [(c.op, c.axis, c.dtype, "x".join(map(str, c.shape)), c.branch or "", str(c.bytes),
+             str(c.group_size)) for c in records]
+    return {"records": np.asarray(rows, dtype=str).reshape(-1, 7)}
+
+
+def collectives(task, inputs):
+    """One sharded step of a seeded state (``_seeded_mesh_step``) under
+    ``record_collectives``, or with ``task["eval"]`` the eval's item-corpus
+    encode and two masked user-batch searches (``batch_hits``) over a
+    corpus row-sharded over ``model``: rank 0's record (``_record_arrays``)
+    and whether every rank recorded the same ops, axes, dtypes, shapes and
+    branches (``ranks_agree``); the number of ``torch.distributed``
+    collectives rank 0 called in the recorded block (``dist_calls``). With ``task["unrecorded"]`` also the same
+    step from a copy of the state run without a record
+    (``recorded/...``, ``unrecorded/...`` the state leaves), and whether the
+    mesh's primitives are the plain ones again after the record
+    (``restored``)."""
+    from ttamm_torch.parallel import collective_inspect
+    from ttamm_torch.parallel import mesh as mesh_module
+
+    mesh = _mesh(task)
+    cfg, state, data, tscfg, u, p = _seeded_mesh_step(task, mesh)
+    out = {}
+    if task.get("eval"):
+        from ttamm_torch.evaluation import retrieval
+
+        state.model.eval()
+        rows, b = task["rows"], task["batch"]
+        rng = np.random.default_rng(1)
+        plan = retrieval.EvalPlan(
+            batches=(), gt_per_user={}, deep_k=13, num_items=rows, gt_sizes=np.zeros((2, b), np.int32),
+            user_mat=torch.from_numpy(rng.integers(0, rows, (2, b)).astype(np.int32)),
+            blocked_rows=torch.from_numpy(rng.integers(0, rows, (rows, 4)).astype(np.int32)),
+            gt_mat=torch.from_numpy(rng.integers(0, rows, (2, b, 3)).astype(np.int32)))
+        with record_collectives(mesh) as records, _dist_calls([]) as calls:
+            items = retrieval._corpus(state.model, data, None, mesh)
+            for batch in range(2):
+                retrieval.batch_hits(state.model, data, items, plan, batch, max_k=10, mesh=mesh)
+    else:
+        twin = copy.deepcopy(state) if task.get("unrecorded") else None
+        step = make_sharded_train_step(cfg, tscfg, mesh)
+        gen = torch.Generator().manual_seed(3)
+        with record_collectives(mesh) as records, _dist_calls([]) as calls:
+            step(state, data, u, p, generator=gen)
+        if twin is not None:
+            step(twin, data, u, p, generator=torch.Generator().manual_seed(3))
+            out.update({f"recorded/{k}": v for k, v in gather_state_flat(state, mesh).items()})
+            out.update({f"unrecorded/{k}": v for k, v in gather_state_flat(twin, mesh).items()})
+            out["restored"] = np.asarray(all(
+                getattr(mesh_module, name) is fn for name, fn in collective_inspect._plain.items()))
+    mine = [(c.op, c.axis, c.dtype, c.shape, c.branch) for c in records]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out.update(_record_arrays(records), ranks_agree=np.asarray(all(r == mine for r in every)),
+               dist_calls=np.asarray(len(calls)))
+    return out
+
+
+TASKS = {"collectives": collectives, "sparse_update": sparse_update, "train_step": train_step,
+         "search": search, "checkpoint": checkpoint, "async_checkpoint": async_checkpoint,
          "exchange_lookup": exchange_lookup, "feature_rows": feature_rows, "train_run": train_run,
          "multi_step": multi_step, "owner_overflow": owner_overflow}
 

@@ -28,6 +28,12 @@ address. The kernel launches of one branch are added to the counts at each
 call (both branches must launch the same kernels).
 
 On the CPU the flag lies on the host: the branch is chosen in Python.
+
+A later call of a key runs the branches' graphs and none of their Python.
+A caller that keeps account of what a branch does when it runs (the
+collectives the parallel layer records) passes ``on_replay``: the callable
+given at the key's build is kept with its graphs and called at each later
+call.
 """
 
 from __future__ import annotations
@@ -44,13 +50,15 @@ from . import kernels
 class _Branches(NamedTuple):
     """A key's two branch graphs (kept as graphs: ``raw_cuda_graph``), the
     static operands and flag they read, the graph of the two IF nodes that
-    an eager call launches, and one branch's kernel launches."""
+    an eager call launches, one branch's kernel launches and the
+    caller's ``on_replay``."""
 
     graphs: tuple[Any, Any]
     inputs: tuple[torch.Tensor, ...]
     flag: torch.Tensor
     eager: Any
     launches: dict[str, int]
+    on_replay: Callable[[], None] | None
 
 
 KEEP = 32  # keys held at once (a graph embedding a key's nodes holds it too)
@@ -78,12 +86,14 @@ def holding():
 
 
 def cond(flag: torch.Tensor, true_fn: Callable[..., None], false_fn: Callable[..., None],
-         operands: tuple[torch.Tensor, ...], *, key: tuple) -> None:
+         operands: tuple[torch.Tensor, ...], *, key: tuple,
+         on_replay: Callable[[], None] | None = None) -> None:
     """``true_fn(*operands)`` where the int32 ``flag`` (one element) is
     nonzero, else ``false_fn(*operands)``, with no host read on a card.
     ``key`` names the branches and every setting they close over (tensors
     they write by address included); the operands' shapes and dtypes are
-    added to it."""
+    added to it. ``on_replay``: on a card, the build's is called at every
+    later call of the key."""
     if flag.device.type != "cuda":
         (true_fn if bool(flag.reshape(-1)[0]) else false_fn)(*operands)
         return
@@ -95,10 +105,12 @@ def cond(flag: torch.Tensor, true_fn: Callable[..., None], false_fn: Callable[..
             raise RuntimeError(
                 "device_cond: a branch met for the first time inside a CUDA graph capture; "
                 "an eager call of the step must build its branch graphs first")
-        entry = _build(true_fn, false_fn, operands, flag.device)
+        entry = _build(true_fn, false_fn, operands, flag.device, on_replay)
         _cache[full_key] = entry
         while len(_cache) > KEEP:
             _cache.popitem(last=False)
+    elif entry.on_replay is not None:
+        entry.on_replay()
     _cache.move_to_end(full_key)
     for dst, src in zip(entry.inputs, operands):
         dst.copy_(src)
@@ -112,7 +124,7 @@ def cond(flag: torch.Tensor, true_fn: Callable[..., None], false_fn: Callable[..
     kernels.add_launch_counts(entry.launches)
 
 
-def _build(true_fn, false_fn, operands, dev: torch.device) -> _Branches:
+def _build(true_fn, false_fn, operands, dev: torch.device, on_replay) -> _Branches:
     """Capture each branch on static copies of the operands, then the eager
     launcher (the two IF nodes on a static flag)."""
     inputs = tuple(t.clone() for t in operands)
@@ -135,7 +147,7 @@ def _build(true_fn, false_fn, operands, dev: torch.device) -> _Branches:
     eager = torch.cuda.CUDAGraph()
     with torch.cuda.graph(eager, capture_error_mode="thread_local"):
         _if_nodes(flag, graphs)
-    return _Branches(tuple(graphs), inputs, flag, eager, launches[0])
+    return _Branches(tuple(graphs), inputs, flag, eager, launches[0], on_replay)
 
 
 def _if_nodes(flag: torch.Tensor, graphs) -> None:

@@ -4,8 +4,10 @@
 embedding exchange (``mesh.embedding_exchange: alltoall``,
 ``exchange.py``), tensor parallelism of the dense tower layers
 (``mesh.tensor_parallel``: Megatron column / row slices over ``model``,
-``sharding.py``, ``mesh.copy_to_axis``) and the sharded eval search. Not
-ported: the HLO wire model (``hlo_inspect.py``)."""
+``sharding.py``, ``mesh.copy_to_axis``), the sharded eval search and the
+wire inventory (``collective_inspect.py``, the counterpart of
+``hlo_inspect.py``: every collective goes through ``mesh.py``'s helpers,
+which a record lists while it is open)."""
 
 from .launch import is_primary_host, maybe_initialize_distributed
 from .mesh import DATA_AXIS, MODEL_AXIS, MeshConfig, build_mesh, parse_mesh_config, round_up

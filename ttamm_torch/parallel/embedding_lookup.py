@@ -18,9 +18,12 @@ PyTorch ops.
 :func:`sharded_table_rows` reads outside autograd: the sparse tables' rows
 become fresh leaves whose gradients go to the sharded sparse-row update.
 :func:`sharded_lookup` is differentiable in the table shard: its backward
-rounds each lane's gradient to the wire dtype (``comm_dtype``), sums the
-lanes this shard owns into its rows, in the fixed order of ``sum_rows``,
-then over ``data`` (the dense optimizer's table gradient). With one model
+rounds each lane's gradient to the wire dtype (``comm_dtype``), all-gathers
+the lanes of every data shard over ``data`` in that dtype (batch-sized
+traffic, as the JAX transpose moves; a sum of the shard gradients over
+``data`` would move a table shard a step) and sums the lanes this shard
+owns into its rows, in the fixed order of ``sum_rows`` over the gathered
+lanes (rank-major): the dense optimizer's table gradient. With one model
 shard no sum over ``model`` runs.
 
 Feature rows stored in bfloat16 (``data.features_dtype``) are summed over
@@ -35,7 +38,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops import kernels
 from ..ops.sparse_adam import sum_rows
-from .mesh import DATA_AXIS, MODEL_AXIS, all_reduce, axis_size
+from .mesh import DATA_AXIS, MODEL_AXIS, all_gather_rows, all_reduce, axis_size
 from .sharding import row_offset
 
 
@@ -77,29 +80,44 @@ def sharded_table_rows(local: torch.Tensor, idx: torch.Tensor, mesh: DeviceMesh)
     return _lookup(local, idx, mesh)
 
 
+def pad_lanes(idx: torch.Tensor, grads: torch.Tensor, lanes: int | None):
+    """Lanes padded to ``lanes`` (None: as they are) with id -1 and zero
+    gradients, so that every data shard gathers one width."""
+    extra = 0 if lanes is None else lanes - idx.shape[0]
+    if extra == 0:
+        return idx, grads
+    return (torch.cat([idx, idx.new_full((extra,), -1)]),
+            torch.cat([grads, grads.new_zeros((extra, grads.shape[1]))]))
+
+
 class _ShardedLookup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, idx, mesh, wire_dtype):
+    def forward(ctx, local, idx, mesh, wire_dtype, lanes):
         ctx.save_for_backward(idx)
-        ctx.mesh, ctx.rows, ctx.wire = mesh, local.shape[0], wire_dtype
+        ctx.mesh, ctx.rows, ctx.wire, ctx.lanes = mesh, local.shape[0], wire_dtype, lanes
         return _lookup(local, idx, mesh)
 
     @staticmethod
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
+        wire = grad.dtype if ctx.wire is None else ctx.wire
+        idx, lane_grads = pad_lanes(idx, grad.to(wire), ctx.lanes)
+        # every data shard's lanes, rank-major, in the wire dtype
+        idx = all_gather_rows(idx, ctx.mesh, DATA_AXIS)
+        lane_grads = all_gather_rows(lane_grads, ctx.mesh, DATA_AXIS).to(grad.dtype)
         owned, lane = _owned(ctx.rows, idx, ctx.mesh)
-        if ctx.wire is not None:
-            grad = grad.to(ctx.wire).to(grad.dtype)
         # lanes another shard owns add their (zeroed) rows to a dropped row
         target = torch.where(owned, lane, ctx.rows)
-        g = sum_rows(target, torch.where(owned[:, None], grad, 0.0), ctx.rows + 1)[: ctx.rows]
-        return all_reduce(g.contiguous(), ctx.mesh, DATA_AXIS), None, None, None
+        g = sum_rows(target, torch.where(owned[:, None], lane_grads, 0.0), ctx.rows + 1)[: ctx.rows]
+        return g, None, None, None, None
 
 
 def sharded_lookup(local: torch.Tensor, idx: torch.Tensor, mesh: DeviceMesh,
-                   wire_dtype: torch.dtype | None = None) -> torch.Tensor:
+                   wire_dtype: torch.dtype | None = None, lanes: int | None = None) -> torch.Tensor:
     """Differentiable rows ``[N, D]`` of a row-sharded table at global ids
     ``idx``; the gradient reaching ``local`` is this shard's table gradient,
     summed over the data shards, each lane's gradient first rounded to
-    ``wire_dtype`` (None: as it is)."""
-    return _ShardedLookup.apply(local, idx, mesh, wire_dtype)
+    ``wire_dtype`` (None: as it is). ``lanes``: the lane count every data
+    shard pads to for the backward's gather (None: ``N``, the same on
+    every rank)."""
+    return _ShardedLookup.apply(local, idx, mesh, wire_dtype, lanes)

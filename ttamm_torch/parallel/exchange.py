@@ -39,13 +39,13 @@ The rows are copies, so both equal ``index_select`` of the whole table bit
 for bit. The backward (:func:`exchange_lookup`'s, for the dense-optimizer
 tables) rounds each lane's gradient to the wire dtype (``comm_dtype``),
 routes every rank's sub-chunk of it to the owners with the same plan
-(``all_to_all_single``, in the wire dtype), widens it and sums the lanes
-into the shard's rows in the fixed order of ``sum_rows``, then all-reduces
-that shard gradient over ``data``. The owner receives its data shard's
-lanes in lane order, so the sums are the masked lookup's
-(``sharded_lookup``) bit for bit. The JAX transpose all-gathers the row
-gradients over ``data`` first and scatter-adds the global batch; its sums
-run in another order.
+(``all_to_all_single``, in the wire dtype), all-gathers what each owner
+received over ``data`` (batch-sized, never a table shard), widens it and
+sums the lanes into the shard's rows in the fixed order of ``sum_rows``.
+The owner receives each data shard's lanes in lane order, so the sums are
+the masked lookup's (``sharded_lookup``) bit for bit. The JAX transpose
+all-gathers the row gradients over ``data`` and scatter-adds the global
+batch; its sums run in another order.
 """
 
 from __future__ import annotations
@@ -53,12 +53,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops import kernels
 from ..ops.sparse_adam import sum_rows
-from .mesh import DATA_AXIS, MODEL_AXIS, all_gather_rows, all_reduce, axis_index, axis_size
+from .mesh import DATA_AXIS, MODEL_AXIS, all_gather_rows, all_to_all, axis_index, axis_size
 
 VARIANTS = ("dense", "ragged")
 
@@ -100,11 +99,6 @@ def _resolve(variant: str) -> str:
     return variant
 
 
-def _all_to_all(out: torch.Tensor, inp: torch.Tensor, group, out_splits=None, in_splits=None):
-    dist.all_to_all_single(out, inp.contiguous(), out_splits, in_splits, group=group)
-    return out
-
-
 def _owner_rows(local: torch.Tensor, got_ids: torch.Tensor, me: int) -> torch.Tensor:
     """The owner's rows for the ids it received (one ``gather_rows``)."""
     rows = local.shape[0]
@@ -115,13 +109,13 @@ def _owner_rows(local: torch.Tensor, got_ids: torch.Tensor, me: int) -> torch.Te
 def _dense_rows(local: torch.Tensor, ids: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     """Steps 1-4 with fixed capacity-``n`` buckets (equal splits)."""
     n, rows, num_shards = ids.shape[0], local.shape[0], axis_size(mesh, MODEL_AXIS)
-    group, me = mesh.get_group(MODEL_AXIS), axis_index(mesh, MODEL_AXIS)
+    me = axis_index(mesh, MODEL_AXIS)
     plan = route_by_owner(ids, rows, num_shards, capacity=n)
     send = ids.new_zeros(num_shards * n).index_copy_(0, plan.slots, plan.sorted_ids)
-    got = _all_to_all(torch.empty_like(send), send, group)
+    got = all_to_all(torch.empty_like(send), send, mesh, MODEL_AXIS)
     # slots past a bucket's count carry id 0: their rows ride back unread
     out = _owner_rows(local, got, me)
-    back = _all_to_all(torch.empty_like(out), out, group)
+    back = all_to_all(torch.empty_like(out), out, mesh, MODEL_AXIS)
     return back[plan.slots[plan.inv_order]]
 
 
@@ -133,14 +127,14 @@ def _ragged_rows(local: torch.Tensor, ids: torch.Tensor, mesh: DeviceMesh) -> to
             "the ragged all-to-all exchange reads its split sizes on the host and cannot run "
             "in a captured step: use variant='dense' (what embedding_exchange: alltoall takes)")
     rows, num_shards = local.shape[0], axis_size(mesh, MODEL_AXIS)
-    group, me = mesh.get_group(MODEL_AXIS), axis_index(mesh, MODEL_AXIS)
+    me = axis_index(mesh, MODEL_AXIS)
     plan = route_by_owner(ids, rows, num_shards, capacity=ids.shape[0])
     counts = all_gather_rows(plan.counts.reshape(1, num_shards), mesh, MODEL_AXIS).tolist()
     send = [int(c) for c in counts[me]]  # my bucket for each owner
     recv = [int(counts[r][me]) for r in range(num_shards)]  # each rank's bucket for me
-    got = _all_to_all(ids.new_empty(sum(recv)), plan.sorted_ids, group, recv, send)
+    got = all_to_all(ids.new_empty(sum(recv)), plan.sorted_ids, mesh, MODEL_AXIS, recv, send)
     out = _owner_rows(local, got, me)
-    back = _all_to_all(out.new_empty((ids.shape[0], out.shape[1])), out, group, send, recv)
+    back = all_to_all(out.new_empty((ids.shape[0], out.shape[1])), out, mesh, MODEL_AXIS, send, recv)
     return back[plan.inv_order]
 
 
@@ -171,9 +165,9 @@ def exchange_rows(local: torch.Tensor, ids: torch.Tensor, mesh: DeviceMesh, *,
 
 class _ExchangeLookup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, ids, mesh, variant, wire_dtype):
+    def forward(ctx, local, ids, mesh, variant, wire_dtype, lanes):
         ctx.save_for_backward(ids)
-        ctx.mesh, ctx.rows, ctx.wire = mesh, local.shape[0], wire_dtype
+        ctx.mesh, ctx.rows, ctx.wire, ctx.lanes = mesh, local.shape[0], wire_dtype, lanes
         return exchange_rows(local, ids, mesh, variant=variant)
 
     @staticmethod
@@ -181,13 +175,16 @@ class _ExchangeLookup(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         mesh, rows = ctx.mesh, ctx.rows
         num_shards = axis_size(mesh, MODEL_AXIS)
-        group, me = mesh.get_group(MODEL_AXIS), axis_index(mesh, MODEL_AXIS)
+        me = axis_index(mesh, MODEL_AXIS)
         wire = grad.dtype if ctx.wire is None else ctx.wire
-        sub, chunk = _sub_chunk(ids, mesh)
+        n = ids.shape[0]
+        # one sub-chunk width on every data shard: the lanes padded to ctx.lanes
+        sub, chunk = _sub_chunk(ids if ctx.lanes is None else
+                                torch.cat([ids, ids.new_zeros(ctx.lanes - n)]), mesh)
         start = me * chunk
         g = grad[start : start + chunk].to(wire)
         sentinel = num_shards * rows  # no shard's row: dropped at the owner
-        sub = torch.where(torch.arange(start, start + chunk, device=ids.device) < ids.shape[0],
+        sub = torch.where(torch.arange(start, start + chunk, device=ids.device) < n,
                           sub.long(), sentinel)
         g = torch.cat([g, g.new_zeros((chunk - g.shape[0], g.shape[1]))])  # the pad lanes
         plan = route_by_owner(sub, rows, num_shards, capacity=chunk)
@@ -195,17 +192,22 @@ class _ExchangeLookup(torch.autograd.Function):
             0, plan.slots, plan.sorted_ids)
         send_g = g.new_zeros((num_shards * chunk, g.shape[1])).index_copy_(
             0, plan.slots, g[plan.order])
-        got_ids = _all_to_all(torch.empty_like(send_ids), send_ids, group)
-        got_g = _all_to_all(torch.empty_like(send_g), send_g, group).to(grad.dtype)
+        got_ids = all_to_all(torch.empty_like(send_ids), send_ids, mesh, MODEL_AXIS)
+        got_g = all_to_all(torch.empty_like(send_g), send_g, mesh, MODEL_AXIS)
+        # what every data shard sent this shard, rank-major
+        got_ids = all_gather_rows(got_ids, mesh, DATA_AXIS)
+        got_g = all_gather_rows(got_g, mesh, DATA_AXIS).to(grad.dtype)
         local = got_ids - me * rows
         target = torch.where((local >= 0) & (local < rows), local, rows)
-        shard = sum_rows(target, got_g, rows + 1)[:rows]
-        return all_reduce(shard.contiguous(), mesh, DATA_AXIS), None, None, None, None
+        return sum_rows(target, got_g, rows + 1)[:rows], None, None, None, None, None
 
 
 def exchange_lookup(local: torch.Tensor, ids: torch.Tensor, mesh: DeviceMesh, *,
-                    variant: str = "auto", wire_dtype: torch.dtype | None = None) -> torch.Tensor:
+                    variant: str = "auto", wire_dtype: torch.dtype | None = None,
+                    lanes: int | None = None) -> torch.Tensor:
     """Differentiable :func:`exchange_rows`: the gradient reaching ``local``
     is this shard's table gradient, summed over the data shards, each
-    lane's gradient first rounded to ``wire_dtype`` (None: as it is)."""
-    return _ExchangeLookup.apply(local, ids, mesh, _resolve(variant), wire_dtype)
+    lane's gradient first rounded to ``wire_dtype`` (None: as it is).
+    ``lanes``: the lane count every data shard pads to for the backward
+    (None: ``ids``' length, the same on every rank)."""
+    return _ExchangeLookup.apply(local, ids, mesh, _resolve(variant), wire_dtype, lanes)

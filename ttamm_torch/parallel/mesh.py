@@ -13,8 +13,12 @@ The scale-out model of the JAX package: a 2-D logical mesh
 torch runs one process per device, so the mesh is a ``DeviceMesh`` over the
 default process group with dims ``("data", "model")``: rank = data index x
 model + model index, the JAX ``reshape(dp, mp)`` of the device list. The
-collectives below are the ones the port's sharded code issues; each names
-the mesh axis it runs over.
+collectives below are the only ones the port's code issues; each names
+the mesh axis it runs over (``world``: the whole mesh). Every one goes
+through one of three primitives, ``_all_reduce``, ``_all_gather`` and
+``_all_to_all``, which ``collective_inspect.record_collectives`` swaps for
+recording versions while it is active; outside it they are the plain
+``torch.distributed`` calls below.
 
 On a card they may be captured into a CUDA graph (the replayed steps of
 ``train/step.py``), as PyTorch allows for NCCL: each takes its group from
@@ -35,6 +39,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+WORLD_AXIS = "world"  # every rank of the mesh (the default process group)
 
 
 @dataclass(frozen=True)
@@ -83,19 +88,36 @@ def axis_index(mesh: DeviceMesh, axis: str) -> int:
     return mesh.get_local_rank(axis)
 
 
+def _all_reduce(t: torch.Tensor, op, group, axis: str) -> None:
+    dist.all_reduce(t, op=op, group=group)
+
+
+def _all_gather(out: torch.Tensor, t: torch.Tensor, group, axis: str) -> None:
+    dist.all_gather_into_tensor(out, t, group=group)
+
+
+def _all_to_all(out: torch.Tensor, t: torch.Tensor, out_splits, in_splits, group, axis: str) -> None:
+    dist.all_to_all_single(out, t, out_splits, in_splits, group=group)
+
+
+def _group(mesh: DeviceMesh, axis: str):
+    return None if axis == WORLD_AXIS else mesh.get_group(axis)
+
+
 def warm_groups(mesh: DeviceMesh, device: torch.device) -> None:
     """One small all-reduce on the whole mesh and on each axis's group, so
     that every communicator a step's collectives use exists before a CUDA
     graph captures them (a capture cannot create one). Every rank must call
     it at the same point."""
     one = torch.ones(1, device=device)
-    for group in (None, mesh.get_group(DATA_AXIS), mesh.get_group(MODEL_AXIS)):
-        dist.all_reduce(one, group=group)
+    for axis in (WORLD_AXIS, DATA_AXIS, MODEL_AXIS):
+        all_reduce(one, mesh, axis)
 
 
 def all_reduce(t: torch.Tensor, mesh: DeviceMesh, axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In-place all-reduce of ``t`` over one mesh axis; returns ``t``."""
-    dist.all_reduce(t, op=op, group=mesh.get_group(axis))
+    """In-place all-reduce of ``t`` over one mesh axis (or ``world``);
+    returns ``t``."""
+    _all_reduce(t, op, _group(mesh, axis), axis)
     return t
 
 
@@ -105,7 +127,16 @@ def all_gather_rows(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tenso
     size = axis_size(mesh, axis)
     t = t.contiguous()
     out = t.new_empty((size * t.shape[0], *t.shape[1:]))
-    dist.all_gather_into_tensor(out, t, group=mesh.get_group(axis))
+    _all_gather(out, t, _group(mesh, axis), axis)
+    return out
+
+
+def all_to_all(out: torch.Tensor, t: torch.Tensor, mesh: DeviceMesh, axis: str,
+               out_splits: list[int] | None = None, in_splits: list[int] | None = None) -> torch.Tensor:
+    """``all_to_all_single`` over one mesh axis: ``t``'s dim-0 chunks (equal,
+    or ``in_splits`` rows each) go to the axis's ranks in order, ``out``
+    receives theirs (``out_splits``); returns ``out``."""
+    _all_to_all(out, t.contiguous(), out_splits, in_splits, _group(mesh, axis), axis)
     return out
 
 

@@ -69,7 +69,8 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops import device_cond, kernels
 from ..ops.sparse_adam import SparseAdamState
-from .mesh import DATA_AXIS, MODEL_AXIS, all_gather_rows, axis_size
+from . import collective_inspect
+from .mesh import DATA_AXIS, MODEL_AXIS, WORLD_AXIS, all_gather_rows, all_reduce, axis_size
 from .sharding import row_offset
 
 ROUTINGS = ("allgather", "owner", "owner_unchecked")
@@ -328,7 +329,7 @@ def sharded_sparse_adam_apply(
         owner_update(*head)
         return None
     flag = (owned.sum() > cap).to(torch.int32).reshape(1)
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX)  # the whole mesh
+    all_reduce(flag, mesh, WORLD_AXIS, op=dist.ReduceOp.MAX)
     _count_check(flag)
     if gathered is not None:
         def fallback(scalars, *rest):
@@ -346,5 +347,29 @@ def sharded_sparse_adam_apply(
     key = ("sharded_sparse_adam", table.data_ptr(), state.m.data_ptr(), state.v.data_ptr(),
            rows, base, dp, cap, decay, row_grads.dtype, gathered is None,
            mesh.get_group(DATA_AXIS), _apply, kernels.sparse_adam_rows)
-    device_cond.cond(flag, fallback, owner_update, head + tail, key=key)
+    _recorded_cond(flag, fallback, owner_update, head + tail, key)
     return flag
+
+
+def _recorded_cond(flag: torch.Tensor, fallback, owner_update, operands: tuple, key: tuple) -> None:
+    """``device_cond.cond(flag, fallback, owner_update, ...)`` with the
+    collectives of the fallback recorded under ``branch="overflow"``
+    (``collective_inspect``). On the CPU only the branch taken runs and
+    issues. On a card a key's first call captures both branches, and what
+    they issued is kept with their graphs and added to the open records at
+    every later call (whose graphs run no Python): each call lists both
+    branches, as the HLO of a ``lax.cond`` holds both."""
+    on_card, issued = flag.device.type == "cuda", []
+
+    def recorded(fn, tag):
+        def run(*args):
+            with collective_inspect.branch(tag):
+                if not on_card:
+                    return fn(*args)
+                with collective_inspect.record_collectives() as got:
+                    fn(*args)
+                issued.extend(got)
+        return run
+
+    device_cond.cond(flag, recorded(fallback, "overflow"), recorded(owner_update, None), operands,
+                     key=key, on_replay=lambda: collective_inspect.replay_records(issued))

@@ -395,6 +395,48 @@ def features_dtype(data_cfg: Mapping[str, Any]) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
+def train_step_config(config: Mapping[str, Any], *, num_items: int, num_categories: int,
+                      total_steps: int) -> TrainStepConfig:
+    """The step configuration the trainer runs ``config`` with, for a
+    corpus of ``num_items`` items in ``num_categories`` categories and a
+    run of ``total_steps`` steps (the learning-rate schedule's length)."""
+    training_cfg = dict(config.get("training", {}))
+    loss_type = str(training_cfg.get("loss", "bce")).lower()
+    loss_weights = dict(training_cfg.get("loss_weights", {}))
+    clip = training_cfg.get("gradient_clip_norm")
+    mixed_negatives = int(training_cfg.get("mixed_negatives", 0))
+    if mixed_negatives and loss_type != "in_batch_softmax":
+        logger.warning(
+            "training.mixed_negatives=%d ignored: only the in_batch_softmax loss consumes a "
+            "mixed-negative pool.", mixed_negatives,
+        )
+        mixed_negatives = 0
+    return TrainStepConfig(
+        num_items=num_items,
+        negatives_per_positive=int(training_cfg.get("negatives_per_positive", 5)),
+        loss_type=loss_type,
+        lambda_mimic_user=float(loss_weights.get("mimic_user", 0.0)),
+        lambda_mimic_item=float(loss_weights.get("mimic_item", 0.0)),
+        lambda_category_alignment=float(loss_weights.get("category_alignment", 0.0)),
+        gradient_clip_norm=float(clip) if clip is not None else None,
+        # as the JAX pipeline: the category count rounded up to a multiple
+        # of 8, at most 64, unless the config sets it
+        cal_max_categories=int(training_cfg.get(
+            "category_alignment_max_categories",
+            min(64, -(-num_categories // 8) * 8) if num_categories else 0,
+        )),
+        softmax_temperature=float(training_cfg.get("softmax_temperature", 1.0)),
+        logq_correction=bool(training_cfg.get("logq_correction", True)),
+        mixed_negatives=mixed_negatives,
+        sparse_weight_decay=float(training_cfg.get("sparse_weight_decay", 0.0)),
+        update_routing=str(training_cfg.get("update_routing", "allgather")).lower(),
+        update_capacity_factor=float(training_cfg.get("update_capacity_factor", 2.0)),
+        comm_dtype=str(training_cfg.get("comm_dtype", "float32")).lower(),
+        embedding_exchange=str((config.get("mesh") or {}).get("embedding_exchange", "gspmd")).lower(),
+        opt=parse_dense_opt_config(training_cfg, total_steps=total_steps),
+    )
+
+
 def _serving_dtype_request(config: Mapping[str, Any]) -> tuple[str, float]:
     """``serving.score_dtype`` (auto | float32 | bfloat16, with the fp32 /
     bf16 aliases) and ``serving.bf16_recall_gate``."""
@@ -540,41 +582,10 @@ def run_single_experiment(
 
     batch_size = int(training_cfg.get("batch_size", 512))
     num_epochs = int(training_cfg.get("num_epochs", 10))
-    loss_weights = dict(training_cfg.get("loss_weights", {}))
-    clip = training_cfg.get("gradient_clip_norm")
-    mixed_negatives = int(training_cfg.get("mixed_negatives", 0))
-    if mixed_negatives and loss_type != "in_batch_softmax":
-        logger.warning(
-            "training.mixed_negatives=%d ignored: only the in_batch_softmax loss consumes a "
-            "mixed-negative pool.", mixed_negatives,
-        )
-        mixed_negatives = 0
-    tscfg = TrainStepConfig(
-        num_items=num_items,
-        negatives_per_positive=int(training_cfg.get("negatives_per_positive", 5)),
-        loss_type=loss_type,
-        lambda_mimic_user=float(loss_weights.get("mimic_user", 0.0)),
-        lambda_mimic_item=float(loss_weights.get("mimic_item", 0.0)),
-        lambda_category_alignment=float(loss_weights.get("category_alignment", 0.0)),
-        gradient_clip_norm=float(clip) if clip is not None else None,
-        # as the JAX pipeline: the category count rounded up to a multiple
-        # of 8, at most 64, unless the config sets it
-        cal_max_categories=int(training_cfg.get(
-            "category_alignment_max_categories",
-            min(64, -(-len(categories.category_names) // 8) * 8) if categories else 0,
-        )),
-        softmax_temperature=float(training_cfg.get("softmax_temperature", 1.0)),
-        logq_correction=logq,
-        mixed_negatives=mixed_negatives,
-        sparse_weight_decay=float(training_cfg.get("sparse_weight_decay", 0.0)),
-        update_routing=str(training_cfg.get("update_routing", "allgather")).lower(),
-        update_capacity_factor=float(training_cfg.get("update_capacity_factor", 2.0)),
-        comm_dtype=str(training_cfg.get("comm_dtype", "float32")).lower(),
-        embedding_exchange=str((config.get("mesh") or {}).get("embedding_exchange", "gspmd")).lower(),
-        opt=parse_dense_opt_config(
-            training_cfg,
-            total_steps=max(1, -(-len(train_df) // batch_size)) * num_epochs,
-        ),
+    tscfg = train_step_config(
+        config, num_items=num_items,
+        num_categories=len(categories.category_names) if categories else 0,
+        total_steps=max(1, -(-len(train_df) // batch_size)) * num_epochs,
     )
     state = create_train_state(
         model_cfg, num_users=num_users, num_items=num_items, seed=seed, device=dev,

@@ -373,9 +373,10 @@ class _OneDevice:
         ``gather_rows`` kernel (the same copy as ``index_select``)."""
         return kernels.gather_rows(table, idx)
 
-    def dense_table_rows(self, table: torch.Tensor, idx: torch.Tensor):
+    def dense_table_rows(self, table: torch.Tensor, idx: torch.Tensor, side: str, bt: _Batch):
         """``(grad_input, rows)``: the tensor whose gradient the step takes
-        and the differentiable rows of a dense (optimizer-updated) table."""
+        and the differentiable rows of a dense (optimizer-updated) table, at
+        the ``side`` lanes of ``bt``."""
         rows = torch.index_select(table, 0, idx).requires_grad_()
         return rows, rows
 
@@ -517,11 +518,15 @@ class _Mesh(_OneDevice):
             return self._exchange.exchange_rows(table, idx, self.mesh)
         return self._lookup.sharded_table_rows(table, idx, self.mesh)
 
-    def dense_table_rows(self, table, idx):
+    def dense_table_rows(self, table, idx, side, bt):
         leaf = table.detach().requires_grad_()
+        # the backward gathers the lanes over data at the sparse update's width
+        pool = None if bt.candidates is None else bt.candidates.shape[0] - bt.size
+        width = _lane_orders(bt.size, self.dp, self.num_neg, pool)[1][0 if side == "user" else 1]
         if self._exchange is not None:
-            return leaf, self._exchange.exchange_lookup(leaf, idx, self.mesh, wire_dtype=self.wire)
-        return leaf, self._lookup.sharded_lookup(leaf, idx, self.mesh, self.wire)
+            return leaf, self._exchange.exchange_lookup(leaf, idx, self.mesh, wire_dtype=self.wire,
+                                                        lanes=width)
+        return leaf, self._lookup.sharded_lookup(leaf, idx, self.mesh, self.wire, width)
 
     def table_grad(self, grad, idx, table):
         return grad
@@ -598,7 +603,7 @@ class _Mesh(_OneDevice):
         pool = None if bt.candidates is None else bt.candidates.shape[0] - bt.size
         orders, widths = _lane_orders(bt.size, self.dp, self.num_neg, pool)
         k = 0 if side == "user" else 1
-        idx, grad = _pad_lanes(idx, grad, widths[k])
+        idx, grad = self._lookup.pad_lanes(idx, grad, widths[k])
         order = orders[k]
         if order is not None:
             order = self._on_device(("lanes", bt.size, pool, k), order, idx.device)
@@ -712,7 +717,7 @@ def _train_core(cfg: ModelConfig, tscfg: TrainStepConfig, mesh=None):
         inputs, rows = {}, {}
         for n, t in tables.items():
             if n in dense_tbl_names:
-                inputs[n], rows[n] = layout.dense_table_rows(t, row_idx[n])
+                inputs[n], rows[n] = layout.dense_table_rows(t, row_idx[n], n.split("_")[0], bt)
             else:
                 inputs[n] = rows[n] = layout.table_rows(t, row_idx[n]).requires_grad_()
 
@@ -1130,17 +1135,6 @@ def _shard_rows(total: int, dp: int) -> np.ndarray | None:
         np.arange(d * chunk, d * chunk + hi - lo)
         for d, (lo, hi) in enumerate(_data_shard(total, dp, d) for d in range(dp))
     ])
-
-
-def _pad_lanes(idx: torch.Tensor, grads: torch.Tensor, lanes: int):
-    """Lanes padded to ``lanes`` with id -1 and zero gradients."""
-    extra = lanes - idx.shape[0]
-    if extra == 0:
-        return idx, grads
-    return (
-        torch.cat([idx, idx.new_full((extra,), -1)]),
-        torch.cat([grads, grads.new_zeros((extra, grads.shape[1]))]),
-    )
 
 
 def _shard_parts(batch: int, n_local: int, terms: list[torch.Tensor]) -> list[torch.Tensor]:
