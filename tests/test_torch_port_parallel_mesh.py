@@ -16,7 +16,8 @@ mode. The scenarios:
   held to a float64 numpy oracle of the update at the same tolerance, the
   message naming the array, its first rows and each side's distance from
   the oracle (the JAX side gets its own copies of the inputs, is waited
-  for, and the inputs must be unchanged after it); and each rank's
+  for, and the inputs must be unchanged after it), and each side alone in
+  ``test_sharded_sadam_vs_oracle[<side>-<name>]``; and each rank's
   one ``sparse_adam_rows`` call holding every row its shard owns once,
   -1 on every other lane;
 - the sharded training step on a 2x2 mesh, two steps under both routings
@@ -390,6 +391,24 @@ def test_sharded_sparse_adam_update_matches_jax(mesh_run, name):
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=atol, err_msg=key)
     assert int(got["step"]) == 3
     assert bool(got["overflow"]) == skew  # the skewed owner runs fell back
+
+
+@pytest.mark.parametrize("name", sorted(UPDATES))
+@pytest.mark.parametrize("side", ["jax", "port"])
+def test_sharded_sadam_vs_oracle(mesh_run, side, name):
+    """One side's sharded update (table, m and v) against the float64
+    oracle at the test above's tolerance: the id names the side that left
+    the oracle."""
+    routing, skew = UPDATES[name][1], UPDATES[name][4]
+    got = (mesh_run["outs"] if side == "port" else mesh_run["refs"])[name]
+    atol = 1e-6 if routing == "allgather" or skew else 1e-5
+    oracle = _oracle_update(_update_inputs(name, *UPDATES[name][3:]))
+    for key in ("table", "m", "v"):
+        off = np.abs(got[key] - oracle[key]) > atol
+        assert int(off.sum()) == 0, (
+            f"{side}, {name} {key}: {int(off.sum())} elements off the oracle, rows "
+            f"{np.unique(np.nonzero(off)[0]).tolist()}, max |{side} - oracle| "
+            f"{np.abs(got[key] - oracle[key]).max():.4e}")
 
 
 @pytest.mark.parametrize("name", sorted(UPDATES))

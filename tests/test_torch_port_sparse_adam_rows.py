@@ -17,15 +17,24 @@ The JAX comparison also holds table, m and v after each step, both sides
 against a float64 numpy oracle of the same update (coalesce, then Adam with
 the bias corrections and lr of the step), at the same tolerance, so that a
 mismatch names the step, the array, its first rows and each side's distance
-from the oracle. Each side gets its own copies of the table and of each
-step's ids and gradients; each JAX step is waited for before the port's
-runs, and after each step the ids and gradients both sides were given must
-still equal saved copies (neither side writes its inputs). Under JAX 0.9,
-``interpret=True`` runs a Pallas kernel through the HLO interpreter
-(``pallas_call_hlo_interpret``): the kernel's state effects discharged and
-its grid walked by a sequential loop inside one XLA computation, its DMAs
-plain copies, so no thread or timing enters the JAX side.
+from the oracle. Each case's three steps run once per process, on first
+use, and record both sides' arrays after every step before anything is
+asserted; ``test_sadam_vs_oracle`` then holds one side at one step to the
+oracle, so a failure's id alone (``[port-s2-duplicates-0.0-constant]``)
+names the side and the step. Each side gets its own copies of the table
+and of each step's ids and gradients; each JAX step is waited for before
+the port's runs, and after each step the ids and gradients both sides were
+given must still equal saved copies (neither side writes its inputs). Under
+JAX 0.9, ``interpret=True`` runs a Pallas kernel through the HLO
+interpreter (``pallas_call_hlo_interpret``): the kernel's state effects
+discharged and its grid walked by a sequential loop inside one XLA
+computation, its DMAs plain copies, so no thread or timing enters the JAX
+side. The port's side rounds its square root to nearest on the CPU
+(``sparse_adam.sqrt_rn``), which PyTorch's CPU ``torch.sqrt`` does not
+always do (``test_adam_rows_rounds_every_operation_to_nearest``).
 """
+
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +44,7 @@ import torch
 
 from ttamm_torch.ops import kernels
 from ttamm_torch.ops.sparse_adam import (
+    adam_rows,
     coalesce_row_grads,
     init_sparse_adam,
     sparse_adam_update,
@@ -102,16 +112,35 @@ def _check_sides(step, name, port, jax_side, oracle):
         f"port - jax {np.abs(port - jax_side).max():.4e}")
 
 
-@pytest.mark.parametrize("schedule", ["constant", "cosine"])
-@pytest.mark.parametrize("weight_decay", [0.0, 0.05])
-@pytest.mark.parametrize("layout", ["duplicates", "one_row", "one_lane"])
-def test_sparse_adam_update_matches_jax(monkeypatch, layout, weight_decay, schedule):
-    """Three steps against the JAX update on its row-kernel path (N = 1 takes
-    the JAX package's sorted path: no DMA block divides one lane), every row
-    compared after each step, both sides against the float64 oracle too,
-    the scratch row exactly zero in table, m and v. Each step is one
-    ``sparse_adam_rows`` call whose lanes hold each touched row once and -1
-    on every other lane."""
+_RUNS = {}  # (layout, weight_decay, schedule) -> _Run, filled on first use in this process
+
+
+class _Run(NamedTuple):
+    """One case's three steps as they ran: per step, each side's and the
+    oracle's (table, m, v) and whether each side's ids and gradients came
+    back unchanged; the step each side counted; the lanes of each
+    ``sparse_adam_rows`` call."""
+
+    arrays: list  # per step: {"jax": (table, m, v), "port": ..., "oracle": ...}
+    inputs_kept: list  # per step: {"jax": bool, "port": bool}
+    steps: tuple  # (port, jax)
+    lanes: list
+
+
+def _run_case(layout, weight_decay, schedule):
+    """The case's three steps, computed once per process on first use, so
+    every assertion on them reads one record."""
+    key = (layout, weight_decay, schedule)
+    if key not in _RUNS:
+        _RUNS[key] = _three_steps(layout, weight_decay, schedule)
+    return _RUNS[key]
+
+
+def _three_steps(layout, weight_decay, schedule):
+    """For each step: the JAX update, waited for, then the port's on its own
+    copies of the table, ids and gradients, the input checks and the
+    float64 oracle's step; each side's table, m and v copied after each
+    step, before anything is asserted."""
     lanes = []
     fused = kernels.sparse_adam_rows
 
@@ -119,7 +148,6 @@ def test_sparse_adam_update_matches_jax(monkeypatch, layout, weight_decay, sched
         lanes.append(idx)
         fused(table, m, v, idx, grads, **hyper)
 
-    monkeypatch.setattr(kernels, "sparse_adam_rows", spy)
     rng = np.random.default_rng(11)
     table = _table(rng)
     j_table = jnp.array(table.copy())
@@ -130,37 +158,83 @@ def test_sparse_adam_update_matches_jax(monkeypatch, layout, weight_decay, sched
     cfg = optim.DenseOptConfig(
         lr=0.01, lr_schedule=schedule, lr_total_steps=3, lr_final_factor=0.1
     )
-    for step in range(1, 4):
-        idx = _lanes(layout, rng)
-        g = rng.standard_normal((idx.shape[0], D)).astype(np.float32)
-        saved = (idx.copy(), g.copy())
-        j_inputs, t_inputs = (idx.copy(), g.copy()), (idx.copy(), g.copy())
-        lr = cfg.lr * optim.lr_scale(cfg, step)
-        j_table, j_state = jax_sparse.sparse_adam_update(
-            j_table, j_state, jnp.array(j_inputs[0]), jnp.array(j_inputs[1]), lr=lr,
-            weight_decay=weight_decay, use_pallas=True,
-        )
-        jax.block_until_ready((j_table, j_state))
-        sparse_adam_update(
-            t_table, t_state, torch.from_numpy(t_inputs[0]), torch.from_numpy(t_inputs[1]), lr=lr,
-            weight_decay=weight_decay,
-        )
-        for side, (i, x) in (("jax", j_inputs), ("port", t_inputs)):
-            assert np.array_equal(i, saved[0]) and np.array_equal(x, saved[1]), \
-                f"step {step}: the {side} side wrote its inputs"
-        _oracle_step(*oracle, saved[0], saved[1], lr=lr, step=step, weight_decay=weight_decay)
-        for name, got, want, ref in zip(("table", "m", "v"), (t_table, t_state.m, t_state.v),
-                                        (j_table, j_state.m, j_state.v), oracle):
-            _check_sides(step, name, got.numpy(), np.asarray(want), ref)
-    assert t_state.step == int(j_state.step) == 3
-    for got, want in ((t_table, j_table), (t_state.m, j_state.m), (t_state.v, j_state.v)):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    arrays, inputs_kept = [], []
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(kernels, "sparse_adam_rows", spy)
+        for step in range(1, 4):
+            idx = _lanes(layout, rng)
+            g = rng.standard_normal((idx.shape[0], D)).astype(np.float32)
+            saved = (idx.copy(), g.copy())
+            j_inputs, t_inputs = (idx.copy(), g.copy()), (idx.copy(), g.copy())
+            lr = cfg.lr * optim.lr_scale(cfg, step)
+            j_table, j_state = jax_sparse.sparse_adam_update(
+                j_table, j_state, jnp.array(j_inputs[0]), jnp.array(j_inputs[1]), lr=lr,
+                weight_decay=weight_decay, use_pallas=True,
+            )
+            jax.block_until_ready((j_table, j_state))
+            sparse_adam_update(
+                t_table, t_state, torch.from_numpy(t_inputs[0]), torch.from_numpy(t_inputs[1]),
+                lr=lr, weight_decay=weight_decay,
+            )
+            inputs_kept.append({
+                side: np.array_equal(i, saved[0]) and np.array_equal(x, saved[1])
+                for side, (i, x) in (("jax", j_inputs), ("port", t_inputs))
+            })
+            _oracle_step(*oracle, saved[0], saved[1], lr=lr, step=step, weight_decay=weight_decay)
+            arrays.append({
+                "jax": tuple(np.array(a) for a in (j_table, j_state.m, j_state.v)),
+                "port": tuple(t.numpy().copy() for t in (t_table, t_state.m, t_state.v)),
+                "oracle": tuple(a.copy() for a in oracle),
+            })
+    return _Run(arrays, inputs_kept, (t_state.step, int(j_state.step)), lanes)
+
+
+@pytest.mark.parametrize("schedule", ["constant", "cosine"])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.05])
+@pytest.mark.parametrize("layout", ["duplicates", "one_row", "one_lane"])
+def test_sparse_adam_update_matches_jax(layout, weight_decay, schedule):
+    """Three steps against the JAX update on its row-kernel path (N = 1 takes
+    the JAX package's sorted path: no DMA block divides one lane), every row
+    compared after each step, both sides against the float64 oracle too,
+    the scratch row exactly zero in table, m and v. Each step is one
+    ``sparse_adam_rows`` call whose lanes hold each touched row once and -1
+    on every other lane."""
+    run = _run_case(layout, weight_decay, schedule)
+    for step, (kept, arrays) in enumerate(zip(run.inputs_kept, run.arrays), 1):
+        for side in ("jax", "port"):
+            assert kept[side], f"step {step}: the {side} side wrote its inputs"
+        for name, got, want, ref in zip(("table", "m", "v"), arrays["port"], arrays["jax"],
+                                        arrays["oracle"]):
+            _check_sides(step, name, got, want, ref)
+    port_step, jax_step = run.steps
+    assert port_step == jax_step == 3
+    for got, want in zip(run.arrays[-1]["port"], run.arrays[-1]["jax"]):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
         assert not got[-1].any()  # the scratch row: +0.0 everywhere
-    assert len(lanes) == 3
-    for idx in lanes:
+    assert len(run.lanes) == 3
+    for idx in run.lanes:
         live = idx[idx >= 0]
         assert live.numel() == torch.unique(live).numel() and not (idx < -1).any()
         assert int(live.max()) < ROWS
+
+
+@pytest.mark.parametrize("schedule", ["constant", "cosine"])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.05])
+@pytest.mark.parametrize("layout", ["duplicates", "one_row", "one_lane"])
+@pytest.mark.parametrize("step", [1, 2, 3], ids=lambda s: f"s{s}")
+@pytest.mark.parametrize("side", ["jax", "port"])
+def test_sadam_vs_oracle(side, step, layout, weight_decay, schedule):
+    """One side's table, m and v after one step of a case, against the
+    float64 oracle at TOL (the test above holds the same distances): the id
+    names the side that left the oracle and the step, as in
+    ``[port-s2-duplicates-0.0-constant]``."""
+    arrays = _run_case(layout, weight_decay, schedule).arrays[step - 1]
+    for name, got, ref in zip(("table", "m", "v"), arrays[side], arrays["oracle"]):
+        off = ~np.isclose(got, ref, **TOL)
+        assert int(off.sum()) == 0, (
+            f"{side}, step {step}, {name}: {int(off.sum())} elements off the oracle, rows "
+            f"{np.unique(np.nonzero(off)[0]).tolist()}, max |{side} - oracle| "
+            f"{np.abs(got - ref).max():.4e}")
 
 
 def _old_composition(table, m, v, idx, grads, **hyper):
@@ -193,6 +267,29 @@ def test_plain_version_equals_the_old_composition(layout, step, weight_decay):
     for got, want in zip((table, m, v), old):
         assert torch.equal(got, want)
     assert not table[-1].any() and not m[-1].any() and not v[-1].any()
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+@pytest.mark.parametrize("step", [1, 2, 1000])
+def test_adam_rows_rounds_every_operation_to_nearest(step, weight_decay):
+    """On the CPU, ``adam_rows`` gives the bits of its arithmetic with every
+    f32 operation rounded to nearest, the square root too (``sqrt_rn``, the
+    kernel's ``__fsqrt_rn``), as numpy's float32 operations round."""
+    rng = np.random.default_rng(step)
+    w = rng.standard_normal((N, D)).astype(np.float32)
+    m = (0.1 * rng.standard_normal((N, D))).astype(np.float32)
+    v = (0.01 * rng.random((N, D))).astype(np.float32)
+    g = rng.standard_normal((N, D)).astype(np.float32)
+    hyper = dict(step=step, lr=0.01, b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay)
+    got = adam_rows(*(torch.from_numpy(a.copy()) for a in (w, m, v, g)), **hyper)
+    b1, one_b1, b2, one_b2, inv_bc1, inv_bc2, eps, lr, lr_wd = kernels.adam_scalars(**hyper)
+    m_new = b1 * m + one_b1 * g
+    v_new = b2 * v + one_b2 * np.square(g)
+    delta = lr * (m_new * inv_bc1) / (np.sqrt(v_new * inv_bc2) + eps)
+    if weight_decay:
+        delta = delta + lr_wd * w
+    for name, a, want in zip(("w", "m", "v"), got, (w - delta, m_new, v_new)):
+        np.testing.assert_array_equal(a.numpy(), want, err_msg=name)
 
 
 def test_masked_lanes_touch_nothing():

@@ -25,6 +25,7 @@ from __future__ import annotations
 from collections.abc import Callable
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from . import kernels
@@ -185,14 +186,28 @@ def adam_rows(
     PyTorch divides on the card): the arithmetic of
     :func:`unfused_row_update`, which ``csrc/rows.cu``
     (``sparse_adam_rows``) repeats op for op, so all compute the same
-    bits."""
+    bits. Every operation rounds to nearest, the square root too
+    (:func:`sqrt_rn`), on the CPU as on the card."""
     s, decay = kernels._adam_row(w_rows, scalars, decay, step, lr, b1, b2, eps, weight_decay)
     b1_, one_b1, b2_, one_b2, inv_bc1, inv_bc2, eps_, lr_, lr_wd = s.unbind()
     m_new = b1_ * m_rows + one_b1 * grads
     v_new = b2_ * v_rows + one_b2 * torch.square(grads)
     m_hat = m_new * inv_bc1
     v_hat = v_new * inv_bc2
-    delta = lr_ * m_hat / (torch.sqrt(v_hat) + eps_)
+    delta = lr_ * m_hat / (sqrt_rn(v_hat) + eps_)
     if decay:
         delta = delta + lr_wd * w_rows
     return w_rows - delta, m_new, v_new
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The f32 square root rounded to nearest, as ``__fsqrt_rn`` in the
+    kernel and ``torch.sqrt`` on the card. On the CPU, ``torch.sqrt`` calls
+    MKL's vector math (VML) on 2048-element chunks across PyTorch's threads:
+    it is off by an ulp or two in some elements, and when several threads
+    make a process's first VML call together, MKL can return one chunk at
+    about 12 correct bits (PyTorch 2.13, MKL 2024.2). numpy's sqrt is the
+    IEEE instruction, one thread."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
