@@ -46,6 +46,7 @@ mode. The scenarios:
 
 import json
 import sys
+import zlib
 from pathlib import Path
 
 import jax
@@ -117,7 +118,10 @@ def launch_ranks(spec_path: Path) -> list[str]:
 
 
 def _update_inputs(name, id_range, skew):
-    rng = np.random.default_rng(abs(hash(name)) % 2**31)
+    """The case's table, moments, lanes and gradients, drawn from a seed of
+    its name that every process computes alike (``hash`` is salted per
+    process)."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
     table = rng.standard_normal((R, DU)).astype(np.float32)
     m = (0.1 * rng.standard_normal((R, DU))).astype(np.float32)
     v = (0.01 * rng.random((R, DU))).astype(np.float32)

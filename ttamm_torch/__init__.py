@@ -14,6 +14,6 @@ host-side data, config and HTTP layers. Entry points run on the CUDA card
 unless the caller asks for the CPU.
 """
 
-from . import device  # noqa: F401  (sets the float32 matmul precision flags)
+from . import device  # noqa: F401  (float32 matmul flags; the first CPU vector-math call)
 
 __version__ = "0.3.0"

@@ -1,10 +1,20 @@
-"""Device resolution and the float32 precision settings of the port.
+"""Device resolution and the process-wide float settings of the port.
 
 "float32" in this package means full float32 on the card: the exact,
 FAISS-parity scoring mode. PyTorch would let a float32 matmul or convolution
 run in TF32 (about three decimal digits) when these flags are on, so this
 module — the one place that owns them — turns both off when it is imported,
 and every entry point of the package imports it.
+
+On the CPU, PyTorch sends ``sqrt``, ``exp``, ``log``, ``tanh`` (and ``erf``,
+``sin`` and the rest of MKL's vector math, VML) to MKL split over its
+threads, at least 2048 elements a thread. When several threads make a
+process's first VML call at once, MKL can return one thread's part at 12
+to 15 correct bits (PyTorch 2.13, MKL 2024.2;
+``scripts/torch_vml_first_call.py`` counts it). So this module also makes
+the process's first VML call itself when it is imported: a square root of
+16 values, below PyTorch's 2048-element grain, runs on this thread alone.
+The card's math is untouched.
 """
 
 from __future__ import annotations
@@ -14,6 +24,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.sqrt(torch.ones(16))
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
