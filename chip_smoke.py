@@ -381,16 +381,24 @@ def uncounted(excluded: collections.Counter):
         excluded.update({k: after[k] - before[k] for k in after})
 
 
-def _device_us(events) -> float:
-    """Total device time (µs) of the kernels, copies and fills among a
-    profile's ``key_averages()``: the events that ran on the card. Where CPU
-    ops are profiled too, an op's own device time repeats its kernels', and
-    the ``ProfilerStep*`` annotation on the card spans the whole step."""
+def _on_card(evt) -> bool:
+    """Whether an entry of a profile's ``key_averages()`` is a kernel, copy
+    or fill that ran on the card. Where CPU ops are profiled too, an op's
+    own device time repeats its kernels'; and kineto copies each annotated
+    range (``ProfilerStep*``, the port's ``ttamm.*`` spans) onto the card's
+    timeline, where it spans the work beneath it."""
     from torch.autograd import DeviceType
 
+    return (evt.device_type != DeviceType.CPU and not getattr(evt, "is_user_annotation", False)
+            and not evt.key.startswith(("ProfilerStep", "ttamm.")))
+
+
+def _device_us(events) -> float:
+    """Total device time (µs) of the kernels, copies and fills among a
+    profile's ``key_averages()`` (:func:`_on_card`)."""
     total = 0.0
     for evt in events:
-        if evt.device_type == DeviceType.CPU or evt.key.startswith("ProfilerStep"):
+        if not _on_card(evt):
             continue
         t = getattr(evt, "self_device_time_total", None)
         total += evt.self_cuda_time_total if t is None else t
@@ -1776,8 +1784,7 @@ def _mesh_step(dev, ctx) -> tuple[dict[str, int], dict]:
                 events = _profiled(one, lambda: [one() for _ in range(4)])
                 dev_ms = _per_call_us(events, 4) / 1e3
                 check(dev_ms > 0, f"step {label}: the profiler saw no device work")
-                ops = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                          and not e.key.startswith("ProfilerStep")) / 4
+                ops = sum(e.count for e in events if _on_card(e)) / 4
                 u, p, neg = batches[-1]
                 torch.cuda.synchronize()
                 start = time.perf_counter()
@@ -2037,8 +2044,7 @@ def _tp_timing(dev, mesh, cases: dict) -> dict:
             events = _profiled(one, lambda: [one() for _ in range(4)])
             dev_ms = _per_call_us(events, 4) / 1e3
             check(dev_ms > 0, f"TP step {label}: the profiler saw no device work")
-            ops = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                      and not e.key.startswith("ProfilerStep")) / 4
+            ops = sum(e.count for e in events if _on_card(e)) / 4
             u, p, neg = batches[-1]
             torch.cuda.synchronize()
             start = time.perf_counter()
@@ -2215,8 +2221,7 @@ def _turn_stats(dev, run, steps: int) -> dict:
 
     events = _profiled(lambda: run(2), body)
     device_ms = _per_call_us(events, steps) / 1e3
-    ops = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith("ProfilerStep")) / steps
+    ops = sum(e.count for e in events if _on_card(e)) / steps
     return {"host_ms": host_ms, "device_ms": device_ms, "device_ops": ops,
             "idle_share": 1.0 - device_ms * steps / (timed["wall"] * 1e3), "launches": launches}
 
@@ -2718,10 +2723,7 @@ def _profile_steps(dev, config: dict, dataset, result) -> tuple[dict, dict]:
     device_ms_total = _per_call_us(averages, PROFILE_STEPS) * PROFILE_STEPS / 1e3
     check(device_ms_total > 0, "the profiler saw no device work in the training steps")
     idle = 1.0 - device_ms_total / (wall * 1e3)
-    device_work = sum(
-        e.count for e in averages
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("ProfilerStep")
-    )
+    device_work = sum(e.count for e in averages if _on_card(e))
     log(f"profiled {PROFILE_STEPS} steps: wall {wall * 1e3 / PROFILE_STEPS:.3f} ms/step, device "
         f"{device_ms_total / PROFILE_STEPS:.3f} ms/step, idle share {idle:.3f}, "
         f"{device_work / PROFILE_STEPS:.1f} kernels/copies/fills per step")
@@ -3335,8 +3337,7 @@ def _pod_mesh_steps(dev, ctx: dict, tscfg) -> dict:
             events = _profiled(one, lambda: [one() for _ in range(4)])
             dev_ms = _per_call_us(events, 4) / 1e3
             check(dev_ms > 0, f"pod step {label}: the profiler saw no device work")
-            ops = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                      and not e.key.startswith("ProfilerStep")) / 4
+            ops = sum(e.count for e in events if _on_card(e)) / 4
             u, p, negs = batches[-1]
             torch.cuda.synchronize()
             start = time.perf_counter()
@@ -3983,7 +3984,7 @@ def phase_chunked(dev) -> dict:
     log(f"auto routed both searches to chunked: {chunks} chunks of {chunk} items a search, small_k_topk "
         f"{counts['small_k_topk'] // 2} launches a search (a chunk's top k and its merge)")
 
-    plain_s, plain_i = topk._chunked_topk(q, index.corpus, K, n, plain=True)
+    plain_s, plain_i = topk._chunked_topk(q, index.corpus, K, n, chunk_size=chunk, plain=True)
     check(np.array_equal(got_i, plain_i.cpu().numpy()) and np.array_equal(got_s, plain_s.cpu().numpy()),
           "chunked ids or scores differ from the scan with small_k_topk's plain version")
     log("chunked ids and scores equal the scan with small_k_topk's plain version (ties included)")

@@ -21,7 +21,8 @@ trainer's ``diagnostics.profile_dir``, on the CPU.
   but where scores tie within 1e-5; and its HTTP mode under each backend
   answers as the host numpy search does.
 - ``run_training`` with ``diagnostics.profile_dir`` writes one Chrome trace
-  of the first epoch's train loop; without the key it writes none.
+  of the first epoch, its train loop and eval named by the port's spans;
+  without the key it writes none.
 """
 
 import contextlib
@@ -358,3 +359,9 @@ def test_profile_dir_traces_the_first_train_loop(corpus, tmp_path, profiled):
     events = json.loads(traces[0].read_text())["traceEvents"]
     names = {e.get("name") for e in events}
     assert {"aten::addmm", "aten::index_select"} <= names  # the towers, the row reads
+    # the whole first epoch, by the port's spans: its train loop, its eval
+    assert {"ttamm.epoch", "ttamm.epoch.train", "ttamm.epoch.val_eval"} <= names
+    assert any(n.startswith("ttamm.train.") for n in names if isinstance(n, str))
+    # one span a phase_seconds entry (its "train" split into the order and the loop)
+    phases = {n.split(".", 2)[2] for n in names if isinstance(n, str) and n.startswith("ttamm.epoch.")}
+    assert phases == set(result.phase_seconds[0]) | {"order"}

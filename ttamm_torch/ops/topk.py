@@ -51,12 +51,17 @@ coordinates), as the JAX package reroutes a fused search its kernels cannot
 take, on every device alike: to ``group_exact`` within the slab ceiling,
 to ``chunked`` past it. An explicit ``group_exact`` or ``chunked`` runs as
 asked at any size.
+
+The path taken runs under the span ``ttamm.topk.<algorithm>``
+(``utils/trace.py``; ``n`` = the chunks for ``chunked``), which covers the
+issue of its device work.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import kernels
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -177,15 +182,22 @@ def mips_topk(
     if algorithm == "group_exact" != requested and not fits:
         algorithm = "chunked"  # past the slab ceiling
     if algorithm == "fused":
-        return _fused_groupmax_topk(
-            queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows
-        )
+        with trace.span("topk.fused"):
+            return _fused_groupmax_topk(
+                queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows
+            )
     if algorithm == "chunked":
-        return _chunked_topk(
-            queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows,
-            chunk_size=chunk_size,
-        )
-    return _group_exact_topk(queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows)
+        chunk = chunk_items(queries.shape[0]) if chunk_size is None else chunk_size
+        if chunk <= 0:
+            raise ValueError(f"chunk_size must be positive, got {chunk}")
+        chunk = min(chunk, num_items)
+        with trace.span("topk.chunked", n=-(-num_items // chunk)):
+            return _chunked_topk(
+                queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows,
+                chunk_size=chunk,
+            )
+    with trace.span("topk.group_exact"):
+        return _group_exact_topk(queries, item_embeddings, k_eff, num_items, mask_rows=mask_rows)
 
 
 def topk_with_mask(
@@ -275,19 +287,18 @@ def _chunked_topk(
     num_items: int,
     *,
     mask_rows: torch.Tensor | None = None,
-    chunk_size: int | None = None,
+    chunk_size: int,
     plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunk scan with a running top-k (the JAX ``mips_topk`` scan body).
 
-    Per chunk of ``min(chunk_size, num_items)`` items (``chunk_size``
-    ``None``: :func:`chunk_items` of the batch): the ``[B, chunk]``
-    scores in the slab dtype, widened to f32; the blocked ids scattered to
-    ``NEG_INF`` (the JAX package compares every chunk id with every blocked
-    id, which sets the same entries); the chunk's top ``min(k_eff, chunk)``;
-    then the top ``k_eff`` of ``[running, local]``. The running set starts
-    as ``k_eff`` entries of ``NEG_INF`` at id 0 and always comes first, so
-    ties go to the lower id, as in JAX. The JAX package zero-pads the corpus
+    Per chunk of ``chunk_size`` items (``mips_topk`` resolves it): the
+    ``[B, chunk]`` scores in the slab dtype, widened to f32; the blocked ids
+    scattered to ``NEG_INF`` (the JAX package compares every chunk id with
+    every blocked id, which sets the same entries); the chunk's top
+    ``min(k_eff, chunk)``; then the top ``k_eff`` of ``[running, local]``.
+    The running set starts as ``k_eff`` entries of ``NEG_INF`` at id 0 and
+    always comes first, so ties go to the lower id, as in JAX. The JAX package zero-pads the corpus
     to whole chunks and scores the pad ids ``NEG_INF``; here the last chunk
     is narrower instead. The answer is the same: a local entry at
     ``NEG_INF`` can never displace one of the ``k_eff`` running entries.
@@ -295,15 +306,10 @@ def _chunked_topk(
     the card).
     """
     batch = queries.shape[0]
-    if chunk_size is None:
-        chunk_size = chunk_items(batch)
-    if chunk_size <= 0:
-        raise ValueError(f"chunk_size must be positive, got {chunk_size}")
-    chunk = min(chunk_size, num_items)
     run_scores = torch.full((batch, k_eff), NEG_INF, dtype=torch.float32, device=queries.device)
     run_idx = torch.zeros((batch, k_eff), dtype=torch.int64, device=queries.device)
-    for start in range(0, num_items, chunk):
-        block = item_embeddings[start : min(start + chunk, num_items)]
+    for start in range(0, num_items, chunk_size):
+        block = item_embeddings[start : min(start + chunk_size, num_items)]
         scores = (queries @ block.T).float()  # bf16 scores rounded, then widened
         if mask_rows is not None:
             _mask_scatter(scores, mask_rows, start)

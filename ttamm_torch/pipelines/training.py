@@ -107,11 +107,15 @@ device and on the mesh.
 ``model.precision: bfloat16`` runs the towers' matmuls on bf16 operands
 with float32 sums (``ttamm_torch/models/encoders.py``).
 
-``diagnostics.profile_dir`` traces the first epoch's train loop (not its
-eval) with ``torch.profiler`` (host ops, and on a card its kernels) and
-writes the Chrome trace ``{experiment.name}_epoch{NNN}.pt.trace.json``
-there, as the JAX trainer writes its ``jax.profiler`` trace; on a mesh rank
-0 alone traces and writes.
+``diagnostics.profile_dir`` traces the first epoch whole (its order, train
+loop, eval and checkpoint submission) with ``torch.profiler`` (host ops, and
+on a card its kernels) and writes the Chrome trace
+``{experiment.name}_epoch{NNN}.pt.trace.json`` there, as the JAX trainer
+writes its ``jax.profiler`` trace; on a mesh rank 0 alone traces and
+writes. The trace holds the port's spans (``utils/trace.py``): the epoch
+is ``ttamm.epoch`` over ``ttamm.epoch.<phase>``, one a ``phase_seconds``
+entry over the same interval (``order`` and ``train`` split its
+``train``), and the steps' and searches' own spans beneath.
 
 ``training.steps_per_call`` (``auto``, the JAX rule of
 :func:`_pick_steps_per_call`: the whole epoch at the canonical corpus, or an
@@ -131,6 +135,7 @@ captured with it, and the owner routing's overflow is taken on the device.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import random
@@ -220,7 +225,7 @@ from ..train.step import (
     make_multi_train_step,
     make_train_step,
 )
-from ..utils import configure_logging, expand_grid, get_logger
+from ..utils import configure_logging, expand_grid, get_logger, trace
 from .export import prepare_data
 
 logger = get_logger("pipeline")
@@ -690,16 +695,27 @@ def run_single_experiment(
     for epoch in range(start_epoch, num_epochs + 1):
         if max_steps is not None and result.steps >= max_steps:
             break
+        profiler = None
+        if profile_dir and epoch == start_epoch and is_primary_host():
+            profiler = _epoch_profiler(dev)
+            profiler.start()
+        # ttamm.epoch over the open ttamm.epoch.<phase>; closed after lap("ckpt")
+        epoch_spans = contextlib.ExitStack()
+        epoch_span = epoch_spans.enter_context(trace.span("epoch"))
+        phase_span = epoch_spans.enter_context(contextlib.ExitStack())
+
+        def open_phase(name: str) -> None:
+            phase_span.close()
+            phase_span.enter_context(trace.span(f"epoch.{name}"))
+
         _sync(dev)
         epoch_start = time.perf_counter()
+        open_phase("order")
         perm = np.random.default_rng(seed * 1000003 + epoch).permutation(len(train_users))
         users = torch.from_numpy(train_users[perm]).to(dev)  # one upload per epoch
         items = torch.from_numpy(train_items[perm]).to(dev)
+        open_phase("train")
         losses, sizes = [], []
-        profiler = None
-        if profile_dir and epoch == start_epoch and is_primary_host():
-            profiler = _train_loop_profiler(dev)
-            profiler.start()
         start = 0
         if multi_step is not None:
             # the full batches in chunks of steps_per_call (the last one, or
@@ -730,11 +746,11 @@ def run_single_experiment(
             result.steps += 1
         values = torch.cat(losses).cpu().numpy()  # syncs the epoch's work
         epoch_seconds = time.perf_counter() - epoch_start
-        if profiler is not None:
-            _write_trace(profiler, dev, Path(profile_dir), experiment_name, epoch)
+        phase_span.close()
         if result.first_step_loss is None:
             result.first_step_loss = float(values[0])
         seen = int(sum(sizes))
+        epoch_span.n = seen
         examples += seen
         result.train_seconds += epoch_seconds
         avg_loss = float(np.dot(values, sizes) / seen)
@@ -746,13 +762,19 @@ def run_single_experiment(
 
         phase = {"train": epoch_seconds}
         tick = time.perf_counter()
+        open_phase("val_loss" if len(val_users) else "test_loss" if len(test_users) else "ckpt")
 
-        def lap(name: str) -> None:
+        def lap(name: str, following: str | None = None) -> None:
+            """End the phase ``name`` (its ``phase_seconds`` entry and its
+            span) and open the span of the ``following`` one."""
             nonlocal tick
             _sync(dev)
             now = time.perf_counter()
             phase[name] = now - tick
             tick = now
+            phase_span.close()
+            if following is not None:
+                open_phase(following)
 
         # One encode of the item corpus serves both evals.
         eval_model = encode_model(state, mesh)
@@ -768,10 +790,10 @@ def run_single_experiment(
                 eval_step, multi_eval_step, state, data, val_users, val_items, batch_size,
                 val_gen, dev,
             )
-            lap("val_loss")
+            lap("val_loss", following="val_eval")
             val_metrics = retrieval_metrics(eval_model, val_plan, val_df, item_embeddings,
                                             seed * 997 + epoch)
-            lap("val_eval")
+            lap("val_eval", following="test_loss" if len(test_users) else "ckpt")
             last_val_metrics = val_metrics
             for k in metrics_k:
                 logger.info(
@@ -790,10 +812,10 @@ def run_single_experiment(
                 eval_step, multi_eval_step, state, data, test_users, test_items, batch_size,
                 test_gen, dev,
             )
-            lap("test_loss")
+            lap("test_loss", following="test_eval")
             test_metrics = retrieval_metrics(eval_model, test_plan, test_df, item_embeddings,
                                              seed * 199 + epoch)
-            lap("test_eval")
+            lap("test_eval", following="ckpt")
         result.test_loss.append(test_loss_value)
         result.test_metrics.append(test_metrics)
         logger.info("Epoch %03d | val_loss=%.4f | test_loss=%.4f", epoch, val_loss_value, test_loss_value)
@@ -859,6 +881,9 @@ def run_single_experiment(
                 elif role == "last":
                     result.checkpoint_path = path
         lap("ckpt")
+        epoch_spans.close()
+        if profiler is not None:
+            _write_trace(profiler, dev, Path(profile_dir), experiment_name, epoch)
         result.phase_seconds.append(phase)
         logger.info("Epoch timing | %s", " ".join(f"{k}={v:.2f}s" for k, v in phase.items()))
         if should_stop:
@@ -967,7 +992,7 @@ def _encode_side(model, data: BatchData, side: str, search_mesh) -> torch.Tensor
     return encode_corpus(model, side, features, num_rows=rows)
 
 
-def _train_loop_profiler(device: torch.device) -> torch.profiler.profile:
+def _epoch_profiler(device: torch.device) -> torch.profiler.profile:
     """The ``diagnostics.profile_dir`` profiler: host ops, and on a card
     its kernels."""
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -985,7 +1010,7 @@ def _write_trace(profiler: torch.profiler.profile, device: torch.device, out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / f"{experiment_name}_epoch{epoch:03d}.pt.trace.json"
     profiler.export_chrome_trace(str(path))
-    logger.info("Wrote the profiler trace of epoch %d's train loop to %s", epoch, path)
+    logger.info("Wrote the profiler trace of epoch %d to %s", epoch, path)
 
 
 def _prepare_data(config: Mapping[str, Any], distributed: bool) -> TrainingDataset:

@@ -69,6 +69,7 @@ from ..ops import device_cond, kernels
 from ..ops.losses import bce_with_logits, category_alignment_loss
 from ..ops.sampling import sample_negative_items
 from ..ops.sparse_adam import coalesce_row_grads, sparse_adam_apply, sum_rows
+from ..utils import trace
 from .optim import DENSE_SCALARS, DenseOptConfig, dense_opt_apply, dense_scalars, lr_scale
 from .state import BatchData, TrainState, dense_table_names, sparse_table_names
 
@@ -806,10 +807,11 @@ def make_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None) -> T
     core = _train_core(cfg, tscfg, mesh)
 
     def train_step(state, data, u_idx, pos_idx, *, generator, negatives=None, dropout_generator=None):
-        scalars = host_to_device(step_scalars(state, tscfg, 1)[0], u_idx.device)
-        metrics = core(state, data, u_idx, pos_idx, scalars, generator=generator,
-                       negatives=negatives, dropout_generator=dropout_generator)
-        _advance(state, 1)
+        with trace.span("train.step"):
+            scalars = host_to_device(step_scalars(state, tscfg, 1)[0], u_idx.device)
+            metrics = core(state, data, u_idx, pos_idx, scalars, generator=generator,
+                           negatives=negatives, dropout_generator=dropout_generator)
+            _advance(state, 1)
         return state, metrics
 
     return train_step
@@ -913,7 +915,13 @@ class _Replayer:
     key it was not captured for (a state or dataset tensor reallocated, as
     by a resume or a restore, another generator or batch shape) or a longer
     chunk. A capture or replay that fails raises: nothing falls back to
-    eager steps."""
+    eager steps.
+
+    Spans (``utils/trace.py``), none inside the captured step:
+    ``step.stage`` (the scalar rows' upload; on a card also the copies into
+    the static buffers and the counter's fill), ``step.capture`` (the eager
+    first step and the capture, only when a graph is captured) and
+    ``step.replay`` (the replay loop, ``n`` = replays)."""
 
     KEEP = 2  # graphs held at once: the eval's val and test generators
 
@@ -925,7 +933,8 @@ class _Replayer:
     def run(self, state, data, u_all, p_all, scalars, generators) -> torch.Tensor:
         steps = u_all.shape[0]
         dev = u_all.device
-        rows = None if scalars is None else host_to_device(scalars, dev)
+        with trace.span("step.stage"):
+            rows = None if scalars is None else host_to_device(scalars, dev)
         if dev.type != "cuda":
             return torch.stack([
                 self._body(state, data, u_all[k], p_all[k], None if rows is None else rows[k],
@@ -937,22 +946,25 @@ class _Replayer:
         graph = self._graphs.get(key)
         start = 0
         if graph is None or graph.u.shape[0] < steps:
-            if self._mesh is not None:
-                from ..parallel.mesh import warm_groups
+            with trace.span("step.capture"):
+                if self._mesh is not None:
+                    from ..parallel.mesh import warm_groups
 
-                warm_groups(self._mesh, dev)
-            loss = self._body(state, data, u_all[0], p_all[0], None if rows is None else rows[0],
-                              generators)
-            losses[:1].copy_(loss.reshape(1))
-            graph = self._capture(key, state, data, u_all, rows, generators)
+                    warm_groups(self._mesh, dev)
+                loss = self._body(state, data, u_all[0], p_all[0],
+                                  None if rows is None else rows[0], generators)
+                losses[:1].copy_(loss.reshape(1))
+                graph = self._capture(key, state, data, u_all, rows, generators)
             start = 1
-        graph.u[:steps].copy_(u_all)
-        graph.p[:steps].copy_(p_all)
-        if rows is not None:
-            graph.s[:steps].copy_(rows)
-        graph.ctr.fill_(start)
-        for _ in range(start, steps):
-            graph.graph.replay()
+        with trace.span("step.stage"):
+            graph.u[:steps].copy_(u_all)
+            graph.p[:steps].copy_(p_all)
+            if rows is not None:
+                graph.s[:steps].copy_(rows)
+            graph.ctr.fill_(start)
+        with trace.span("step.replay", n=steps - start):
+            for _ in range(start, steps):
+                graph.graph.replay()
         kernels.add_launch_counts(graph.launches, steps - start)
         losses[start:].copy_(graph.loss[start:steps])
         return losses
@@ -1006,7 +1018,11 @@ def make_multi_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None
 
     ``mesh``: the K steps on one rank of a ``(data, model)`` mesh
     (``parallel.step.make_sharded_multi_train_step``), every rank calling
-    with the same batches; its collectives are in the captured step."""
+    with the same batches; its collectives are in the captured step.
+
+    A call is the span ``ttamm.train.multi`` (``n`` = K) over
+    ``step.scalars`` (:func:`step_scalars`) and the replayer's spans; the
+    single step of :func:`make_train_step` is ``ttamm.train.step``."""
     core = _train_core(cfg, tscfg, mesh)
     replayer = _Replayer(
         lambda state, data, u, p, s, gens: core(
@@ -1015,11 +1031,12 @@ def make_multi_train_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=None
     )
 
     def multi(state, data, u_all, p_all, *, generator, dropout_generator=None):
-        losses = replayer.run(
-            state, data, u_all, p_all, step_scalars(state, tscfg, u_all.shape[0]),
-            (generator, dropout_generator),
-        )
-        _advance(state, u_all.shape[0])
+        steps = u_all.shape[0]
+        with trace.span("train.multi", n=steps):
+            with trace.span("step.scalars"):
+                scalars = step_scalars(state, tscfg, steps)
+            losses = replayer.run(state, data, u_all, p_all, scalars, (generator, dropout_generator))
+            _advance(state, steps)
         return state, losses
 
     return multi
@@ -1030,13 +1047,15 @@ def make_multi_eval_loss_step(cfg: ModelConfig, tscfg: TrainStepConfig, *, mesh=
     -> losses [K]``: K eval-loss steps of :func:`make_eval_loss_step` in
     one call, as :func:`make_multi_train_step` (replays of one captured
     step on a card; one graph a generator, so a caller that re-seeds one
-    generator object per split reuses it); ``mesh`` as there."""
+    generator object per split reuses it); ``mesh`` as there. A call is the
+    span ``ttamm.eval_loss.multi`` (``n`` = K) over the replayer's."""
     step = make_eval_loss_step(cfg, tscfg, mesh=mesh)
     replayer = _Replayer(
         lambda state, data, u, p, s, gens: step(state, data, u, p, generator=gens[0]), mesh)
 
     def multi(state, data, u_all, p_all, *, generator):
-        return replayer.run(state, data, u_all, p_all, None, (generator,))
+        with trace.span("eval_loss.multi", n=u_all.shape[0]):
+            return replayer.run(state, data, u_all, p_all, None, (generator,))
 
     return multi
 
