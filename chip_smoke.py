@@ -170,7 +170,13 @@ result line):
    steps, ms/step, examples/s, launches per step and a
    ``torch.profiler`` table of the top device ops with the device's idle
    share over 20 more steps (each step must launch gather_rows and
-   sparse_adam_rows twice, once a sparse table, and scatter_set_rows never);
+   sparse_adam_rows twice, once a sparse table, dense_adam once and
+   scatter_set_rows never); outside the counts, dense_adam at the trained
+   state's dense targets (user_aug [199450, 128], item_aug [99881, 128],
+   the towers' 16 tensors) and one more step's gradients, bit for bit
+   against its plain version (the ``torch._foreach_*`` composition) under
+   AdamW, AdamW without decay and Adam with L2 decay, that step's own
+   update too, then timed beside it and ``torch.optim.AdamW(fused=True)``;
    last, outside the counts, the checkpoint A/B: one state saved
    synchronously and through AsyncCheckpointer, the files equal (arrays
    bit for bit, the meta but its timestamp), then 50 canonical train steps
@@ -189,8 +195,8 @@ result line):
    segment_second_moments at its N = B item lanes' real category ids
    (``parts`` ``*_in_batch``); (c) two epochs through ``run_training``
    (its launches counted from zero just before it), checked as phase 5
-   (its reports and end-of-run block too) and profiled over 20 steps (4 gather_rows and 4 sparse_adam_rows a step, no
-   scatter_set_rows), its ms/step, examples/s, device ms and ops per step
+   (its reports and end-of-run block too) and profiled over 20 steps (4 gather_rows, 4 sparse_adam_rows and 1 dense_adam
+   a step, no scatter_set_rows), its ms/step, examples/s, device ms and ops per step
    and idle share printed beside phase 5's; (d) the best checkpoint
    exported and 256 users searched, ids equal to the host numpy search but
    where scores tie; (e) 3 steps a routing on the 1x1 NCCL mesh, each held
@@ -337,6 +343,8 @@ KERNEL_INFO = {
     "scatter_set_rows_masked": ("ttamm_torch/csrc/rows.cu", "ttamm_tpu/ops/pallas/rows.py:248"),
     # gather_rows x 3 -> Adam -> scatter_set_rows x 3 of the JAX row-kernel path
     "sparse_adam_rows": ("ttamm_torch/csrc/rows.cu", "ttamm_tpu/ops/sparse_adam.py:191-208"),
+    # no Pallas kernel: XLA fuses the dense optimizer's elementwise update there
+    "dense_adam": ("ttamm_torch/csrc/dense_adam.cu", "none: XLA's fusion of ttamm_tpu/train/optim.py:78"),
 }
 MESH_KERNELS = ("gather_rows_masked",)  # counted in phase 4b (sparse_adam_rows runs there too)
 # Off every path since sparse_adam_rows took their work: launched and held
@@ -1034,7 +1042,7 @@ def plain_kernels():
 
     names = ("small_k_topk", "select_topk_from_groups", "groupmax_matmul", "rescore_groups",
              "gather_rows", "scatter_set_rows", "sparse_adam_rows", "segment_second_moments",
-             "segment_second_moments_bwd")
+             "segment_second_moments_bwd", "dense_adam")
     saved = {n: getattr(kernels, n) for n in names}
     for n in names:
         setattr(kernels, n, getattr(kernels, f"{n}_plain"))
@@ -2686,7 +2694,8 @@ def _profile_steps(dev, config: dict, dataset, result) -> tuple[dict, dict]:
     """Profile PROFILE_STEPS more steps of the trained state: top device
     ops, device idle share and launches per step (each sparse table: one
     forward read, gather_rows, and one fused update, sparse_adam_rows; the
-    scatter never). Returns the launches per step and the step's wall ms,
+    scatter never; the dense targets one dense_adam under Adam or AdamW).
+    Returns the launches per step and the step's wall ms,
     device ms, device ops and idle share."""
     import numpy as np
     import torch
@@ -2731,7 +2740,8 @@ def _profile_steps(dev, config: dict, dataset, result) -> tuple[dict, dict]:
     from ttamm_torch.train.state import sparse_table_names
 
     tables = len(sparse_table_names(state.model.cfg))
-    want = {"gather_rows": tables, "sparse_adam_rows": tables, "scatter_set_rows": 0}
+    want = {"gather_rows": tables, "sparse_adam_rows": tables, "scatter_set_rows": 0,
+            "dense_adam": int(result.step_config.opt.name != "sgd")}
     check(all(per_step.get(k, 0) == n for k, n in want.items()),
           f"launches per step {per_step}, expected {want}")
     try:
@@ -2742,6 +2752,103 @@ def _profile_steps(dev, config: dict, dataset, result) -> tuple[dict, dict]:
     stats = {"wall_ms": wall * 1e3 / PROFILE_STEPS, "device_ms": device_ms_total / PROFILE_STEPS,
              "device_ops": device_work / PROFILE_STEPS, "idle_share": idle}
     return per_step, stats
+
+
+def _dense_adam(dev, config: dict, dataset, result) -> dict:
+    """dense_adam at the trained default state's dense targets (user_aug
+    [199450, 128], item_aug [99881, 128] and the towers' 16 tensors) and the
+    gradients of one more step, whose update's inputs are copied on the
+    way in: that step's update (the kernel, through ``kernels.dense_adam``)
+    and ``dense_adam_cuda`` on copies of its inputs equal
+    ``dense_adam_plain`` (the ``torch._foreach_*`` composition) bit for bit,
+    and so does the kernel under AdamW without decay and Adam with L2 decay
+    on the same inputs. Then the kernel, the composition and
+    ``torch.optim.AdamW(fused=True)`` (the row's ``library_ms``: time
+    only, the port never calls it) timed with a cold L2. The bound: each
+    element's parameter, gradient, m and v read once and its parameter, m
+    and v written once, and the step's three scalars."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from ttamm_torch.ops import kernels
+    from ttamm_torch.train import make_train_step
+
+    step_module = importlib.import_module("ttamm_torch.train.step")
+    state = result.state
+    step = make_train_step(state.model.cfg, result.step_config)
+    b = config["training"]["batch_size"]
+    frame = dataset.interactions
+    pick = np.random.default_rng(13).permutation(len(frame))[:b]
+    users = torch.from_numpy(frame["user_idx"].to_numpy(np.int32)[pick]).to(dev)
+    items = torch.from_numpy(frame["item_idx"].to_numpy(np.int32)[pick]).to(dev)
+    seen = {}
+    apply = step_module.dense_opt_apply
+
+    def spy(params, grads, opt_state, cfg, scalars):
+        seen.update(lists=[[t.detach().clone() for t in ts]
+                           for ts in (params, grads, opt_state.m, opt_state.v)],
+                    scalars=scalars.clone(), cfg=cfg)
+        apply(params, grads, opt_state, cfg, scalars)
+
+    step_module.dense_opt_apply = spy
+    try:
+        step(state, result.data, users, items, generator=torch.Generator(device=dev).manual_seed(13))
+    finally:
+        step_module.dense_opt_apply = apply
+    torch.cuda.synchronize()
+    params, grads, m, v = seen["lists"]
+    cfg, scalars = seen["cfg"], seen["scalars"]
+    check(cfg.name == "adamw" and cfg.weight_decay > 0, f"the default state's dense optimizer: {cfg}")
+    names = [n for n, _ in state.dense_targets()]
+    after = ([t for _, t in state.dense_targets()], state.opt_dense.m, state.opt_dense.v)
+    worst = 0.0
+    for mode, wd, decoupled in (("AdamW", cfg.weight_decay, True), ("AdamW without decay", 0.0, True),
+                                ("Adam with L2 decay", 0.1, False)):
+        hyper = dict(scalars=scalars, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=wd,
+                     decoupled=decoupled)
+        got = [[t.clone() for t in ts] for ts in (params, m, v)]
+        want = [[t.clone() for t in ts] for ts in (params, m, v)]
+        kernels.dense_adam_cuda(got[0], grads, got[1], got[2], **hyper)
+        kernels.dense_adam_plain(want[0], grads, want[1], want[2], **hyper)
+        for label, xs, ys, zs in zip("pmv", got, want, after):
+            for name, x, y, z in zip(names, xs, ys, zs):
+                err = (x - y).abs().max().item()
+                worst = max(worst, err)
+                check(torch.equal(x, y), f"dense_adam ({mode}, {name} {label}): {err:.3e} off the "
+                      "composition")
+                check(mode != "AdamW" or torch.equal(z, y),
+                      f"the step's dense update ({name} {label}): differs from the composition")
+        del got, want
+    elements = sum(t.numel() for t in params)
+    log(f"dense_adam: {len(params)} dense targets ({elements} f32 elements), the kernel and the "
+        "step's update bit-identical to the composition (AdamW; AdamW without decay, Adam with L2 "
+        "decay: the kernel)")
+    hyper = dict(scalars=scalars, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay,
+                 decoupled=True)
+    copies = [[t.clone() for t in ts] for ts in (params, m, v)]
+    leaves = [t.clone().requires_grad_() for t in params]
+    for leaf, g in zip(leaves, grads):
+        leaf.grad = g
+    fused = torch.optim.AdamW(leaves, lr=cfg.lr, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
+                              weight_decay=cfg.weight_decay, fused=True)
+    big = ", ".join(f"{n} {list(t.shape)}" for n, t in zip(names, params) if t.dim() == 2
+                    and t.shape[0] > 10_000)
+    row = _row(
+        shape=f"{len(params)} f32 dense targets, {elements} elements ({big}), AdamW, weight decay "
+              f"{cfg.weight_decay}",
+        max_abs_err=worst,
+        ms=device_ms_cold(lambda: kernels.dense_adam_cuda(copies[0], grads, copies[1], copies[2], **hyper)),
+        plain_ms=device_ms_cold(lambda: kernels.dense_adam_plain(copies[0], grads, copies[1], copies[2],
+                                                                 **hyper)),
+        library_ms=device_ms_cold(fused.step),
+        nbytes=28 * elements + 3 * 4,
+    )
+    row.update(tensors=len(params), elements=elements)
+    _log_row("dense_adam (library = torch.optim.AdamW(fused=True), time only)", row)
+    del copies, leaves, fused, seen
+    return row
 
 
 def phase_train(dev, config: dict, dataset, excluded: collections.Counter):
@@ -4092,6 +4199,7 @@ def main() -> int:
                 result, block = phase_train(dev, config, dataset, excluded)
                 per_step, profile = _profile_steps(dev, config, dataset, result)
                 with uncounted(excluded):
+                    kernel_rows["dense_adam"] = _dense_adam(dev, config, dataset, result)
                     checkpoint_ab = _checkpoint_ab(dev, config, dataset, result, work)
                 torch.cuda.empty_cache()
             path_counts = collections.Counter(kernels.launch_counts())  # phase 5's launches

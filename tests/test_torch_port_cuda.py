@@ -7,8 +7,9 @@ imports jax, which the port does not need):
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
 Tolerances: small_k_topk, select_topk_from_groups, gather_rows,
-scatter_set_rows and sparse_adam_rows are bit-identical (the last one's
-arithmetic is the eager composition's, one rounding per op); groupmax_matmul and rescore_groups multiply bf16-rounded
+scatter_set_rows, sparse_adam_rows and dense_adam are bit-identical (the
+last two's arithmetic is the eager or _foreach_ composition's, each op
+rounded as PyTorch rounds it); groupmax_matmul and rescore_groups multiply bf16-rounded
 operands exactly and differ from the plain f32 matmul only in the order of
 the f32 sums (rtol 1e-6, atol 1e-5 at O(1) scores); segment_second_moments
 forward and backward likewise, summing up to N products: 2e-5 of the
@@ -1087,6 +1088,129 @@ def test_sparse_adam_rows_reads_its_scalars_through_a_pointer(cuda):
     torch.cuda.synchronize()
     for got, plain, by_value in zip(out["kernel"], out["plain"], out["by value"]):
         assert torch.equal(got, plain) and torch.equal(got, by_value)
+
+
+# (name, weight decay): AdamW with and without decay, Adam with L2 decay
+DENSE_MODES = [("adamw", 0.01), ("adamw", 0.0), ("adam", 0.1)]
+# default.train's two mimic tables scaled down, tower shapes, ragged sizes
+DENSE_SHAPES = ((1995, 128), (999, 128), (256, 105), (256,), (128, 256), (1,), (3,), (5,), (127,))
+
+
+def _dense_case(seed, device, shapes=DENSE_SHAPES):
+    """``(params, grads, m, v)`` over ``shapes``, plus one tensor of 1,000
+    elements that is a view at a 4-byte offset (not 16-byte aligned) in
+    each list; m and v with zeros where a row was never touched, gradients
+    near eps in places."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def offset_view(scale, positive=False):
+        base = torch.rand(1001, generator=gen) if positive else torch.randn(1001, generator=gen)
+        return (base * scale).to(device)[1:]
+
+    out = []
+    for scale, positive in ((1.0, False), (1e-2, False), (1e-2, False), (1e-4, True)):
+        ts = [(torch.rand(s, generator=gen) if positive else torch.randn(s, generator=gen))
+              * scale for s in shapes]
+        ts = [t.to(device) for t in ts] + [offset_view(scale, positive)]
+        out.append(ts)
+    params, grads, m, v = out
+    for t in (*m, *v):
+        t.view(-1)[::7] = 0.0
+    for g in grads:
+        g.view(-1)[::5] *= 1e-6
+    assert grads[-1].data_ptr() % 16 == 4
+    return params, grads, m, v
+
+
+def _dense_run(fn, case, cfg, scalars):
+    params, grads, m, v = ([t.clone() for t in ts] for ts in case)
+    fn(params, grads, m, v, scalars=scalars, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+       weight_decay=cfg.weight_decay, decoupled=cfg.name == "adamw")
+    return params, m, v
+
+
+@pytest.mark.parametrize("step", [1, 2, 1000])
+@pytest.mark.parametrize("name,wd", DENSE_MODES, ids=["adamw", "adamw_no_decay", "adam_l2"])
+def test_dense_adam_kernel_bit_identical(cuda, name, wd, step):
+    """One dense_adam launch over the whole list gives the _foreach_
+    composition's p, m and v bit for bit (every element, the ragged sizes
+    and the unaligned view included), and the same bits on a second run."""
+    from ttamm_torch.train.optim import DenseOptConfig, dense_scalars
+
+    cfg = DenseOptConfig(name=name, lr=1e-3, weight_decay=wd)
+    case = _dense_case(step, cuda)
+    scalars = torch.from_numpy(dense_scalars(cfg, step)).to(cuda)
+    kernels.reset_launch_counts()
+    got = _dense_run(kernels.dense_adam_cuda, case, cfg, scalars)
+    again = _dense_run(kernels.dense_adam_cuda, case, cfg, scalars)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["dense_adam"] == 2
+    want = _dense_run(kernels.dense_adam_plain, case, cfg, scalars)
+    for label, a, b, c in zip(("p", "m", "v"), got, again, want):
+        for i, (x, y, z) in enumerate(zip(a, b, c)):
+            assert torch.equal(x, z), (label, i)
+            assert torch.equal(x, y), (label, i)
+
+
+def test_dense_adam_splits_a_long_list(cuda):
+    """A list of more tensors than a launch takes (64) takes one launch
+    for every 64 of them (empty tensors none) in one call, and the
+    composition's bits."""
+    from ttamm_torch.train.optim import DenseOptConfig, dense_scalars
+
+    cfg = DenseOptConfig(name="adamw", lr=1e-3, weight_decay=0.01)
+    assert kernels.load_library().ttamm_dense_adam_tensors_a_launch() == 64
+    shapes = [(k % 9 + 1, 4 + k % 3) for k in range(2 * 64 + 5)]
+    shapes[3] = (0, 4)
+    case = _dense_case(3, cuda, shapes)
+    scalars = torch.from_numpy(dense_scalars(cfg, 5)).to(cuda)
+    kernels.reset_launch_counts()
+    got = _dense_run(kernels.dense_adam_cuda, case, cfg, scalars)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["dense_adam"] == 3  # 2 x 64 + 5 live tensors, in 64s
+    want = _dense_run(kernels.dense_adam_plain, case, cfg, scalars)
+    for a, c in zip(got, want):
+        for x, z in zip(a, c):
+            assert torch.equal(x, z)
+
+
+def test_dense_adam_replay_reads_its_step_through_a_pointer(cuda):
+    """A dense_adam launch captured into a CUDA graph, replayed after its
+    scalar row is rewritten with step 1000's, equals the eager kernel and
+    the composition at step 1000, bit for bit."""
+    from ttamm_torch.train.optim import DenseOptConfig, dense_scalars
+
+    cfg = DenseOptConfig(name="adamw", lr=1e-3, weight_decay=0.01)
+    case = _dense_case(11, cuda)
+    row = torch.from_numpy(dense_scalars(cfg, 1)).to(cuda)
+    captured = [[t.clone() for t in ts] for ts in case]
+    kw = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay, decoupled=True)
+    _dense_run(kernels.dense_adam_cuda, case, cfg, row)  # loads the library before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kernels.dense_adam_cuda(*captured, scalars=row, **kw)
+    row.copy_(torch.from_numpy(dense_scalars(cfg, 1000)))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = _dense_run(kernels.dense_adam_cuda, case, cfg, row)
+    want = _dense_run(kernels.dense_adam_plain, case, cfg, row)
+    for got, e, w in zip((captured[0], captured[2], captured[3]), eager, want):
+        for x, y, z in zip(got, e, w):
+            assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_default_step_on_the_card_runs_one_dense_adam_launch(cuda, monkeypatch):
+    """A default-configuration step (dense mimic tables on AdamW) updates
+    its dense targets with one dense_adam launch and no _foreach_ pass."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch._foreach_mul_ called in the dense update")
+
+    monkeypatch.setattr(torch, "_foreach_mul_", refuse)
+    state, _, counts = _one_step(cuda, False)
+    assert counts["dense_adam"] == 1
+    assert {n for n, _ in state.dense_targets()} >= {"tables/user_aug", "tables/item_aug"}
 
 
 def test_a_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):

@@ -125,11 +125,16 @@ def test_plain_versions_do_not_count_launches():
     kernels.segment_second_moments(ids, x, 3)
     kernels.segment_second_moments_bwd(ids, x, torch.randn(3, 8, 8))
     assert kernels.category_grouping(ids, 3) is None
+    kernels.dense_adam(
+        [x], [torch.randn(40, 8)], [torch.zeros_like(x)], [torch.zeros_like(x)],
+        scalars=torch.tensor([0.99, -0.01, 0.001]), b1=0.9, b2=0.999, eps=1e-8,
+        weight_decay=0.01, decoupled=True,
+    )
     counts = kernels.launch_counts()
     assert set(counts) == {
         "small_k_topk", "select_topk_from_groups", "groupmax_matmul", "rescore_groups",
         "gather_rows", "gather_rows_masked", "scatter_set_rows", "scatter_set_rows_masked",
-        "sparse_adam_rows", "segment_second_moments", "segment_second_moments_bwd",
+        "sparse_adam_rows", "dense_adam", "segment_second_moments", "segment_second_moments_bwd",
         "category_grouping",
     }
     assert all(n == 0 for n in counts.values())

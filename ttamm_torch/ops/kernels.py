@@ -18,6 +18,8 @@ port (CUDA, ``sm_90a``)             TPU kernel it replaces
                                     path: gather_rows x 3, Adam, scatter_set_rows x 3)
 ``segment_second_moments`` (+bwd)   ``ttamm_tpu/ops/pallas/category_stats.py``
                                     segment_second_moments and its VJP
+``dense_adam``                      none: XLA's fusion of ``ttamm_tpu/train/optim.py``
+                                    (here eleven ``torch._foreach_*`` passes)
 ==================================  ==========================================
 
 Each public function dispatches on where its input lies: a CPU tensor takes
@@ -41,7 +43,9 @@ call, :class:`CategoryGrouping`): the forward on the f64 tensor cores with
 f64 sums (M2 is the exact sum rounded to f32), the backward on the bf16
 ones; ``sparse_adam_rows`` any N with D % 4 == 0 and 16-byte aligned
 rows, each live row the target of one lane at most, and gives the bits of
-the eager composition it fuses.
+the eager composition it fuses; ``dense_adam`` any list of float32
+tensors (one launch for every ``ttamm_dense_adam_tensors_a_launch()`` of
+them), bit for bit the ``torch._foreach_*`` composition it replaces.
 
 The kernels are compiled by ``nvcc`` at first use into one shared library
 with a plain C interface, loaded with ``ctypes`` (``build/ttamm_torch/``,
@@ -110,6 +114,7 @@ _launches = {
     "scatter_set_rows": 0,
     "scatter_set_rows_masked": 0,
     "sparse_adam_rows": 0,
+    "dense_adam": 0,  # the dense Adam / AdamW update (no TPU kernel: XLA's fusion there)
     "segment_second_moments": 0,
     "segment_second_moments_bwd": 0,
     "category_grouping": 0,  # the moments' row grouping (glue, not a TPU kernel)
@@ -133,9 +138,9 @@ def reset_launch_counts() -> None:
             _launches[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, n: int = 1) -> None:
     with _lock:
-        _launches[name] += 1
+        _launches[name] += n
 
 
 def add_launch_counts(launches: dict[str, int], times: int = 1) -> None:
@@ -269,6 +274,12 @@ def load_library() -> ctypes.CDLL:
             lib.ttamm_category_grouping.restype = i32
             lib.ttamm_category_grouping_warps.argtypes = [i32]
             lib.ttamm_category_grouping_warps.restype = i32
+            pp, f32 = ctypes.POINTER(ctypes.c_void_p), ctypes.c_float
+            lib.ttamm_dense_adam.argtypes = [pp, pp, pp, pp, ctypes.POINTER(i64), i32, p,
+                                             f32, f32, f32, f32, f32, f32, i32, p]
+            lib.ttamm_dense_adam.restype = i32
+            lib.ttamm_dense_adam_tensors_a_launch.argtypes = []
+            lib.ttamm_dense_adam_tensors_a_launch.restype = i32
             lib.ttamm_graph_if.argtypes = [p, i32, p, p]
             lib.ttamm_graph_if.restype = i32
             _lib = lib
@@ -293,10 +304,11 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def _launch(name: str, dev: torch.device, *args, counter: str | None = None) -> None:
+def _launch(name: str, dev: torch.device, *args, counter: str | None = None,
+            launches: int = 1) -> None:
     """Call the C entry point ``ttamm_<name>`` on the current stream of
-    ``dev``; raise if the launch was refused, else count it (under
-    ``counter``, default ``name``)."""
+    ``dev``; raise if the launch was refused, else count its ``launches``
+    (under ``counter``, default ``name``)."""
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -304,7 +316,7 @@ def _launch(name: str, dev: torch.device, *args, counter: str | None = None) -> 
     if rc != 0:
         msg = lib.ttamm_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({rc})")
-    _count(counter or name)
+    _count(counter or name, launches)
 
 
 def _f32_keys(x: torch.Tensor) -> torch.Tensor:
@@ -899,6 +911,105 @@ def sparse_adam_rows_cuda(
             idx.data_ptr(), grads.data_ptr(), idx.shape[0], table.shape[0], table.shape[1],
             scalars.data_ptr(), int(decay),
         )
+
+
+# ---------------------------------------------------------------------------
+# dense_adam: the dense Adam / AdamW update of a list of tensors in one pass
+# ---------------------------------------------------------------------------
+
+
+def dense_adam(
+    params: list[torch.Tensor], grads: list[torch.Tensor], m: list[torch.Tensor],
+    v: list[torch.Tensor], *, scalars: torch.Tensor, b1: float, b2: float, eps: float,
+    weight_decay: float, decoupled: bool,
+) -> None:
+    """One dense Adam (``decoupled=False``: L2 decay folded into the
+    gradient) or AdamW (decoupled decay ``p * first``) step in place on
+    ``params``, ``m`` and ``v`` from ``grads``: ``train/optim.py``'s update,
+    the step's f32 scalars ``(first, step_size, bc2)`` read from
+    ``scalars`` (``dense_scalars``' row on the parameters' device). CPU
+    tensors take the ``torch._foreach_*`` composition
+    (:func:`dense_adam_plain`); CUDA tensors ``csrc/dense_adam.cu``, bit
+    for bit the composition on the card."""
+    if not params:
+        return
+    fn = dense_adam_plain if params[0].device.type == "cpu" else dense_adam_cuda
+    fn(params, grads, m, v, scalars=scalars, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+       decoupled=decoupled)
+
+
+def dense_adam_plain(
+    params: list[torch.Tensor], grads: list[torch.Tensor], m: list[torch.Tensor],
+    v: list[torch.Tensor], *, scalars: torch.Tensor, b1: float, b2: float, eps: float,
+    weight_decay: float, decoupled: bool,
+) -> None:
+    """The composition of eleven ``torch._foreach_*`` passes, the step's
+    scalars read as 0-d tensors; on the card it is what the kernel is held
+    to."""
+    first, step_size, bc2 = scalars.unbind()
+    if not decoupled and weight_decay:
+        grads = torch._foreach_add(grads, params, alpha=weight_decay)
+    if decoupled and weight_decay:
+        torch._foreach_mul_(params, first)
+    torch._foreach_mul_(m, b1)
+    torch._foreach_add_(m, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(v, b2)
+    torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
+    denom = torch._foreach_sqrt(torch._foreach_div(v, bc2))
+    torch._foreach_add_(denom, eps)
+    update = torch._foreach_div(m, denom)
+    torch._foreach_mul_(update, step_size)
+    torch._foreach_add_(params, update)
+
+
+def _check_dense_adam(
+    params: list[torch.Tensor], grads: list[torch.Tensor], m: list[torch.Tensor],
+    v: list[torch.Tensor], scalars: torch.Tensor,
+) -> torch.device:
+    """The arguments, then the device (as ``_check_cuda``)."""
+    if not len(params) == len(grads) == len(m) == len(v):
+        raise ValueError(
+            f"dense_adam: {len(params)} params, {len(grads)} grads, {len(m)} m and {len(v)} v")
+    for group in zip(params, grads, m, v):
+        if any(t.dtype != torch.float32 or t.shape != group[0].shape for t in group):
+            raise ValueError(
+                "dense_adam: params, grads, m and v must be float32 of one shape each, got "
+                + ", ".join(f"{t.dtype} {tuple(t.shape)}" for t in group))
+    tensors = (*params, *grads, *m, *v)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("dense_adam: tensors must be contiguous")
+    if scalars.dtype != torch.float32 or scalars.shape != (3,):
+        raise ValueError(
+            f"dense_adam: scalars must be float32 [3], got {scalars.dtype} {tuple(scalars.shape)}")
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * 4) for t in tensors if t.numel())
+    if any(lo < hi for (_, hi), (lo, _) in zip(spans, spans[1:])):
+        raise ValueError("dense_adam: params, grads, m and v must be distinct tensors")
+    return _check_cuda("dense_adam", *tensors, scalars)
+
+
+def dense_adam_cuda(
+    params: list[torch.Tensor], grads: list[torch.Tensor], m: list[torch.Tensor],
+    v: list[torch.Tensor], *, scalars: torch.Tensor, b1: float, b2: float, eps: float,
+    weight_decay: float, decoupled: bool,
+) -> None:
+    """The kernel (``csrc/dense_adam.cu``): the non-empty tensors in one
+    call, which launches once for every
+    ``ttamm_dense_adam_tensors_a_launch()`` of them; the step's scalars read
+    through a pointer, the constants passed as f32 (each double rounded
+    once, as PyTorch converts a Python scalar for a ``_foreach_`` op)."""
+    dev = _check_dense_adam(params, grads, m, v, scalars)
+    # the kernel's decay modes: 0 none, 1 AdamW's p * first, 2 Adam's L2 in g
+    decay = 0 if not weight_decay else 1 if decoupled else 2
+    consts = [ctypes.c_float(c) for c in (b1, 1.0 - b1, b2, 1.0 - b2, eps, weight_decay)]
+    live = [group for group in zip(params, m, v, grads) if group[0].numel()]
+    if not live:
+        return
+    ptrs = [(ctypes.c_void_p * len(live))(*(group[j].data_ptr() for group in live))
+            for j in range(4)]
+    counts = (ctypes.c_int64 * len(live))(*(group[0].numel() for group in live))
+    per_launch = load_library().ttamm_dense_adam_tensors_a_launch()
+    _launch("dense_adam", dev, *ptrs, counts, len(live), scalars.data_ptr(), *consts, decay,
+            launches=-(-len(live) // per_launch))
 
 
 # ---------------------------------------------------------------------------

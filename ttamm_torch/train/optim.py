@@ -14,7 +14,9 @@ scalars that change from step to step (the decay factor, the step size,
 the second bias correction) are formed there in double, rounded to f32 once
 (:func:`dense_scalars`) and read by the update from device memory
 (:func:`dense_opt_apply`), so an update issues no host sync and a captured
-update (``train/step.py``'s CUDA graph) reads each replay's own step.
+update (``train/step.py``'s CUDA graph) reads each replay's own step. On
+the card Adam and AdamW are one ``csrc/dense_adam.cu`` launch
+(``kernels.dense_adam``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..ops import kernels
 
 
 class DenseOptConfig(NamedTuple):
@@ -108,33 +112,25 @@ def dense_opt_apply(
     scalars: torch.Tensor,
 ) -> None:
     """The update of :func:`dense_opt_update` with the step's f32 scalars
-    (:func:`dense_scalars`' row, on the parameters' device) read as 0-d
-    tensors, ``state.step`` left as it is."""
+    (:func:`dense_scalars`' row, on the parameters' device) read from
+    device memory, ``state.step`` left as it is. Adam and AdamW go through
+    ``kernels.dense_adam`` (on the card one fused launch, bit for bit the
+    ``torch._foreach_*`` composition that the CPU runs); SGD is its own
+    ``_foreach_`` composition."""
     if not params:
         return
-    first, step_size, bc2 = scalars.unbind()
-    if cfg.name == "sgd":
-        if cfg.weight_decay:
-            grads = torch._foreach_add(grads, params, alpha=cfg.weight_decay)
-        if cfg.momentum:
-            torch._foreach_mul_(state.m, cfg.momentum)
-            torch._foreach_add_(state.m, grads)
-            grads = state.m
-        torch._foreach_add_(params, torch._foreach_mul(grads, first))
+    if cfg.name != "sgd":
+        kernels.dense_adam(params, grads, state.m, state.v, scalars=scalars, b1=cfg.b1, b2=cfg.b2,
+                           eps=cfg.eps, weight_decay=cfg.weight_decay,
+                           decoupled=cfg.name == "adamw")
         return
-    if cfg.name == "adam" and cfg.weight_decay:
+    if cfg.weight_decay:
         grads = torch._foreach_add(grads, params, alpha=cfg.weight_decay)
-    if cfg.name == "adamw" and cfg.weight_decay:
-        torch._foreach_mul_(params, first)
-    torch._foreach_mul_(state.m, cfg.b1)
-    torch._foreach_add_(state.m, grads, alpha=1.0 - cfg.b1)
-    torch._foreach_mul_(state.v, cfg.b2)
-    torch._foreach_addcmul_(state.v, grads, grads, value=1.0 - cfg.b2)
-    denom = torch._foreach_sqrt(torch._foreach_div(state.v, bc2))
-    torch._foreach_add_(denom, cfg.eps)
-    update = torch._foreach_div(state.m, denom)
-    torch._foreach_mul_(update, step_size)
-    torch._foreach_add_(params, update)
+    if cfg.momentum:
+        torch._foreach_mul_(state.m, cfg.momentum)
+        torch._foreach_add_(state.m, grads)
+        grads = state.m
+    torch._foreach_add_(params, torch._foreach_mul(grads, scalars[0]))
 
 
 def parse_dense_opt_config(training_cfg: dict, *, total_steps: int = 0) -> DenseOptConfig:
